@@ -30,7 +30,23 @@ which must pass:
      PyTorch library call where one computes the same function, and the
      card's bound for the same work;
   6. wire protocol — Q1 through the port's MySQL Server on a free
-     localhost port and its client, equal to phase 4's rows.
+     localhost port and its client, equal to phase 4's rows;
+  7. join trees on the card — `orders` (n/4 rows) and `customer` (n/40)
+     in bench.py's shapes and distributions, ANALYZEd; bench.py's Q3 and
+     Q5 verbatim, cold and twice warm, on the default path (fused per-slab
+     pipeline over FK-aligned joins) and with tidb_tpu_aligned_join=0 (LUT
+     unique mode inside the fused pipeline); a join whose unique bet is
+     lost and runs in expand mode; and a skewed many-to-many join under a
+     small tidb_tpu_join_out_cap that runs as blocked row-range passes.
+     Each under tidb_tpu_strict=1, exactly equal to the host engine; the
+     launch counters are zeroed before the phase and all seven kernels
+     must move in it;
+  8. join kernel timing at those shapes: K4 over the orders build, K5 over
+     one lineitem slab, K6 and K7 at the expand statement's build and
+     probe.
+
+Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
+join_expand against their plain versions, exactly.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -72,8 +88,38 @@ TOPN = ("SELECT l_orderkey, l_extendedprice FROM lineitem "
         "WHERE l_shipdate > '1998-11-01' "
         "ORDER BY l_extendedprice DESC, l_orderkey LIMIT 10")
 
+Q3 = """SELECT o_orderpriority, COUNT(*),
+ SUM(l_extendedprice * (1 - l_discount))
+ FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+ WHERE l_shipdate <= '1998-09-02' AND o_orderdate < '1998-01-01'
+ GROUP BY o_orderpriority ORDER BY o_orderpriority"""
+
+Q5 = """SELECT c_mktsegment, COUNT(*),
+ SUM(l_extendedprice * (1 - l_discount))
+ FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+ JOIN customer ON o_custkey = c_custkey
+ WHERE l_shipdate <= '1998-09-02'
+ GROUP BY c_mktsegment ORDER BY c_mktsegment"""
+
+# the build side is the filtered orders (smaller than customer), not
+# unique on o_custkey: the unique bet is lost and the join runs expanded
+EXPAND = ("SELECT c_mktsegment, COUNT(*) FROM customer JOIN orders "
+          "ON c_custkey = o_custkey WHERE o_orderdate < '1992-03-01' "
+          "GROUP BY c_mktsegment")
+EXPAND_DAY = 8096            # '1992-03-01' as days since 1970-01-01
+
+# a many-to-many join with a hot key on both sides: the planner's uniform
+# estimate is about a third of the true fan-out, so the first expansion
+# overflows, and past tidb_tpu_join_out_cap it runs as row-range passes
+BLOCKED = ("SELECT w, COUNT(*), SUM(v) FROM skew_fact JOIN skew_dim "
+           "ON skew_fact.k = skew_dim.k GROUP BY w ORDER BY w")
+BLOCKED_OUT_CAP = 1 << 20
+
 SF1_ROWS = 6_001_215
-KERNELS = ("segment_reduce", "unpack_decode", "perfect_groups")
+KERNELS = ("segment_reduce", "unpack_decode", "perfect_groups",
+           "lut_build", "lut_probe", "lut_order", "join_expand")
+# the first slice's path (Q1/Q6/TopN) runs these; the join path all seven
+Q1_KERNELS = KERNELS[:3]
 
 
 def log(msg: str) -> None:
@@ -290,8 +336,9 @@ def fragments_of(root):
 
 
 def run_sql(s, sql, device: bool, max_slab=None):
-    """→ (rows, wall seconds, phases dict) through the session's own
-    planner/executor, checking every fragment ran on the device."""
+    """→ (rows, wall seconds, phases dict, escalation rungs) through the
+    session's own planner/executor, checking every fragment ran on the
+    device."""
     import torch
     from tidb_tpu_torch.executor import build, run_to_completion
     from tidb_tpu_torch.parser import parse
@@ -303,7 +350,7 @@ def run_sql(s, sql, device: bool, max_slab=None):
     t0 = time.perf_counter()
     if not device:
         rows = s.query(sql).rows
-        return rows, time.perf_counter() - t0, {}
+        return rows, time.perf_counter() - t0, {}, {}
     plan = s._plan(parse(sql)[0])
     root = build(plan)
     ctx = s._exec_ctx()
@@ -318,7 +365,7 @@ def run_sql(s, sql, device: bool, max_slab=None):
             raise AssertionError(f"fragment did not run on the device "
                                  f"({f.fallback_reason}): {sql}")
     rows = [r for ch in chunks for r in ch.rows()]
-    return rows, wall, ctx.phases.as_dict()
+    return rows, wall, ctx.phases.as_dict(), dict(ctx.escalation.by_kind)
 
 
 def sql_phase(dev, sf: float):
@@ -342,7 +389,7 @@ def sql_phase(dev, sf: float):
     s.vars["tidb_tpu_row_threshold"] = 1
     host = {}
     for name, sql in (("q1", Q1), ("q6", Q6), ("topn", TOPN)):
-        rows, wall, _ = run_sql(s, sql, device=False)
+        rows, wall, _, _ = run_sql(s, sql, device=False)
         host[name] = rows
         log(f"host {name}: {len(rows)} rows in {wall:.3f} s")
     runs = [("q1_cold", Q1, None, "q1"), ("q1_warm1", Q1, None, "q1"),
@@ -354,7 +401,8 @@ def sql_phase(dev, sf: float):
     walls = {}
     for name, sql, max_slab, ref in runs:
         before = ck.launches()
-        rows, wall, phases = run_sql(s, sql, device=True, max_slab=max_slab)
+        rows, wall, phases, _ = run_sql(s, sql, device=True,
+                                        max_slab=max_slab)
         after = ck.launches()
         moved = {k: after[k] - before[k] for k in after}
         if rows != host[ref]:
@@ -367,7 +415,7 @@ def sql_phase(dev, sf: float):
         log(f"{name}: {len(rows)} rows, exact match, wall {wall:.4f} s, "
             f"launches {moved}, phases {phases}")
     launches = ck.launches()
-    for k in KERNELS:
+    for k in Q1_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was never launched by the "
                                  f"main path")
@@ -477,6 +525,410 @@ def timing_phase(dev, q1_slab, k1_err):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (joins): K4-K7 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _join_keys(rng, n, bounds, null_p, spill, dev):
+    import numpy as np
+    import torch
+    out = []
+    for lo, hi in bounds:
+        v = rng.integers(lo - spill, hi + spill + 1, n).astype(np.int64)
+        out.append((torch.from_numpy(v).to(dev),
+                    torch.from_numpy(rng.random(n) > null_p).to(dev)))
+    return out
+
+
+def check_join_kernels(dev):
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    rng = np.random.default_rng(13)
+    cases = 0
+    # K4 + K5: 1, 2 and 3 key columns; unique and duplicated builds; NULL
+    # and out-of-domain probe keys; a live mask and an n_live prefix
+    for bounds in ([(0, 199_999)], [(0, 499), (-3, 396)],
+                   [(0, 63), (10, 73), (5, 68)]):
+        domain = int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+        for unique in (True, False):
+            nb = 150_000
+            if unique:
+                cells = rng.permutation(domain)[:nb]
+                bkeys = []
+                for lo, hi in bounds:
+                    span = hi - lo + 1
+                    bkeys.append((torch.from_numpy(cells % span + lo).to(dev),
+                                  torch.ones(nb, dtype=torch.bool,
+                                             device=dev)))
+                    cells = cells // span
+            else:
+                bkeys = _join_keys(rng, nb, bounds, 0.05, 0, dev)
+            pkeys = _join_keys(rng, 2_000_000, bounds, 0.1, 3, dev)
+            blive = torch.from_numpy(rng.random(nb) > 0.1).to(dev)
+            plive = torch.from_numpy(rng.random(2_000_000) > 0.1).to(dev)
+            for n_live in (None, nb - 777):
+                got = J.lut_build(bkeys, bounds, domain, live=blive,
+                                  n_live=n_live, want_codes=True)
+                want = J.lut_build_plain(bkeys, bounds, domain, live=blive,
+                                         n_live=n_live, want_codes=True)
+                cnt, lut, maxcnt, codes = got
+                torch.cuda.synchronize()
+                if not (torch.equal(cnt, want[0]) and
+                        torch.equal(codes, want[3]) and
+                        int(maxcnt) == int(want[2])):
+                    raise AssertionError(f"K4 {bounds} unique={unique}: "
+                                         f"kernel != plain")
+                single = cnt[:domain] <= 1
+                if not torch.equal(lut[:domain][single],
+                                   want[1][:domain][single]):
+                    raise AssertionError("K4 lut differs on a code of "
+                                         "count <= 1")
+                hit = lut[:domain][~single].long()
+                if not torch.equal(codes[hit].long(),
+                                   torch.nonzero(~single).reshape(-1)):
+                    raise AssertionError("K4 lut of a duplicated code is "
+                                         "not one of its rows")
+                if (int(maxcnt) <= 1) != unique:
+                    raise AssertionError("K4 uniqueness flag")
+                starts, _ = J.lut_order_plain(codes, cnt)
+                for table, uq in ((lut, True), (starts, False)):
+                    a = J.lut_probe(pkeys, bounds, cnt, table, plive, nb, uq)
+                    b = J.lut_probe_plain(pkeys, bounds, cnt, table, plive,
+                                          nb, uq)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(a[0], b[0]) and
+                            torch.equal(a[1], b[1])):
+                        raise AssertionError(f"K5 {bounds} unique={uq}: "
+                                             f"kernel != plain")
+                cases += 1
+    # K6: unique, duplicated, skewed (runs past the long-run cutoff) and
+    # sentinel-heavy builds, and a one-row build
+    for nb, dom, kind in ((1, 1, "uniform"), (1_500_000, 1_500_000, "perm"),
+                          (2_000_000, 150_000, "uniform"),
+                          (300_000, 64, "zipf"), (2_097_152, 150_000,
+                                                   "filtered")):
+        if kind == "perm":
+            vals = rng.permutation(nb)
+        elif kind == "zipf":
+            vals = rng.zipf(1.3, nb) % dom
+        else:
+            vals = rng.integers(0, dom, nb)
+        keep = 0.02 if kind == "filtered" else 0.9
+        keys = [(torch.from_numpy(vals.astype(np.int64)).to(dev),
+                 torch.from_numpy(rng.random(nb) < keep).to(dev))]
+        cnt, _, _, codes = J.lut_build(keys, [(0, dom - 1)], dom,
+                                       want_lut=False, want_codes=True)
+        s1, o1 = J.lut_order(codes, cnt)
+        s2, o2 = J.lut_order_plain(codes, cnt)
+        torch.cuda.synchronize()
+        if not (torch.equal(s1, s2) and torch.equal(o1, o2)):
+            raise AssertionError(f"K6 {kind} nb={nb}: kernel != plain")
+        cases += 1
+    # K7: inner and outer; out_cap below the total (the total stays
+    # exact); an empty probe; a one-row build
+    for P, nb, dom, out_cap in ((200_000, 150_000, 40_000, 1 << 20),
+                                (200_000, 150_000, 40_000, 1 << 16),
+                                (0, 1, 1, 1024), (5000, 1, 1, 8192)):
+        for outer in (False, True):
+            keys_b = [(torch.from_numpy(rng.integers(0, dom, nb)).to(dev),
+                       torch.ones(nb, dtype=torch.bool, device=dev))]
+            keys_p = _join_keys(rng, P, [(0, dom - 1)], 0.1, 2, dev)
+            plive = torch.from_numpy(rng.random(P) > 0.05).to(dev)
+            cnt, _, _, codes = J.lut_build_plain(keys_b, [(0, dom - 1)], dom,
+                                                 want_lut=False,
+                                                 want_codes=True)
+            starts, order = J.lut_order_plain(codes, cnt)
+            start, count = J.lut_probe_plain(keys_p, [(0, dom - 1)], cnt,
+                                             starts, plive, nb, False)
+            got = J.expand(start, count, order, out_cap, outer, plive)
+            want = J.expand_plain(start, count, order, out_cap, outer, plive)
+            torch.cuda.synchronize()
+            live = want[3]
+            ok = int(got[5]) == int(want[5]) and torch.equal(got[3], live)
+            for a, b in zip(got[:3] + got[4:5], want[:3] + want[4:5]):
+                ok = ok and torch.equal(a[live], b[live])
+            ok = ok and bool(((got[1] >= 0) & (got[1] < nb)).all())
+            if P:
+                ok = ok and bool(((got[0] >= 0) & (got[0] < P)).all())
+            if not ok:
+                raise AssertionError(f"K7 P={P} out_cap={out_cap} "
+                                     f"outer={outer}: kernel != plain")
+            cases += 1
+    log(f"K4-K7 lut_build/lut_probe/lut_order/join_expand: {cases} cases "
+        f"exactly equal to the plain versions (1-3 key columns, NULL and "
+        f"out-of-domain keys, n_live, unique/duplicated/skewed builds, "
+        f"outer/inner, out_cap < total, P=0, nb=1)")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: join trees on the card
+# ---------------------------------------------------------------------------
+
+
+def make_orders_customer(n: int):
+    """orders and customer as bench.py builds them: the same generator,
+    advanced past lineitem's l_orderkey draw (make_lineitem makes it)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    n_orders = max(n // 4, 1)
+    n_cust = max(n // 40, 1)
+    rng.integers(0, n_orders, n)                     # l_orderkey
+    segs = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY",
+                     "HOUSEHOLD"], dtype=object)
+    orders = {
+        "o_orderkey": np.arange(n_orders, dtype=np.int64),
+        "o_orderdate": rng.integers(8036, 10590, n_orders).astype(np.int32),
+        "o_orderpriority": np.array(["1", "2", "3", "4", "5"],
+                                    dtype=object)[rng.integers(0, 5,
+                                                               n_orders)],
+        "o_custkey": rng.integers(0, n_cust, n_orders).astype(np.int64)}
+    customer = {"c_custkey": np.arange(n_cust, dtype=np.int64),
+                "c_mktsegment": segs[rng.integers(0, 5, n_cust)]}
+    return orders, customer
+
+
+def make_skew(n_fact: int = 500_000, n_dim: int = 2000, keys: int = 1000):
+    import numpy as np
+    rng = np.random.default_rng(17)
+    fact = {"k": np.where(rng.random(n_fact) < 0.04, 0,
+                          rng.integers(0, keys, n_fact)).astype(np.int64),
+            "v": rng.integers(0, 100, n_fact).astype(np.int64)}
+    dim = {"k": np.where(rng.random(n_dim) < 0.05, 0,
+                         rng.integers(0, keys, n_dim)).astype(np.int64),
+           "w": rng.integers(0, 9, n_dim).astype(np.int64)}
+    return fact, dim
+
+
+def join_sql_phase(s, n: int):
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.testing import load_numpy_columns
+    t0 = time.perf_counter()
+    s.execute("CREATE TABLE orders (o_orderkey BIGINT PRIMARY KEY, "
+              "o_orderdate DATE, o_orderpriority CHAR(1), o_custkey BIGINT)")
+    s.execute("CREATE TABLE customer (c_custkey BIGINT PRIMARY KEY, "
+              "c_mktsegment CHAR(10))")
+    s.execute("CREATE TABLE skew_fact (k BIGINT, v BIGINT)")
+    s.execute("CREATE TABLE skew_dim (k BIGINT, w BIGINT)")
+    orders, customer = make_orders_customer(n)
+    fact, dim = make_skew()
+    for name, cols in (("orders", orders), ("customer", customer),
+                       ("skew_fact", fact), ("skew_dim", dim)):
+        load_numpy_columns(s, name, cols)
+        s.execute(f"ANALYZE TABLE {name}")
+    log(f"orders {len(orders['o_orderkey'])} rows, customer "
+        f"{len(customer['c_custkey'])} rows, skew_fact {len(fact['k'])}, "
+        f"skew_dim {len(dim['k'])}: generated, loaded and analyzed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    host = {}
+    walls = {}
+    for name, sql in (("q3", Q3), ("q5", Q5), ("expand", EXPAND),
+                      ("blocked", BLOCKED)):
+        rows, wall, _, _ = run_sql(s, sql, device=False)
+        host[name] = rows
+        walls[f"host_{name}"] = wall
+        log(f"host {name}: {len(rows)} rows in {wall:.3f} s")
+    unaligned = {"tidb_tpu_aligned_join": 0}
+    blocked = {"tidb_tpu_join_out_cap": BLOCKED_OUT_CAP,
+               "tidb_tpu_specialization_cache": 0}
+    runs = [("q3_cold", Q3, "q3", {}), ("q3_warm1", Q3, "q3", {}),
+            ("q3_warm2", Q3, "q3", {}), ("q5_cold", Q5, "q5", {}),
+            ("q5_warm1", Q5, "q5", {}), ("q5_warm2", Q5, "q5", {}),
+            ("q3_unaligned1", Q3, "q3", unaligned),
+            ("q3_unaligned2", Q3, "q3", unaligned),
+            ("q5_unaligned1", Q5, "q5", unaligned),
+            ("q5_unaligned2", Q5, "q5", unaligned),
+            ("expand", EXPAND, "expand", {}),
+            ("blocked", BLOCKED, "blocked", blocked)]
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    per_query = {}
+    for name, sql, ref, extra in runs:
+        s.vars.update(extra)
+        try:
+            before = ck.launches()
+            rows, wall, phases, esc = run_sql(s, sql, device=True)
+            after = ck.launches()
+        finally:
+            for k in extra:
+                s.vars.pop(k, None)
+        moved = {k: after[k] - before[k] for k in after if after[k] !=
+                 before[k]}
+        if rows != host[ref]:
+            raise AssertionError(f"{name}: device rows != host rows\n"
+                                 f"{rows[:3]}\n{host[ref][:3]}")
+        per_query[name] = moved
+        walls[name] = wall
+        log(f"{name}: {len(rows)} rows, exact match, wall {wall:.4f} s, "
+            f"launches {moved}, escalation {esc}, phases {phases}")
+        # the cold runs build the aligned cache; without it every run
+        # builds and probes a LUT per join
+        if name.endswith("_cold") or "_unaligned" in name:
+            if not (moved.get("lut_build") and moved.get("lut_probe")):
+                raise AssertionError(f"{name}: K4/K5 did not move")
+        if name == "expand" and not (moved.get("lut_order") and
+                                     moved.get("join_expand")):
+            raise AssertionError("expand: K6/K7 did not move (the join "
+                                 "did not run in expand mode)")
+        if name == "blocked" and "join:over-max" not in esc:
+            raise AssertionError(f"blocked: no row-range passes ({esc})")
+    launches = ck.launches()
+    walls["join_phase"] = time.perf_counter() - t_phase
+    for k in KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was never launched by the "
+                                 f"join path")
+    log(f"join phase: {walls['join_phase']:.1f} s, launches {launches}")
+    return launches, walls, orders, customer
+
+
+# ---------------------------------------------------------------------------
+# phase 8: join kernel timing
+# ---------------------------------------------------------------------------
+
+
+def join_timing_phase(dev, n: int, orders, customer):
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor.device_cache import _pow2
+    from tidb_tpu_torch.ops import join as J
+    out = []
+    n_orders = len(orders["o_orderkey"])
+    n_cust = len(customer["c_custkey"])
+
+    def padded(a, cap, dtype=torch.int64):
+        t = torch.zeros(cap, dtype=dtype)
+        t[:len(a)] = torch.from_numpy(np.asarray(a))
+        return t.to(dev)
+
+    def mask(nlive, cap):
+        return torch.arange(cap, device=dev) < nlive
+
+    def max_err(what, pairs):
+        """Largest |kernel - plain| over the compared tensors; raises on
+        any difference (the join kernels are exact)."""
+        err = max((int((a.long() - b.long()).abs().max()) if a.numel()
+                   else 0) for a, b in pairs)
+        if err or any(a.shape != b.shape for a, b in pairs):
+            raise AssertionError(f"{what} differs from its plain version "
+                                 f"(max abs err {err})")
+        return err
+
+    # K4: the orders build of Q3/Q5's first join (the unaligned path)
+    nb = _pow2(n_orders)
+    bkeys = [(padded(orders["o_orderkey"], nb), mask(n_orders, nb))]
+    bounds, domain = [(0, n_orders - 1)], n_orders
+    blive = mask(n_orders, nb)
+    ms = time_cuda(lambda: J.lut_build(bkeys, bounds, domain, live=blive))
+    plain = time_cuda(lambda: J.lut_build_plain(bkeys, bounds, domain,
+                                                live=blive), reps=5)
+    code = torch.where(blive & bkeys[0][1], bkeys[0][0],
+                       torch.full_like(bkeys[0][0], domain))
+    lib = time_cuda(lambda: torch.bincount(code, minlength=domain + 1))
+    cnt, lut, maxcnt, _ = J.lut_build(bkeys, bounds, domain, live=blive)
+    w_cnt, w_lut, w_max, _ = J.lut_build_plain(bkeys, bounds, domain,
+                                               live=blive)
+    # lut is compared where a code has at most one row: a duplicated
+    # code's entry is any one of its rows (check_join_kernels holds it so)
+    single = w_cnt[:domain] <= 1
+    err = max_err("K4 at the orders build", [
+        (cnt, w_cnt), (maxcnt, w_max),
+        (lut[:domain][single], w_lut[:domain][single])])
+    b, by = bound_ms(nb * (8 + 1 + 1) + (domain + 1) * 8, nb * 8)
+    out.append({"name": "lut_build", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/lut_join.cu",
+                "replaces": "tidb_tpu/ops/join.py:93",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K4 orders build nb={nb} ({n_orders} live) D={domain}: "
+        f"{ms:.4f} ms (plain {plain:.4f}, bincount {lib:.4f}, bound "
+        f"{b:.4f} by {by})")
+
+    # K5: one lineitem slab probing that build (unique mode)
+    okey = np.random.default_rng(7).integers(0, n_orders, n)
+    P = min(_pow2(n), 1 << 23)
+    pkeys = [(padded(okey[:P], P), mask(min(n, P), P))]
+    plive = mask(min(n, P), P)
+    ms = time_cuda(lambda: J.lut_probe(pkeys, bounds, cnt, lut, plive, nb,
+                                       True))
+    plain = time_cuda(lambda: J.lut_probe_plain(pkeys, bounds, cnt, lut,
+                                                plive, nb, True), reps=5)
+    pc = pkeys[0][0].clamp(0, domain - 1)
+    lib = time_cuda(lambda: torch.take(lut, pc))
+    err = max_err("K5 at the lineitem slab", list(zip(
+        J.lut_probe(pkeys, bounds, cnt, lut, plive, nb, True),
+        J.lut_probe_plain(pkeys, bounds, cnt, lut, plive, nb, True))))
+    b, by = bound_ms(P * (8 + 1 + 1) + (domain + 1) * 8 + P * (4 + 1),
+                     P * 8)
+    out.append({"name": "lut_probe", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/lut_join.cu",
+                "replaces": "tidb_tpu/ops/join.py:93",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K5 lineitem slab P={P} into D={domain}: {ms:.4f} ms (plain "
+        f"{plain:.4f}, take {lib:.4f}, bound {b:.4f} by {by})")
+
+    # K6: the expand statement's build — orders filtered on o_orderdate,
+    # keyed on o_custkey
+    okeep = orders["o_orderdate"] < EXPAND_DAY
+    ekeys = [(padded(orders["o_custkey"], nb), mask(n_orders, nb))]
+    elive = padded(okeep, nb, torch.bool)
+    ebounds, edom = [(0, n_cust - 1)], n_cust
+    ecnt, _, _, ecodes = J.lut_build(ekeys, ebounds, edom, live=elive,
+                                     want_lut=False, want_codes=True)
+    ms = time_cuda(lambda: J.lut_order(ecodes, ecnt))
+    plain = time_cuda(lambda: J.lut_order_plain(ecodes, ecnt), reps=5)
+    lib = time_cuda(lambda: torch.argsort(ecodes, stable=True))
+    s1, o1 = J.lut_order(ecodes, ecnt)
+    s2, o2 = J.lut_order_plain(ecodes, ecnt)
+    err = max_err("K6 at the expand build", [(s1, s2), (o1, o2)])
+    b, by = bound_ms(nb * 4 * 2 + (edom + 1) * 4 * 2, nb * 4)
+    out.append({"name": "lut_order", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/join_expand.cu",
+                "replaces": "tidb_tpu/ops/join.py:114",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K6 expand build nb={nb} ({int(okeep.sum())} live) D={edom}: "
+        f"{ms:.4f} ms (plain {plain:.4f}, argsort {lib:.4f}, bound "
+        f"{b:.4f} by {by})")
+
+    # K7: its probe — every customer row
+    Pc = _pow2(n_cust)
+    ckeys = [(padded(customer["c_custkey"], Pc), mask(n_cust, Pc))]
+    clive = mask(n_cust, Pc)
+    start, count = J.lut_probe(ckeys, ebounds, ecnt, s1, clive, nb, False)
+    total = int(count.sum())
+    out_cap = _pow2(total)
+    ms = time_cuda(lambda: J.expand(start, count, o1, out_cap, False,
+                                         clive))
+    plain = time_cuda(lambda: J.expand_plain(start, count, o1, out_cap,
+                                             False, clive), reps=5)
+    ar = torch.arange(Pc, device=dev)
+    lib = time_cuda(lambda: torch.repeat_interleave(ar, count,
+                                                    output_size=total))
+    got = J.expand(start, count, o1, out_cap, False, clive)
+    want = J.expand_plain(start, count, o1, out_cap, False, clive)
+    live = want[3]
+    err = max_err("K7 at the expand probe", [
+        (got[5], want[5]), (got[3], live)] + [
+        (a[live], b_[live]) for a, b_ in zip(got[:3] + got[4:5],
+                                            want[:3] + want[4:5])])
+    # bytes: start, count and live per probe row in, one gather of `order`
+    # per filled slot, and the five slot outputs plus total out
+    b, by = bound_ms(Pc * (4 + 4 + 1) + min(total, out_cap) * 4 +
+                     out_cap * 14 + 8, out_cap * 24)
+    out.append({"name": "join_expand", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/join_expand.cu",
+                "replaces": "tidb_tpu/ops/join.py:192",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K7 expand probe P={Pc} total={total} out_cap={out_cap}: "
+        f"{ms:.4f} ms (plain {plain:.4f}, repeat_interleave {lib:.4f}, "
+        f"bound {b:.4f} by {by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -549,6 +1001,7 @@ def main() -> int:
     k1_err = check_k1(dev)
     check_k2(dev)
     check_k3(dev)
+    check_join_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -558,7 +1011,16 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[names[k["name"]]]
     wire_phase(eng, host["q1"])
+    n = int(round(SF1_ROWS * args.sf))
+    join_launches, join_walls, orders, customer = join_sql_phase(s, n)
+    join_kernels = join_timing_phase(dev, n, orders, customer)
+    for k in join_kernels:
+        k["launches"] = join_launches[k["name"]]
+    kernels += join_kernels
+    walls.update(join_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
+    log("join-path launches of the first slice's kernels: " + json.dumps(
+        {k: join_launches[k] for k in Q1_KERNELS}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,6 +50,14 @@ def test_import_and_query_load_no_jax_module():
         "rows = s.query('SELECT c, COUNT(*), SUM(b) FROM t WHERE a < 4 '\n"
         "               'GROUP BY c ORDER BY c').rows\n"
         "assert len(rows) == 2, rows\n"
+        "s.execute('CREATE TABLE u (a BIGINT PRIMARY KEY, d CHAR(3))')\n"
+        "s.execute('INSERT INTO u VALUES (0, \\'p\\'), (1, \\'q\\'), '\n"
+        "          '(2, \\'p\\'), (3, \\'r\\')')\n"
+        "rows = s.query('SELECT d, COUNT(*), SUM(b) FROM t JOIN u '\n"
+        "               'ON t.a = u.a GROUP BY d ORDER BY d').rows\n"
+        "assert len(rows) == 3, rows\n"
+        "import tidb_tpu_torch.executor.tree_fragment\n"
+        "import tidb_tpu_torch.ops.join\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tidb_tpu' or m.startswith('tidb_tpu.')]\n"
         "print('BAD', bad)\n")

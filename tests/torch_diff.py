@@ -100,6 +100,20 @@ def run_port(s, sql, max_slab=None, extra=None):
     return rows
 
 
+def run_port_tree(s, sql, max_slab=None, extra=None):
+    """Port rows and fragments of a statement whose join tree must run on
+    the device: every fragment used the device with no fallback, and one
+    of them holds a join."""
+    from tidb_tpu_torch.executor.tree_fragment import has_join
+    rows, frags = _run(s, sql, tparse, tbuild, trun, TFrag, max_slab, extra)
+    for f in frags:
+        assert f.used_device and f.fallback_code is None, \
+            (sql, f.fallback_reason)
+    assert any(has_join(f.plan.root) for f in frags), \
+        f"no device join-tree fragment for: {sql}"
+    return rows, frags
+
+
 def assert_same(rows1, rows2, ordered=False, rel=FLOAT_REL):
     assert len(rows1) == len(rows2), (len(rows1), len(rows2))
     if not ordered:

@@ -166,9 +166,11 @@ def _entry_delete(ent) -> None:
 
 
 _CACHE: "OrderedDict[tuple, CachedTable]" = OrderedDict()
+# FK-aligned join structures (see AlignedJoin below); keyed by join path
+_ALIGNED: "OrderedDict[tuple, AlignedJoin]" = OrderedDict()
 
-# ONE lock for all shared device-cache state (_CACHE, the protection
-# registry, eviction). RLock because eviction helpers are reachable from
+# ONE lock for all shared device-cache state (_CACHE, _ALIGNED, the
+# protection registry, eviction). RLock because eviction helpers are reachable from
 # paths that already hold it. Expensive work — host scans, encoding,
 # uploads — happens OUTSIDE the lock; only dict lookups/insertions/
 # evictions are serialized, so concurrent first touches of DIFFERENT
@@ -213,11 +215,16 @@ def protect_tables(pairs):
                 _PROTECT[tid] = prev
 
 
-def _safe_delete(ent, pair) -> None:
+def _safe_delete(ent, pair=None) -> None:
     """Free an evicted entry's device tensors — unless a concurrent
     statement may still be computing on them, in which case refcounting
     reclaims them when the last in-flight reference drops."""
-    if pair in _all_protected():
+    if pair is not None:
+        if pair in _all_protected():
+            return
+    elif _PROTECT:
+        # derived entries (aligned joins) aren't tracked pair-wise: with
+        # ANY statement in flight, defer to refcount reclamation
         return
     _entry_delete(ent)
 
@@ -225,20 +232,30 @@ def _safe_delete(ent, pair) -> None:
 def clear():
     with _LOCK:
         cache = list(_CACHE.items())
+        aligned = list(_ALIGNED.values())
         _CACHE.clear()
+        _ALIGNED.clear()
     for k, e in cache:
         _safe_delete(e, k[1:3])
+    for e in aligned:
+        _safe_delete(e)
 
 
 def invalidate(table_id: int):
-    dead_c = []
+    dead_c, dead_a = [], []
     with _LOCK:
         for key in [k for k in _CACHE if k[2] == table_id]:
             ent = _CACHE.pop(key, None)
             if ent is not None:
                 dead_c.append((key, ent))
+        for key in [k for k, e in _ALIGNED.items() if table_id in e.tds]:
+            ent = _ALIGNED.pop(key, None)
+            if ent is not None:
+                dead_a.append(ent)
     for key, ent in dead_c:
         _safe_delete(ent, key[1:3])
+    for ent in dead_a:
+        _safe_delete(ent)
 
 
 _STORE_FINALIZERS: Dict[int, object] = {}
@@ -251,9 +268,13 @@ def _evict_store(store_id: int):
     with _LOCK:
         dead_c = [(k, _CACHE.pop(k)) for k in list(_CACHE)
                   if k[1] == store_id]
+        dead_a = [_ALIGNED.pop(k) for k in list(_ALIGNED)
+                  if k[0] == store_id]
         _STORE_FINALIZERS.pop(store_id, None)
     for key, ent in dead_c:
         _safe_delete(ent, key[1:3])
+    for ent in dead_a:
+        _safe_delete(ent)
 
 
 def _pow2(n: int, lo: int = 1024) -> int:
@@ -907,14 +928,25 @@ def get_table(ctx, scan, used_cols, max_slab: int,
     return ent
 
 
-def _evict_to_budget(budget: int, keep, keep_tables=frozenset()) -> None:
+def _evict_to_budget(budget: int, keep, keep_aligned=frozenset(),
+                     keep_tables=frozenset()) -> None:
     """Drop LRU cached entries until the resident bytes fit the device
     byte budget, never the entries in active use (the caller's keeps PLUS
-    every live thread's protect_tables registration)."""
-    dead_c = []
+    every live thread's protect_tables registration). Aligned join
+    structures evict first — derived data, rebuildable from the tables."""
+    dead_c, dead_a = [], []
     with _LOCK:
         keep_tables = frozenset(keep_tables) | _all_protected()
-        usage = sum(int(e.hbm_bytes()) for e in _CACHE.values())
+        usage = sum(int(e.hbm_bytes()) for e in _CACHE.values()) + \
+            sum(int(e.hbm_bytes()) for e in _ALIGNED.values())
+        while usage > budget:
+            victim = next((k for k in _ALIGNED if k not in keep_aligned),
+                          None)
+            if victim is None:
+                break
+            ent = _ALIGNED.pop(victim)
+            usage -= int(ent.hbm_bytes())
+            dead_a.append(ent)
         while len(_CACHE) > 1 and usage > budget:
             victim = next((k for k in _CACHE
                            if k != keep and k[1:3] not in keep_tables),
@@ -926,3 +958,186 @@ def _evict_to_budget(budget: int, keep, keep_tables=frozenset()) -> None:
             dead_c.append(ent)
     for ent in dead_c:
         _entry_delete(ent)
+    for ent in dead_a:
+        _safe_delete(ent)
+
+
+def aligned_budget_check(ctx, keep_keys=frozenset(),
+                         keep_tables=frozenset()) -> None:
+    """Enforce the device byte budget after aligned planning, never
+    evicting the entries the in-flight query is about to execute with."""
+    _evict_to_budget(_budget(ctx), keep=None,
+                     keep_aligned=frozenset(keep_keys),
+                     keep_tables=frozenset(keep_tables))
+
+
+def _decoded_slabs(ent: CachedTable, col: int):
+    """Column slabs DECODED to raw (vals, valid) tuples (K2) — the one-off
+    decode for aligned-join builds, whose outputs (midx/matched and
+    gathered build columns) are cached raw in the fact slab layout, so the
+    per-query consumers of aligned columns never decode them."""
+    slabs = ent.dev[col]
+    lay = ent.layouts.get(col)
+    if lay is None:
+        return slabs
+    from tidb_tpu_torch.chunk import compress
+    return [compress.decode_slab_torch(lay, t, ent.slab_cap) for t in slabs]
+
+
+# ---------------------------------------------------------------------------
+# FK-aligned join cache (the join-index / coprocessor-cache analog)
+# ---------------------------------------------------------------------------
+#
+# PK-FK equi joins dominate analytical plans (every TPC-H join), and the
+# per-query cost of a LUT join is not the build (one scatter) but the
+# probe-side gathers: every build column gathered pays a random gather
+# over the fact rows again, every query.
+#
+# So gather ONCE and cache the result. For a join whose build side is
+# unique on the key (verified at build time, not assumed), the per-fact-row
+# match is a pure function of (fact key column, build key column) —
+# independent of the query's filters and projections. Cached in the fact
+# table's slab layout:
+#   midx     int32 per fact row — matching build row (0 if none)
+#   matched  bool  per fact row — a live, NULL-free key match exists
+#   cols     build column c gathered through midx, masked by matched
+# Filters on the build side evaluate per query AGAINST the aligned columns
+# (they are per-fact-row now), so one cached structure serves every
+# filter/projection combination — how the reference's coprocessor cache
+# (store/copr/coprocessor_cache.go) serves filter-variant scans from one
+# snapshot, and the bitmap-join-index idea done columnar. The LUT build is
+# K4 and the per-slab probe K5 (ops/join.py).
+#
+# Chained joins compose: the probe key of a snowflake's second hop (Q5's
+# o_custkey) is itself an aligned column of the first hop, so the second
+# entry's key path nests the first's. Freshness: every entry records the
+# TableData identity tokens of ALL tables on its path; any mismatch (or
+# explicit invalidate) drops it.
+
+
+class AlignedJoin:
+    """Cached FK-aligned join structure for ONE (fact path, build) pair."""
+
+    __slots__ = ("tds", "slab_cap", "n_slabs", "unique", "matched",
+                 "midx", "cols", "build_nb", "key")
+
+    def __init__(self, key, tds, slab_cap, n_slabs, build_nb):
+        self.key = key
+        self.tds = tds              # table_id → TableData token
+        self.slab_cap = slab_cap    # fact slab layout at build
+        self.n_slabs = n_slabs
+        self.build_nb = build_nb    # build-side padded row count
+        self.unique = True
+        self.matched: List = []     # per fact slab: bool (slab_cap,)
+        self.midx: List = []        # per fact slab: int32 (slab_cap,)
+        self.cols: Dict[int, List[Tuple]] = {}   # build col → [(v, m)] slabs
+
+    def hbm_bytes(self) -> int:
+        total = sum(a.nbytes for arrs in (self.matched, self.midx)
+                    for a in arrs)
+        for slabs in self.cols.values():
+            for v, m in slabs:
+                total += v.nbytes + m.nbytes
+        return total
+
+    def delete(self) -> None:
+        """Drop the references to the device tensors (see
+        CachedTable.delete)."""
+        self.matched = []
+        self.midx = []
+        self.cols.clear()
+
+
+def _fresh(ctx, tds) -> bool:
+    return all(ctx.snapshot.table_data(tid) is td for tid, td in tds.items())
+
+
+def _build_cat(ent: CachedTable, col: int):
+    """Build-side column slabs concatenated (build tables are usually one
+    slab; concat is a no-op then). Wide decimals concat on the row axis.
+    Compressed slabs decode here — the LUT/gather builds below run once
+    per cached structure, so the decode is off the per-query path."""
+    slabs = _decoded_slabs(ent, col)
+    if len(slabs) == 1:
+        return slabs[0]
+    return (torch.cat([s[0] for s in slabs], dim=-1),
+            torch.cat([s[1] for s in slabs]))
+
+
+ALIGNED_DOMAIN_CAP = 1 << 26    # max build-key LUT size at cache build
+
+
+def get_aligned(ctx, key, tds: Dict[int, object], fact_slabs,
+                build_ent: CachedTable, build_key_col: int,
+                bounds: Tuple[int, int], slab_cap: int, n_slabs: int):
+    """→ AlignedJoin for `key`, building midx/matched on first use, or None
+    when the build side turns out non-unique on the key (the negative
+    result is cached too — one LUT build per key, not one per query).
+
+    key: hashable path signature (store id, probe-source path, build table,
+    build key col, device). tds: table_id → TableData token for EVERY table
+    on the path — freshness is identity of all of them.
+    fact_slabs: a callable → (per-fact-slab probe-key values, per-slab
+    validity), called only when the entry is built, so a warm query never
+    decodes the probe key. bounds: the build key column's (lo, hi) value
+    domain."""
+    from tidb_tpu_torch.ops import join as J
+    stale = None
+    with _LOCK:
+        ent = _ALIGNED.get(key)
+        if ent is not None:
+            if _fresh(ctx, ent.tds) and ent.slab_cap == slab_cap \
+                    and ent.n_slabs == n_slabs:
+                _ALIGNED.move_to_end(key)
+                return ent if ent.unique else None
+            _ALIGNED.pop(key, None)
+            stale = ent
+    if stale is not None:
+        _safe_delete(stale)
+
+    lo, hi = bounds
+    domain = hi - lo + 1
+    if domain > ALIGNED_DOMAIN_CAP:
+        return None
+    bk_v, bk_m = _build_cat(build_ent, build_key_col)
+    nb = int(bk_v.shape[-1])
+    ent = AlignedJoin(key, tds, slab_cap, n_slabs, nb)
+    # K4 over the build key, rows past the table's live prefix dead
+    cnt, lut, maxcnt, _ = J.lut_build([(bk_v, bk_m)], [(lo, hi)], domain,
+                                      n_live=build_ent.total)
+    if int(maxcnt) > 1:
+        ent.unique = False          # negative result cached
+        with _LOCK:
+            if key not in _ALIGNED:
+                _ALIGNED[key] = ent
+        return None
+    # K5 per fact slab: the matching build row and the match flag
+    for pv, pm in zip(*fact_slabs()):
+        midx, matched = J.lut_probe([(pv, pm)], [(lo, hi)], cnt, lut, None,
+                                    nb, unique=True)
+        ent.midx.append(midx)
+        ent.matched.append(matched)
+    with _LOCK:
+        cur = _ALIGNED.get(key)
+        if cur is not None and _fresh(ctx, cur.tds) \
+                and cur.slab_cap == slab_cap and cur.n_slabs == n_slabs:
+            # lost a concurrent build race: adopt the installed entry
+            # (identical build), ours frees via refcount
+            return cur if cur.unique else None
+        _ALIGNED[key] = ent
+    return ent
+
+
+def aligned_col(ent: AlignedJoin, build_ent: CachedTable, col: int):
+    """Ensure build column `col` is materialized in the fact row space;
+    → per-fact-slab [(v, m)] (wide decimals keep their limb-plane axis)."""
+    cached = ent.cols.get(col)
+    if cached is not None:
+        return cached
+    bv, bm = _build_cat(build_ent, col)
+    slabs = [((bv[..., midx] if bv.dim() > 1 else bv[midx]),
+              bm[midx] & matched)
+             for midx, matched in zip(ent.midx, ent.matched)]
+    with _LOCK:
+        # first-commit-wins against a concurrent identical gather
+        return ent.cols.setdefault(col, slabs)

@@ -1,10 +1,12 @@
 """Device fragment extraction & execution (SURVEY §7 stages 3-5).
 
 A fragment is a maximal device-capable chain `scan → selection* →
-projection* → [hash-agg | topN | sort]` run on the engine's torch device —
-the analog of the coprocessor DAG the reference pushes to storage
-(SURVEY A.2: unistore's closure executor fuses scan→selection→agg into a
-single callback, closure_exec.go; plan_to_pb.go ships subtrees to TiFlash).
+projection* → [hash-agg | topN | sort]`, or a join tree of such chains
+under equi hash joins (executor/tree_fragment.py — the TPC-H Q3/Q5 shape),
+run on the engine's torch device — the analog of the coprocessor DAG the
+reference pushes to storage (SURVEY A.2: unistore's closure executor fuses
+scan→selection→agg into a single callback, closure_exec.go; plan_to_pb.go
+ships subtrees to TiFlash).
 
 Execution model:
   * the scan side is materialized host-side (regions are already columnar),
@@ -48,7 +50,8 @@ from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.errors import ExecutionError
 from tidb_tpu_torch.expression import EvalContext, Expression, ColumnRef
 from tidb_tpu_torch.expression.aggfuncs import AggFunc, build_agg
-from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysLimit,
+from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysHashJoin,
+                                             PhysLimit,
                                              PhysProjection, PhysSelection,
                                              PhysSort, PhysTableScan,
                                              PhysTopN, PhysTpuFragment,
@@ -57,6 +60,17 @@ from tidb_tpu_torch.types import FieldType
 
 DEFAULT_MAX_SLAB_ROWS = 1 << 23   # 8M rows per device slab
 DEFAULT_GROUP_CAP = 1 << 16
+# group caps at or below this ride the flag fetch (padded keys/states are
+# a few MB) — the result then needs no second device→host round trip
+SMALL_GROUP_CAP = 1 << 14
+
+
+def _piggyback_agg(fetch: dict, out, group_cap: int) -> bool:
+    if group_cap <= SMALL_GROUP_CAP:
+        fetch["keys"] = out["keys"]
+        fetch["states"] = out["states"]
+        return True
+    return False
 
 
 # The closed fallback-reason taxonomy: every way a fragment can decline
@@ -86,13 +100,6 @@ class FragmentFallback(Exception):
     def __init__(self, detail: str = "", reason: str = "shape"):
         super().__init__(detail)
         self.reason = reason if reason in FALLBACK_REASONS else "shape"
-
-
-def _var_bool(v) -> bool:
-    """MySQL-ish boolean sysvar coercion: 'off'/'false'/'0'/0/'' are False."""
-    if isinstance(v, str):
-        return v.strip().lower() not in ("", "0", "off", "false")
-    return bool(v)
 
 
 def _var_bool(v) -> bool:
@@ -302,9 +309,15 @@ def _fragment_ok(plan: PhysicalPlan, threshold: int) -> bool:
 def extract_fragments(plan: PhysicalPlan, threshold: int) -> PhysicalPlan:
     """Top-down maximal-chain extraction: try the largest fuse at each node
     first so HashAgg(Sel(Scan)) becomes one fragment, not a CPU agg over a
-    fragment filter. Join trees, windows and distributed shapes are not in
-    this port's device slice: they stay on the CPU engine."""
+    fragment filter. Join trees (the Q3/Q5 shape) fuse through
+    tree_fragment when statically eligible; windows and distributed shapes
+    are not in the port yet and stay on the CPU engine."""
     if _fragment_ok(plan, threshold):
+        frag = PhysTpuFragment(plan)
+        frag.est_rows = plan.est_rows
+        return frag
+    from tidb_tpu_torch.executor.tree_fragment import tree_ok
+    if tree_ok(plan, threshold):
         frag = PhysTpuFragment(plan)
         frag.est_rows = plan.est_rows
         return frag
@@ -665,6 +678,83 @@ def get_finalize_program(agg_root, order_root, group_cap: int,
     return prog, sig
 
 
+def _tree_program(sig: str, kind: str, root, caps, group_cap, device,
+                  join_cfgs, agg_key_bounds, scan_layouts):
+    prog = _cache_get(sig)
+    if prog is None:
+        from tidb_tpu_torch.executor.tree_fragment import TreeProgram
+        with _build_lock(sig):
+            prog = _cache_get(sig)      # double-checked: one build per sig
+            if prog is None:
+                t0 = time.perf_counter()
+                prog = TreeProgram(root, caps, group_cap, join_cfgs,
+                                   agg_key_bounds, scan_layouts, device)
+                _cache_put(sig, prog)
+                _charge_compile(kind, t0)
+    return prog
+
+
+def get_tree_program(root, caps, group_cap, device, join_cfgs=None,
+                     agg_key_bounds=None, scan_layouts=None):
+    """The join tree as one program over every scan's full capacity (the
+    whole-tree loop and the blocked passes)."""
+    from tidb_tpu_torch.executor.tree_fragment import tree_signature
+    sig = tree_signature(root, caps, group_cap, join_cfgs, agg_key_bounds,
+                         scan_layouts) + f"|dev={torch.device(device)}"
+    return _tree_program(sig, "tree", root, caps, group_cap, device,
+                         join_cfgs, agg_key_bounds, scan_layouts)
+
+
+def get_pipeline_program(root, caps, group_cap, device, join_cfgs=None,
+                         agg_key_bounds=None, scan_layouts=None, sig=None):
+    """Fused per-slab pipeline program: a TreeProgram whose probe-anchor
+    scan capacity is ONE slab, so scan → filter → project → join-probe →
+    partial-agg run over that slab with every build side at full size.
+    The signature extends tree_signature — the per-scan `cap=CxN` term
+    already distinguishes the per-slab anchor shape from the whole-tree
+    program — and cold builds charge the `compile:fused` timeline lane.
+    → (program, sig)."""
+    from tidb_tpu_torch.executor.tree_fragment import tree_signature
+    if sig is None:
+        sig = ("fused|" + tree_signature(root, caps, group_cap, join_cfgs,
+                                         agg_key_bounds, scan_layouts)
+               + f"|dev={torch.device(device)}")
+    return _tree_program(sig, "fused", root, caps, group_cap, device,
+                         join_cfgs, agg_key_bounds, scan_layouts), sig
+
+
+class _AggMergeProgram:
+    """Root merge for fused-pipeline agg partials: the per-slab pipeline
+    runs each emit a group_cap-slot partial, and this (cached) program
+    re-factorizes the stacked keys and scatter-merges the states."""
+
+    def __init__(self, root, group_cap: int):
+        _count_trace()
+        self.root = root
+        self.group_cap = group_cap
+        self.aggs = [build_agg(d) for d in root.aggs]
+
+    def merge(self, key_cols, states, slot_live):
+        from tidb_tpu_torch.executor import device_emit
+        return device_emit.emit_merge(self.root, self.aggs, self.group_cap,
+                                      key_cols, states, slot_live)
+
+
+def get_merge_program(root, group_cap: int,
+                      pipeline_sig: str) -> _AggMergeProgram:
+    sig = "fusedmerge|" + pipeline_sig
+    prog = _cache_get(sig)
+    if prog is None:
+        with _build_lock(sig):
+            prog = _cache_get(sig)      # double-checked: one build per sig
+            if prog is None:
+                t0 = time.perf_counter()
+                prog = _AggMergeProgram(root, group_cap)
+                _cache_put(sig, prog)
+                _charge_compile("fused", t0)
+    return prog
+
+
 # ---------------------------------------------------------------------------
 # Per-digest specialization cache
 # ---------------------------------------------------------------------------
@@ -813,6 +903,228 @@ def _ent_layouts(ent, used):
     lays = {i: ent.layouts.get(i) for i in used
             if ent.layouts.get(i) is not None}
     return lays or None
+
+
+def _plan_aligned_joins(ctx, root, scans, ents):
+    """Serve PK-FK joins from the FK-aligned device cache where possible
+    (device_cache.AlignedJoin — the join-index/coprocessor-cache analog).
+
+    Eligible: single equi key, both sides bare ColumnRefs, the build
+    subtree anchored (through its probe chain) on a scan whose key column
+    has cached (lo, hi) bounds, and the probe key resolving to the fact
+    scan's row space. Chains compose BOTH ways: through earlier aligned
+    joins in the probe subtree ((l⋈o)⋈c — Q5's o_custkey as an aligned
+    column) and through joins nested in the build subtree ((c⋈o)⋈l, the
+    dimensions-first order the join reorderer prefers) — in the latter
+    case every inner join is recursively re-anchored to the fact row
+    space, and the whole attempt aborts unless all of them align (a
+    non-aligned inner join could flip to expand mode at runtime and break
+    the row-space invariant). Build-key uniqueness is VERIFIED at cache
+    build, so aligned joins never lose runtime bets; a non-unique build
+    caches the negative result and keeps the standard LUT modes.
+
+    → {id(join): {entry, build_scan, build_ent, cols}}"""
+    from tidb_tpu_torch.executor import device_cache
+    from tidb_tpu_torch.executor import tree_fragment as TF
+    if getattr(ctx, "txn", None) is not None:
+        return {}
+    if not _var_bool(ctx.vars.get("tidb_tpu_aligned_join", True)):
+        return {}
+    store = getattr(ctx.snapshot, "store", None)
+    if store is None:
+        return {}
+    ents_by_scan = {id(s): e for s, (e, _) in zip(scans, ents)}
+    info_by_join: Dict[int, dict] = {}
+    # id(anchor scan) → (entry, anchor ent): scans substituted by an outer
+    # aligned join — references to their columns resolve to aligned arrays
+    anchor_subs: Dict[int, tuple] = {}
+
+    def aligned_ref(entry, a_ent, idx):
+        """(entry, col) → resolve() result tuple, or None."""
+        if a_ent.dicts.get(idx) is not None:
+            return None
+        slabs = device_cache.aligned_col(entry, a_ent, idx)
+        if any(v.dim() != 1 for v, _ in slabs):
+            return None
+        return (lambda: ([v for v, _ in slabs], [m for _, m in slabs]),
+                ("al", entry.key, idx), dict(entry.tds), entry.slab_cap,
+                entry.n_slabs)
+
+    def resolve(nodeP, idx):
+        """Probe key column → (loader of its per-slab (codes, valid), sig,
+        tds, slab_cap, n_slabs) in the fact scan's row space, or None."""
+        while True:
+            if isinstance(nodeP, PhysTableScan):
+                sub = anchor_subs.get(id(nodeP))
+                if sub is not None:
+                    return aligned_ref(sub[0], sub[1], idx)
+                ent = ents_by_scan.get(id(nodeP))
+                if ent is None or idx not in ent.dev:
+                    return None
+                if ent.dicts.get(idx) is not None:
+                    return None        # string probe key: KeyRemap path
+                if nodeP.schema.field_types[idx].is_wide_decimal:
+                    return None        # wide-decimal planes can't be keys
+
+                def load(ent=ent, idx=idx):
+                    slabs = device_cache._decoded_slabs(ent, idx)
+                    return [v for v, _ in slabs], [m for _, m in slabs]
+                return (load, ("col", nodeP.table.id, idx),
+                        {nodeP.table.id:
+                         ctx.snapshot.table_data(nodeP.table.id)},
+                        ent.slab_cap, ent.n_slabs)
+            if isinstance(nodeP, PhysSelection):
+                nodeP = nodeP.children[0]
+                continue
+            if isinstance(nodeP, PhysProjection):
+                e = nodeP.exprs[idx] if idx < len(nodeP.exprs) else None
+                if not isinstance(e, ColumnRef):
+                    return None
+                idx = e.index
+                nodeP = nodeP.children[0]
+                continue
+            if isinstance(nodeP, PhysHashJoin):
+                j = nodeP
+                bi = 1 if j.build_right else 0
+                if j.kind in ("semi", "anti"):
+                    # semi/anti preserve the probe row space in EVERY mode
+                    nodeP = j.children[1 - bi]
+                    continue
+                if id(j) not in info_by_join:
+                    # a non-aligned inner/outer join may flip to expand
+                    # mode at runtime, breaking the row-space invariant —
+                    # crossing it (either side) is only safe once aligned
+                    return None
+                nl = len(j.children[0].schema)
+                if j.build_right:
+                    if idx < nl:       # probe (left) side column
+                        nodeP = j.children[0]
+                        continue
+                    b_out_idx = idx - nl
+                else:
+                    if idx >= nl:      # probe (right) side column
+                        idx -= nl
+                        nodeP = j.children[1]
+                        continue
+                    b_out_idx = idx
+                info = info_by_join[id(j)]
+                hit = TF._trace_scan_col(j.children[bi], b_out_idx)
+                if hit is None:
+                    return None
+                bscan2, c2 = hit
+                if bscan2 is not info["build_scan"]:
+                    return None
+                return aligned_ref(info["entry"], info["build_ent"], c2)
+            return None
+
+    def trace_col_probewise(node, idx):
+        """Column index → (anchor scan, scan col), crossing joins via
+        their probe side only (semi/anti emit the probe side verbatim)."""
+        while True:
+            if isinstance(node, PhysTableScan):
+                return node, idx
+            if isinstance(node, PhysSelection):
+                node = node.children[0]
+                continue
+            if isinstance(node, PhysProjection):
+                e = node.exprs[idx] if idx < len(node.exprs) else None
+                if not isinstance(e, ColumnRef):
+                    return None
+                idx = e.index
+                node = node.children[0]
+                continue
+            if isinstance(node, PhysHashJoin):
+                bi = 1 if node.build_right else 0
+                if node.kind in ("semi", "anti"):
+                    node = node.children[1 - bi]
+                    continue
+                nl = len(node.children[0].schema)
+                if node.build_right:
+                    if idx >= nl:
+                        return None    # build-side column: not probewise
+                    node = node.children[0]
+                else:
+                    if idx < nl:
+                        return None
+                    idx -= nl
+                    node = node.children[1]
+                continue
+            return None
+
+    def try_align(jnode) -> bool:
+        if len(jnode.equi) != 1:
+            return False
+        bkeys, pkeys = TF.join_key_exprs(jnode)
+        bk, pk = bkeys[0], pkeys[0]
+        if not (isinstance(bk, ColumnRef) and isinstance(pk, ColumnRef)):
+            return False               # casts / KeyRemap: standard modes
+        bi = 1 if jnode.build_right else 0
+        build, probe = jnode.children[bi], jnode.children[1 - bi]
+        # the SAME traversal _emit_join_aligned uses to find the scan to
+        # substitute — planner and program cannot disagree on the anchor
+        anchor, crossed = TF.aligned_chain(build)
+        if anchor is None:
+            return False
+        bhit = trace_col_probewise(build, bk.index)
+        if bhit is None or bhit[0] is not anchor:
+            return False
+        bcol = bhit[1]
+        build_ent = ents_by_scan.get(id(anchor))
+        if build_ent is None or build_ent.dicts.get(bcol) is not None:
+            return False               # string build key: standard modes
+        bounds = build_ent.bounds.get(bcol)
+        if bounds is None:
+            return False
+        src = resolve(probe, pk.index)
+        if src is None:
+            return False
+        load, sig, tds, slab_cap, n_slabs = src
+        key = (id(store), sig, anchor.table.id, bcol, str(ctx.device))
+        tds[anchor.table.id] = ctx.snapshot.table_data(anchor.table.id)
+        entry = device_cache.get_aligned(
+            ctx, key, tds, load, build_ent, bcol, bounds, slab_cap,
+            n_slabs)
+        if entry is None:
+            return False
+        used = anchor.used_columns or list(range(len(anchor.schema)))
+        cols = {i: device_cache.aligned_col(entry, build_ent, i)
+                for i in used}
+        info_by_join[id(jnode)] = {"entry": entry, "build_scan": anchor,
+                                   "build_ent": build_ent, "cols": cols}
+        anchor_subs[id(anchor)] = (entry, build_ent)
+        # every join inside the build subtree must re-anchor to the fact
+        # row space (all-or-nothing: see docstring)
+        for K in crossed:
+            if not try_align(K):
+                return False
+        return True
+
+    # parents first, iterated to a fixpoint: a build-side chain claims its
+    # inner joins in one recursive attempt, while a probe-side chain's
+    # outer join only becomes resolvable after its inner join aligns in a
+    # previous pass
+    changed = True
+    while changed:
+        changed = False
+        for node in reversed(TF._walk_joins(root)):
+            if id(node) in info_by_join:
+                continue
+            saved_info = dict(info_by_join)
+            saved_subs = dict(anchor_subs)
+            if try_align(node):
+                changed = True
+            else:
+                info_by_join.clear()
+                info_by_join.update(saved_info)
+                anchor_subs.clear()
+                anchor_subs.update(saved_subs)
+    # unconditional: failed attempts may have left freshly built entries
+    # resident; never evict what THIS query executes with (aligned entries
+    # in use + every scan's CachedTable)
+    device_cache.aligned_budget_check(
+        ctx, {i["entry"].key for i in info_by_join.values()},
+        keep_tables={(id(store), s.table.id) for s in scans})
+    return info_by_join
 
 
 # ---------------------------------------------------------------------------
@@ -967,15 +1279,14 @@ class TpuFragmentExec:
         self._result = None
 
     def _protect_tables(self):
-        """protect_tables() context over the fragment's scan — per-THREAD
-        registration (device_cache._PROTECT), so concurrent statements see
-        each other's in-flight tables as unevictable."""
+        """protect_tables() context over every scan in this fragment —
+        per-THREAD registration (device_cache._PROTECT), so concurrent
+        statements see each other's in-flight tables as unevictable."""
         from tidb_tpu_torch.executor import device_cache
+        from tidb_tpu_torch.executor.tree_fragment import _scans
         store = getattr(self.ctx.snapshot, "store", None)
-        chain = _linearize(self.plan.root) or []
         return device_cache.protect_tables(
-            (id(store), n.table.id) for n in chain
-            if isinstance(n, PhysTableScan))
+            (id(store), s.table.id) for s in _scans(self.plan.root))
 
     # ---- device pipeline ---------------------------------------------------
     def _run_device(self) -> Chunk:
@@ -987,9 +1298,12 @@ class TpuFragmentExec:
                                  "execution context carries none")
         chain = _linearize(self.plan.root)
         if chain is None:
-            raise ExecutionError("device fragment is not a linear chain "
-                                 "(the plan-time gate admits no other "
-                                 "shape)")
+            from tidb_tpu_torch.executor.tree_fragment import has_join
+            if has_join(self.plan.root):
+                return self._run_device_tree()
+            raise ExecutionError("device fragment is neither a linear "
+                                 "chain nor a join tree (the plan-time "
+                                 "gate admits no other shape)")
         # ORDER BY / TopN directly over the agg: strip the order root and
         # run the rest agg-rooted — the ordering becomes the agg's fused
         # device finalize (or a host re-order when the gate is off)
@@ -1265,13 +1579,24 @@ class TpuFragmentExec:
             chunk = _topn_slice(chunk, order_root)
         return chunk
 
-    def _agg_chunk(self, root: PhysHashAgg, out, dicts, n_final) -> Chunk:
-        # slice ON DEVICE, fetch everything in one copy
-        dev_tree = (
-            [(k[:n_final], m[:n_final]) for k, m in out["keys"]],
-            [tuple(a[:n_final] for a in st) for st in out["states"]],
-        )
-        host_keys, host_states = self.ctx.phases.fetch(dev_tree)
+    def _agg_chunk(self, root: PhysHashAgg, out, dicts, n_final,
+                   host_tree=None) -> Chunk:
+        if host_tree is not None:
+            # keys/states already came back WITH the flag fetch (small
+            # group caps piggyback on the first round trip); slice the
+            # padding off host-side
+            hk, hs = host_tree
+            host_keys = [(np.asarray(k)[:n_final], np.asarray(m)[:n_final])
+                         for k, m in hk]
+            host_states = [tuple(np.asarray(a)[:n_final] for a in st)
+                           for st in hs]
+        else:
+            # slice ON DEVICE, fetch everything in one copy
+            dev_tree = (
+                [(k[:n_final], m[:n_final]) for k, m in out["keys"]],
+                [tuple(a[:n_final] for a in st) for st in out["states"]],
+            )
+            host_keys, host_states = self.ctx.phases.fetch(dev_tree)
         with self.ctx.phases.phase("decode"):
             cols: List[Column] = []
             for kc, e in enumerate(root.group_exprs):
@@ -1350,6 +1675,608 @@ class TpuFragmentExec:
                     for ci, ((v, m), ft) in enumerate(
                         zip(host_cols, root.schema.field_types))]))
             return Chunk.concat(pieces) if len(pieces) > 1 else pieces[0]
+
+    # ---- join-tree device pipeline -----------------------------------------
+    def _run_device_tree(self) -> Chunk:
+        """Q3/Q5-shaped join trees. Agg-rooted trees run the fused per-slab
+        pipeline (_run_fused_pipeline); other roots, and a fan-out the
+        pipeline cannot hold, run the whole tree as one program over every
+        table's full capacity. Join modes adapt at runtime (a lost
+        uniqueness bet or an expansion-capacity overflow re-runs with the
+        learned configuration, never on the CPU); a fan-out beyond
+        tidb_tpu_join_out_cap runs as blocked row-range passes."""
+        from tidb_tpu_torch.executor import device_cache
+        from tidb_tpu_torch.executor import tree_fragment as TF
+        from tidb_tpu_torch.executor.device_cache import _pow2
+        from tidb_tpu_torch.util.escalation import CapacityLadder
+
+        root = self.plan.root
+        # ORDER BY / TopN over the agg runs as the agg's fused device
+        # finalize (or a host re-order on the mega-slab path): everything
+        # below — flows, signatures, key bounds — stays agg-rooted
+        order_root, root = _strip_order_root(root)
+        vars_ = self.ctx.vars
+        device = self.ctx.device
+        max_slab = int(vars_.get("tidb_tpu_max_slab_rows",
+                                 DEFAULT_MAX_SLAB_ROWS))
+        group_cap = int(vars_.get("tidb_tpu_group_cap", DEFAULT_GROUP_CAP))
+
+        scans = TF._scans(root)
+        ents = []
+        # every scan of THIS statement is protected from sibling evictions
+        # for the whole device run (next() wrapped _run_device in
+        # _protect_tables)
+        for scan in scans:
+            used = scan.used_columns if scan.used_columns else \
+                list(range(len(scan.schema)))
+            ent = device_cache.get_table(self.ctx, scan, used, max_slab,
+                                         phases=self.ctx.phases)
+            if ent.total == 0:
+                raise FragmentFallback("empty input", reason="empty-input")
+            ents.append((ent, used))
+        caps = {id(s): (e.slab_cap, e.n_slabs)
+                for s, (e, _) in zip(scans, ents)}
+        # per-scan-slot ((col, ColLayout), ...) for compressed columns —
+        # parallel to TF._scans(root) order
+        scan_layouts = tuple(
+            tuple(sorted(((i, e.layouts[i]) for i in u
+                          if e.layouts.get(i) is not None),
+                         key=lambda t: t[0]))
+            for e, u in ents)
+        if not any(scan_layouts):
+            scan_layouts = None
+        scan_dicts = {id(s): {i: e.dicts.get(i) for i in u}
+                      for s, (e, u) in zip(scans, ents)}
+        scan_bounds = {id(s): e.bounds for s, (e, _) in zip(scans, ents)}
+        join_cfgs = TF.plan_join_configs(root, scan_bounds)
+        # an unbounded build key has no LUT formulation in the port: refuse
+        # before any launch (tidb_tpu_strict turns this into an error)
+        TF.require_lut_bounds(root, join_cfgs)
+        flows, root_dicts = TF.dictionary_flows(root, scan_dicts)
+        scan_inputs = tuple({i: list(e.dev[i]) for i in u}
+                            for e, u in ents)
+        scan_rows = tuple(
+            np.array([e.slab_rows(s) for s in range(e.n_slabs)],
+                     dtype=np.int32) for e, _ in ents)
+        # zone-map slab pruning, tree flavor: scan_rows is a runtime input
+        # (the per-slab live mask reads it), so zeroing a pruned slab's
+        # row count removes its rows with no signature change; the fused
+        # per-slab pipeline skips those slabs' launches entirely
+        from tidb_tpu_torch.executor import zonemap
+        n_zeroed = 0
+        for sc, (e, _u), rows in zip(scans, ents, scan_rows):
+            for s in zonemap.prune_slabs(e, sc):
+                rows[s] = 0
+                n_zeroed += 1
+        if n_zeroed:
+            zonemap.note_skipped(self.ctx.phases, n_zeroed)
+        max_cap = max(e.slab_cap * e.n_slabs for e, _ in ents)
+
+        flow_list = [flows.get(id(n), []) for n in TF._walk_nodes(root)]
+        is_agg = isinstance(root, PhysHashAgg)
+        # FK-aligned joins: verified-unique PK-FK joins run as streams over
+        # cached fact-rowspace build columns (no per-query gathers)
+        aligned_info = _plan_aligned_joins(self.ctx, root, scans, ents)
+        walk_joins = TF._walk_joins(root)
+        aligned_inputs = []
+        for ji, jn in enumerate(walk_joins):
+            info = aligned_info.get(id(jn))
+            if info is None:
+                aligned_inputs.append(((), {}))
+                continue
+            join_cfgs[ji] = TF.JoinCfg(
+                "aligned", aligned_cols=tuple(sorted(info["cols"])))
+            aligned_inputs.append(
+                (tuple(info["entry"].matched),
+                 {c: tuple(sl) for c, sl in info["cols"].items()}))
+        aligned_inputs = tuple(aligned_inputs)
+        akb = TF.tree_agg_key_bounds(root, scan_bounds, DOMAIN_CAP) \
+            if is_agg else None
+        if akb is not None:
+            gcap = 1
+            for lo, hi in akb:
+                gcap *= (hi - lo + 2)
+        elif is_agg:
+            gcap = _initial_group_cap(root, group_cap, max_cap)
+        else:
+            gcap = 1
+        out_cap_max = int(vars_.get("tidb_tpu_join_out_cap",
+                                    TF.JOIN_OUT_CAP))
+        ladder = CapacityLadder(guard=getattr(self.ctx, "guard", None),
+                                stats=self.ctx.escalation)
+        ph = self.ctx.phases
+        # ---- fused per-slab pipeline -----------------------------------
+        # Agg-rooted trees run scan → filter → project → join-probe →
+        # partial-agg once PER PROBE SLAB plus one root merge/finalize,
+        # instead of one program over the whole probe table
+        if is_agg and _var_bool(vars_.get("tidb_tpu_fused_pipeline", "on")):
+            anchor = TF.aligned_chain(root.children[0])[0]
+            anchor_i = next((i for i, s in enumerate(scans)
+                             if s is anchor), None)
+            if anchor_i is not None:
+                res = self._run_fused_pipeline(
+                    root, caps, scans, ents, scan_inputs, scan_rows,
+                    flow_list, flows, aligned_inputs, join_cfgs,
+                    walk_joins, akb, gcap, max_cap, out_cap_max, ladder,
+                    anchor_i, scan_layouts, order_root)
+                if res is not None:
+                    return res
+                # a join's fan-out exceeded out_cap_max inside the fused
+                # pipeline: fall through to the whole-tree loop, whose own
+                # over-max rung escalates to blocked multi-pass execution
+                # (learned flips/resizes persist in join_cfgs)
+        while True:
+            prog = get_tree_program(root, caps, gcap, device, join_cfgs,
+                                    akb, scan_layouts)
+            prep_vals = prog.collect_preps(flow_list)
+            with self.ctx.device_slot():
+                with ph.phase("compute"):
+                    out = prog(scan_inputs, scan_rows, prep_vals,
+                               aligned_inputs)
+            ph.note_launch()
+            fetch = {"ju": out["join_unique"], "jt": out["join_totals"]}
+            if is_agg:
+                fetch["ng"] = out["n_groups"]
+                _piggyback_agg(fetch, out, gcap)
+            with ph.phase("compute"):
+                _sync(device)
+            flags = ph.fetch(fetch)
+            retry = False
+            for ji, cfg in enumerate(join_cfgs):
+                uq = bool(np.asarray(flags["ju"])[ji])
+                tot = int(np.asarray(flags["jt"])[ji])
+                new_cfg, action = TF.escalate_join(
+                    cfg, uq, tot, out_cap_max,
+                    flip_out_cap=_pow2(int(cfg.est * 1.3), lo=1024),
+                    ladder=ladder)
+                if action == "over-max":
+                    # runaway fan-out (many-to-many on a skewed key): too
+                    # large to materialize in one batch — run the tree in
+                    # K row-range passes over the probe anchor and merge
+                    # root agg states host-side (the grace-hash
+                    # partitioning analog, executor/hash_table.go)
+                    return self._run_tree_blocked(
+                        root, caps, join_cfgs, ji, walk_joins, akb,
+                        gcap, max_cap, scans, ents, scan_inputs,
+                        scan_rows, flow_list, aligned_inputs, flows,
+                        tot, scan_layouts)
+                if new_cfg is not None:
+                    join_cfgs[ji] = new_cfg
+                    retry = True
+            if is_agg and akb is None and int(flags["ng"]) > gcap:
+                if gcap >= max_cap:
+                    ladder.fallback("group")
+                    raise FragmentFallback("group cap overflow",
+                                           reason="group-cap")
+                # factorize reported the TRUE distinct count: resize to
+                # exact need in one rebuild instead of blind doubling
+                gcap = ladder.resize("group", gcap, need=int(flags["ng"]),
+                                     max_cap=max_cap)
+                retry = True
+            if retry:
+                # budget + guard checkpoint between rebuilds: a KILL or
+                # deadline lands here, and a rebuild storm exhausts into a
+                # typed error instead of looping
+                ladder.attempt("tree")
+                continue
+            break
+
+        dicts_root = {i: d for i, d in enumerate(root_dicts)}
+        if is_agg:
+            n_final = int(flags["ng"])
+            if root.group_exprs and n_final == 0:
+                from tidb_tpu_torch.executor import _empty_chunk
+                return _empty_chunk(self.schema)
+            inp_dicts = {i: d for i, d in
+                         enumerate(flows.get(id(root), []))}
+            host_tree = (flags["keys"], flags["states"]) \
+                if "keys" in flags else None
+            chunk = self._agg_chunk(root, out, inp_dicts, max(n_final, 1),
+                                    host_tree=host_tree)
+            if order_root is not None:
+                # the (small) final group rows re-order on the host; the
+                # fused per-slab path orders them on the device inside the
+                # finalize instead
+                chunk = _host_order(chunk, order_root, root.schema)
+                chunk = _topn_slice(chunk, order_root)
+            return chunk
+        # join/selection/projection root: compact by live on the device
+        return _compact_decode(ph, out["cols"], out["live"],
+                               root.schema.field_types, dicts_root)
+
+    def _run_fused_pipeline(self, root, caps, scans, ents, scan_inputs,
+                            scan_rows, flow_list, flows, aligned_inputs,
+                            join_cfgs, walk_joins, akb, gcap, max_cap,
+                            out_cap_max, ladder, anchor_i,
+                            scan_layouts=None,
+                            order_root=None) -> Optional[Chunk]:
+        """Whole-pipeline fusion: ONE program run per probe-anchor slab
+        covering scan → filter → project → join-probe → partial-agg, plus
+        one shared root merge (or fused finalize).
+
+        Join build sides ride inside each per-slab run at their FULL
+        capacities — dimension tables, or FK-aligned columns already in the
+        anchor's row space — so every run joins a partition of the probe
+        rows against complete build sides and the slab union of agg
+        partials is exact for every join kind (tree_ok pins outer joins to
+        preserve the probe side, the same argument that makes
+        _run_tree_blocked's row-range passes exact).
+
+        RESUMABLE: per-slab partials are checkpoints. A lost unique bet
+        re-runs every slab (the join's program changed); an expand-
+        capacity resize or a group-cap overflow re-runs ONLY the slabs that
+        overflowed; a merged-count-only overflow re-runs zero slabs (a
+        bigger-cap re-merge of the checkpoints). Returns None when a join's
+        fan-out exceeds out_cap_max — the caller's whole-tree loop owns
+        the blocked multi-pass escalation."""
+        import hashlib
+
+        from tidb_tpu_torch.executor import tree_fragment as TF
+        from tidb_tpu_torch.executor.device_cache import _pow2
+        from tidb_tpu_torch.util import failpoint
+
+        ph = self.ctx.phases
+        vars_ = self.ctx.vars
+        device = self.ctx.device
+        anchor = scans[anchor_i]
+        a_ent = ents[anchor_i][0]
+        n_slabs, slab_cap = a_ent.n_slabs, a_ent.slab_cap
+        pipe_caps = dict(caps)
+        pipe_caps[id(anchor)] = (slab_cap, 1)
+        anchor_rows = scan_rows[anchor_i]
+        # zone-map pruning: _run_device_tree already zeroed the scan_rows
+        # entries of slabs the anchor scan's conjuncts prune, so a zero
+        # row count IS the skip signal. run_ids are the surviving physical
+        # slab ids; every per-slab list below indexes POSITIONS in run_ids
+        run_ids = [s for s in range(n_slabs) if int(anchor_rows[s]) > 0]
+        n_run = len(run_ids)
+        if not run_ids:
+            # every anchor slab pruned: zero launches — grouped agg →
+            # empty, global agg → the merge-of-zero-passes identity row
+            inp_dicts = {i: d
+                         for i, d in enumerate(flows.get(id(root), []))}
+            chunk = self._merge_tree_agg_passes(root, [], inp_dicts)
+            if order_root is not None:
+                chunk = _host_order(chunk, order_root, root.schema)
+                chunk = _topn_slice(chunk, order_root)
+            return chunk
+        use_fin = order_root is not None and \
+            _var_bool(vars_.get("tidb_tpu_fused_finalize", "on"))
+        # per-digest specialization (see _execute_agg): adopt the caps and
+        # learned join configs a previous execution of this statement
+        # shape settled on and reuse its exact pipeline signature
+        skey = None
+        lay_sig = ",".join(
+            f"{si}/{i}:{l.sig()}"
+            for si, slot in enumerate(scan_layouts or ())
+            for i, l in slot) if scan_layouts else "-"
+        if _var_bool(vars_.get("tidb_tpu_specialization_cache", "on")):
+            skey = _spec_key(
+                getattr(self.ctx, "guard", None), "tree",
+                (tuple((id(e.td), e.slab_cap, e.n_slabs) for e, _ in ents),
+                 anchor_i, repr(akb), use_fin,
+                 _order_sig(order_root) if order_root is not None
+                 else None, _plan_fingerprint(root), str(device)))
+        spec = _spec_lookup(skey, lay_sig)
+        if skey is not None:
+            _spec_note(ph, spec is not None)
+        spec_sig = None
+        if spec is not None:
+            gcap = spec["group_cap"]
+            join_cfgs[:] = list(spec["join_cfgs"])
+            spec_sig = spec["sig"]
+
+        # Joins whose aligned inputs live in the ANCHOR's row space — the
+        # only ones whose matched/column slabs may be sliced per anchor
+        # slab: the root's probe chain, plus recursively the build chains
+        # of its ALIGNED joins (_plan_aligned_joins re-anchored those to
+        # the fact row space). An aligned join hanging off a non-aligned
+        # build subtree keeps its own fact scan's row space and passes its
+        # inputs through whole.
+        anchor_spaced: set = set()
+        stack = list(TF.aligned_chain(root.children[0])[1])
+        while stack:
+            j = stack.pop()
+            anchor_spaced.add(id(j))
+            ji = walk_joins.index(j)
+            if join_cfgs[ji].mode == "aligned":
+                bi = 1 if j.build_right else 0
+                stack.extend(TF.aligned_chain(j.children[bi])[1])
+
+        def slab_args(s):
+            si = list(scan_inputs)
+            si[anchor_i] = {i: [scan_inputs[anchor_i][i][s]]
+                            for i in scan_inputs[anchor_i]}
+            sr = list(scan_rows)
+            sr[anchor_i] = np.array([anchor_rows[s]], dtype=np.int32)
+            ai = []
+            for ji, jn in enumerate(walk_joins):
+                matched, jcols = aligned_inputs[ji]
+                if matched and id(jn) in anchor_spaced:
+                    ai.append(((matched[s],),
+                               {c: (sl[s],) for c, sl in jcols.items()}))
+                else:
+                    ai.append((matched, jcols))
+            return tuple(si), tuple(sr), tuple(ai)
+
+        partials: List = [None] * n_run
+        caps_ran = [0] * n_run         # group cap each partial ran at
+        to_run: Optional[List[int]] = None     # None = cold first pass
+        n_joins = len(walk_joins)
+        while True:
+            prog, pipe_sig = get_pipeline_program(root, pipe_caps, gcap,
+                                                  device, join_cfgs, akb,
+                                                  scan_layouts, sig=spec_sig)
+            spec_sig = None
+            prep_vals = prog.collect_preps(flow_list)
+            sig12 = hashlib.sha1(pipe_sig.encode()).hexdigest()[:12]
+            for s in (range(n_run) if to_run is None else to_run):
+                si, sr, ai = slab_args(run_ids[s])
+                with self.ctx.device_slot():
+                    with ph.phase("compute", sig=f"fused:{sig12}"):
+                        partials[s] = prog(si, sr, prep_vals, ai)
+                ph.note_launch()
+                ph.note_fused()
+                caps_ran[s] = gcap
+            # per-slab partials + root merge/finalize queue first; every
+            # control value returns in ONE batched fetch
+            with self.ctx.device_slot():
+                with ph.phase("compute"):
+                    if use_fin or n_run > 1:
+                        key_cols = [
+                            tuple(torch.cat([p["keys"][kc][f]
+                                             for p in partials])
+                                  for f in range(2))
+                            for kc in range(len(partials[0]["keys"]))]
+                        states = [
+                            tuple(torch.cat([p["states"][ai_][f]
+                                             for p in partials])
+                                  for f in range(
+                                      len(partials[0]["states"][ai_])))
+                            for ai_ in range(len(root.aggs))]
+                        slot_live = torch.cat([p["slot_live"]
+                                               for p in partials])
+                    if use_fin:
+                        # ONE program for the whole query tail: agg merge
+                        # → finalize expressions → root ORDER BY / TopN
+                        fprog, _fsig = get_finalize_program(
+                            root, order_root, gcap, pipe_sig)
+                        out = fprog.run(key_cols, states, slot_live)
+                        ph.note_launch()
+                    elif n_run == 1:
+                        out = partials[0]
+                    else:
+                        mp = get_merge_program(root, gcap, pipe_sig)
+                        out = mp.merge(key_cols, states, slot_live)
+                        ph.note_launch()
+                    fetch = {"ngs": [p["n_groups"] for p in partials],
+                             "ng": out["n_groups"],
+                             "jus": [p["join_unique"] for p in partials],
+                             "jts": [p["join_totals"] for p in partials]}
+                    if use_fin:
+                        fetch["no"] = out["n_out"]
+                    small = _piggyback_agg(fetch, out, gcap)
+            with ph.phase("compute"):
+                _sync(device)
+            got = ph.fetch(fetch)
+            # the fused-program capacity boundary: everything below
+            # classifies this round's overflows into rerun sets
+            failpoint.inject("fused-pipeline-overflow")
+            if use_fin:
+                failpoint.inject("fused-finalize-overflow")
+            jts = np.asarray(got["jts"]).reshape(n_run, n_joins) \
+                if n_joins else np.zeros((n_run, 0), dtype=np.int64)
+            jus = np.asarray(got["jus"]).reshape(n_run, n_joins) \
+                if n_joins else np.zeros((n_run, 0), dtype=bool)
+            retry = False
+            charged = False
+            rerun: set = set()
+            for ji, cfg in enumerate(join_cfgs):
+                uq = bool(jus[:, ji].all())
+                tot = int(jts[:, ji].max()) if n_run else 0
+                new_cfg, action = TF.escalate_join(
+                    cfg, uq, tot, out_cap_max,
+                    flip_out_cap=_pow2(int(cfg.est * 1.3), lo=1024),
+                    ladder=ladder)
+                if action == "over-max":
+                    return None
+                if new_cfg is not None:
+                    join_cfgs[ji] = new_cfg
+                    retry = True
+                    if action == "flip":
+                        # the join's program changed: every checkpoint is
+                        # from the wrong program — full re-run
+                        rerun.update(range(n_run))
+                    else:
+                        # exact resize: only slabs whose OWN fan-out
+                        # overflowed the old cap re-run
+                        rerun.update(s for s in range(n_run)
+                                     if int(jts[s, ji]) > cfg.out_cap)
+            n_final = int(got["ng"])
+            if akb is None:
+                over = [s for s in range(n_run)
+                        if int(got["ngs"][s]) > caps_ran[s]]
+                if over or n_final > gcap:
+                    if gcap >= max_cap:
+                        ladder.fallback("group")
+                        raise FragmentFallback("group cap overflow",
+                                               reason="group-cap")
+                    # clipped slabs understate the merged count, so the
+                    # max overflowed per-slab count is the valid lower
+                    # bound; merged-only overflow is exact (rerun=0)
+                    need_cap = max([int(got["ngs"][s]) for s in over]
+                                   + [n_final])
+                    gcap = ladder.resize("group", gcap, need=need_cap,
+                                         max_cap=max_cap)
+                    ladder.attempt("group", _GroupCapOverflow(need_cap))
+                    ladder.partial_resume("group", rerun=len(over),
+                                          reused=n_run - len(over))
+                    charged = True
+                    rerun.update(over)
+                    retry = True
+            if retry:
+                if not charged:
+                    # budget + guard checkpoint between rebuilds (the
+                    # join rungs above already recorded their own stats)
+                    ladder.attempt("fused")
+                to_run = sorted(rerun)
+                continue
+            break
+        if skey is not None and (spec is None
+                                 or spec["group_cap"] != gcap
+                                 or list(spec["join_cfgs"]) != join_cfgs):
+            _spec_store(skey, {"group_cap": gcap,
+                               "join_cfgs": tuple(join_cfgs),
+                               "sig": pipe_sig, "lay_sig": lay_sig})
+        if root.group_exprs and n_final == 0:
+            from tidb_tpu_torch.executor import _empty_chunk
+            return _empty_chunk(self.schema)
+        inp_dicts = {i: d for i, d in enumerate(flows.get(id(root), []))}
+        host_tree = (got["keys"], got["states"]) if small else None
+        n_rows = int(got["no"]) if use_fin else n_final
+        with ph.phase("decode"):
+            chunk = self._agg_chunk(root, out, inp_dicts, max(n_rows, 1),
+                                    host_tree=host_tree)
+        if order_root is not None:
+            if not use_fin:
+                chunk = _host_order(chunk, order_root, root.schema)
+            chunk = _topn_slice(chunk, order_root)
+        return chunk
+
+    def _run_tree_blocked(self, root, caps, join_cfgs, bji, walk_joins,
+                          akb, gcap, max_cap, scans, ents, scan_inputs,
+                          scan_rows, flow_list, aligned_inputs, flows,
+                          est_total, scan_layouts=None) -> Chunk:
+        """Blocked (multi-pass) expand: a many-to-many join whose fan-out
+        exceeds tidb_tpu_join_out_cap runs as K row-range passes over its
+        probe anchor scan, each pass expanding at most that many rows on
+        the device; the root agg's partial states merge host-side. The
+        device path never falls back to the CPU on skew.
+
+        Ref: grace-hash partitioning (executor/hash_table.go, docs/design/
+        2018-09-21-radix-hashjoin.md) — partitioning by probe row ranges
+        instead of key radix because ranges keep every other operator in
+        the program untouched."""
+        import math
+        from dataclasses import replace as d_replace
+
+        from tidb_tpu_torch.executor import tree_fragment as TF
+        from tidb_tpu_torch.executor.device_cache import _pow2
+
+        out_cap_max = int(self.ctx.vars.get("tidb_tpu_join_out_cap",
+                                            TF.JOIN_OUT_CAP))
+        device = self.ctx.device
+        ph = self.ctx.phases
+        if not isinstance(root, PhysHashAgg):
+            raise FragmentFallback(
+                f"join fan-out {est_total} exceeds device cap "
+                f"(non-agg root)", reason="join-cap")
+        if any(d.ftype.is_wide_decimal or
+               any(a.ftype.is_wide_decimal for a in d.args)
+               for d in root.aggs):
+            raise FragmentFallback("blocked expand: wide-decimal aggs",
+                                   reason="blocked-expand")
+        bjoin = walk_joins[bji]
+        # the blocked join must be reachable from the root agg via PROBE
+        # sides only: each pass joins a slice of the probe rows against
+        # FULL build sides, so the pass union is exactly the full result —
+        # but if any ancestor held the blocked join in its BUILD subtree,
+        # that ancestor would see a partial build side per pass
+        # (double-counting semi matches, K-times-emitting anti rows)
+
+        def probe_path_ok(node) -> bool:
+            if node is bjoin:
+                return True
+            if isinstance(node, PhysHashJoin):
+                return probe_path_ok(
+                    node.children[0 if node.build_right else 1])
+            if node.children:
+                return probe_path_ok(node.children[0])
+            return False
+
+        if not probe_path_ok(root):
+            raise FragmentFallback(
+                "blocked expand: overflowing join is inside an ancestor's "
+                "build subtree", reason="blocked-expand")
+        bi = 1 if bjoin.build_right else 0
+        anchor, crossed = TF.aligned_chain(bjoin.children[1 - bi])
+        if anchor is None:
+            raise FragmentFallback("blocked expand: no probe anchor",
+                                   reason="blocked-expand")
+        for j in crossed:
+            jcfg = join_cfgs[walk_joins.index(j)]
+            if not (jcfg.mode == "aligned" or j.kind in ("semi", "anti")):
+                raise FragmentFallback(
+                    "blocked expand: probe chain crosses a join that may "
+                    "not preserve the row space", reason="blocked-expand")
+        anchor_ent = next(e for s, (e, _) in zip(scans, ents)
+                          if s is anchor)
+        total_cap = anchor_ent.slab_cap * anchor_ent.n_slabs
+        join_cfgs = list(join_cfgs)
+        join_cfgs[bji] = d_replace(join_cfgs[bji], blocked=True,
+                                   out_cap=out_cap_max)
+
+        K = max(2, math.ceil(est_total * 1.2 / out_cap_max))
+        while K <= 128:
+            prog = get_tree_program(root, caps, gcap, device, join_cfgs,
+                                    akb, scan_layouts)
+            prep_vals = prog.collect_preps(flow_list)
+            step = (total_cap + K - 1) // K
+            pass_outs = []
+            overflow = False
+            restart = False
+            for k in range(K):
+                rng = (k * step, min((k + 1) * step, total_cap))
+                with self.ctx.device_slot():
+                    with ph.phase("compute"):
+                        out = prog(scan_inputs, scan_rows, prep_vals,
+                                   aligned_inputs, rng)
+                ph.note_launch()
+                # flags first: a restart/overflow pass never transfers its
+                # (discarded) group arrays, and good passes transfer only
+                # ng live slots instead of the full gcap padding
+                got = ph.fetch({"ju": out["join_unique"],
+                                "jt": out["join_totals"],
+                                "ng": out["n_groups"]})
+                for ji, cfg in enumerate(join_cfgs):
+                    uq = bool(np.asarray(got["ju"])[ji])
+                    tot = int(np.asarray(got["jt"])[ji])
+                    if cfg.mode == "unique" and not uq:
+                        join_cfgs[ji] = d_replace(
+                            cfg, mode="expand",
+                            out_cap=_pow2(int(cfg.est * 1.3), lo=1024))
+                        restart = True
+                    elif cfg.mode == "expand" and tot > cfg.out_cap:
+                        if tot > out_cap_max or cfg.blocked:
+                            overflow = True      # split finer
+                        else:
+                            join_cfgs[ji] = d_replace(cfg,
+                                                      out_cap=_pow2(tot))
+                            restart = True
+                if akb is None and int(got["ng"]) > gcap:
+                    if gcap >= max_cap:
+                        raise FragmentFallback("group cap overflow",
+                                               reason="group-cap")
+                    gcap = min(gcap * 4, max_cap)
+                    restart = True
+                if overflow or restart:
+                    break
+                ng = int(np.asarray(got["ng"]))
+                got.update(ph.fetch({
+                    "keys": [(v[:ng], m[:ng]) for v, m in out["keys"]],
+                    "states": [tuple(a[:ng] for a in st)
+                               for st in out["states"]]}))
+                pass_outs.append(got)
+            if restart:
+                continue
+            if overflow:
+                K *= 2
+                continue
+            inp_dicts = {i: d for i, d in
+                         enumerate(flows.get(id(root), []))}
+            return self._merge_tree_agg_passes(root, pass_outs, inp_dicts)
+        raise FragmentFallback("blocked expand: skew beyond 128 passes",
+                               reason="blocked-expand")
 
     def _merge_tree_agg_passes(self, root: PhysHashAgg, pass_outs,
                                inp_dicts) -> Chunk:
@@ -1452,6 +2379,18 @@ def _positional_dict(node: PhysicalPlan, out_idx: int, dicts
         cur = cur.children[0] if cur.children else None
         if cur is None:
             return None
+
+
+def _compact_decode(ph, cols_vm, live, ftypes, dicts_root) -> Chunk:
+    """Compact padded (values, validity) device columns by a live mask ON
+    THE DEVICE, fetch only the surviving rows, and decode them into a host
+    Chunk (the row-root result path of the join-tree programs)."""
+    idx = torch.nonzero(live).reshape(-1)
+    host = ph.fetch([(v[idx], m[idx]) for v, m in cols_vm])
+    with ph.phase("decode"):
+        return Chunk([_decode_col(ft, np.asarray(v), np.asarray(m),
+                                  dicts_root.get(ci))
+                      for ci, ((v, m), ft) in enumerate(zip(host, ftypes))])
 
 
 def _topn_slice(chunk: Chunk, root) -> Chunk:

@@ -29,7 +29,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tidb_tpu_torch")
 
-SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups")
+SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups", "lut_join",
+           "join_expand")
+#: launch counters, one per kernel (lut_join.cu holds K4 and K5,
+#: join_expand.cu K6 and K7)
+COUNTERS = ("segment_reduce", "unpack_decode", "perfect_groups",
+            "lut_build", "lut_probe", "lut_order", "join_expand")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -46,11 +51,18 @@ _SIGNATURES = {
     "tt_perfect_group_ids": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P,
                              _P],
     "tt_remap_group_ids": [_P, _P, _L, _I, _P, _P],
+    "tt_lut_build": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P,
+                     _P, _P],
+    "tt_lut_probe": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _I, _I,
+                     _P, _P, _P],
+    "tt_lut_order": [_P, _P, _L, _L, _I, _P, _P, _P, _P, _P, _P],
+    "tt_join_expand": [_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+_LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 BUILD_SECONDS: Dict[str, float] = {}
 
 

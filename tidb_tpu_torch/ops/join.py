@@ -1,0 +1,430 @@
+"""Device equi-join primitives — the LUT (bounded-key) formulation.
+
+The reference's HashJoinExec builds an open-address table over the build
+side and probes it row at a time (executor/hash_table.go:77-146). When the
+build keys live in a small dense domain — known from the device cache's
+per-column (lo, hi) bounds, which dense surrogate keys and every
+dictionary-encoded string column satisfy — the build scatters its rows
+into a domain-sized table once and every probe is a gather:
+
+  * **unique** (the PK-FK shape): probe-shaped output, no expansion. The
+    build's largest count per code guards the planner's uniqueness bet; a
+    lost bet re-runs the join in expand mode.
+  * **multi**: per probe row a (start, count) window into the build rows
+    ordered by code, which `expand` materializes into a static
+    `out_cap`-shaped batch, reporting the true total so an overflow
+    retries at the exact capacity.
+
+Four hand-written CUDA kernels run it on the card (csrc/lut_join.cu,
+csrc/join_expand.cu):
+
+  K4 `lut_build`  pack the build keys, count rows per code, LUT of row ids
+  K5 `lut_probe`  pack the probe keys, gather match / (start, count)
+  K6 `lut_order`  starts (exclusive scan of the counts) and the stable
+                  build-row order by code
+  K7 `join_expand` the expansion of (start, count) windows into slots
+                  (wrapper `expand`)
+
+Each wrapper takes its plain torch version for CPU tensors and launches its
+kernel for CUDA tensors, or raises on anything the kernel does not take.
+`lut_join_unique` / `lut_join_multi` compose them over raw key columns
+for the join-tree programs (executor/tree_fragment.py). `pack_bounded_codes`,
+`lut_probe_unique`, `lut_probe_multi` and `expand` keep the JAX package's
+functions (tidb_tpu/ops/join.py) with their exact results; the first is
+plain torch, the other three run through the wrappers.
+
+The sort formulation for unbounded keys (`combine_keys`,
+`sorted_probe_unique/multi`) is not here: the join-tree gate refuses
+unbounded keys before any launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+#: key columns K4 and K5 pack at most
+MAX_JOIN_KEYS = 4
+
+
+# ---------------------------------------------------------------------------
+# Plain torch: the JAX package's pack_bounded_codes, and each kernel's
+# plain version
+# ---------------------------------------------------------------------------
+
+
+def pack_bounded_codes(keys: Sequence[Tuple], bounds: Sequence[Tuple[int, int]]):
+    """Pack multi-column keys with known per-column (lo, hi) bounds into one
+    dense int64 code in [0, prod(hi-lo+1)) — no sort, pure arithmetic.
+
+    → (codes (N,) int64, ok (N,) bool). `ok` is False when any column is
+    NULL or falls outside its bounds (such rows match nothing)."""
+    v0 = keys[0][0]
+    n = v0.shape[0]
+    codes = torch.zeros(n, dtype=torch.int64, device=v0.device)
+    ok = torch.ones(n, dtype=torch.bool, device=v0.device)
+    stride = 1
+    for (v, m), (lo, hi) in zip(keys, bounds):
+        v = v.to(torch.int64)
+        ok = ok & m & (v >= lo) & (v <= hi)
+        codes = codes + (v.clamp(lo, hi) - lo) * stride
+        stride *= (hi - lo + 1)
+    return codes, ok
+
+
+def _strides(bounds) -> List[int]:
+    out, stride = [], 1
+    for lo, hi in bounds:
+        out.append(stride)
+        stride *= (hi - lo + 1)
+    return out
+
+
+def _row_ok(ok, live, n_live: Optional[int]):
+    if live is not None:
+        ok = ok & live
+    if n_live is not None:
+        ok = ok & (torch.arange(ok.shape[0], device=ok.device) < n_live)
+    return ok
+
+
+def lut_build_plain(keys, bounds, domain: int, live=None,
+                    n_live: Optional[int] = None, want_lut: bool = True,
+                    want_codes: bool = False):
+    """Plain torch version of K4 → (cnt (domain+1,) int32 — the sentinel
+    slot `domain` counts NULL/out-of-domain/dead rows, lut (domain+1,)
+    int32 or None — a row id per code, -1 where none, maxcnt () int32 —
+    the largest count of a real code, codes (nb,) int32 or None)."""
+    codes, ok = pack_bounded_codes(keys, bounds)
+    ok = _row_ok(ok, live, n_live)
+    code = torch.where(ok, codes, torch.full_like(codes, domain))
+    dev = code.device
+    cnt = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, code, torch.ones_like(code, dtype=torch.int32))
+    lut = None
+    if want_lut:
+        lut = torch.full((domain + 1,), -1, dtype=torch.int32, device=dev)
+        rows = torch.nonzero(ok).reshape(-1)
+        lut[code[rows]] = rows.to(torch.int32)
+    maxcnt = cnt[:domain].max()
+    return cnt, lut, maxcnt, (code.to(torch.int32) if want_codes else None)
+
+
+def lut_probe_plain(keys, bounds, cnt, table, live, nb: int, unique: bool):
+    """Plain torch version of K5. Unique → (match_idx (P,) int32 clamped to
+    [0, nb), 0 when unmatched; matched (P,) bool) with `table` = lut;
+    multi → (start (P,) int32, count (P,) int32) with `table` = starts."""
+    codes, ok = pack_bounded_codes(keys, bounds)
+    ok = _row_ok(ok, live, None)
+    domain = cnt.shape[0] - 1
+    pc = codes.clamp(0, domain - 1)
+    c, t = cnt[pc], table[pc]
+    if unique:
+        matched = ok & (c > 0)
+        idx = torch.where(matched, t, torch.zeros_like(t))
+        return idx.clamp(0, nb - 1), matched
+    return t, torch.where(ok, c, torch.zeros_like(c))
+
+
+def lut_order_plain(codes, cnt):
+    """Plain torch version of K6 → (starts (domain+1,) int32, the exclusive
+    scan of cnt; order (nb,) int32, build row ids stably sorted by code)."""
+    starts = (torch.cumsum(cnt, 0) - cnt).to(torch.int32)
+    order = torch.sort(codes, stable=True).indices.to(torch.int32)
+    return starts, order
+
+
+def expand_plain(start, count, order, out_cap: int, outer: bool,
+                 probe_live):
+    """Plain torch version of K7: the JAX package's `expand` (scatter-max
+    of row marks at each row's first slot, then a running max)."""
+    nb = order.shape[0]
+    P = count.shape[0]
+    dev = count.device
+    oc = torch.clamp(count, min=1) if outer else count
+    oc = torch.where(probe_live, oc, torch.zeros_like(oc)).to(torch.int64)
+    cum = torch.cumsum(oc, 0)
+    total = cum[P - 1] if P else torch.zeros((), dtype=torch.int64,
+                                              device=dev)
+    begin = cum - oc
+    iota_p = torch.arange(P, dtype=torch.int32, device=dev)
+    marks = torch.zeros(out_cap + 1, dtype=torch.int32, device=dev)
+    at = torch.where(oc > 0, begin, torch.full_like(begin, out_cap))
+    at = torch.where(at < out_cap, at, torch.full_like(at, out_cap))
+    marks.scatter_reduce_(0, at, iota_p + 1, reduce="amax")
+    p_idx = torch.cummax(marks[:out_cap], 0).values - 1
+    p_safe = p_idx.clamp(0, max(P - 1, 0))
+    j = torch.arange(out_cap, dtype=torch.int64, device=dev)
+    if P:
+        k = (j - begin[p_safe]).to(torch.int32)
+        matched = (p_idx >= 0) & (k < count[p_safe]) & (j < total)
+        b_pos = start[p_safe].to(torch.int64) + k
+        b_idx = order[b_pos.clamp(0, nb - 1)]
+    else:
+        k = torch.zeros(out_cap, dtype=torch.int32, device=dev)
+        matched = torch.zeros(out_cap, dtype=torch.bool, device=dev)
+        b_idx = torch.zeros(out_cap, dtype=torch.int32, device=dev)
+    out_live = (j < total) & (p_idx >= 0)
+    return (p_safe.to(torch.int32), b_idx.to(torch.int32), matched,
+            out_live, k, total)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: the plain version for CPU tensors, the kernel for CUDA tensors
+# ---------------------------------------------------------------------------
+
+
+def _key_args(keys, bounds, what: str):
+    """Validate K4/K5 key columns → ctypes arrays (vals, masks, is64, lo,
+    hi, stride) and the columns as the kernel reads them."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    k = len(keys)
+    if not 1 <= k <= MAX_JOIN_KEYS or len(bounds) != k:
+        raise ck.KernelError(f"{what}: {k} key columns "
+                             f"(1..{MAX_JOIN_KEYS} taken)")
+    n = keys[0][0].shape[0]
+    cols = []
+    for v, m in keys:
+        if v.dtype not in (torch.int64, torch.int32):
+            if v.dtype.is_floating_point or v.dtype.is_complex:
+                raise ck.KernelError(f"{what}: key dtype {v.dtype} is not "
+                                     f"an integer code")
+            v = v.to(torch.int32)
+        if m.dtype != torch.bool:
+            raise ck.KernelError(f"{what}: key masks must be bool")
+        if v.dim() != 1 or v.shape != (n,) or m.shape != (n,):
+            raise ck.KernelError(f"{what}: key columns of unequal shapes")
+        ck.require_cuda(v, m, what=what)
+        cols.append((v, m))
+    P = ctypes.c_void_p * k
+    L = ctypes.c_longlong * k
+    args = (P(*[v.data_ptr() for v, _ in cols]),
+            P(*[m.data_ptr() for _, m in cols]),
+            (ctypes.c_int * k)(*[int(v.dtype == torch.int64)
+                                 for v, _ in cols]),
+            L(*[int(lo) for lo, _ in bounds]),
+            L(*[int(hi) for _, hi in bounds]),
+            L(*_strides(bounds)))
+    return args, cols, n
+
+
+def _check_domain(domain: int, bounds, what: str) -> None:
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    want = 1
+    for lo, hi in bounds:
+        if hi < lo:
+            raise ck.KernelError(f"{what}: empty bounds ({lo}, {hi})")
+        want *= hi - lo + 1
+    if want != domain or not 1 <= domain < 2 ** 31 - 1:
+        raise ck.KernelError(f"{what}: domain {domain} does not match the "
+                             f"bounds ({want}) or exceeds int32")
+
+
+def lut_build(keys, bounds, domain: int, live=None,
+              n_live: Optional[int] = None, want_lut: bool = True,
+              want_codes: bool = False):
+    """K4 wrapper → (cnt, lut or None, maxcnt, codes or None), as
+    `lut_build_plain`."""
+    if keys[0][0].device.type == "cpu":
+        return lut_build_plain(keys, bounds, domain, live, n_live, want_lut,
+                               want_codes)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    _check_domain(domain, bounds, "lut_build")
+    args, cols, nb = _key_args(keys, bounds, "lut_build")
+    dev = cols[0][0].device
+    if live is not None:
+        ck.require_cuda(live, what="lut_build")
+        if live.dtype != torch.bool or live.shape != (nb,):
+            raise ck.KernelError("lut_build: live must be bool of the "
+                                 "build's length")
+    cnt = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
+    lut = torch.full((domain + 1,), -1, dtype=torch.int32, device=dev) \
+        if want_lut else None
+    codes = torch.empty(nb, dtype=torch.int32, device=dev) \
+        if want_codes else None
+    maxcnt = torch.zeros((), dtype=torch.int32, device=dev)
+    rc = ck.library("lut_join").tt_lut_build(
+        len(cols), *args, None if live is None else live.data_ptr(),
+        nb if n_live is None else int(n_live), nb, domain, cnt.data_ptr(),
+        None if lut is None else lut.data_ptr(),
+        None if codes is None else codes.data_ptr(), maxcnt.data_ptr(),
+        ck.stream_ptr(dev))
+    if nb > 0:                      # the entry launches nothing for nb == 0
+        ck.count("lut_build")
+    ck.check(rc, "lut_build")
+    return cnt, lut, maxcnt, codes
+
+
+def lut_probe(keys, bounds, cnt, table, live, nb: int, unique: bool):
+    """K5 wrapper, as `lut_probe_plain`."""
+    if keys[0][0].device.type == "cpu":
+        return lut_probe_plain(keys, bounds, cnt, table, live, nb, unique)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    domain = cnt.shape[0] - 1
+    _check_domain(domain, bounds, "lut_probe")
+    args, cols, n = _key_args(keys, bounds, "lut_probe")
+    dev = cols[0][0].device
+    ck.require_cuda(cnt, table, what="lut_probe")
+    if cnt.dtype != torch.int32 or table.dtype != torch.int32 or \
+            table.shape[0] < domain:
+        raise ck.KernelError("lut_probe: cnt/table must be int32 of the "
+                             "domain's length")
+    if live is not None:
+        ck.require_cuda(live, what="lut_probe")
+        if live.dtype != torch.bool or live.shape != (n,):
+            raise ck.KernelError("lut_probe: live must be bool of the "
+                                 "probe's length")
+    if not 1 <= nb < 2 ** 31:
+        raise ck.KernelError(f"lut_probe: build rows {nb} out of range")
+    out_a = torch.empty(n, dtype=torch.int32, device=dev)
+    out_b = torch.empty(n, dtype=torch.bool if unique else torch.int32,
+                        device=dev)
+    rc = ck.library("lut_join").tt_lut_probe(
+        len(cols), *args, None if live is None else live.data_ptr(), n,
+        domain, cnt.data_ptr(), table.data_ptr(), int(unique), nb,
+        out_a.data_ptr(), out_b.data_ptr(), ck.stream_ptr(dev))
+    if n > 0:                       # the entry launches nothing for n == 0
+        ck.count("lut_probe")
+    ck.check(rc, "lut_probe")
+    return out_a, out_b
+
+
+def _long_run(nb: int) -> int:
+    """Runs longer than this are placed by a scan over the build rows
+    instead of an insertion sort (K6)."""
+    return max(64, math.isqrt(max(nb, 1)))
+
+
+def lut_order(codes, cnt):
+    """K6 wrapper → (starts, order), as `lut_order_plain`. `codes` holds a
+    code in [0, domain] per build row (K4's `want_codes` output)."""
+    if codes.device.type == "cpu":
+        return lut_order_plain(codes, cnt)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(codes, cnt, what="lut_order")
+    if codes.dtype != torch.int32 or cnt.dtype != torch.int32 or \
+            codes.dim() != 1 or cnt.dim() != 1:
+        raise ck.KernelError("lut_order: int32 vectors expected")
+    nb = codes.shape[0]
+    domain = cnt.shape[0] - 1
+    if not 1 <= domain < 2 ** 31 - 1 or nb >= 2 ** 31:
+        raise ck.KernelError(f"lut_order: domain {domain} / rows {nb} out "
+                             f"of range")
+    dev = codes.device
+    long_run = _long_run(nb)
+    starts = torch.empty(domain + 1, dtype=torch.int32, device=dev)
+    order = torch.empty(nb, dtype=torch.int32, device=dev)
+    cursor = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
+    long_list = torch.zeros(1 + nb // (long_run + 1) + 1, dtype=torch.int32,
+                            device=dev)
+    block = torch.empty(-(-max(domain + 1, nb) // 1024), dtype=torch.int32,
+                        device=dev)
+    rc = ck.library("join_expand").tt_lut_order(
+        codes.data_ptr(), cnt.data_ptr(), nb, domain, long_run,
+        starts.data_ptr(), order.data_ptr(), cursor.data_ptr(),
+        long_list.data_ptr(), block.data_ptr(), ck.stream_ptr(dev))
+    ck.count("lut_order")
+    ck.check(rc, "lut_order")
+    return starts, order
+
+
+def expand(start, count, order, out_cap: int, outer: bool, probe_live):
+    """K7 wrapper: materialize per-probe matches into a static
+    (out_cap,)-shaped batch, as tidb_tpu/ops/join.py expand → (p_idx,
+    b_idx, matched, out_live, k, total). Equal to `expand_plain` on every
+    live slot and in `total`; dead slots carry in-range indices."""
+    if count.device.type == "cpu":
+        return expand_plain(start, count, order, out_cap, outer, probe_live)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(start, count, order, probe_live, what="join_expand")
+    P = count.shape[0]
+    nb = order.shape[0]
+    if start.dtype != torch.int32 or count.dtype != torch.int32 or \
+            order.dtype != torch.int32 or probe_live.dtype != torch.bool:
+        raise ck.KernelError("join_expand: int32 start/count/order and a "
+                             "bool live mask expected")
+    if start.shape != (P,) or probe_live.shape != (P,) or order.dim() != 1:
+        raise ck.KernelError("join_expand: start/count/live of unequal "
+                             "shapes")
+    if nb < 1 or not 0 <= out_cap < 2 ** 31:
+        raise ck.KernelError(f"join_expand: build rows {nb} / out_cap "
+                             f"{out_cap} out of range")
+    dev = count.device
+    cum = torch.empty(P, dtype=torch.int64, device=dev)
+    block = torch.empty(max(1, -(-P // 1024)), dtype=torch.int64,
+                        device=dev)
+    p_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    b_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    k = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    matched = torch.empty(out_cap, dtype=torch.bool, device=dev)
+    out_live = torch.empty(out_cap, dtype=torch.bool, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    rc = ck.library("join_expand").tt_join_expand(
+        start.data_ptr(), count.data_ptr(), order.data_ptr(),
+        probe_live.data_ptr(), P, nb, int(bool(outer)), out_cap,
+        cum.data_ptr(), block.data_ptr(), p_idx.data_ptr(),
+        b_idx.data_ptr(), k.data_ptr(), matched.data_ptr(),
+        out_live.data_ptr(), total.data_ptr(), ck.stream_ptr(dev))
+    ck.count("join_expand")
+    ck.check(rc, "join_expand")
+    return p_idx, b_idx, matched, out_live, k, total
+
+
+# ---------------------------------------------------------------------------
+# Join formulations over raw key columns (the join-tree programs)
+# ---------------------------------------------------------------------------
+
+
+def lut_join_unique(bkeys, pkeys, bounds, domain: int, blive=None,
+                    plive=None):
+    """Unique-build LUT join: K4 over the build keys, K5 over the probe
+    keys → (match_idx (P,) int32, matched (P,) bool, unique () bool).
+    `unique` is the runtime guard of the planner's uniqueness bet; on
+    False the caller re-runs the join in expand mode."""
+    cnt, lut, maxcnt, _ = lut_build(bkeys, bounds, domain, live=blive)
+    match_idx, matched = lut_probe(pkeys, bounds, cnt, lut, plive,
+                                   bkeys[0][0].shape[0], unique=True)
+    return match_idx, matched, maxcnt <= 1
+
+
+def lut_join_multi(bkeys, pkeys, bounds, domain: int, blive=None,
+                   plive=None):
+    """General LUT join: K4 (counts and codes), K6 (starts and the stable
+    build order), K5 (per-probe windows) → (start (P,) int32, count (P,)
+    int32, order (nb,) int32)."""
+    cnt, _, _, codes = lut_build(bkeys, bounds, domain, live=blive,
+                                 want_lut=False, want_codes=True)
+    starts, order = lut_order(codes, cnt)
+    start, count = lut_probe(pkeys, bounds, cnt, starts, plive,
+                             bkeys[0][0].shape[0], unique=False)
+    return start, count, order
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's functions over pre-packed codes
+# ---------------------------------------------------------------------------
+
+
+def _packed(build_codes, ok_b, domain: int, probe_codes, ok_p):
+    """Pre-packed codes as one key column over [0, domain). Build rows
+    with `ok_b` set must hold codes in that range (as pack_bounded_codes
+    gives them); probe codes clamp into it, as the JAX functions do."""
+    return ([(build_codes, ok_b)], [(probe_codes.clamp(0, domain - 1), ok_p)],
+            [(0, domain - 1)])
+
+
+def lut_probe_unique(build_codes, ok_b, domain: int, probe_codes, ok_p):
+    """→ (match_idx (P,) int32, matched (P,) bool, unique () bool), as
+    tidb_tpu/ops/join.py lut_probe_unique."""
+    return lut_join_unique(*_packed(build_codes, ok_b, domain, probe_codes,
+                                    ok_p), domain)
+
+
+def lut_probe_multi(build_codes, ok_b, domain: int, probe_codes, ok_p):
+    """→ (start (P,) int32, count (P,) int32, order (nb,) int32), as
+    tidb_tpu/ops/join.py lut_probe_multi."""
+    return lut_join_multi(*_packed(build_codes, ok_b, domain, probe_codes,
+                                   ok_p), domain)

@@ -33,7 +33,8 @@ from __future__ import annotations
 import threading
 import time
 import weakref
-from typing import Dict, Optional
+from contextlib import contextmanager
+from typing import Dict, List, Optional
 
 from tidb_tpu_torch.errors import QueryInterrupted, QueryTimeout
 
@@ -133,20 +134,33 @@ class ProcessRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._conns: Dict[int, dict] = {}
+        self._dropped: List[int] = []
+
+    @contextmanager
+    def _locked(self):
+        """Hold _lock, first removing the entries of collected sessions."""
+        with self._lock:
+            while self._dropped:
+                self._conns.pop(self._dropped.pop(), None)
+            yield
 
     def register(self, session) -> None:
         cid = session.conn_id
-        with self._lock:
+        with self._locked():
             self._conns[cid] = {"session": weakref.ref(session),
                                 "guard": None, "conn_killed": False}
         weakref.finalize(session, self._drop, cid)
 
     def _drop(self, cid: int) -> None:
-        with self._lock:
-            self._conns.pop(cid, None)
+        """Finalizer of a collected session. It can run inside a garbage
+        collection that this very thread started while holding _lock (a
+        Lock is not re-entrant, so taking it here would hang the thread),
+        so it only queues the id: list.append is atomic, and the next
+        locked call removes the entry."""
+        self._dropped.append(cid)
 
     def stmt_begin(self, cid: int, guard: ExecutionGuard) -> None:
-        with self._lock:
+        with self._locked():
             ent = self._conns.get(cid)
             if ent is None:
                 return
@@ -155,13 +169,13 @@ class ProcessRegistry:
             ent["guard"] = guard
 
     def stmt_end(self, cid: int) -> None:
-        with self._lock:
+        with self._locked():
             ent = self._conns.get(cid)
             if ent is not None:
                 ent["guard"] = None
 
     def info(self, cid: int) -> Optional[dict]:
-        with self._lock:
+        with self._locked():
             ent = self._conns.get(cid)
             if ent is None:
                 return None
@@ -175,7 +189,7 @@ class ProcessRegistry:
         """KILL [QUERY] <cid>: flip the active guard's flag (if a
         statement is running) and, for a connection kill, poison the
         entry so future statements refuse to start. → found?"""
-        with self._lock:
+        with self._locked():
             ent = self._conns.get(cid)
             if ent is None:
                 return False
@@ -189,7 +203,7 @@ class ProcessRegistry:
     def snapshot(self) -> list:
         """Every live connection, running or idle, for SHOW PROCESSLIST:
         (conn_id, user, guard|None, conn_killed)."""
-        with self._lock:
+        with self._locked():
             items = list(self._conns.items())
         out = []
         for cid, ent in items:
@@ -201,7 +215,7 @@ class ProcessRegistry:
         return out
 
     def conn_killed(self, cid: int) -> bool:
-        with self._lock:
+        with self._locked():
             ent = self._conns.get(cid)
             return bool(ent and ent["conn_killed"])
 

@@ -26,7 +26,7 @@ _GBS: dict = {}            # device string → sustained stream GB/s
 _OVERRIDE: float = 0.0     # set_measured_gbs(): one figure for all devices
 
 
-def measured_gbs(device="cpu") -> float:
+def measured_gbs(device) -> float:
     """Sustained stream bandwidth (GB/s) of `device`, measured once per
     process and device with a ~64 MiB float32 torch triad and cached.
     Returns 0.0 when the measurement fails (callers treat 0 as
@@ -87,8 +87,8 @@ def set_measured_gbs(gbs: float) -> None:
         _OVERRIDE = float(gbs)
 
 
-def fraction(scan_bytes: int, device_wall_s: float,
-             gbs: float = None, device="cpu") -> float:
+def fraction(scan_bytes: int, device_wall_s: float, *, device,
+             gbs: float = None) -> float:
     """Roofline fraction for one statement: stream-floor seconds over
     actual device wall, clamped to [0, 1].  0.0 when unmeasurable (no
     bytes, no wall, or no bandwidth figure)."""
@@ -100,8 +100,8 @@ def fraction(scan_bytes: int, device_wall_s: float,
     return max(0.0, min(1.0, floor_s / device_wall_s))
 
 
-def effective_fraction(logical_bytes: int, device_wall_s: float,
-                       gbs: float = None, device="cpu") -> float:
+def effective_fraction(logical_bytes: int, device_wall_s: float, *,
+                       device, gbs: float = None) -> float:
     """Roofline fraction against LOGICAL (uncompressed-equivalent)
     bytes. Deliberately NOT clamped above 1: a compressed scan that
     delivers logical bytes faster than the raw stream floor shows up as

@@ -43,10 +43,29 @@ which must pass:
      must move in it;
   8. join kernel timing at those shapes: K4 over the orders build, K5 over
      one lineitem slab, K6 and K7 at the expand statement's build and
-     probe.
+     probe;
+  9. the sort formulation on the card, over phase 7's tables and two
+     sparse-key copies (`orders_sk`, `lineitem_sk`: the same rows keyed by
+     the injective map k -> k*0x9E3779B97F4A7C15 mod 2^62, a domain no
+     LUT or aligned join takes): TPC-H Q3 (spec 2.4.3 without
+     o_shippriority) cold and twice warm, TopN and LIMIT directly over a
+     join (EXPLAIN shows both inside the device fragment; LIMIT is held
+     by its count and by membership in the host's unlimited join), and
+     bench.py's Q3 over the sparse keys (equal to the host engine and to
+     the dense Q3). Counters are zeroed before the phase; K8-K11 must
+     move, and in the sparse-key statement K11 but not K4/K5;
+ 10. sort kernel timing at the main path's shapes: K8 over 8,388,608
+     full-range int64 keys and over the sparse join's 10,485,760 keys,
+     K9 over 8,388,608 float64 and int64 values, K10 at 8,388,608 rows
+     and ~10^5 groups, K11 with 2,097,152 build codes and 8,388,608
+     probes.
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
-join_expand against their plain versions, exactly.
+join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
+sorted_search against their plain versions, exactly; the sort functions
+built on K8-K10 (factorize, sort_perm, topn, pack_codes) equal the same
+functions over CPU copies of the inputs. Phase 4's TopN scan must launch
+K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -115,11 +134,40 @@ BLOCKED = ("SELECT w, COUNT(*), SUM(v) FROM skew_fact JOIN skew_dim "
            "ON skew_fact.k = skew_dim.k GROUP BY w ORDER BY w")
 BLOCKED_OUT_CAP = 1 << 20
 
+# TPC-H Q3 (spec 2.4.3) without o_shippriority, which bench.py's orders
+# lack (dbgen sets it to 0): GROUP BY l_orderkey, o_orderdate has no
+# perfect-hash domain, so every lineitem slab runs the sort factorize
+TPCH_Q3 = """SELECT l_orderkey, SUM(l_extendedprice * (1 - l_discount))
+ AS revenue, o_orderdate
+ FROM customer JOIN orders ON c_custkey = o_custkey
+ JOIN lineitem ON l_orderkey = o_orderkey
+ WHERE c_mktsegment = 'BUILDING' AND o_orderdate < '1995-03-15'
+ AND l_shipdate > '1995-03-15'
+ GROUP BY l_orderkey, o_orderdate ORDER BY revenue DESC, o_orderdate
+ LIMIT 10"""
+
+JOIN_ROWS = ("SELECT l_orderkey, l_extendedprice, o_orderdate FROM lineitem "
+             "JOIN orders ON l_orderkey = o_orderkey "
+             "WHERE o_orderdate < '1992-02-01'")
+TOPN_JOIN = JOIN_ROWS + " ORDER BY l_extendedprice DESC, l_orderkey LIMIT 10"
+LIMIT_JOIN = JOIN_ROWS + " LIMIT 100"
+
+# bench.py's Q3 text over the sparse-key copies
+Q3_SK = """SELECT o_orderpriority, COUNT(*),
+ SUM(l_extendedprice * (1 - l_discount))
+ FROM lineitem_sk JOIN orders_sk ON l_okey = o_okey
+ WHERE l_shipdate <= '1998-09-02' AND o_orderdate < '1998-01-01'
+ GROUP BY o_orderpriority ORDER BY o_orderpriority"""
+
 SF1_ROWS = 6_001_215
 KERNELS = ("segment_reduce", "unpack_decode", "perfect_groups",
-           "lut_build", "lut_probe", "lut_order", "join_expand")
-# the first slice's path (Q1/Q6/TopN) runs these; the join path all seven
+           "lut_build", "lut_probe", "lut_order", "join_expand",
+           "radix_sort", "sort_encode", "group_ids", "sorted_search")
+# the first slice's path (Q1/Q6/TopN) runs these; the join path the first
+# seven; the sort formulation the last four
 Q1_KERNELS = KERNELS[:3]
+JOIN_KERNELS = KERNELS[:7]
+SORT_KERNELS = KERNELS[7:]
 
 
 def log(msg: str) -> None:
@@ -419,6 +467,9 @@ def sql_phase(dev, sf: float):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was never launched by the "
                                  f"main path")
+    for k in ("radix_sort", "sort_encode", "group_ids"):
+        if per_query["topn"][k] == 0:
+            raise AssertionError(f"the TopN scan did not launch {k}")
     return eng, s, host, launches, walls, q1_slab
 
 
@@ -774,12 +825,12 @@ def join_sql_phase(s, n: int):
             raise AssertionError(f"blocked: no row-range passes ({esc})")
     launches = ck.launches()
     walls["join_phase"] = time.perf_counter() - t_phase
-    for k in KERNELS:
+    for k in JOIN_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was never launched by the "
                                  f"join path")
     log(f"join phase: {walls['join_phase']:.1f} s, launches {launches}")
-    return launches, walls, orders, customer
+    return launches, walls, orders, customer, host
 
 
 # ---------------------------------------------------------------------------
@@ -929,6 +980,450 @@ def join_timing_phase(dev, n: int, orders, customer):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (sort): K8-K11 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _values(rng, kind, n):
+    """Sort-key values of one kind: float64 with ±0.0, ±inf and NaN,
+    full-range int32 / int64, bool, dictionary codes."""
+    import numpy as np
+    if kind == "f64":
+        v = np.round(rng.normal(size=n), 2)
+        pick = rng.random(n) < 0.3
+        v[pick] = rng.choice(np.array([0.0, -0.0, np.inf, -np.inf, np.nan]),
+                             int(pick.sum()))
+        return v
+    if kind == "i32":
+        return rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    if kind == "i64":
+        return rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    if kind == "bool":
+        return rng.random(n) > 0.5
+    return rng.integers(0, 9, n).astype(np.int32)             # dict codes
+
+
+def _words(rng, kind, n):
+    """K8 input words (uint64 bit patterns in int64) and their bit range."""
+    import numpy as np
+    full = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    if kind == "full":
+        return full, 64
+    if kind == "narrow":
+        return full & ((1 << 21) - 1), 21
+    if kind == "equal":
+        return np.full(n, 12345, dtype=np.int64), 14
+    if kind == "sorted":
+        return np.sort(full & ((1 << 40) - 1)), 40
+    if kind == "reversed":
+        return np.sort(full & ((1 << 40) - 1))[::-1].copy(), 40
+    return full & 1, 1                                        # "bit"
+
+
+def check_sort_kernels(dev):
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import join as J
+    rng = np.random.default_rng(23)
+    cases = 0
+
+    def same(what, got, want):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for a, b in zip(got, want):
+            if isinstance(a, torch.Tensor):
+                a = a.cpu()
+            if isinstance(b, torch.Tensor):
+                b = b.cpu()
+            if not torch.equal(torch.as_tensor(a), torch.as_tensor(b)):
+                raise AssertionError(f"{what}: kernel != plain")
+
+    for n in (1, 1000, 4097, 1_000_003):
+        perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+        # K8: full-range, narrow, all-equal, sorted and reversed keys, and
+        # a 1-bit partition; row ids from the kernel (None) and given
+        for kind in ("full", "narrow", "equal", "sorted", "reversed", "bit"):
+            w, bits = _words(rng, kind, n)
+            w = torch.from_numpy(w).to(dev)
+            for vals in (None, perm):
+                same(f"K8 {kind} n={n}", F.radix_sort(w, vals, bits),
+                     F.radix_sort_plain(w, vals, bits))
+                cases += 1
+        # K9: every operand type, ASC and DESC, NULL slots, through a
+        # permutation, stats and a shifted OR into a word
+        m = torch.from_numpy(rng.random(n) > 0.15).to(dev)
+        for kind in ("f64", "i32", "i64", "bool", "code"):
+            v, code = F._k9_operand(torch.from_numpy(
+                np.asarray(_values(rng, kind, n))).to(dev))
+            for desc in (False, True):
+                st = torch.tensor([-1, 0], dtype=torch.int64, device=dev)
+                F.sort_encode(v, code, None, m, desc, 0, 0, stats=st)
+                _, (lo, hi) = F.sort_encode_plain(v, code, None, m, desc, 0,
+                                                  0)
+                if [x & ((1 << 64) - 1) for x in st.tolist()] != [lo, hi]:
+                    raise AssertionError(f"K9 stats {kind} desc={desc}")
+                base = torch.full((n,), 3, dtype=torch.int64, device=dev)
+                got = F.sort_encode(v, code, perm, m, desc, lo, 2,
+                                    base.clone(), accumulate=True)
+                want, _ = F.sort_encode_plain(v, code, perm, m, desc, lo, 2,
+                                              base, accumulate=True)
+                same(f"K9 {kind} desc={desc} n={n}", got, want)
+                cases += 1
+        # K10 over the kernel's own sort: factorize (cap above and below
+        # the group count) and _dense1 modes, with NULLs and dead rows
+        live = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+        for kind in ("f64", "i64", "code"):
+            v = torch.from_numpy(np.asarray(_values(rng, kind, n))).to(dev)
+            if kind == "i64":
+                v = v % 997
+            sidx = F.lexsort(F._key_operands([(v, m)], live))
+            for cap in (0, 5, n + 1):
+                same(f"K10 {kind} cap={cap} n={n}",
+                     F.group_ids(sidx, v, m, live, cap),
+                     F.group_ids_plain(sidx, v, m, live, cap))
+                cases += 1
+        # the functions over K8-K10 against the same functions on CPU
+        # copies of the inputs (the plain versions): 1-3 key columns
+        if n != 1000:
+            for spec in (["f64"], ["i32"], ["bool"], ["code", "i64"],
+                         ["i64", "f64", "bool"]):
+                keys = [(torch.from_numpy(np.asarray(_values(rng, k, n))),
+                         torch.from_numpy(rng.random(n) > 0.1))
+                        for k in spec]
+                hl = torch.from_numpy(rng.random(n) > 0.2)
+                dk = [(v.to(dev), mm.to(dev)) for v, mm in keys]
+                dl = hl.to(dev)
+                for cap in (4, n + 1):
+                    same(f"factorize {spec} cap={cap} n={n}",
+                         F.factorize(dk, dl, cap), F.factorize(keys, hl, cap))
+                descs = [i % 2 == 1 for i in range(len(spec))]
+                for ds in (descs, [not d for d in descs]):
+                    same(f"sort_perm {spec} {ds} n={n}",
+                         F.sort_perm(dk, ds, dl), F.sort_perm(keys, ds, hl))
+                    same(f"topn {spec} {ds} n={n}", F.topn(dk, ds, dl, 10),
+                         F.topn(keys, ds, hl, 10))
+                same(f"pack_codes {spec} n={n}", F.pack_codes(dk, dl),
+                     F.pack_codes(keys, hl))
+                cases += 5
+    # K11: duplicated and unique builds, missing probe keys, sentinel
+    # (dead / NULL) build rows, nb = 1 and P = 0
+    for nb, P, dup in ((1, 50, False), (1, 0, False), (5000, 0, True),
+                       (200_000, 1_000_003, False),
+                       (200_000, 1_000_003, True)):
+        pool = np.sort(rng.choice(1 << 40, max(nb, 2), replace=False))
+        bc = pool[rng.integers(0, max(nb // 3, 1), nb)] if dup else pool[:nb]
+        codes = torch.from_numpy(rng.permutation(bc)).to(dev)
+        ok_b = torch.from_numpy(rng.random(nb) > 0.1).to(dev)
+        probe = torch.from_numpy(np.where(
+            rng.random(P) < 0.7, pool[rng.integers(0, len(pool), P)],
+            rng.integers(0, 1 << 40, P))).to(dev)
+        ok_p = torch.from_numpy(rng.random(P) > 0.1).to(dev)
+        sc, order = J.sorted_build(codes, ok_b)
+        same(f"K8+K9 build nb={nb}", (sc, order),
+             J.sorted_build(codes.cpu(), ok_b.cpu()))
+        same(f"K11 unique nb={nb} P={P} dup={dup}",
+             J.sorted_search_unique(sc, order, probe, ok_p),
+             J.sorted_search_unique_plain(sc, order, probe, ok_p))
+        same(f"K11 multi nb={nb} P={P} dup={dup}",
+             J.sorted_search_multi(sc, probe, ok_p),
+             J.sorted_search_multi_plain(sc, probe, ok_p))
+        table = torch.from_numpy(pool).to(dev)
+        for right in (False, True):
+            same(f"K11 search right={right}",
+                 J.searchsorted(table, probe, right),
+                 torch.searchsorted(table, probe, right=right))
+        cases += 5
+    torch.cuda.synchronize()
+    log(f"K8-K11 radix_sort/sort_encode/group_ids/sorted_search: {cases} "
+        f"cases exactly equal to the plain versions (n = 1, 1000, 4097, "
+        f"1,000,003; int32/int64/float64 with ±0.0, ±inf, NaN/bool/dict "
+        f"codes; ASC/DESC, NULLs, dead rows; all-equal, sorted, reversed "
+        f"keys; a 1-bit partition; 1-3 key columns through factorize/"
+        f"sort_perm/topn/pack_codes; cap below n_groups; K11 with "
+        f"duplicates, missing keys, sentinels, nb = 1, P = 0)")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the sort formulation in SQL
+# ---------------------------------------------------------------------------
+
+
+def sparse_key(k):
+    """The injective map k -> k * 0x9E3779B97F4A7C15 mod 2^62 (an odd
+    multiplier is a bijection mod 2^62)."""
+    import numpy as np
+    k = np.asarray(k).astype(np.uint64)
+    return ((k * np.uint64(0x9E3779B97F4A7C15)) &
+            np.uint64((1 << 62) - 1)).astype(np.int64)
+
+
+def fragment_roots(s, sql):
+    """Class names of the device fragments' root operators in the plan."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import PhysTpuFragment
+    s.vars["tidb_tpu_engine"] = "on"
+    plan = s._plan(parse(sql)[0])
+    out = []
+
+    def walk(p):
+        if isinstance(p, PhysTpuFragment):
+            out.append(type(p.root).__name__)
+            return
+        for c in p.children:
+            walk(c)
+
+    walk(plan)
+    return out
+
+
+def sort_sql_phase(s, n: int, orders, dense_q3_host):
+    from collections import Counter
+
+    import numpy as np
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.testing import load_numpy_columns
+    t0 = time.perf_counter()
+    li = make_lineitem(n)
+    s.execute("CREATE TABLE orders_sk (o_okey BIGINT, o_orderdate DATE, "
+              "o_orderpriority CHAR(1))")
+    s.execute("CREATE TABLE lineitem_sk (l_extendedprice DECIMAL(15,2), "
+              "l_discount DECIMAL(15,2), l_shipdate DATE, l_okey BIGINT)")
+    orders_sk = {"o_okey": sparse_key(orders["o_orderkey"]),
+                 "o_orderdate": orders["o_orderdate"],
+                 "o_orderpriority": orders["o_orderpriority"]}
+    lineitem_sk = {c: li[c] for c in ("l_extendedprice", "l_discount",
+                                      "l_shipdate")}
+    lineitem_sk["l_okey"] = sparse_key(li["l_orderkey"])
+    for name, cols in (("orders_sk", orders_sk),
+                       ("lineitem_sk", lineitem_sk)):
+        load_numpy_columns(s, name, cols)
+        s.execute(f"ANALYZE TABLE {name}")
+    log(f"orders_sk {len(orders_sk['o_okey'])} rows, lineitem_sk "
+        f"{len(lineitem_sk['l_okey'])} rows (62-bit keys): generated, "
+        f"loaded and analyzed in {time.perf_counter() - t0:.1f} s")
+    for sql, want in ((TOPN_JOIN, "PhysTopN"), (LIMIT_JOIN, "PhysLimit")):
+        roots = fragment_roots(s, sql)
+        explain = s.query("EXPLAIN " + sql).rows
+        if roots != [want] or "TpuFragment" not in explain[0][0]:
+            raise AssertionError(f"{want} is not inside the device "
+                                 f"fragment: {roots}\n{explain[:3]}")
+    log("EXPLAIN: TopN and Limit over the join are the device fragment's "
+        "root")
+    host = {}
+    walls = {}
+    for name, sql in (("tpch_q3", TPCH_Q3), ("topn_join", TOPN_JOIN),
+                      ("join_rows", JOIN_ROWS), ("q3_sk", Q3_SK)):
+        rows, wall, _, _ = run_sql(s, sql, device=False)
+        host[name] = rows
+        walls[f"host_{name}"] = wall
+        log(f"host {name}: {len(rows)} rows in {wall:.3f} s")
+    if host["q3_sk"] != dense_q3_host:
+        raise AssertionError("host engine: sparse-key Q3 != dense Q3")
+    runs = [("tpch_q3_cold", TPCH_Q3, "tpch_q3"),
+            ("tpch_q3_warm1", TPCH_Q3, "tpch_q3"),
+            ("tpch_q3_warm2", TPCH_Q3, "tpch_q3"),
+            ("topn_join", TOPN_JOIN, "topn_join"),
+            ("limit_join", LIMIT_JOIN, None),
+            ("q3_sk_cold", Q3_SK, "q3_sk"), ("q3_sk_warm", Q3_SK, "q3_sk")]
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    for name, sql, ref in runs:
+        before = ck.launches()
+        rows, wall, phases, esc = run_sql(s, sql, device=True)
+        after = ck.launches()
+        moved = {k: after[k] - before[k] for k in after if after[k] !=
+                 before[k]}
+        if ref is not None and rows != host[ref]:
+            raise AssertionError(f"{name}: device rows != host rows\n"
+                                 f"{rows[:3]}\n{host[ref][:3]}")
+        if ref is None:
+            # an unordered LIMIT may pick other rows than the host's: its
+            # count, and membership in the host's unlimited join
+            total = len(host["join_rows"])
+            extra = Counter(map(tuple, rows)) - \
+                Counter(map(tuple, host["join_rows"]))
+            if len(rows) != min(100, total) or extra:
+                raise AssertionError(f"{name}: {len(rows)} rows of "
+                                     f"min(100, {total}); {len(extra)} not "
+                                     f"in the host's join")
+        if name.startswith("q3_sk"):
+            if rows != dense_q3_host:
+                raise AssertionError(f"{name}: != the dense Q3's rows")
+            if moved.get("lut_build") or moved.get("lut_probe") or \
+                    not moved.get("sorted_search"):
+                raise AssertionError(f"{name}: not the sort formulation "
+                                     f"({moved})")
+        walls[name] = wall
+        log(f"{name}: {len(rows)} rows, "
+            f"{'count + membership' if ref is None else 'exact match'}, "
+            f"wall {wall:.4f} s, launches {moved}, escalation {esc}, "
+            f"phases {phases}")
+    launches = ck.launches()
+    walls["sort_phase"] = time.perf_counter() - t_phase
+    for k in SORT_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was never launched by the "
+                                 f"sort path")
+    log(f"sort phase: {walls['sort_phase']:.1f} s, launches {launches}")
+    sparse = (np.concatenate([orders_sk["o_okey"],
+                              lineitem_sk["l_okey"]]),
+              len(orders_sk["o_okey"]), len(lineitem_sk["l_okey"]))
+    return launches, walls, sparse
+
+
+# ---------------------------------------------------------------------------
+# phase 10: sort kernel timing
+# ---------------------------------------------------------------------------
+
+
+def sort_timing_phase(dev, sparse):
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor.device_cache import _pow2
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import join as J
+    rng = np.random.default_rng(29)
+    out = []
+    n = 8_388_608
+
+    def exact(what, pairs):
+        for a, b in pairs:
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} differs from its plain "
+                                     f"version")
+        return 0
+
+    # K8: a lineitem slab of full-range int64 keys, all 64 bits (8 passes)
+    keys = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, n,
+                                         dtype=np.int64)).to(dev)
+    ms = time_cuda(lambda: F.radix_sort(keys, None, 64), reps=10)
+    plain = time_cuda(lambda: F.radix_sort_plain(keys, None, 64), reps=5)
+    lib = time_cuda(lambda: torch.sort(keys, stable=True), reps=10)
+    err = exact("K8 full-range", zip(F.radix_sort(keys, None, 64),
+                                     F.radix_sort_plain(keys, None, 64)))
+    b, by = bound_ms(n * (8 + 4), n * 8)
+    out.append({"name": "radix_sort", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/radix_sort.cu",
+                "replaces": "tidb_tpu/ops/factorize.py:96",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K8 n={n} full-range int64 (8 passes): {ms:.4f} ms (plain "
+        f"{plain:.4f}, torch.sort(stable) {lib:.4f}, bound {b:.4f} by {by})")
+
+    # K8 on the sparse join's word: orders_sk's build rows (a 2,097,152-row
+    # capacity) ++ one lineitem_sk slab (8,388,608), as combine_keys sorts
+    # them: the dead flag, the NULL flag and the 62-bit key in one word
+    okeys, n_o, n_l = sparse
+    nb, P = _pow2(n_o), min(_pow2(n_l), 1 << 23)
+    v = torch.zeros(nb + P, dtype=torch.int64)
+    v[:n_o] = torch.from_numpy(okeys[:n_o])
+    v[nb:nb + min(n_l, P)] = torch.from_numpy(okeys[n_o:n_o + min(n_l, P)])
+    live = torch.zeros(nb + P, dtype=torch.bool)
+    live[:n_o] = True
+    live[nb:nb + min(n_l, P)] = True
+    v, live = v.to(dev), live.to(dev)
+    valid = torch.ones_like(live)
+    words = []
+    for op in reversed(F._key_operands([(v, valid)], live)):
+        vv, code = F._k9_operand(op.v)
+        words.append((op, vv, code) + F._field(op, vv, code, nb + P))
+    word = torch.empty(nb + P, dtype=torch.int64, device=dev)
+    shift = 0
+    for j, (op, vv, code, base, width) in enumerate(words):
+        F.sort_encode(vv, code, None, op.m, op.desc, base, shift, word,
+                      accumulate=j > 0)
+        shift += width
+    ms2 = time_cuda(lambda: F.radix_sort(word, None, shift), reps=10)
+    plain2 = time_cuda(lambda: F.radix_sort_plain(word, None, shift),
+                       reps=5)
+    lib2 = time_cuda(lambda: torch.sort(word, stable=True), reps=10)
+    exact("K8 sparse-join word", zip(F.radix_sort(word, None, shift),
+                                     F.radix_sort_plain(word, None, shift)))
+    b2, _ = bound_ms((nb + P) * (8 + 4), (nb + P) * 8)
+    log(f"K8 sparse join N={nb + P} ({shift} bits): {ms2:.4f} ms (plain "
+        f"{plain2:.4f}, torch.sort(stable) {lib2:.4f}, bound {b2:.4f})")
+
+    # K9: 8,388,608 float64 and int64 values with NULL slots
+    m = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    f64 = torch.from_numpy(rng.normal(size=n)).to(dev)
+    i64 = keys
+    dst = torch.empty(n, dtype=torch.int64, device=dev)
+    timed = {}
+    for name, vals, code in (("float64", f64, 3), ("int64", i64, 2)):
+        timed[name] = (
+            time_cuda(lambda: F.sort_encode(vals, code, None, m, False, 0, 0,
+                                            dst), reps=10),
+            time_cuda(lambda: F.sort_encode_plain(vals, code, None, m, False,
+                                                  0, 0), reps=5))
+        F.sort_encode(vals, code, None, m, False, 0, 0, dst)
+        exact(f"K9 {name}", [(dst, F.sort_encode_plain(
+            vals, code, None, m, False, 0, 0)[0])])
+    b, by = bound_ms(n * (8 + 1 + 8), n * 4)
+    out.append({"name": "sort_encode", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/radix_sort.cu",
+                "replaces": "tidb_tpu/ops/factorize.py:43",
+                "max_abs_err": 0, "ms": timed["float64"][0],
+                "plain_ms": timed["float64"][1], "bound_ms": b,
+                "bound_by": by, "library_ms": None})
+    log(f"K9 n={n} float64: {timed['float64'][0]:.4f} ms (plain "
+        f"{timed['float64'][1]:.4f}); int64: {timed['int64'][0]:.4f} ms "
+        f"(plain {timed['int64'][1]:.4f}); bound {b:.4f} by {by}")
+
+    # K10: 8,388,608 rows in ~10^5 groups, over the kernel's own sort
+    gk = torch.from_numpy(rng.integers(0, 100_000, n)).to(dev)
+    glive = torch.from_numpy(rng.random(n) > 0.02).to(dev)
+    sidx = F.lexsort(F._key_operands([(gk, None)], glive))
+    cap = 131_072
+    ms = time_cuda(lambda: F.group_ids(sidx, gk, None, glive, cap),
+                   reps=10)
+    plain = time_cuda(lambda: F.group_ids_plain(sidx, gk, None, glive, cap),
+                      reps=5)
+    sorted_keys = gk[sidx.long()]
+    lib = time_cuda(lambda: torch.unique_consecutive(sorted_keys,
+                                                     return_inverse=True),
+                    reps=10)
+    got = F.group_ids(sidx, gk, None, glive, cap)
+    want = F.group_ids_plain(sidx, gk, None, glive, cap)
+    exact("K10", zip(got, want))
+    b, by = bound_ms(n * (4 + 8 + 1 + 4) + cap * 4, n * 4)
+    out.append({"name": "group_ids", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/sorted_groups.cu",
+                "replaces": "tidb_tpu/ops/factorize.py:96",
+                "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K10 n={n} groups={int(got[1])} cap={cap}: {ms:.4f} ms (plain "
+        f"{plain:.4f}, unique_consecutive {lib:.4f}, bound {b:.4f} by {by})")
+
+    # K11: 2,097,152 sorted build codes, 8,388,608 probes (unique mode)
+    nb = 2_097_152
+    sc = torch.from_numpy(np.sort(rng.choice(1 << 40, nb,
+                                             replace=False))).to(dev)
+    order = torch.from_numpy(rng.permutation(nb).astype(np.int32)).to(dev)
+    pool = sc.cpu().numpy()
+    probe = torch.from_numpy(np.where(
+        rng.random(n) < 0.8, pool[rng.integers(0, nb, n)],
+        rng.integers(0, 1 << 40, n))).to(dev)
+    ok = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    ms = time_cuda(lambda: J.sorted_search_unique(sc, order, probe, ok),
+                   reps=10)
+    plain = time_cuda(lambda: J.sorted_search_unique_plain(sc, order, probe,
+                                                           ok), reps=5)
+    lib = time_cuda(lambda: torch.searchsorted(sc, probe), reps=10)
+    exact("K11", zip(J.sorted_search_unique(sc, order, probe, ok),
+                     J.sorted_search_unique_plain(sc, order, probe, ok)))
+    b, by = bound_ms(n * (8 + 1) + n * (4 + 1), n * 2 * 21)
+    out.append({"name": "sorted_search", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/sorted_groups.cu",
+                "replaces": "tidb_tpu/ops/join.py:139",
+                "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K11 nb={nb} P={n} unique: {ms:.4f} ms (plain {plain:.4f}, "
+        f"searchsorted {lib:.4f}, bound {b:.4f} by {by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -1002,6 +1497,7 @@ def main() -> int:
     check_k2(dev)
     check_k3(dev)
     check_join_kernels(dev)
+    check_sort_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -1012,15 +1508,24 @@ def main() -> int:
         k["launches"] = launches[names[k["name"]]]
     wire_phase(eng, host["q1"])
     n = int(round(SF1_ROWS * args.sf))
-    join_launches, join_walls, orders, customer = join_sql_phase(s, n)
+    join_launches, join_walls, orders, customer, join_host = \
+        join_sql_phase(s, n)
     join_kernels = join_timing_phase(dev, n, orders, customer)
     for k in join_kernels:
         k["launches"] = join_launches[k["name"]]
     kernels += join_kernels
     walls.update(join_walls)
+    sort_launches, sort_walls, sparse = sort_sql_phase(s, n, orders,
+                                                      join_host["q3"])
+    sort_kernels = sort_timing_phase(dev, sparse)
+    for k in sort_kernels:
+        k["launches"] = sort_launches[k["name"]]
+    kernels += sort_kernels
+    walls.update(sort_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
+    log("sort-phase launches of every kernel: " + json.dumps(sort_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

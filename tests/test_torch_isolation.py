@@ -56,7 +56,19 @@ def test_import_and_query_load_no_jax_module():
         "rows = s.query('SELECT d, COUNT(*), SUM(b) FROM t JOIN u '\n"
         "               'ON t.a = u.a GROUP BY d ORDER BY d').rows\n"
         "assert len(rows) == 3, rows\n"
+        "s.execute('CREATE TABLE v (k DOUBLE, e BIGINT)')\n"
+        "s.execute('INSERT INTO v VALUES (0.5, 1), (1.5, 2), (3.5, 3)')\n"
+        "rows = s.query('SELECT e, COUNT(*) FROM t JOIN v '\n"
+        "               'ON t.a + 0.5 = v.k GROUP BY e ORDER BY e').rows\n"
+        "assert len(rows) == 3, rows\n"
+        "rows = s.query('SELECT t.a, d FROM t JOIN u ON t.a = u.a '\n"
+        "               'ORDER BY b DESC, t.a LIMIT 4').rows\n"
+        "assert len(rows) == 4, rows\n"
+        "rows = s.query('SELECT t.a, d FROM t JOIN u ON t.a = u.a '\n"
+        "               'LIMIT 7').rows\n"
+        "assert len(rows) == 7, rows\n"
         "import tidb_tpu_torch.executor.tree_fragment\n"
+        "import tidb_tpu_torch.ops.factorize\n"
         "import tidb_tpu_torch.ops.join\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tidb_tpu' or m.startswith('tidb_tpu.')]\n"

@@ -1,7 +1,9 @@
-"""The port's LUT join primitives (tidb_tpu_torch/ops/join.py) against the
-JAX package's (tidb_tpu/ops/join.py) on the CPU, and the four join kernels
-(K4 lut_build, K5 lut_probe, K6 lut_order, K7 join_expand) against their
-plain torch versions on the card.
+"""The port's join primitives (tidb_tpu_torch/ops/join.py), LUT and sort
+formulations, against the JAX package's (tidb_tpu/ops/join.py) on the CPU;
+the four LUT join kernels (K4 lut_build, K5 lut_probe, K6 lut_order, K7
+join_expand) and the four sort kernels (K8 radix_sort, K9 sort_encode,
+K10 group_ids, K11 sorted_search) against their plain torch versions on
+the card.
 
 The same seed-made numpy inputs go through both packages. Ints and bools
 must be exactly equal, with two documented exceptions that the JAX
@@ -207,6 +209,95 @@ def test_lut_join_raw_keys_match_jax(jx, k, unique):
 
 
 # ---------------------------------------------------------------------------
+# Sort formulation: combine_keys, sorted_probe_unique/multi
+# ---------------------------------------------------------------------------
+
+
+def _sparse(rng, n, pool):
+    return pool[rng.integers(0, len(pool), n)]
+
+
+def _sort_join_case(seed, k, nb, npr, unique):
+    """k key columns of sparse 62-bit values (build drawn from a pool the
+    probe shares in part), NULLs, dead rows; a unique build when asked."""
+    rng = np.random.default_rng(seed)
+    pools = [rng.integers(0, 1 << 62, max(nb, 4)) for _ in range(k)]
+    bkeys, pkeys = [], []
+    cells = rng.permutation(max(nb, 4) ** k if k < 3 else 4 ** 9)[:nb] \
+        if unique else None
+    for q, pool in enumerate(pools):
+        if unique:
+            bv = pool[(cells // max(nb, 4) ** q) % len(pool)] if k < 3 \
+                else pool[(cells >> (2 * q)) % 4]
+        else:
+            bv = _sparse(rng, nb, pool[: max(2, nb // 3)])
+        pv = np.where(rng.random(npr) < 0.8, _sparse(rng, npr, pool),
+                      rng.integers(0, 1 << 62, npr))
+        null_b = 0.0 if unique else 0.05
+        bkeys.append((bv.astype(np.int64), rng.random(nb) >= null_b))
+        pkeys.append((pv.astype(np.int64), rng.random(npr) > 0.05))
+    blive = rng.random(nb) > (0.0 if unique else 0.1)
+    plive = rng.random(npr) > 0.1
+    return bkeys, pkeys, blive, plive
+
+
+def _combined(JJ, jnp, bkeys, pkeys, blive, plive):
+    both = [(np.concatenate([bv, pv]), np.concatenate([bm, pm]))
+            for (bv, bm), (pv, pm) in zip(bkeys, pkeys)]
+    live = np.concatenate([blive, plive])
+    jc, jv = JJ.combine_keys([(jnp.asarray(v), jnp.asarray(m))
+                              for v, m in both], jnp.asarray(live))
+    tc, tv = TJ.combine_keys([(_t(v), _t(m)) for v, m in both], _t(live))
+    return (np.asarray(jc), np.asarray(jv)), (_np(tc), _np(tv))
+
+
+SORT_CASES = [(1, 300, 900, True), (1, 300, 900, False), (2, 200, 500, False),
+              (3, 150, 400, True), (1, 1, 50, True), (2, 5000, 7000, False)]
+
+
+@pytest.mark.parametrize("k,nb,npr,unique", SORT_CASES)
+def test_combine_keys_matches_jax(jx, k, nb, npr, unique):
+    JJ, jnp = jx
+    bkeys, pkeys, blive, plive = _sort_join_case(k * nb, k, nb, npr, unique)
+    (jc, jv), (tc, tv) = _combined(JJ, jnp, bkeys, pkeys, blive, plive)
+    assert np.array_equal(jv, tv)
+    assert np.array_equal(jc, tc)
+
+
+@pytest.mark.parametrize("k,nb,npr,unique", SORT_CASES)
+def test_sorted_probe_unique_matches_jax(jx, k, nb, npr, unique):
+    JJ, jnp = jx
+    bkeys, pkeys, blive, plive = _sort_join_case(k + nb, k, nb, npr, unique)
+    (codes, valid), _ = _combined(JJ, jnp, bkeys, pkeys, blive, plive)
+    args = (codes[:nb], valid[:nb], blive, codes[nb:], valid[nb:], plive)
+    jidx, jm, ju = JJ.sorted_probe_unique(*(jnp.asarray(a) for a in args))
+    tidx, tm, tu = TJ.sorted_probe_unique(*(_t(a) for a in args))
+    assert bool(ju) == bool(tu)
+    assert np.array_equal(np.asarray(jm), _np(tm))
+    if bool(ju):
+        assert np.array_equal(np.asarray(jidx), _np(tidx))
+    # every match points at a build row of the probe's code
+    hit = _np(tm)
+    assert (codes[:nb][_np(tidx)[hit]] == codes[nb:][hit]).all()
+    assert (_np(tidx)[~hit] == 0).all()
+
+
+@pytest.mark.parametrize("k,nb,npr,unique", SORT_CASES)
+def test_sorted_probe_multi_matches_jax(jx, k, nb, npr, unique):
+    JJ, jnp = jx
+    bkeys, pkeys, blive, plive = _sort_join_case(3 * k + nb, k, nb, npr,
+                                                 unique)
+    (codes, valid), _ = _combined(JJ, jnp, bkeys, pkeys, blive, plive)
+    args = (codes[:nb], valid[:nb] & blive, codes[nb:], valid[nb:] & plive)
+    js, jc, jo = JJ.sorted_probe_multi(*(jnp.asarray(a) for a in args))
+    ts, tc, to = TJ.sorted_probe_multi(*(_t(a) for a in args))
+    assert np.array_equal(np.asarray(js), _np(ts))
+    assert np.array_equal(np.asarray(jc), _np(tc))
+    # the build order with the dead/NULL sentinel tail, element for element
+    assert np.array_equal(np.asarray(jo), _np(to))
+
+
+# ---------------------------------------------------------------------------
 # K4-K7 against their plain versions on the card
 # ---------------------------------------------------------------------------
 
@@ -292,3 +383,141 @@ def test_k7_matches_plain(cuda, outer, P, nb, dom, out_cap):
     if P:
         assert bool(((gp >= 0) & (gp < P)).all())
     assert bool(((gb >= 0) & (gb < nb)).all())
+
+
+# ---------------------------------------------------------------------------
+# K8-K11 against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+
+def _special_values(rng, kind, n):
+    if kind == "f64":
+        v = np.round(rng.normal(size=n), 2)
+        pick = rng.random(n) < 0.5
+        v[pick] = rng.choice(np.array([0.0, -0.0, np.inf, -np.inf, np.nan,
+                                       1.5]), int(pick.sum()))
+        return v
+    if kind == "i32":
+        return rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    if kind == "i64":
+        return rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    if kind == "bool":
+        return rng.random(n) > 0.5
+    return rng.integers(0, 5, n).astype(np.int32)       # dict codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 4097, 100_003])
+@pytest.mark.parametrize("end_bit", [1, 13, 64])
+def test_k8_matches_plain(cuda, n, end_bit):
+    from tidb_tpu_torch.ops import factorize as F
+    rng = np.random.default_rng(n + end_bit)
+    keys = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, n,
+                                         dtype=np.int64))
+    if end_bit < 64:
+        keys = keys & ((1 << end_bit) - 1)
+    keys = keys.to(cuda)
+    vals = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    for v in (None, vals):
+        gk, gv = F.radix_sort(keys, v, end_bit)
+        wk, wv = F.radix_sort_plain(keys, v, end_bit)
+        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f64", "i32", "i64", "bool", "code"])
+@pytest.mark.parametrize("desc", [False, True])
+def test_k9_matches_plain(cuda, kind, desc):
+    from tidb_tpu_torch.ops import factorize as F
+    rng = np.random.default_rng(len(kind) + desc)
+    n = 4097
+    v, code = F._k9_operand(torch.from_numpy(
+        np.asarray(_special_values(rng, kind, n))).to(cuda))
+    m = torch.from_numpy(rng.random(n) > 0.2).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    stats = torch.tensor([-1, 0], dtype=torch.int64, device=cuda)
+    F.sort_encode(v, code, None, m, desc, 0, 0, stats=stats)
+    _, (lo, hi) = F.sort_encode_plain(v, code, None, m, desc, 0, 0)
+    assert [x & ((1 << 64) - 1) for x in stats.tolist()] == [lo, hi]
+    out = torch.empty(n, dtype=torch.int64, device=cuda)
+    F.sort_encode(v, code, perm, m, desc, lo, 1, out)
+    want, _ = F.sort_encode_plain(v, code, perm, m, desc, lo, 1)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [["f64"], ["i32"], ["i64"], ["bool"],
+                                  ["code", "f64"], ["i64", "bool", "code"]])
+@pytest.mark.parametrize("n", [1, 1000, 4097, 100_003])
+def test_k8_k9_k10_sort_functions_match_plain(cuda, spec, n):
+    """factorize / sort_perm / topn / pack_codes on the card (K9 + K8 +
+    K10) equal the same functions over the same tensors on the CPU (the
+    plain versions), with NULLs, dead rows, NaN / ±0.0 / ±inf and a cap
+    below the group count."""
+    from tidb_tpu_torch.ops import factorize as F
+    rng = np.random.default_rng(n * len(spec))
+    keys = [(torch.from_numpy(np.asarray(_special_values(rng, k, n))),
+             torch.from_numpy(rng.random(n) > 0.1)) for k in spec]
+    live = torch.from_numpy(rng.random(n) > 0.2)
+    dkeys = [(v.to(cuda), m.to(cuda)) for v, m in keys]
+    dlive = live.to(cuda)
+    for cap in (3, 2 * n):
+        got = F.factorize(dkeys, dlive, cap)
+        want = F.factorize(keys, live, cap)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    for descs in ([False] * len(spec), [True] * len(spec)):
+        gp, gn = F.sort_perm(dkeys, descs, dlive)
+        wp, wn = F.sort_perm(keys, descs, live)
+        assert torch.equal(gp.cpu(), wp) and int(gn) == int(wn)
+        gi, go = F.topn(dkeys, descs, dlive, 10)
+        wi, wo = F.topn(keys, descs, live, 10)
+        assert torch.equal(gi.cpu(), wi) and int(go) == int(wo)
+    assert torch.equal(F.pack_codes(dkeys, dlive).cpu(),
+                       F.pack_codes(keys, live))
+    assert torch.equal(F.partition_perm(dlive).cpu(),
+                       F.partition_perm(live))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,nb,npr,unique", SORT_CASES + [
+    (1, 200_000, 1_000_000, True), (2, 100_000, 300_000, False)])
+def test_k11_matches_plain(cuda, k, nb, npr, unique):
+    bkeys, pkeys, blive, plive = _sort_join_case(7 * k + nb, k, nb, npr,
+                                                 unique)
+    both = [(_t(np.concatenate([bv, pv])), _t(np.concatenate([bm, pm])))
+            for (bv, bm), (pv, pm) in zip(bkeys, pkeys)]
+    live = _t(np.concatenate([blive, plive]))
+    codes, valid = TJ.combine_keys(both, live)
+    gc, gv = TJ.combine_keys([(v.to(cuda), m.to(cuda)) for v, m in both],
+                             live.to(cuda))
+    assert torch.equal(gc.cpu(), codes) and torch.equal(gv.cpu(), valid)
+    bl, pl = _t(blive), _t(plive)
+    args = (codes[:nb], valid[:nb], bl, codes[nb:], valid[nb:], pl)
+    got = TJ.sorted_probe_unique(*(a.to(cuda) for a in args),
+                                 code_bound=(nb + npr + 1) ** 2)
+    want = TJ.sorted_probe_unique(*args)
+    assert bool(got[2]) == bool(want[2])
+    assert torch.equal(got[1].cpu(), want[1])
+    if bool(want[2]):
+        assert torch.equal(got[0].cpu(), want[0])
+    margs = (codes[:nb], valid[:nb] & bl, codes[nb:], valid[nb:] & pl)
+    got = TJ.sorted_probe_multi(*(a.to(cuda) for a in margs))
+    want = TJ.sorted_probe_multi(*margs)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    # K11 alone, against its plain version on the card's own sort
+    sc, order = TJ.sorted_build(margs[0].to(cuda), margs[1].to(cuda))
+    pc, ok = margs[2].to(cuda), margs[3].to(cuda)
+    for a, b in zip(TJ.sorted_search_unique(sc, order, pc, ok),
+                    TJ.sorted_search_unique_plain(sc, order, pc, ok)):
+        assert torch.equal(a, b)
+    for a, b in zip(TJ.sorted_search_multi(sc, pc, ok),
+                    TJ.sorted_search_multi_plain(sc, pc, ok)):
+        assert torch.equal(a, b)
+    table = torch.sort(codes[:nb]).values
+    for right in (False, True):
+        assert torch.equal(
+            TJ.searchsorted(table.to(cuda), codes[nb:].to(cuda),
+                            right).cpu(),
+            torch.searchsorted(table, codes[nb:], right=right))

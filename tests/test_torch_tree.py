@@ -11,8 +11,10 @@ rule (multisets unless ORDER BY; floats within 1e-5 relative).
 Shapes mirror tests/test_tree_fragment.py, tests/test_fused_pipeline.py and
 tests/test_aligned_join.py at a few thousand rows: bench.py's Q3 and Q5,
 every join kind with and without other conditions, a lost unique bet, an
-expand resize, blocked passes, the aligned and fused paths on and off, and
-a multi-slab probe."""
+expand resize, blocked passes, the aligned and fused paths on and off, a
+multi-slab probe, joins on keys with no bounded domain (DOUBLE keys, 62-bit
+surrogate keys, five key columns — the sort formulation), TPC-H Q3, and
+TopN / Sort / LIMIT roots directly over a join."""
 
 import numpy as np
 import pytest
@@ -31,6 +33,23 @@ Q5 = """SELECT c_mktsegment, COUNT(*),
  JOIN customer ON o_custkey = c_custkey
  WHERE l_shipdate <= '1998-09-02'
  GROUP BY c_mktsegment ORDER BY c_mktsegment"""
+
+#: TPC-H Q3 (spec §2.4.3) without o_shippriority, which these tables lack
+TPCH_Q3 = """SELECT l_orderkey, SUM(l_extendedprice * (1 - l_discount))
+ AS revenue, o_orderdate
+ FROM customer JOIN orders ON c_custkey = o_custkey
+ JOIN lineitem ON l_orderkey = o_orderkey
+ WHERE c_mktsegment = 'BUILDING' AND o_orderdate < '1995-03-15'
+ AND l_shipdate > '1995-03-15'
+ GROUP BY l_orderkey, o_orderdate ORDER BY revenue DESC, o_orderdate
+ LIMIT 10"""
+
+#: bench.py's Q3 over the same rows keyed by sparse 62-bit surrogate keys
+Q3_SK = """SELECT o_orderpriority, COUNT(*),
+ SUM(l_extendedprice * (1 - l_discount))
+ FROM lineitem_sk JOIN orders_sk ON l_okey = o_okey
+ WHERE l_shipdate <= '1998-09-02' AND o_orderdate < '1998-01-01'
+ GROUP BY o_orderpriority ORDER BY o_orderpriority"""
 
 #: build = filtered orders, not unique on o_custkey: the unique bet is lost
 EXPAND = ("SELECT c_mktsegment, COUNT(*) FROM customer JOIN orders "
@@ -60,7 +79,22 @@ DDL = [
     "a5 BIGINT, av BIGINT)",
     "CREATE TABLE k5b (b1 BIGINT, b2 BIGINT, b3 BIGINT, b4 BIGINT, "
     "b5 BIGINT, bw BIGINT)",
+    "CREATE TABLE orders_sk (o_okey BIGINT, o_orderdate DATE, "
+    "o_orderpriority CHAR(1))",
+    "CREATE TABLE lineitem_sk (l_extendedprice DECIMAL(15,2), "
+    "l_discount DECIMAL(15,2), l_shipdate DATE, l_okey BIGINT)",
+    "CREATE TABLE od_sk (o_ok BIGINT, o_prio BIGINT)",
+    "CREATE TABLE li_sk (l_ok BIGINT, l_price DECIMAL(12,2))",
 ]
+
+
+def sparse_key(k):
+    """The injective map k ↦ k·0x9E3779B97F4A7C15 mod 2^62 (an odd
+    multiplier is a bijection mod 2^62): dense ids become 62-bit
+    surrogate keys with no small domain."""
+    k = np.asarray(k).astype(np.uint64)
+    return ((k * np.uint64(0x9E3779B97F4A7C15)) &
+            np.uint64((1 << 62) - 1)).astype(np.int64)
 
 
 def _tables():
@@ -122,12 +156,26 @@ def _tables():
     k5a["av"] = rng.integers(0, 100, 1200)
     k5b = {f"b{i}": rng.integers(0, 4, 80) for i in range(1, 6)}
     k5b["bw"] = np.arange(80)
+    orders_sk = {"o_okey": sparse_key(orders["o_orderkey"]),
+                 "o_orderdate": orders["o_orderdate"],
+                 "o_orderpriority": orders["o_orderpriority"]}
+    lineitem_sk = {c: lineitem[c] for c in ("l_extendedprice", "l_discount",
+                                            "l_shipdate")}
+    lineitem_sk["l_okey"] = sparse_key(lineitem["l_orderkey"])
+    # 5,000 orders on sparse ids; lineitems with misses and NULL keys
+    od_sk = {"o_ok": sparse_key(np.arange(5000)),
+             "o_prio": rng.integers(0, 5, 5000)}
+    li_sk = {"l_ok": sparse_key(rng.integers(0, 5300, 20000)),
+             "l_price": rng.integers(100, 90_000, 20000)}
+    li_sk_valid = {"l_ok": rng.random(20000) > 0.02}
     return {"lineitem": (lineitem, None), "orders": (orders, None),
             "customer": (customer, None), "od": (od, None),
             "li": (li, li_valid), "segs": (segtab, None),
             "prio_names": (prio, None), "fa": (fa, None), "fb": (fb, None),
             "dx": (dx, None), "dy": (dy, None), "k5a": (k5a, None),
-            "k5b": (k5b, None)}
+            "k5b": (k5b, None), "orders_sk": (orders_sk, None),
+            "lineitem_sk": (lineitem_sk, None), "od_sk": (od_sk, None),
+            "li_sk": (li_sk, li_sk_valid)}
 
 
 @pytest.fixture(scope="module")
@@ -214,8 +262,11 @@ def test_join_kinds_match_jax(twins, kind, aligned):
     # a join root: rows come back compacted on the device
     "SELECT l_oid, l_price, o_prio FROM li JOIN od ON l_oid = o_id "
     "WHERE l_price > 89000",
+    # computed keys: no bounds, the sort formulation
+    "SELECT o_prio, COUNT(*), SUM(l_price) FROM li JOIN od "
+    "ON l_oid + 1 = o_id + 1 GROUP BY o_prio",
 ], ids=["non-unique", "non-unique-left", "string-key", "three-tables",
-        "join-root"])
+        "join-root", "computed-key"])
 def test_tree_shapes_match_jax(twins, sql):
     _check(twins, sql)
 
@@ -251,47 +302,74 @@ def test_repeat_reuses_program(twins):
 
 
 def test_unbounded_key_falls_back_visibly(twins):
-    """A DOUBLE key has no cached bounds: the LUT join refuses it before
-    any launch with reason `shape`, and strict mode turns that into an
-    error."""
-    _falls_back_visibly(twins, "SELECT COUNT(*), SUM(x_v + y_w) FROM dx "
-                               "JOIN dy ON x_d = y_d")
+    """A DOUBLE key has no cached bounds. It used to decline as
+    `fallback(shape)`; it now runs the sort formulation on the device
+    (no fallback code, no error under strict) and equals the JAX engine."""
+    _runs_sort_join(twins, "SELECT COUNT(*), SUM(x_v + y_w) FROM dx "
+                           "JOIN dy ON x_d = y_d")
 
 
 def test_too_many_key_columns_fall_back_visibly(twins):
-    """Five bounded key columns in a small packed domain: more than K4/K5
-    pack, so the join is refused at plan time like an unbounded key."""
-    _falls_back_visibly(twins, "SELECT COUNT(*), SUM(av + bw) FROM k5a "
-                               "JOIN k5b ON a1 = b1 AND a2 = b2 AND "
-                               "a3 = b3 AND a4 = b4 AND a5 = b5")
+    """Five bounded key columns: more than K4/K5 pack. The join used to
+    decline at plan time; it now takes the sort formulation on the
+    device and equals the JAX engine."""
+    _runs_sort_join(twins, "SELECT COUNT(*), SUM(av + bw) FROM k5a "
+                           "JOIN k5b ON a1 = b1 AND a2 = b2 AND "
+                           "a3 = b3 AND a4 = b4 AND a5 = b5")
 
 
-def _falls_back_visibly(twins, sql):
-    from tidb_tpu_torch.errors import ExecutionError
-    from tidb_tpu_torch.executor import build, run_to_completion
-    from tidb_tpu_torch.ops import cuda_kernels as ck
-    from tidb_tpu_torch.parser import parse
+def _runs_sort_join(twins, sql, extra=None):
+    """The join runs in the device fragment under tidb_tpu_strict (any
+    fallback would raise) with the sort formulation's kernel entry points
+    (K4/K5's wrappers never called) and equals the JAX engine."""
+    from unittest import mock
+
+    from tidb_tpu_torch.ops import join as J
     js, ts = twins
-    ts.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1})
-    try:
-        root = build(ts._plan(parse(sql)[0]))
-        before = ck.launches()
-        rows = [r for ch in run_to_completion(root, ts._exec_ctx())
-                for r in ch.rows()]
-        assert ck.launches() == before
-        frag = next(e for e in _walk_exec(root)
-                    if e.__class__.__name__ == "TpuFragmentExec")
-        assert frag.fallback_code == "shape"
-        assert "device:fallback(shape)" in frag.runtime_info()
-        ts.vars["tidb_tpu_strict"] = 1
-        with pytest.raises(ExecutionError):
-            run_to_completion(build(ts._plan(parse(sql)[0])),
-                              ts._exec_ctx())
-    finally:
-        ts.vars.update({"tidb_tpu_engine": "off", "tidb_tpu_strict": 0})
-    assert_same(rows, ts.query(sql).rows)
-    want, _ = run_jax(js, sql)
-    assert_same(want, rows)
+    strict = dict(extra or {}, tidb_tpu_strict=1)
+    with mock.patch.object(J, "lut_build", side_effect=AssertionError(
+            "LUT build on a sort-formulation join")), \
+            mock.patch.object(J, "sorted_probe_unique",
+                              wraps=J.sorted_probe_unique) as su, \
+            mock.patch.object(J, "sorted_probe_multi",
+                              wraps=J.sorted_probe_multi) as sm:
+        got, frags = run_port_tree(ts, sql, extra=strict)
+    assert su.call_count + sm.call_count > 0
+    for f in frags:
+        assert "fallback" not in f.runtime_info()
+    want, _ = run_jax(js, sql, extra=extra)
+    assert_same(want, got, ordered="ORDER BY" in sql)
+    return got
+
+
+@pytest.mark.parametrize("aligned", [1, 0])
+def test_sparse_key_q3_matches_jax_and_dense_q3(twins, aligned):
+    """bench.py's Q3 over 62-bit surrogate keys: the sort formulation on
+    the device equals the JAX engine and the dense-key Q3's rows."""
+    extra = {"tidb_tpu_aligned_join": aligned}
+    got = _runs_sort_join(twins, Q3_SK, extra=extra)
+    dense, _ = run_jax(twins[0], Q3, extra=extra)
+    assert_same(dense, got, ordered=True)
+
+
+@pytest.mark.parametrize("fused", [1, 0])
+def test_sparse_key_join_kinds_match_jax(twins, fused):
+    extra = {"tidb_tpu_fused_pipeline": fused}
+    _runs_sort_join(twins, "SELECT o_prio, COUNT(*), SUM(l_price) FROM "
+                           "li_sk JOIN od_sk ON l_ok = o_ok GROUP BY o_prio",
+                    extra=extra)
+    _runs_sort_join(twins, "SELECT o_prio, COUNT(*), COUNT(o_ok), "
+                           "SUM(l_price) FROM li_sk LEFT JOIN od_sk "
+                           "ON l_ok = o_ok GROUP BY o_prio", extra=extra)
+
+
+@pytest.mark.parametrize("extra", [{}, {"tidb_tpu_fused_pipeline": 0},
+                                   {"tidb_tpu_aligned_join": 0}],
+                         ids=["default", "unfused", "unaligned"])
+def test_tpch_q3_matches_jax(twins, extra):
+    """TPC-H Q3: GROUP BY l_orderkey, o_orderdate has no perfect-hash
+    domain, so every slab runs the sort factorize."""
+    _check(twins, TPCH_Q3, extra=extra)
 
 
 def _walk_exec(e):
@@ -318,16 +396,12 @@ def _walk(plan):
      "FROM li JOIN od ON l_oid = o_id", "PhysWindow"),
     ("SELECT o_prio, COUNT(DISTINCT l_oid) FROM li JOIN od ON l_oid = o_id "
      "GROUP BY o_prio", "distinct"),
-    ("SELECT l_oid, o_prio FROM li JOIN od ON l_oid = o_id LIMIT 5",
-     "PhysLimit"),
-    ("SELECT l_oid, l_price, o_prio FROM li JOIN od ON l_oid = o_id "
-     "ORDER BY l_price DESC, l_oid LIMIT 7", "PhysTopN"),
-], ids=["window", "distinct", "limit", "topn-over-join"])
+], ids=["window", "distinct"])
 def test_unported_shapes_stay_off_the_device(twins, sql, excluded):
-    """Windows, DISTINCT aggregates, a LIMIT root and TopN directly over a
-    join are not in the port yet: the plan keeps them outside every device
-    fragment (EXPLAIN shows them as CPU operators), and the statement
-    still answers as the JAX engine does."""
+    """Windows and DISTINCT aggregates are not in the port yet: the plan
+    keeps them outside every device fragment (EXPLAIN shows them as CPU
+    operators), and the statement still answers as the JAX engine
+    does."""
     from tidb_tpu_torch.parser import parse
     js, ts = twins
     ts.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1})
@@ -347,9 +421,87 @@ def test_unported_shapes_stay_off_the_device(twins, sql, excluded):
     assert "TpuFragment" not in top, explain
     want, _ = run_jax(js, sql)
     got = [tuple(r) for r in ts.query(sql).rows]
-    if excluded in ("PhysWindow", "PhysLimit"):
-        # row numbers over tied keys and an unordered LIMIT may pick other
-        # rows: compare the shape of the answer
+    if excluded == "PhysWindow":
+        # row numbers over tied keys may pick other rows: compare the
+        # shape of the answer
         assert len(want) == len(got)
+    else:
+        assert_same(want, got, ordered="ORDER BY" in sql)
+
+
+JOIN_ROWS = ("SELECT l_oid, l_price, o_prio FROM li JOIN od "
+             "ON l_oid = o_id")
+
+
+@pytest.mark.parametrize("tail,root", [
+    ("LIMIT 5", "PhysLimit"),
+    ("LIMIT 3, 40", "PhysLimit"),
+    ("LIMIT 100000", "PhysLimit"),
+    ("ORDER BY l_price DESC, l_oid LIMIT 7", "PhysTopN"),
+    ("ORDER BY o_prio, l_price DESC, l_oid LIMIT 2, 30", "PhysTopN"),
+    ("ORDER BY l_price, l_oid", "PhysSort"),
+], ids=["limit", "limit-offset", "limit-over-all", "topn-over-join",
+        "topn-offset-3-keys", "sort-over-join"])
+def test_order_and_limit_roots_run_on_the_device(twins, tail, root):
+    """TopN / Sort and LIMIT directly over a join run inside the join-tree
+    fragment (it is EXPLAIN's top operator) and answer as the JAX engine:
+    ordered roots row for row; an unordered LIMIT by its count and by
+    membership in the host engine's unlimited join (it may pick other
+    rows, as the JAX package's own test allows)."""
+    from collections import Counter
+
+    from tidb_tpu_torch.parser import parse
+    js, ts = twins
+    sql = f"{JOIN_ROWS} {tail}"
+    ts.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1})
+    try:
+        plan = ts._plan(parse(sql)[0])
+        explain = ts.query("EXPLAIN " + sql).rows
+    finally:
+        ts.vars["tidb_tpu_engine"] = "off"
+    assert [type(r).__name__ for r in _fragment_roots(plan)] == [root]
+    assert "TpuFragment" in explain[0][0], explain
+    want, _ = run_jax(js, sql)
+    got, _ = run_port_tree(ts, sql, extra={"tidb_tpu_strict": 1})
+    if root != "PhysLimit":
+        assert_same(want, got, ordered=True)
+        return
+    assert len(got) == len(want)
+    full = Counter(tuple(r) for r in ts.query(JOIN_ROWS).rows)
+    assert not Counter(tuple(r) for r in got) - full
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT w, x FROM wa JOIN wb ON wa.k = wb.k WHERE x > 50",
+    "SELECT w, x FROM wa JOIN wb ON wa.k = wb.k ORDER BY x, wa.k LIMIT 5",
+    "SELECT w, x FROM wa JOIN wb ON wa.k = wb.k LIMIT 5",
+    "SELECT w, k FROM wa WHERE k > 40",
+], ids=["join-root", "topn-over-join", "limit-over-join", "chain-root"])
+def test_wide_decimal_row_roots_stay_on_the_host(sql):
+    """A row root that returns a wide-decimal column (limb planes on the
+    device) stays on the CPU engine at plan time: the JAX package's device
+    run fails on it and reruns on the CPU (ROADMAP queue 3). The answer
+    equals the JAX engine's."""
+    from tidb_tpu_torch.parser import parse
+    rng = np.random.default_rng(31)
+    js, ts = twin_sessions(
+        ["CREATE TABLE wa (k BIGINT, w DECIMAL(30,2))",
+         "CREATE TABLE wb (k BIGINT PRIMARY KEY, x BIGINT)"],
+        {"wa": ({"k": rng.integers(0, 50, 300),
+                 "w": rng.integers(0, 10 ** 6, 300)}, None),
+         "wb": ({"k": np.arange(50), "x": rng.integers(0, 100, 50)},
+                None)})
+    ts.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1,
+                    "tidb_tpu_strict": 1})
+    try:
+        for root in _fragment_roots(ts._plan(parse(sql)[0])):
+            assert not any(ft.is_wide_decimal
+                           for ft in root.schema.field_types), sql
+        got = [tuple(r) for r in ts.query(sql).rows]
+    finally:
+        ts.vars.update({"tidb_tpu_engine": "off", "tidb_tpu_strict": 0})
+    want, _ = run_jax(js, sql)
+    if "LIMIT" in sql and "ORDER BY" not in sql:
+        assert len(got) == len(want)
     else:
         assert_same(want, got, ordered="ORDER BY" in sql)

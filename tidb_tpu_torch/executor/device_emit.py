@@ -11,7 +11,9 @@ the fragment's device: `ctx` is an expression EvalContext whose namespace
 is ops/xp.TorchXP, `live` the row-liveness mask (the sel vector analog).
 They run eagerly; the hot row-scale loops are hand-written CUDA kernels
 (K1 segment_reduce under every aggregate state update, K2 unpack_decode
-in emit_decode, K3 perfect_group_ids in _perfect_groups).
+in emit_decode, K3 perfect_group_ids in _perfect_groups, and the sort
+kernels K8-K10 under factorize / sort_perm / topn and the LIMIT
+partition, ops/factorize.py).
 """
 
 from __future__ import annotations
@@ -53,15 +55,27 @@ def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
     """Root reduction dispatch for one slab.
 
     → HashAgg: emit_agg's {keys, states, n_groups, slot_live};
-      TopN/Sort: {cols, n_out} (gathered in output order, truncated to k
-      for TopN); any row root (Selection/Projection/Scan): padded
-      {cols, live}. A LIMIT root never reaches a chain program (the
-      chain gate admits none; the JAX package lowers it only in its
-      join-tree programs)."""
-    from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysSort,
-                                                 PhysTopN)
+      Limit/TopN/Sort: {cols, n_out} (gathered in output order, truncated
+      to k for Limit/TopN); any row root (Selection/Projection/Scan/Join):
+      padded {cols, live}. Only the join-tree programs reach the LIMIT
+      branch (the chain gate admits no LIMIT root), as in the JAX
+      package."""
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysLimit,
+                                                 PhysSort, PhysTopN)
     if isinstance(root, PhysHashAgg):
         return emit_agg(ctx, live, root, aggs, group_cap, key_bounds)
+    if isinstance(root, PhysLimit):
+        # LIMIT pushdown (no ORDER BY): the first offset+count live rows
+        # in row order — a stable partition of the live mask (one 1-bit
+        # K8 pass), the degenerate keyless emit_topk
+        n = live.shape[0]
+        k = min(root.count + root.offset, slab_cap or n)
+        idx = F.partition_perm(live)[:k]
+        n_out = torch.clamp(live.sum().to(torch.int32), max=k)
+        out_cols = [ctx.column(i) for i in range(len(root.schema))]
+        return {"cols": [(v[idx], m[idx]) for v, m in out_cols],
+                "n_out": n_out}
     if isinstance(root, (PhysTopN, PhysSort)):
         keys = [e.eval(ctx) for e in root.by]
         out_cols = [ctx.column(i) for i in range(len(root.schema))]
@@ -293,9 +307,9 @@ def _perfect_groups(ctx: EvalContext, live, root, cap: int, key_bounds):
     gids_raw = perfect_group_ids(keys, live, key_bounds, strides, cap)
     occupied = seg.segment_reduce("sum", live.to(torch.int32), gids_raw,
                                   cap) > 0
-    # compact occupied slots to the front (a sort over cap, not rows)
-    perm = torch.sort(torch.logical_not(occupied).to(torch.uint8),
-                      stable=True).indices
+    # compact occupied slots to the front (a 1-bit sort over cap, not rows)
+    from tidb_tpu_torch.ops.factorize import partition_perm
+    perm = partition_perm(occupied)
     n_groups = occupied.sum().to(torch.int32)
     inv = torch.empty(cap, dtype=torch.int32, device=dev)
     inv[perm] = torch.arange(cap, dtype=torch.int32, device=dev)

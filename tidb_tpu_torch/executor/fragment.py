@@ -247,7 +247,21 @@ def _exprs_device_ok(exprs: Sequence[Expression]) -> bool:
     return True
 
 
+def _row_root_ok(plan: PhysicalPlan) -> bool:
+    """A row root (anything but an aggregate, or an ORDER BY / TopN over
+    one) returns its columns as the device holds them. A wide decimal's
+    limb planes have no row gather or decode there — the JAX package's
+    device run fails on them and reruns on the CPU — so a row root with
+    a wide-decimal output column stays on the CPU engine."""
+    _order, below = _strip_order_root(plan)
+    if isinstance(below, PhysHashAgg):
+        return True
+    return not any(ft.is_wide_decimal for ft in plan.schema.field_types)
+
+
 def _fragment_ok(plan: PhysicalPlan, threshold: int) -> bool:
+    if not _row_root_ok(plan):
+        return False
     chain = _linearize(plan)
     if chain is None:
         return False
@@ -688,7 +702,8 @@ def _tree_program(sig: str, kind: str, root, caps, group_cap, device,
             if prog is None:
                 t0 = time.perf_counter()
                 prog = TreeProgram(root, caps, group_cap, join_cfgs,
-                                   agg_key_bounds, scan_layouts, device)
+                                   agg_key_bounds, scan_layouts,
+                                   device=device)
                 _cache_put(sig, prog)
                 _charge_compile(kind, t0)
     return prog
@@ -1729,9 +1744,6 @@ class TpuFragmentExec:
                       for s, (e, u) in zip(scans, ents)}
         scan_bounds = {id(s): e.bounds for s, (e, _) in zip(scans, ents)}
         join_cfgs = TF.plan_join_configs(root, scan_bounds)
-        # an unbounded build key has no LUT formulation in the port: refuse
-        # before any launch (tidb_tpu_strict turns this into an error)
-        TF.require_lut_bounds(root, join_cfgs)
         flows, root_dicts = TF.dictionary_flows(root, scan_dicts)
         scan_inputs = tuple({i: list(e.dev[i]) for i in u}
                             for e, u in ents)
@@ -1818,6 +1830,15 @@ class TpuFragmentExec:
             if is_agg:
                 fetch["ng"] = out["n_groups"]
                 _piggyback_agg(fetch, out, gcap)
+            elif isinstance(root, (PhysTopN, PhysSort, PhysLimit)):
+                fetch["no"] = out["n_out"]
+                if isinstance(root, (PhysTopN, PhysLimit)) and \
+                        out["cols"] and \
+                        out["cols"][0][0].shape[-1] <= SMALL_GROUP_CAP:
+                    # the device result is ALREADY truncated to
+                    # min(count+offset, rows): when that shape is small it
+                    # rides the flag fetch — no second trip
+                    fetch["cols"] = list(out["cols"])
             with ph.phase("compute"):
                 _sync(device)
             flags = ph.fetch(fetch)
@@ -1880,6 +1901,21 @@ class TpuFragmentExec:
                 chunk = _host_order(chunk, order_root, root.schema)
                 chunk = _topn_slice(chunk, order_root)
             return chunk
+        if isinstance(root, (PhysTopN, PhysSort, PhysLimit)):
+            n_out = int(flags["no"])
+            if "cols" in flags:
+                host_cols = [(np.asarray(v)[..., :n_out],
+                              np.asarray(m)[:n_out])
+                             for v, m in flags["cols"]]
+            else:
+                host_cols = ph.fetch([(v[..., :n_out], m[:n_out])
+                                      for v, m in out["cols"]])
+            with ph.phase("decode"):
+                cols = [_decode_col(ft, np.asarray(v), np.asarray(m),
+                                    dicts_root.get(ci))
+                        for ci, ((v, m), ft) in
+                        enumerate(zip(host_cols, root.schema.field_types))]
+            return _topn_slice(Chunk(cols), root)
         # join/selection/projection root: compact by live on the device
         return _compact_decode(ph, out["cols"], out["live"],
                                root.schema.field_types, dicts_root)

@@ -3,20 +3,22 @@
 Extends the linear-chain fragments (executor/fragment.py) to plan subtrees
 containing equi hash joins — the TPC-H Q3/Q5 shape. Every table is lifted
 to the device once as padded slabs (executor/device_cache.py; multi-slab
-tables concatenate inside the program), each join runs the LUT formulation
-of ops/join.py (K4-K7), and the root reduction reuses the segment
-machinery of executor/device_emit.py. Programs run eagerly; a cached
-TreeProgram keeps the tree's structure, its join configurations and the
-prepared-input order of its expression nodes.
+tables concatenate inside the program), each join runs the LUT or the
+sort formulation of ops/join.py, and the root reduction reuses the segment
+and sort machinery of executor/device_emit.py. Programs run eagerly; a
+cached TreeProgram keeps the tree's structure, its join configurations
+and the prepared-input order of its expression nodes.
 
-Join formulation: **LUT (bounded keys)**. The build keys are plan-
-traceable to scan columns with cached (lo, hi) bounds and the packed
-domain is at most JOIN_DOMAIN_CAP — true for every TPC-H PK-FK key and for
-every dictionary-encoded string column. Build = one scatter (K4), probe =
-one gather (K5); no sort. A key the device cache cannot bound, more key
-columns than K4/K5 pack (ops.join.MAX_JOIN_KEYS), or a domain over the
-cap, raises FragmentFallback(reason="shape") before any launch:
-the sort formulation of the JAX package is not in this port yet.
+Join formulations, as in the JAX package:
+  * **LUT (bounded keys)**: the build keys trace to scan columns with
+    cached (lo, hi) bounds, at most ops.join.MAX_JOIN_KEYS of them, in a
+    packed domain of at most JOIN_DOMAIN_CAP — true for every TPC-H PK-FK
+    key and for every dictionary-encoded string column. Build = one
+    scatter (K4), probe = one gather (K5).
+  * **sort (any other key)**: build and probe keys are concatenated and
+    reduced to one dense code per row (`combine_keys`: the sort factorize,
+    K9 + K8 + K10), the build codes sort (K9 + K8) and every probe row
+    binary-searches them (K11).
 
   * **unique mode** (PK-FK bet): probe-shaped output, no expansion. The
     bet is placed from table metadata (single-column primary key / unique
@@ -37,9 +39,11 @@ output, so build rows that match nothing cannot be null-extended. String
 equi keys remap the probe side's dictionary codes into the build side's
 dictionary space host-side (`KeyRemap`, a prepared LUT input).
 
-Not in this port yet, each refused at plan time so EXPLAIN shows the CPU
-plan: windows, DISTINCT and ROLLUP aggregates, a LIMIT root, and TopN/Sort
-directly over a join (rather than over the aggregate).
+Roots: an aggregate (with its ORDER BY / TopN fused into the finalize),
+TopN / Sort directly over the join's rows (`sort_perm` / `topn`), a LIMIT
+(the first offset+count live rows, a stable partition), or the rows
+themselves. Not in this port yet, each refused at plan time so EXPLAIN
+shows the CPU plan: windows, DISTINCT and ROLLUP aggregates.
 """
 
 from __future__ import annotations
@@ -82,34 +86,12 @@ def _string_key_ok(l: Expression, r: Expression) -> bool:
     return isinstance(l, ColumnRef) and isinstance(r, ColumnRef)
 
 
-def _join_keys_ok(node: PhysHashJoin) -> bool:
-    """Both sides' keys are bare column refs (the probe side's string keys
-    wrapped in KeyRemap), and each build key traces to a scan column — so
-    the device cache can bound it. Whether it IS bounded, and small
-    enough, shows only at run time (the executor declines before a
-    launch)."""
-    bkeys, pkeys = join_key_exprs(node)
-    build = node.children[1 if node.build_right else 0]
-    # _bounds_list over "every scan column bounded": a key traces to a
-    # scan column iff it comes back bounded
-    traced = _bounds_list(build, {id(s): {i: (0, 0) for i in
-                                          range(len(s.schema))}
-                                  for s in _scans(build)})
-    for b, p in zip(bkeys, pkeys):
-        if isinstance(p, KeyRemap):
-            p = p.child
-        if not (isinstance(b, ColumnRef) and isinstance(p, ColumnRef)):
-            return False
-        if b.index >= len(traced) or traced[b.index] is None:
-            return False
-    return True
-
-
 def tree_ok(plan: PhysicalPlan, threshold: int) -> bool:
     """Static eligibility of a join tree (runtime checks catch the rest)."""
     from tidb_tpu_torch.executor.fragment import (_exprs_device_ok,
                                                   _identity_projection,
                                                   _order_over_agg_ok,
+                                                  _row_root_ok,
                                                   _string_exprs_are_refs)
 
     max_scan = [0.0]
@@ -137,8 +119,6 @@ def tree_ok(plan: PhysicalPlan, threshold: int) -> bool:
             for le, re in node.equi:
                 if not _string_key_ok(le, re):
                     return False
-            if not _join_keys_ok(node):
-                return False
             return walk(node.children[0], False) and \
                 walk(node.children[1], False)
         if is_root and isinstance(node, PhysHashAgg):
@@ -166,18 +146,24 @@ def tree_ok(plan: PhysicalPlan, threshold: int) -> bool:
             child = node.children[0]
             while _identity_projection(child) and child.children:
                 child = child.children[0]
-            # ORDER BY / TopN over the agg (identity projections are
-            # transparent): the executor strips the order root and runs it
-            # as the agg's fused device finalize. Over anything else (a
-            # join's rows) it is not ported: CPU
-            if isinstance(child, PhysHashAgg) and \
-                    _order_over_agg_ok(node, child):
+            if isinstance(child, PhysHashAgg):
+                # ORDER BY / TopN over the agg (identity projections are
+                # transparent): the executor strips the order root and
+                # runs it as the agg's fused device finalize
+                if not _order_over_agg_ok(node, child):
+                    return False
                 return walk(child, True)
-            return False
-        # windows and LIMIT roots are not ported: CPU
+            # over the join's rows: sort_perm / topn in the program root
+            return walk(node.children[0], False)
+        if is_root and isinstance(node, PhysLimit):
+            # LIMIT over a join: the program emits the first offset+count
+            # live rows in probe row order (device_emit.emit_root)
+            return node.count is not None and walk(node.children[0], False)
+        # windows are not ported: CPU
         return False
 
-    return walk(plan, True) and has_join(plan) and max_scan[0] >= threshold
+    return _row_root_ok(plan) and walk(plan, True) and has_join(plan) and \
+        max_scan[0] >= threshold
 
 
 def _scans(plan: PhysicalPlan) -> List[PhysTableScan]:
@@ -466,8 +452,8 @@ def plan_join_configs(root: PhysicalPlan, scan_bounds) -> List[JoinCfg]:
     """Initial per-join configs in _walk_nodes order (the runtime adapts
     mode/out_cap from the flags the program reports). A join whose build
     keys are unbounded, more than K4/K5 pack (MAX_JOIN_KEYS), or whose
-    packed domain exceeds JOIN_DOMAIN_CAP, gets bounds None: the LUT
-    formulation cannot run it."""
+    packed domain exceeds JOIN_DOMAIN_CAP, gets bounds None: it runs the
+    sort formulation."""
     from tidb_tpu_torch.executor.device_cache import _pow2
     from tidb_tpu_torch.ops.join import MAX_JOIN_KEYS
     cfgs: List[JoinCfg] = []
@@ -499,21 +485,6 @@ def plan_join_configs(root: PhysicalPlan, scan_bounds) -> List[JoinCfg]:
                             tuple(bounds) if bounds else None,
                             domain if bounds else 0, est))
     return cfgs
-
-
-def require_lut_bounds(root: PhysicalPlan, join_cfgs) -> None:
-    """Raise FragmentFallback(reason="shape") for the first join the LUT
-    formulation cannot run (an unbounded build key, more key columns than
-    MAX_JOIN_KEYS, or a packed domain over JOIN_DOMAIN_CAP) — before any
-    device launch."""
-    from tidb_tpu_torch.executor.fragment import FragmentFallback
-    for node, cfg in zip(_walk_joins(root), join_cfgs):
-        if cfg.mode != "aligned" and cfg.bounds is None:
-            raise FragmentFallback(
-                f"join {node.kind} on {node.equi!r}: build keys unbounded, "
-                f"more than the LUT kernels pack, or domain over "
-                f"{JOIN_DOMAIN_CAP} (the sort formulation is not ported)",
-                reason="shape")
 
 
 def tree_agg_key_bounds(root: PhysicalPlan, scan_bounds,
@@ -614,7 +585,7 @@ class TreeProgram:
     def __init__(self, plan: PhysicalPlan, caps: Dict[int, object],
                  group_cap: int,
                  join_cfgs: Optional[Sequence[JoinCfg]] = None,
-                 agg_key_bounds=None, scan_layouts=None, device="cpu"):
+                 agg_key_bounds=None, scan_layouts=None, *, device):
         from tidb_tpu_torch.executor.fragment import _count_trace
         from tidb_tpu_torch.ops.xp import TorchXP
         _count_trace()
@@ -732,7 +703,7 @@ class _TreeRun:
             return [e.eval(ctx) for e in node.exprs], live
         if isinstance(node, PhysHashJoin):
             return self._emit_join(node, scan_inputs, scan_rows)
-        if isinstance(node, (PhysHashAgg, PhysTopN, PhysSort)):
+        if isinstance(node, (PhysHashAgg, PhysTopN, PhysSort, PhysLimit)):
             return self.emit(node.children[0], scan_inputs, scan_rows)
         raise AssertionError(f"unexpected node {type(node).__name__}")
 
@@ -781,9 +752,6 @@ class _TreeRun:
         cfg = self.prog.join_cfgs[id(node)]
         if cfg.mode == "aligned":
             return self._emit_join_aligned(node, scan_inputs, scan_rows)
-        if cfg.bounds is None:
-            raise AssertionError("LUT join without bounds (the executor "
-                                 "refuses such a join before any launch)")
         lcols, llive = self.emit(node.children[0], scan_inputs, scan_rows)
         rcols, rlive = self.emit(node.children[1], scan_inputs, scan_rows)
         if node.build_right:
@@ -793,16 +761,38 @@ class _TreeRun:
         bkeys, pkeys = join_key_exprs(node)
         bk = [e.eval(self.ctx(bcols)) for e in bkeys]
         pk = [e.eval(self.ctx(pcols)) for e in pkeys]
+        if cfg.bounds is not None:
+            if cfg.mode == "unique":
+                match_idx, matched, unique = J.lut_join_unique(
+                    bk, pk, cfg.bounds, cfg.domain, blive, plive)
+            else:
+                start, count, order = J.lut_join_multi(
+                    bk, pk, cfg.bounds, cfg.domain, blive, plive)
+        else:
+            # shared exact code space: factorize over build ++ probe
+            nb = blive.shape[0]
+            both = []
+            for (bv, bm), (pv, pm) in zip(bk, pk):
+                dt = torch.promote_types(bv.dtype, pv.dtype)
+                both.append((torch.cat([bv.to(dt), pv.to(dt)]),
+                             torch.cat([bm, pm])))
+            both_live = torch.cat([blive, plive])
+            codes, cvalid = J.combine_keys(both, both_live)
+            bound = (both_live.shape[0] + 1) ** 2
+            if cfg.mode == "unique":
+                match_idx, matched, unique = J.sorted_probe_unique(
+                    codes[:nb], cvalid[:nb], blive, codes[nb:],
+                    cvalid[nb:], plive, code_bound=bound)
+            else:
+                start, count, order = J.sorted_probe_multi(
+                    codes[:nb], cvalid[:nb] & blive, codes[nb:],
+                    cvalid[nb:] & plive, code_bound=bound)
         if cfg.mode == "unique":
-            match_idx, matched, unique = J.lut_join_unique(
-                bk, pk, cfg.bounds, cfg.domain, blive, plive)
             self.unique_flags.append(unique)
             self.totals.append(torch.zeros((), dtype=torch.int64,
                                            device=plive.device))
             return self._finish_join_unique(node, bcols, pcols, plive,
                                             match_idx, matched)
-        start, count, order = J.lut_join_multi(bk, pk, cfg.bounds,
-                                               cfg.domain, blive, plive)
         self.unique_flags.append(torch.ones((), dtype=torch.bool,
                                             device=plive.device))
         return self._finish_join_expand(node, cfg, bcols, pcols, plive,

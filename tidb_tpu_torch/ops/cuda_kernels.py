@@ -30,17 +30,20 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tidb_tpu_torch")
 
 SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups", "lut_join",
-           "join_expand")
+           "join_expand", "radix_sort", "sorted_groups")
 #: launch counters, one per kernel (lut_join.cu holds K4 and K5,
-#: join_expand.cu K6 and K7)
+#: join_expand.cu K6 and K7, radix_sort.cu K8 and K9, sorted_groups.cu K10
+#: and K11)
 COUNTERS = ("segment_reduce", "unpack_decode", "perfect_groups",
-            "lut_build", "lut_probe", "lut_order", "join_expand")
+            "lut_build", "lut_probe", "lut_order", "join_expand",
+            "radix_sort", "sort_encode", "group_ids", "sorted_search")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 _SIGNATURES = {
     "tt_segment_reduce": [_I, _I, _P, _P, _L, _I, _P, _P, _I, _P],
     "tt_segment_small_cap": [],
@@ -58,6 +61,13 @@ _SIGNATURES = {
     "tt_lut_order": [_P, _P, _L, _L, _I, _P, _P, _P, _P, _P, _P],
     "tt_join_expand": [_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P],
+    "tt_radix_tile": [],
+    "tt_sort_encode": [_P, _I, _L, _P, _P, _I, _U, _I, _P, _I, _P, _P],
+    "tt_radix_sort": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P],
+    "tt_group_ids": [_P, _P, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P],
+    "tt_sorted_search": [_P, _L, _P, _L, _I, _P, _P],
+    "tt_sorted_probe_unique": [_P, _P, _L, _P, _P, _L, _P, _P, _P, _P],
+    "tt_sorted_probe_multi": [_P, _L, _P, _P, _L, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()

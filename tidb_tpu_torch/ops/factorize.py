@@ -1,9 +1,10 @@
-"""Device factorization & ordering primitives (plain torch).
+"""Device factorization & ordering primitives.
 
 The reference's hash aggregation and hash join both revolve around an
 open-address hash table (executor/aggregate.go getGroupKey→HashGroupKey,
 executor/hash_table.go hashRowContainer). The device formulation here is
-sort-based (SURVEY §7 stage 4):
+sort-based (SURVEY §7 stage 4), as in the JAX package
+(tidb_tpu/ops/factorize.py):
 
   * `factorize` — dense group ids from a lexicographic sort of the key
     operands, boundary detection between sorted neighbours, and a cumsum.
@@ -12,11 +13,30 @@ sort-based (SURVEY §7 stage 4):
   * `topn` / `sort_perm` — MySQL ORDER BY semantics (NULLs first ASC,
     last DESC) as sorts returning a gather permutation.
 
-A lexicographic multi-operand sort is a chain of STABLE single-key
-`torch.sort` passes from the last key to the first. Multi-key operations
-chain-pack exactly like the JAX package (per-key dense ranks packed into
-one int64 code, re-densified each step), so group ids come out in the
-same rank order, NULL first, with the same `n_groups` and `rep`.
+Multi-key operations chain-pack like the JAX package (per-key dense ranks
+packed into one int64 code, re-densified each step), so group ids come
+out in the same rank order, NULL first, with the same `n_groups` and
+`rep`.
+
+Each sort is a list of `SortOp`s, first operand primary. Two primitives
+carry the work, each with a plain torch version (the CPU path) and a
+kernel path for CUDA tensors (csrc/radix_sort.cu, csrc/sorted_groups.cu):
+
+  `lexsort`   the stable lexicographic permutation. Plain: a chain of
+              stable `torch.sort` passes from the last operand to the
+              first. Kernel: K9 `sort_encode` packs the operands into as
+              few 64-bit radix words as their varying bits need, K8
+              `radix_sort` sorts each word stably, least significant word
+              first.
+  `group_ids` the back half of factorize / _dense1 over the sorted order
+              (boundaries, scan, gids, n_groups, rep). Kernel: K10.
+
+The kernel path needs each operand's bit width: a dense rank or packed
+code carries its bound (`SortOp.hi`, known on the host), a raw key costs
+one K9 min/max reduction read back to the host (one sync per raw operand
+of a sort). Permutations come back as int64 (torch's index type) from
+`sort_perm`, `topn` and `partition_perm`; the kernels carry int32 row ids
+inside.
 
 All group counts are explicit (`cap`): callers get `n_groups` back and
 retry with a bigger cap when `n_groups > cap`.
@@ -24,9 +44,25 @@ retry with a bigger cap when `n_groups > cap`.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+
+class SortOp(NamedTuple):
+    """One sort operand. Slots where `m` is False read as 0 (NULL
+    canonicalization: all NULLs form one group); `desc` sorts descending;
+    `hi`, when known, bounds every value to [0, hi) (dense ranks and
+    packed codes), which spares the kernel path its min/max read-back."""
+    v: torch.Tensor
+    m: Optional[torch.Tensor] = None
+    desc: bool = False
+    hi: Optional[int] = None
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions
+# ---------------------------------------------------------------------------
 
 
 def _sortable(a: torch.Tensor) -> torch.Tensor:
@@ -34,28 +70,29 @@ def _sortable(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.uint8) if a.dtype == torch.bool else a
 
 
-def _lexsort(operands: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Stable lexicographic sort permutation, first operand primary."""
-    n = operands[0].shape[0]
-    perm = torch.arange(n, dtype=torch.int64, device=operands[0].device)
-    for op in reversed(operands):
-        key = _sortable(op)[perm]
+def _operand(op: SortOp) -> torch.Tensor:
+    t = op.v
+    if op.m is not None:
+        t = torch.where(op.m, t, torch.zeros_like(t))
+    if op.desc:
+        if t.dtype.is_floating_point:
+            t = -t
+        elif t.dtype == torch.bool:
+            t = torch.logical_not(t)
+        else:
+            t = torch.bitwise_not(t)        # exact order flip
+    return _sortable(t)
+
+
+def lexsort_plain(ops: Sequence[SortOp]) -> torch.Tensor:
+    """Stable lexicographic sort permutation (int64), first operand
+    primary: stable single-key sorts from the last operand to the first."""
+    n = ops[0].v.shape[0]
+    perm = torch.arange(n, dtype=torch.int64, device=ops[0].v.device)
+    for op in reversed(ops):
+        key = _operand(op)[perm]
         perm = perm[torch.sort(key, stable=True).indices]
     return perm
-
-
-def _key_operands(keys: Sequence[Tuple], live) -> List:
-    """Sort operands for [(values, valid-or-None)] keys: dead rows last,
-    NULL group before non-NULL, NULL slots canonicalized (all NULLs form
-    ONE group)."""
-    operands: List = [torch.logical_not(live)]
-    for v, m in keys:
-        if m is None:
-            operands.append(v)
-        else:
-            operands.append(m)
-            operands.append(torch.where(m, v, torch.zeros_like(v)))
-    return operands
 
 
 def _boundaries(sorted_ops: Sequence[torch.Tensor], n: int, device):
@@ -67,22 +104,357 @@ def _boundaries(sorted_ops: Sequence[torch.Tensor], n: int, device):
     return diff
 
 
-def _dense1(v, m, live):
+def group_ids_plain(sidx, v, m, live, cap: int):
+    """Plain torch version of K10 over the stable order `sidx` of one key
+    (v, m). cap == 0 (_dense1): dense codes in sorted order, boundaries
+    unmasked → gids (n,) int32. cap > 0 (factorize): boundaries masked by
+    the sorted rows' liveness → (gids clamped to [0, cap), n_groups, rep
+    (cap,) int32 — a group's smallest row, max(n - 1, 0) where empty)."""
+    n = sidx.shape[0]
+    dev = sidx.device
+    ops = [v] if m is None else [m, torch.where(m, v, torch.zeros_like(v))]
+    diff = _boundaries([op[sidx] for op in ops], n, dev)
+    gids = torch.zeros(n, dtype=torch.int32, device=dev)
+    if cap == 0:
+        gids[sidx] = torch.cumsum(diff.to(torch.int32), 0,
+                                  dtype=torch.int32) - 1
+        return gids
+    live_s = live[sidx]
+    boundary = diff & live_s
+    gid_s = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_groups = boundary.sum().to(torch.int32)
+    gid_s = gid_s.clamp(0, cap - 1)
+    gids[sidx] = gid_s
+    from tidb_tpu_torch.ops.segment import segment_reduce
+    sidx = sidx.to(torch.int64)
+    rows = torch.where(live_s, sidx, torch.full_like(sidx, n))
+    rep = segment_reduce("min", rows, gid_s, cap)
+    rep = torch.minimum(rep, torch.full_like(rep, max(n - 1, 0)))
+    return gids, n_groups, rep.to(torch.int32)
+
+
+# K9's operand types: 0 bool, 1 int32, 2 int64, 3 float64
+_M64 = (1 << 64) - 1
+_SIGN = -(1 << 63)
+_ZERO_CODE = {0: 0, 1: 1 << 31, 2: 1 << 63, 3: 1 << 63}
+
+
+def _flip_code(u: int, code: int) -> int:
+    return {0: u ^ 1, 1: u ^ 0xFFFFFFFF}.get(code, ~u & _M64)
+
+
+def sort_codes_plain(v, code: int, m=None, desc: bool = False):
+    """K9's order-preserving codes in plain torch: uint64 bit patterns in
+    an int64 tensor (row order, no gather)."""
+    if code == 0:
+        u = v.to(torch.int64)
+    elif code == 1:
+        u = v.to(torch.int64) + (1 << 31)
+    elif code == 2:
+        u = v ^ _SIGN
+    else:
+        x = torch.where(v == 0, torch.zeros_like(v), v).contiguous()
+        b = x.view(torch.int64)
+        u = torch.where(b < 0, torch.bitwise_not(b), b ^ _SIGN)
+        u = torch.where(torch.isnan(v), torch.full_like(u, -1), u)
+    if m is not None:
+        zero = _ZERO_CODE[code]
+        zero = zero - (1 << 64) if zero >= 1 << 63 else zero
+        u = torch.where(m, u, torch.full_like(u, zero))
+    if desc:
+        if code == 0:
+            u = u ^ 1
+        elif code == 1:
+            u = u ^ 0xFFFFFFFF
+        elif code == 2:
+            u = torch.bitwise_not(u)
+        else:
+            u = torch.where(u == -1, u, torch.bitwise_not(u))
+    return u
+
+
+def _signed(u: int) -> int:
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def sort_encode_plain(v, code: int, perm, m, desc: bool, base: int,
+                      shift: int, out=None, accumulate: bool = False):
+    """Plain torch version of K9 → (out (n,) int64 holding uint64 words,
+    (lo, hi) — the codes' unsigned min and max as Python ints)."""
+    u = sort_codes_plain(v, code, m, desc)
+    if perm is not None:
+        u = u[perm.to(torch.int64)]
+    n = u.shape[0]
+    if n:
+        s = u ^ _SIGN                      # unsigned order as signed
+        lo = (int(s.min()) ^ _SIGN) & _M64
+        hi = (int(s.max()) ^ _SIGN) & _M64
+    else:
+        lo, hi = _M64, 0
+    w = torch.bitwise_left_shift(u - _signed(base), shift)
+    if out is not None and accumulate:
+        w = out | w
+    return w, (lo, hi)
+
+
+def radix_sort_plain(keys, vals, end_bit: int):
+    """Plain torch version of K8: stable sort of uint64 words (in an int64
+    tensor) by their bits [0, end_bit) → (sorted words, their int32 row
+    ids; `vals` None means 0..n-1)."""
+    n = keys.shape[0]
+    v = vals if vals is not None else torch.arange(
+        n, dtype=torch.int32, device=keys.device)
+    if end_bit <= 0:
+        return keys, v
+    k = keys ^ _SIGN if end_bit >= 64 else keys & ((1 << end_bit) - 1)
+    idx = torch.sort(k, stable=True).indices
+    return keys[idx], v[idx]
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (CUDA tensors; plain versions for CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+def _k9_operand(v: torch.Tensor):
+    """→ (values as K9 reads them, type code)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    if v.dtype == torch.bool:
+        return v.contiguous(), 0
+    if v.dtype in (torch.int8, torch.int16, torch.int32, torch.uint8):
+        return v.to(torch.int32).contiguous(), 1
+    if v.dtype == torch.int64:
+        return v.contiguous(), 2
+    if v.dtype in (torch.float16, torch.bfloat16, torch.float32,
+                   torch.float64):
+        return v.to(torch.float64).contiguous(), 3
+    raise ck.KernelError(f"sort operand of dtype {v.dtype}")
+
+
+def _check_mask(m, n: int, what: str):
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    if m is None:
+        return None
+    ck.require_cuda(m, what=what)
+    if m.dtype != torch.bool or m.shape != (n,):
+        raise ck.KernelError(f"{what}: masks must be bool of the values' "
+                             f"length")
+    return m.data_ptr()
+
+
+def sort_encode(v, code: int, perm, m, desc: bool, base: int, shift: int,
+                out=None, accumulate: bool = False, stats=None):
+    """K9 wrapper over values already in K9's type (`_k9_operand`): codes
+    gathered through `perm` (int32 or None = identity), minus `base`,
+    shifted left by `shift`, written (or OR-ed) into `out` (int64 (n,));
+    `stats` (2,) int64 receives the codes' unsigned min and max. CPU
+    tensors take `sort_encode_plain`."""
+    if v.device.type == "cpu":
+        w, (lo, hi) = sort_encode_plain(v, code, perm, m, desc, base, shift,
+                                        out, accumulate)
+        if out is not None:
+            out.copy_(w)
+        if stats is not None:
+            stats.copy_(torch.tensor([_signed(lo), _signed(hi)]))
+        return out
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(v, what="sort_encode")
+    nv = v.shape[0]
+    n = nv if perm is None else perm.shape[0]
+    if perm is not None:
+        ck.require_cuda(perm, what="sort_encode")
+        if perm.dtype != torch.int32:
+            raise ck.KernelError("sort_encode: int32 permutation expected")
+    mp = _check_mask(m, nv, "sort_encode")
+    for t in (out, stats):
+        if t is not None:
+            ck.require_cuda(t, what="sort_encode")
+            if t.dtype != torch.int64:
+                raise ck.KernelError("sort_encode: int64 words expected")
+    if out is not None and out.shape != (n,):
+        raise ck.KernelError("sort_encode: output of the wrong length")
+    rc = ck.library("radix_sort").tt_sort_encode(
+        v.data_ptr(), code, n, None if perm is None else perm.data_ptr(),
+        mp, int(bool(desc)), int(base) & _M64, int(shift),
+        None if out is None else out.data_ptr(), int(bool(accumulate)),
+        None if stats is None else stats.data_ptr(), ck.stream_ptr(v.device))
+    if n > 0:
+        ck.count("sort_encode")
+    ck.check(rc, "sort_encode")
+    return out
+
+
+def radix_sort(keys, vals, end_bit: int):
+    """K8 wrapper → (sorted words, int32 row ids), as `radix_sort_plain`."""
+    if keys.device.type == "cpu":
+        return radix_sort_plain(keys, vals, end_bit)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(keys, what="radix_sort")
+    n = keys.shape[0]
+    if keys.dtype != torch.int64 or keys.dim() != 1 or n >= 2 ** 31 or \
+            not 0 <= end_bit <= 64:
+        raise ck.KernelError("radix_sort: int64 words (< 2^31 of them) and "
+                             "a bit range within 64 expected")
+    if vals is not None:
+        ck.require_cuda(vals, what="radix_sort")
+        if vals.dtype != torch.int32 or vals.shape != (n,):
+            raise ck.KernelError("radix_sort: int32 row ids of the words' "
+                                 "length expected")
+    passes = -(-end_bit // 8)
+    dev = keys.device
+    if n == 0 or passes == 0:
+        return keys, (vals if vals is not None else torch.arange(
+            n, dtype=torch.int32, device=dev))
+    lib = ck.library("radix_sort")
+    n_tiles = -(-n // lib.tt_radix_tile())
+    ka = torch.empty(n, dtype=torch.int64, device=dev)
+    kb = torch.empty(n, dtype=torch.int64, device=dev)
+    va = torch.empty(n, dtype=torch.int32, device=dev)
+    vb = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(256 * n_tiles, dtype=torch.int32, device=dev)
+    totals = torch.empty(256, dtype=torch.int32, device=dev)
+    rc = lib.tt_radix_sort(
+        keys.data_ptr(), None if vals is None else vals.data_ptr(), n,
+        end_bit, ka.data_ptr(), va.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+        counts.data_ptr(), totals.data_ptr(), ck.stream_ptr(dev))
+    ck.count("radix_sort")
+    ck.check(rc, "radix_sort")
+    return (ka, va) if passes % 2 == 1 else (kb, vb)
+
+
+def _field(op: SortOp, v, code: int, n: int) -> Tuple[int, int]:
+    """→ (base, width): the operand's smallest code and the bits its codes
+    span above it. Raw keys read K9's min/max back (one sync)."""
+    if code == 0:
+        return 0, 1
+    if op.hi is not None and code in (1, 2):
+        lo = _ZERO_CODE[code]
+        hi = lo + max(int(op.hi), 1) - 1
+        if op.desc:
+            lo, hi = _flip_code(hi, code), _flip_code(lo, code)
+        return lo, (hi - lo).bit_length()
+    if n == 0:
+        return 0, 0
+    stats = torch.tensor([-1, 0], dtype=torch.int64, device=v.device)
+    sort_encode(v, code, None, op.m, op.desc, 0, 0, stats=stats)
+    lo, hi = (x & _M64 for x in stats.tolist())
+    return lo, (hi - lo).bit_length()
+
+
+def _lexsort_kernel(ops: Sequence[SortOp]) -> torch.Tensor:
+    """K9 + K8: operands packed into 64-bit words from the least
+    significant operand up (an operand whose codes do not vary takes no
+    bits), each word encoded through the permutation so far and sorted
+    stably over its bits → int32 permutation."""
+    n = ops[0].v.shape[0]
+    dev = ops[0].v.device
+    fields = []
+    for op in ops:
+        v, code = _k9_operand(op.v)
+        base, width = _field(op, v, code, n)
+        fields.append((op, v, code, base, width))
+    words: List = []
+    cur: List = []
+    used = 0
+    for f in reversed(fields):
+        width = f[4]
+        if width == 0:
+            continue
+        if used + width > 64:
+            words.append((cur, used))
+            cur, used = [], 0
+        cur.append((f, used))
+        used += width
+    if cur:
+        words.append((cur, used))
+    perm = None
+    for spec, bits in words:
+        word = torch.empty(n, dtype=torch.int64, device=dev)
+        for j, ((op, v, code, base, _w), shift) in enumerate(spec):
+            sort_encode(v, code, perm, op.m, op.desc, base, shift, word,
+                        accumulate=j > 0)
+        _, perm = radix_sort(word, perm, bits)
+    if perm is None:
+        perm = torch.arange(n, dtype=torch.int32, device=dev)
+    return perm
+
+
+def lexsort(ops: Sequence[SortOp]) -> torch.Tensor:
+    """Stable lexicographic sort permutation, first operand primary:
+    `lexsort_plain` (int64) for CPU tensors, K9 + K8 (int32) for CUDA."""
+    if ops[0].v.device.type == "cpu":
+        return lexsort_plain(ops)
+    return _lexsort_kernel(ops)
+
+
+def group_ids(sidx, v, m, live, cap: int):
+    """K10 wrapper, as `group_ids_plain` (`live` is read only when
+    cap > 0)."""
+    if sidx.device.type == "cpu":
+        return group_ids_plain(sidx, v, m, live, cap)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(sidx, what="group_ids")
+    n = sidx.shape[0]
+    if sidx.dtype != torch.int32 or n >= 2 ** 31 or cap < 0:
+        raise ck.KernelError("group_ids: int32 permutation and cap >= 0 "
+                             "expected")
+    v, code = _k9_operand(v)
+    ck.require_cuda(v, what="group_ids")
+    if v.shape != (n,):
+        raise ck.KernelError("group_ids: key of the permutation's length "
+                             "expected")
+    mp = _check_mask(m, n, "group_ids")
+    dev = sidx.device
+    gids = torch.empty(n, dtype=torch.int32, device=dev)
+    rep = ng = lp = None
+    if cap > 0:
+        lp = _check_mask(live, n, "group_ids")
+        rep = torch.full((cap,), max(n - 1, 0), dtype=torch.int32,
+                         device=dev)
+        ng = torch.empty((), dtype=torch.int32, device=dev)
+    block = torch.empty(max(1, -(-n // 1024)), dtype=torch.int32, device=dev)
+    rc = ck.library("sorted_groups").tt_group_ids(
+        sidx.data_ptr(), v.data_ptr(), code, mp, lp, n, int(cap),
+        gids.data_ptr(), None if rep is None else rep.data_ptr(),
+        None if ng is None else ng.data_ptr(), block.data_ptr(),
+        ck.stream_ptr(dev))
+    if n > 0:
+        ck.count("group_ids")
+    ck.check(rc, "group_ids")
+    return gids if cap == 0 else (gids, ng, rep)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's functions (tidb_tpu/ops/factorize.py)
+# ---------------------------------------------------------------------------
+
+
+def _key_operands(keys: Sequence[Tuple], live, hi: Optional[int] = None
+                  ) -> List[SortOp]:
+    """Sort operands for [(values, valid-or-None)] keys: dead rows last,
+    NULL group before non-NULL, NULL slots canonicalized (all NULLs form
+    ONE group). `hi` bounds the values of a single dense-code key."""
+    operands: List[SortOp] = [SortOp(live, desc=True)]
+    for v, m in keys:
+        if m is None:
+            operands.append(SortOp(v, hi=hi))
+        else:
+            operands.append(SortOp(m))
+            operands.append(SortOp(v, m, hi=hi))
+    return operands
+
+
+def _dense1(v, m, live, hi: Optional[int] = None):
     """Dense codes of ONE key column — sort + boundary scan. Dead rows get
     arbitrary (larger) codes; callers mask them."""
-    n = live.shape[0]
-    operands = _key_operands([(v, m)], live)
-    sidx = _lexsort(operands)
-    diff = _boundaries([op[sidx] for op in operands[1:]], n, live.device)
-    gid_s = torch.cumsum(diff.to(torch.int32), 0, dtype=torch.int32) - 1
-    out = torch.zeros(n, dtype=torch.int32, device=live.device)
-    out[sidx] = gid_s
-    return out
+    sidx = lexsort(_key_operands([(v, m)], live, hi))
+    return group_ids(sidx, v, m, live, 0)
 
 
 def pack_codes(keys: Sequence[Tuple], live):
     """One int64 code per row identifying the multi-key tuple (per-key
-    dense ranks packed and re-densified; rank-ordered, NULLs first)."""
+    dense ranks packed and re-densified; rank-ordered, NULLs first). The
+    codes are below (n+1)²."""
     n = live.shape[0]
     code = None
     for i, (v, m) in enumerate(keys):
@@ -92,7 +464,7 @@ def pack_codes(keys: Sequence[Tuple], live):
             continue
         code = code * (n + 1) + g.to(torch.int64)
         if i < len(keys) - 1:     # keep the running domain < n+1
-            code = _dense1(code, None, live).to(torch.int64)
+            code = _dense1(code, None, live, (n + 1) ** 2).to(torch.int64)
     return code
 
 
@@ -112,43 +484,25 @@ def factorize(keys: Sequence[Tuple], live, cap: int):
       rep      (cap,) int32 — smallest original row index of each group
                (clamped to N-1 for empty slots; gather-safe).
     """
-    if len(keys) > 1:
-        code = pack_codes(keys, live)
-        keys = [(code, None)]
     n = live.shape[0]
-    dev = live.device
-    operands = _key_operands(keys, live)
-    sidx = _lexsort(operands)
-    live_s = live[sidx]
-    diff = _boundaries([op[sidx] for op in operands[1:]], n, dev)
-    boundary = diff & live_s
-    gid_s = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
-    n_groups = boundary.sum().to(torch.int32)
-    gid_s = gid_s.clamp(0, cap - 1)
-    gids = torch.zeros(n, dtype=torch.int32, device=dev)
-    gids[sidx] = gid_s
-    from tidb_tpu_torch.ops.segment import segment_reduce
-    rows = torch.where(live_s, sidx, torch.full_like(sidx, n))
-    rep = segment_reduce("min", rows, gid_s, cap)
-    rep = torch.minimum(rep, torch.full_like(rep, max(n - 1, 0)))
-    return gids, n_groups, rep.to(torch.int32)
+    hi = None
+    if len(keys) > 1:
+        keys = [(pack_codes(keys, live), None)]
+        hi = (n + 1) ** 2
+    (v, m), = keys
+    sidx = lexsort(_key_operands(keys, live, hi))
+    return group_ids(sidx, v, m, live, cap)
 
 
-def _order_operands(keys: Sequence[Tuple], descs: Sequence[bool], live):
-    """Sort operands implementing MySQL ORDER BY over possibly-NULL keys."""
-    operands: List = [torch.logical_not(live)]  # dead rows last
+def _order_operands(keys: Sequence[Tuple], descs: Sequence[bool], live
+                    ) -> List[SortOp]:
+    """Sort operands implementing MySQL ORDER BY over possibly-NULL keys:
+    dead rows last; ASC puts NULLs first, DESC (every bit of the flag and
+    the value flipped) last."""
+    operands: List[SortOp] = [SortOp(live, desc=True)]
     for (v, m), desc in zip(keys, descs):
-        if desc:
-            operands.append(torch.logical_not(m))   # DESC: NULLs last
-            if v.dtype.is_floating_point:
-                operands.append(-v)
-            elif v.dtype == torch.bool:
-                operands.append(torch.logical_not(v))
-            else:
-                operands.append(torch.bitwise_not(v))  # exact order flip
-        else:
-            operands.append(m)                # ASC: NULLs first
-            operands.append(v)
+        operands.append(SortOp(m, desc=bool(desc)))
+        operands.append(SortOp(v, desc=bool(desc)))
     return operands
 
 
@@ -170,14 +524,23 @@ def sort_perm(keys: Sequence[Tuple], descs: Sequence[bool], live):
                 continue
             code = code * (n + 1) + g.to(torch.int64)
             if i < len(keys) - 1:
-                code = _dense1(code, None, live).to(torch.int64)
-        operands: List = [torch.logical_not(live), code]
+                code = _dense1(code, None, live, (n + 1) ** 2).to(
+                    torch.int64)
+        operands = [SortOp(live, desc=True),
+                    SortOp(code, hi=(n + 1) ** 2)]
     else:
         operands = _order_operands(keys, descs, live)
-    return _lexsort(operands), live.sum().to(torch.int32)
+    return lexsort(operands).to(torch.int64), live.sum().to(torch.int32)
 
 
 def topn(keys: Sequence[Tuple], descs: Sequence[bool], live, k: int):
     """Top-k row indices under ORDER BY semantics → (idx (k,), n_out)."""
     perm, n_live = sort_perm(keys, descs, live)
     return perm[:k], torch.clamp(n_live, max=k)
+
+
+def partition_perm(keep) -> torch.Tensor:
+    """Stable partition → int64 permutation: the rows where `keep` is True
+    in row order, then the rest in row order (a one-bit sort: one K8
+    pass on the card)."""
+    return lexsort([SortOp(keep, desc=True)]).to(torch.int64)

@@ -1,4 +1,4 @@
-"""Device equi-join primitives — the LUT (bounded-key) formulation.
+"""Device equi-join primitives — the LUT (bounded-key) and sort formulations.
 
 The reference's HashJoinExec builds an open-address table over the build
 side and probes it row at a time (executor/hash_table.go:77-146). When the
@@ -33,9 +33,18 @@ for the join-tree programs (executor/tree_fragment.py). `pack_bounded_codes`,
 functions (tidb_tpu/ops/join.py) with their exact results; the first is
 plain torch, the other three run through the wrappers.
 
-The sort formulation for unbounded keys (`combine_keys`,
-`sorted_probe_unique/multi`) is not here: the join-tree gate refuses
-unbounded keys before any launch.
+The sort formulation runs joins whose keys have no bounded domain
+(tidb_tpu/ops/join.py `combine_keys`, `sorted_probe_unique`,
+`sorted_probe_multi`): build and probe keys are concatenated and reduced
+to one exact dense code per row by the sort factorize of
+ops/factorize.py (K9 + K8 + K10); the build codes sort with an INT64_MAX
+sentinel for dead or NULL rows (K9 + K8), and every probe row binary-
+searches them:
+
+  K11 `sorted_search`  lower (and upper) bound of each probe code in the
+                       sorted build codes, the hit test and the gather of
+                       the build row id; the same kernel answers
+                       `searchsorted` for the device IN list (ops/xp.py)
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ import torch
 
 #: key columns K4 and K5 pack at most
 MAX_JOIN_KEYS = 4
+#: the sort key of dead or NULL build rows (dense codes stay far below it)
+SENTINEL = torch.iinfo(torch.int64).max
 
 
 # ---------------------------------------------------------------------------
@@ -428,3 +439,170 @@ def lut_probe_multi(build_codes, ok_b, domain: int, probe_codes, ok_p):
     tidb_tpu/ops/join.py lut_probe_multi."""
     return lut_join_multi(*_packed(build_codes, ok_b, domain, probe_codes,
                                    ok_p), domain)
+
+
+# ---------------------------------------------------------------------------
+# Sort formulation — unbounded or computed keys
+# ---------------------------------------------------------------------------
+
+
+def combine_keys(keys: Sequence[Tuple], live):
+    """Collapse multi-column keys into one exact int64 code per row, as
+    tidb_tpu/ops/join.py combine_keys → (codes (N,) int64, code_valid (N,)
+    bool — False where any key column is NULL). For joins the caller
+    concatenates build and probe rows first so the codes share one space.
+    The codes are per-column dense ranks packed by ops/factorize.py
+    pack_codes (K9 + K8 + K10 on the card), below (N+1)²."""
+    from tidb_tpu_torch.ops.factorize import pack_codes
+    n = live.shape[0]
+    code_valid = torch.ones(n, dtype=torch.bool, device=live.device)
+    for _, m in keys:
+        code_valid = code_valid & m
+    return pack_codes(keys, live).to(torch.int64), code_valid
+
+
+def sorted_build(build_codes, ok_b, code_bound: Optional[int] = None):
+    """The build side of the sort formulation → (sorted codes (nb,) int64
+    with INT64_MAX in place of dead/NULL rows, which form the tail; order
+    (nb,) int32 — the build row ids in that order, ties in row order).
+    Plain: a stable torch.sort of the sentinel key, as the JAX functions.
+    On the card: K9 + K8 over (dead/NULL flag, code), the same order for
+    codes below the sentinel; `code_bound` (codes in [0, code_bound))
+    spares it the min/max read-back."""
+    sort_key = torch.where(ok_b, build_codes,
+                           torch.full_like(build_codes, SENTINEL))
+    if build_codes.device.type == "cpu":
+        order = torch.sort(sort_key, stable=True).indices
+        return sort_key[order], order.to(torch.int32)
+    from tidb_tpu_torch.ops.factorize import SortOp, lexsort
+    order = lexsort([SortOp(ok_b, desc=True),
+                     SortOp(build_codes, ok_b, hi=code_bound)])
+    return sort_key[order].contiguous(), order
+
+
+def sorted_search_unique_plain(sorted_codes, order, probe_codes, ok_p):
+    """Plain torch version of K11's unique mode → (match_idx (P,) int32,
+    0 where unmatched; matched (P,) bool; unique () bool — no two equal
+    non-sentinel neighbours in the sorted codes)."""
+    nb = sorted_codes.shape[0]
+    dup = (sorted_codes[1:] == sorted_codes[:-1]) & \
+        (sorted_codes[1:] != SENTINEL)
+    unique = torch.logical_not(dup.any())
+    pos = torch.searchsorted(sorted_codes, probe_codes).clamp(0, nb - 1)
+    matched = (sorted_codes[pos] == probe_codes) & ok_p
+    match_idx = torch.where(matched, order[pos].to(torch.int32),
+                            torch.zeros_like(pos, dtype=torch.int32))
+    return match_idx, matched, unique
+
+
+def sorted_search_multi_plain(sorted_codes, probe_codes, ok_p):
+    """Plain torch version of K11's multi mode → (start (P,) int32, the
+    left insertion point; count (P,) int32, right - left where ok_p)."""
+    lo = torch.searchsorted(sorted_codes, probe_codes)
+    hi = torch.searchsorted(sorted_codes, probe_codes, right=True)
+    count = torch.where(ok_p, (hi - lo).to(torch.int32),
+                        torch.zeros_like(hi, dtype=torch.int32))
+    return lo.to(torch.int32), count
+
+
+def _search_args(sorted_codes, probe_codes, ok_p):
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(sorted_codes, probe_codes, ok_p, what="sorted_search")
+    nb, P = sorted_codes.shape[0], probe_codes.shape[0]
+    if sorted_codes.dtype != torch.int64 or \
+            probe_codes.dtype != torch.int64 or ok_p.dtype != torch.bool:
+        raise ck.KernelError("sorted_search: int64 codes and a bool mask "
+                             "expected")
+    if not 1 <= nb < 2 ** 31 or ok_p.shape != (P,):
+        raise ck.KernelError(f"sorted_search: build rows {nb} out of range "
+                             f"or a mask of the wrong length")
+    return nb, P
+
+
+def sorted_search_unique(sorted_codes, order, probe_codes, ok_p):
+    """K11 wrapper (unique mode), as `sorted_search_unique_plain`."""
+    if sorted_codes.device.type == "cpu":
+        return sorted_search_unique_plain(sorted_codes, order, probe_codes,
+                                          ok_p)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    nb, P = _search_args(sorted_codes, probe_codes, ok_p)
+    ck.require_cuda(order, what="sorted_search")
+    if order.dtype != torch.int32 or order.shape != (nb,):
+        raise ck.KernelError("sorted_search: int32 build order expected")
+    dev = sorted_codes.device
+    match_idx = torch.empty(P, dtype=torch.int32, device=dev)
+    matched = torch.empty(P, dtype=torch.bool, device=dev)
+    unique = torch.ones((), dtype=torch.bool, device=dev)
+    rc = ck.library("sorted_groups").tt_sorted_probe_unique(
+        sorted_codes.data_ptr(), order.data_ptr(), nb,
+        probe_codes.data_ptr(), ok_p.data_ptr(), P, match_idx.data_ptr(),
+        matched.data_ptr(), unique.data_ptr(), ck.stream_ptr(dev))
+    ck.count("sorted_search")
+    ck.check(rc, "sorted_search")
+    return match_idx, matched, unique
+
+
+def sorted_search_multi(sorted_codes, probe_codes, ok_p):
+    """K11 wrapper (multi mode), as `sorted_search_multi_plain`."""
+    if sorted_codes.device.type == "cpu":
+        return sorted_search_multi_plain(sorted_codes, probe_codes, ok_p)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    nb, P = _search_args(sorted_codes, probe_codes, ok_p)
+    dev = sorted_codes.device
+    start = torch.empty(P, dtype=torch.int32, device=dev)
+    count = torch.empty(P, dtype=torch.int32, device=dev)
+    rc = ck.library("sorted_groups").tt_sorted_probe_multi(
+        sorted_codes.data_ptr(), nb, probe_codes.data_ptr(),
+        ok_p.data_ptr(), P, start.data_ptr(), count.data_ptr(),
+        ck.stream_ptr(dev))
+    if P > 0:
+        ck.count("sorted_search")
+    ck.check(rc, "sorted_search")
+    return start, count
+
+
+def sorted_probe_unique(build_codes, build_valid, build_live, probe_codes,
+                        probe_valid, probe_live,
+                        code_bound: Optional[int] = None):
+    """Unique-build sort-merge probe, as tidb_tpu/ops/join.py
+    sorted_probe_unique → (match_idx (P,) int32 — build row per probe row,
+    0 when unmatched; matched (P,) bool; unique () bool). On the card:
+    K9 + K8 sort the build codes, K11 searches them."""
+    sorted_codes, order = sorted_build(build_codes, build_valid & build_live,
+                                       code_bound)
+    return sorted_search_unique(sorted_codes, order, probe_codes,
+                                probe_valid & probe_live)
+
+
+def sorted_probe_multi(build_codes, ok_b, probe_codes, ok_p,
+                       code_bound: Optional[int] = None):
+    """General sort-merge probe, as tidb_tpu/ops/join.py
+    sorted_probe_multi → (start (P,) int32, count (P,) int32, order (nb,)
+    int32 — build rows by code, the dead/NULL sentinel rows last)."""
+    sorted_codes, order = sorted_build(build_codes, ok_b, code_bound)
+    start, count = sorted_search_multi(sorted_codes, probe_codes, ok_p)
+    return start, count, order
+
+
+def searchsorted(sorted_seq, v, right: bool = False):
+    """Insertion points (int64) of `v` in the ascending `sorted_seq`:
+    torch.searchsorted for CPU tensors, K11 for CUDA int64 tensors."""
+    if sorted_seq.device.type == "cpu":
+        return torch.searchsorted(sorted_seq.contiguous(), v.contiguous(),
+                                  right=right)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    sorted_seq, v = sorted_seq.contiguous(), v.contiguous()
+    ck.require_cuda(sorted_seq, v, what="sorted_search")
+    if sorted_seq.dtype != torch.int64 or v.dtype != torch.int64 or \
+            sorted_seq.dim() != 1 or v.dim() != 1:
+        raise ck.KernelError("sorted_search: 1-D int64 table and values "
+                             "expected")
+    out = torch.empty(v.shape[0], dtype=torch.int64, device=v.device)
+    rc = ck.library("sorted_groups").tt_sorted_search(
+        sorted_seq.data_ptr(), sorted_seq.shape[0], v.data_ptr(),
+        v.shape[0], int(bool(right)), out.data_ptr(),
+        ck.stream_ptr(v.device))
+    if v.shape[0] > 0:
+        ck.count("sorted_search")
+    ck.check(rc, "sorted_search")
+    return out

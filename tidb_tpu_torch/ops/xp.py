@@ -185,12 +185,17 @@ class TorchXP:
         return torch.cat([self._t(a) for a in arrays], dim=axis)
 
     def searchsorted(self, sorted_seq, v, side="left", method=None):
+        """Insertion points (int64). On the card integer tables go through
+        K11 (ops/join.py searchsorted), as in int64; other dtypes raise."""
+        from tidb_tpu_torch.ops.join import searchsorted
         a, b = self._t(sorted_seq), self._t(v)
         if a.dtype != b.dtype:
             dt = torch.promote_types(a.dtype, b.dtype)
             a, b = a.to(dt), b.to(dt)
-        return torch.searchsorted(a.contiguous(), b.contiguous(),
-                                  right=(side == "right"))
+        if a.device.type != "cpu" and not a.dtype.is_floating_point and \
+                a.dtype != torch.bool:
+            a, b = a.to(torch.int64), b.to(torch.int64)
+        return searchsorted(a, b, right=(side == "right"))
 
     # -- helpers -------------------------------------------------------------
     def _t(self, a):

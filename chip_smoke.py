@@ -58,13 +58,33 @@ which must pass:
      full-range int64 keys and over the sparse join's 10,485,760 keys,
      K9 over 8,388,608 float64 and int64 values, K10 at 8,388,608 rows
      and ~10^5 groups, K11 with 2,097,152 build codes and 8,388,608
-     probes.
+     probes;
+ 11. window functions on the card, over lineitem and phase 7's tables:
+     W1 a chain window root over a filtered scan (every rank function, a
+     running SUM with ties, LAG, FIRST_VALUE, NTILE, CUME_DIST over ~1.5M
+     small partitions), W2 top-10 per (returnflag, linestatus) through an
+     interior ROW_NUMBER, W3 a RANGE frame over the DATE key and a bounded
+     ROWS MAX under an outer aggregate, W4 RANK over customer ⋈ orders
+     filtered to rank 1, W5 = W2 over 2,097,152-row slabs (one program
+     over the concatenated slabs), W6 RANK over a device aggregate's rows
+     (WindowExec's device path), each cold and twice warm under
+     tidb_tpu_strict=1, held against the host engine column by column as
+     numpy arrays (float columns within 2·n·eps·|x|); EXPLAIN shows
+     W1-W5's windows inside a TpuFragment and W6's outside. Counters are
+     zeroed before the phase; K12-K15, K8 and K9 must move (K12-K15 in
+     W6 itself);
+ 12. window kernel timing at phase 11's shapes (8,388,608 rows): K12
+     over W1's and W2's layouts, K13's int64 prefix (beside torch.cumsum)
+     and segmented max, K14 over W3's RANGE key, K15's bounded MIN and
+     prefix-difference SUM.
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
 sorted_search against their plain versions, exactly; the sort functions
 built on K8-K10 (factorize, sort_perm, topn, pack_codes) equal the same
-functions over CPU copies of the inputs. Phase 4's TopN scan must launch
+functions over CPU copies of the inputs; and K12 window_bounds, K13
+window_scan, K14 frame_bounds and K15 frame_eval against theirs, every
+entry, exactly except K13's float64 prefixes (within 2·i·eps·Σ|x|). Phase 4's TopN scan must launch
 K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
@@ -164,7 +184,8 @@ KERNELS = ("segment_reduce", "unpack_decode", "perfect_groups",
            "lut_build", "lut_probe", "lut_order", "join_expand",
            "radix_sort", "sort_encode", "group_ids", "sorted_search")
 # the first slice's path (Q1/Q6/TopN) runs these; the join path the first
-# seven; the sort formulation the last four
+# seven; the sort formulation the last four (the windows' K12-K15 are
+# WINDOW_KERNELS, with phase 11)
 Q1_KERNELS = KERNELS[:3]
 JOIN_KERNELS = KERNELS[:7]
 SORT_KERNELS = KERNELS[7:]
@@ -383,10 +404,10 @@ def fragments_of(root):
     return out
 
 
-def run_sql(s, sql, device: bool, max_slab=None):
-    """→ (rows, wall seconds, phases dict, escalation rungs) through the
-    session's own planner/executor, checking every fragment ran on the
-    device."""
+def _run_plan(s, sql, device: bool, max_slab=None):
+    """→ (non-empty result chunks, wall seconds, execution context)
+    through the session's own planner/executor; on the device, every
+    fragment must have run there."""
     import torch
     from tidb_tpu_torch.executor import build, run_to_completion
     from tidb_tpu_torch.parser import parse
@@ -396,22 +417,38 @@ def run_sql(s, sql, device: bool, max_slab=None):
     else:
         s.vars["tidb_tpu_max_slab_rows"] = max_slab
     t0 = time.perf_counter()
-    if not device:
-        rows = s.query(sql).rows
-        return rows, time.perf_counter() - t0, {}, {}
     plan = s._plan(parse(sql)[0])
     root = build(plan)
     ctx = s._exec_ctx()
-    chunks = run_to_completion(root, ctx)
-    torch.cuda.synchronize()
+    chunks = [c for c in run_to_completion(root, ctx) if c.num_rows]
+    if device:
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    frags = fragments_of(root)
-    if not frags:
-        raise AssertionError(f"no device fragment for: {sql}")
-    for f in frags:
-        if not f.used_device or f.fallback_code is not None:
-            raise AssertionError(f"fragment did not run on the device "
-                                 f"({f.fallback_reason}): {sql}")
+    if device:
+        frags = fragments_of(root)
+        if not frags:
+            raise AssertionError(f"no device fragment for: {sql}")
+        for f in frags:
+            if not f.used_device or f.fallback_code is not None:
+                raise AssertionError(f"fragment did not run on the device "
+                                     f"({f.fallback_reason}): {sql}")
+    return chunks, wall, ctx
+
+
+def run_sql(s, sql, device: bool, max_slab=None):
+    """→ (rows, wall seconds, phases dict, escalation rungs) through the
+    session's own planner/executor, checking every fragment ran on the
+    device."""
+    if not device:
+        s.vars["tidb_tpu_engine"] = "off"
+        if max_slab is None:
+            s.vars.pop("tidb_tpu_max_slab_rows", None)
+        else:
+            s.vars["tidb_tpu_max_slab_rows"] = max_slab
+        t0 = time.perf_counter()
+        rows = s.query(sql).rows
+        return rows, time.perf_counter() - t0, {}, {}
+    chunks, wall, ctx = _run_plan(s, sql, True, max_slab)
     rows = [r for ch in chunks for r in ch.rows()]
     return rows, wall, ctx.phases.as_dict(), dict(ctx.escalation.by_kind)
 
@@ -1145,6 +1182,204 @@ def check_sort_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (windows): K12-K15 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _window_layout(rng, n: int, big: int):
+    """Window test rows: a partition key (int64) whose first `big` rows
+    form one partition and the rest partitions of 1 to 50 rows (single
+    rows among them), shuffled, with 5% dead rows; ORDER BY key columns
+    of each kind with 10% NULLs: int32 dates with ties, float64 with
+    ±0.0 and NaN, int64 scaled DECIMALs."""
+    import numpy as np
+    sizes = [big]
+    while sum(sizes) < n:
+        sizes.append(int(rng.choice([1, 1, 2, 7, 30, 50])))
+    sizes[-1] -= sum(sizes) - n
+    pid = np.repeat(np.arange(len(sizes), dtype=np.int64), sizes)
+    order = rng.permutation(n)
+    f64 = np.round(rng.normal(size=n) * 100, 1)
+    pick = rng.random(n) < 0.05
+    f64[pick] = rng.choice(np.array([0.0, -0.0, np.nan]), int(pick.sum()))
+    cols = {"pid": pid[order],
+            "i32": rng.integers(8036, 10590, n).astype(np.int32),
+            "f64": f64,
+            "dec": rng.integers(-10 ** 6, 10 ** 6, n).astype(np.int64)}
+    masks = {k: rng.random(n) > 0.1 for k in ("i32", "f64", "dec")}
+    return cols, masks, rng.random(n) > 0.05
+
+
+def _same_nan(a, b) -> bool:
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def check_window_kernels(dev):
+    """K12-K15 against their plain versions on the card → the largest
+    float64 prefix error seen (every other result exactly equal)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import window as W
+    rng = np.random.default_rng(31)
+    cases = 0
+    f64_err = 0.0
+
+    def same(what, got, want):
+        nonlocal cases
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for a, b in zip(got, want):
+            if a is None and b is None:
+                continue
+            if not _same_nan(a, b):
+                raise AssertionError(f"{what}: kernel != plain")
+        cases += 1
+
+    for n, big in ((1, 1), (5000, 100), (2_000_000, 1_000_000)):
+        cols, masks, live = _window_layout(rng, n, big)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+        tm = {k: torch.from_numpy(v).to(dev) for k, v in masks.items()}
+        tl = torch.from_numpy(live).to(dev)
+        pkey = (t["pid"], torch.ones_like(tl))
+        for okind, desc in (("i32", False), ("i32", True), ("f64", False),
+                            ("dec", True), (None, False)):
+            okeys = [] if okind is None else [(t[okind], tm[okind])]
+            perm, _ = F.sort_perm([pkey] + okeys, [False, desc][:1 +
+                                                                 len(okeys)],
+                                  tl)
+            keys = [pkey] + okeys
+            tag = f"n={n} order={okind} desc={desc}"
+            # K12: flags (int64 and int32 permutations), positions
+            flags = W.window_flags(perm, tl, keys, 1)
+            same(f"K12 flags {tag}", flags,
+                 W.window_flags_plain(perm, tl, keys, 1))
+            same(f"K12 flags int32 perm {tag}",
+                 W.window_flags(perm.to(torch.int32), tl, keys, 1), flags)
+            ps, qs = flags
+            pos = W.window_positions(ps, qs)
+            same(f"K12 positions {tag}", pos,
+                 W.window_positions_plain(ps, qs))
+            # K13: prefixes of DECIMAL / int32 / float64 values, count only;
+            # segmented min/max forward and backward
+            valid = tm["dec"][perm] & tl[perm]
+            for vk in ("dec", "i32", "f64"):
+                v = t[vk][perm]
+                got = W.window_prefix(v, valid)
+                want = W.window_prefix_plain(v, valid)
+                same(f"K13 count {vk} {tag}", got[1], want[1])
+                if vk == "f64":
+                    x = torch.where(valid & ~torch.isnan(v), v.abs(),
+                                    torch.zeros_like(v))
+                    idx = torch.arange(n, dtype=torch.float64, device=dev)
+                    bound = 2 * idx * EPS64 * torch.cumsum(x, 0)
+                    d = (got[0] - want[0]).abs()
+                    fin = torch.isfinite(want[0])
+                    if not bool((d[fin] <= bound[fin] + 1e-300).all()) or \
+                            not _same_nan(got[0][~fin], want[0][~fin]):
+                        raise AssertionError(f"K13 f64 prefix {tag}: "
+                                             f"outside its bound")
+                    f64_err = max(f64_err, float(d[fin].max()) if n else 0.0)
+                else:
+                    same(f"K13 prefix {vk} {tag}", got[0], want[0])
+                for is_max in (False, True):
+                    for rev in (False, True):
+                        same(f"K13 segscan {vk} max={is_max} rev={rev} "
+                             f"{tag}",
+                             W.window_segscan(v, valid, ps, is_max, rev),
+                             W.window_segscan_plain(v, valid, ps, is_max,
+                                                    rev))
+            same(f"K13 count only {tag}", W.window_prefix(None, valid),
+                 W.window_prefix_plain(None, valid))
+            # K14: ROWS frames, bounded and unbounded sides; RANGE frames
+            # over this layout's ORDER BY key
+            rows_frames = [(None, None), (3, 3), (None, 2), (5, None),
+                           (-2, 3), (1, -1), (0, 0), (100, 100)]
+            bounds = {}
+            for pre, post in rows_frames:
+                lh = W.frame_bounds(pos, pre, post)
+                same(f"K14 rows {pre},{post} {tag}", lh,
+                     W.frame_bounds_plain(pos, pre, post))
+                bounds[("rows", pre, post)] = lh
+            if okind is not None:
+                rk = (t[okind][perm], (tm[okind] & tl)[perm], desc)
+                offs = (6, 0) if okind != "f64" else (2.5, 0.5)
+                for pre, post in ((offs[0], offs[1]), (None, 3), (2, None),
+                                  (0, 0), (-1, 5)):
+                    lh = W.frame_bounds(pos, pre, post, rk)
+                    same(f"K14 range {pre},{post} {tag}", lh,
+                         W.frame_bounds_plain(pos, pre, post, rk))
+                    bounds[("range", pre, post)] = lh
+            # K15: the rank family; COUNT/SUM/AVG over every frame; the
+            # gathers; bounded MIN/MAX direct and through the sparse table
+            for name in ("row_number", "rank", "dense_rank", "percent_rank",
+                         "cume_dist", "ntile"):
+                for b in ((4, 1000) if name == "ntile" else (1,)):
+                    same(f"K15 {name}({b}) {tag}", W.frame_rank(name, pos, b),
+                         W.frame_rank_plain(name, pos, b))
+            v = t["dec"][perm]
+            cum, ccnt = W.window_prefix(v, valid)
+            fcum, _ = W.window_prefix(t["f64"][perm], valid)
+            for fr, (lo, hi) in bounds.items():
+                for what, c in (("count", None), ("sum", cum), ("avg", cum),
+                                ("sum", fcum), ("nonempty", None)):
+                    same(f"K15 {what} {fr} {tag}",
+                         W.frame_agg(what, c, ccnt, lo, hi),
+                         W.frame_agg_plain(what, c, ccnt, lo, hi))
+                same(f"K15 first {fr} {tag}",
+                     W.frame_gather(v, valid, lo, 0, None, hi),
+                     W.frame_gather_plain(v, valid, lo, 0, None, hi))
+                same(f"K15 nth(3) {fr} {tag}",
+                     W.frame_gather(t["f64"][perm], valid, lo, 2, None, hi),
+                     W.frame_gather_plain(t["f64"][perm], valid, lo, 2,
+                                          None, hi))
+                same(f"K15 last {fr} {tag}",
+                     W.frame_gather(t["i32"][perm], valid, hi, 0, lo, None),
+                     W.frame_gather_plain(t["i32"][perm], valid, hi, 0, lo,
+                                          None))
+                if fr[0] == "rows" and fr[1] is not None and \
+                        fr[2] is not None:
+                    width = fr[1] + fr[2] + 1
+                    for vk in ("dec", "f64", "i32"):
+                        for is_max in (False, True):
+                            same(f"K15 minmax {vk} {fr} {tag}",
+                                 W.frame_minmax(t[vk][perm], valid, is_max,
+                                                lo, hi, width),
+                                 W.frame_minmax_plain(t[vk][perm], valid,
+                                                      is_max, lo, hi, width))
+            fills = [None, (torch.tensor(7, device=dev),
+                            torch.tensor(True, device=dev)),
+                     (t["dec"][perm], valid)]
+            for off in (1, 3, 0, -2):
+                for fill in fills:
+                    lim = (pos.ppos, None) if off > 0 else (None, pos.plast)
+                    same(f"K15 shift {off} {tag}",
+                         W.frame_gather(v, valid, None, -off, *lim, fill),
+                         W.frame_gather_plain(v, valid, None, -off, *lim,
+                                              fill))
+            same(f"K15 bool gather {tag}",
+                 W.frame_gather(tl[perm], valid, pos.ppos, 0, None, None),
+                 W.frame_gather_plain(tl[perm], valid, pos.ppos, 0, None,
+                                      None))
+    torch.cuda.synchronize()
+    log(f"K12-K15 window_bounds/window_scan/frame_bounds/frame_eval: "
+        f"{cases} cases equal to the plain versions (n = 1, 5,000, "
+        f"2,000,000 with one 10^6-row partition and 1-50-row ones; int32 / "
+        f"float64 (±0.0, NaN) / DECIMAL ORDER BY keys ASC and DESC with "
+        f"NULLs, dead rows, int32 and int64 permutations; ROWS and RANGE "
+        f"frames with unbounded sides; bounded MIN/MAX direct and through "
+        f"the sparse table); float64 prefixes within 2·i·eps·Σ|x|, "
+        f"largest error {f64_err:.3e}, every other result exact")
+    return f64_err
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the sort formulation in SQL
 # ---------------------------------------------------------------------------
 
@@ -1424,6 +1659,378 @@ def sort_timing_phase(dev, sparse):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: window functions in SQL
+# ---------------------------------------------------------------------------
+
+# W1: a chain window root over a filtered scan (about 6% live): many small
+# partitions, every rank function, a running SUM with ties, LAG,
+# FIRST_VALUE, NTILE and CUME_DIST
+W1 = """SELECT l_orderkey, l_shipdate, l_extendedprice,
+ ROW_NUMBER() OVER (PARTITION BY l_orderkey
+                    ORDER BY l_shipdate, l_extendedprice),
+ RANK() OVER (PARTITION BY l_orderkey ORDER BY l_shipdate),
+ DENSE_RANK() OVER (PARTITION BY l_orderkey ORDER BY l_shipdate),
+ SUM(l_extendedprice) OVER (PARTITION BY l_orderkey ORDER BY l_shipdate),
+ LAG(l_extendedprice) OVER (PARTITION BY l_orderkey
+                            ORDER BY l_shipdate, l_extendedprice),
+ FIRST_VALUE(l_extendedprice) OVER (PARTITION BY l_orderkey
+                                    ORDER BY l_shipdate, l_extendedprice),
+ NTILE(4) OVER (PARTITION BY l_orderkey ORDER BY l_shipdate, l_extendedprice),
+ CUME_DIST() OVER (PARTITION BY l_orderkey ORDER BY l_shipdate)
+ FROM lineitem WHERE l_shipdate >= '1998-08-01'"""
+
+# W2: top-k per group, an interior window over the whole table (6
+# partitions of about 1M rows, 60 rows out)
+W2 = """SELECT * FROM (SELECT l_returnflag, l_linestatus, l_orderkey,
+ l_extendedprice, ROW_NUMBER() OVER (PARTITION BY l_returnflag,
+ l_linestatus ORDER BY l_extendedprice DESC, l_orderkey) AS rn
+ FROM lineitem) t WHERE rn <= 10"""
+
+# W3: moving-window frames under an outer aggregate: a RANGE frame over the
+# DATE key (the repaired sentinel) and a bounded ROWS MAX
+W3 = """SELECT l_returnflag, l_linestatus, SUM(s), MAX(m), COUNT(*)
+ FROM (SELECT l_returnflag, l_linestatus,
+ SUM(l_quantity) OVER (PARTITION BY l_returnflag, l_linestatus
+   ORDER BY l_shipdate RANGE BETWEEN 6 PRECEDING AND CURRENT ROW) AS s,
+ MAX(l_extendedprice) OVER (PARTITION BY l_returnflag, l_linestatus
+   ORDER BY l_shipdate ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING) AS m
+ FROM lineitem) t GROUP BY l_returnflag, l_linestatus
+ ORDER BY l_returnflag, l_linestatus"""
+
+# W4: a window over a join — each BUILDING customer's latest order
+W4 = """SELECT * FROM (SELECT c_custkey, o_orderkey, o_orderdate,
+ RANK() OVER (PARTITION BY o_custkey ORDER BY o_orderdate DESC,
+ o_orderkey) AS rk FROM customer JOIN orders ON c_custkey = o_custkey
+ WHERE c_mktsegment = 'BUILDING') t WHERE rk = 1"""
+
+# W6: a window over a host operator (the grouped rows of a device
+# aggregate): WindowExec's device path
+W6 = """SELECT l_orderkey, l_returnflag, rev,
+ RANK() OVER (PARTITION BY l_returnflag ORDER BY rev DESC) AS rk,
+ SUM(n) OVER (PARTITION BY l_returnflag ORDER BY rev DESC, l_orderkey
+   ROWS BETWEEN 2 PRECEDING AND CURRENT ROW) AS n3,
+ COUNT(*) OVER (PARTITION BY l_returnflag ORDER BY n
+   RANGE BETWEEN 1 PRECEDING AND 1 FOLLOWING) AS near
+ FROM (SELECT l_orderkey, l_returnflag, SUM(l_extendedprice) AS rev,
+ COUNT(*) AS n
+ FROM lineitem WHERE l_shipdate >= '1998-01-01'
+ GROUP BY l_orderkey, l_returnflag) t"""
+
+WINDOW_KERNELS = ("window_bounds", "window_scan", "frame_bounds",
+                  "frame_eval")
+
+
+def run_cols(s, sql, device: bool, max_slab=None):
+    """→ (columns [(values, valid)], wall seconds, phases dict) — run_sql
+    with the result kept as numpy columns (a large result compares as
+    arrays, not as Python tuples)."""
+    import numpy as np
+    from tidb_tpu_torch.chunk import Chunk
+    chunks, wall, ctx = _run_plan(s, sql, device, max_slab)
+    if not chunks:
+        return [], wall, ctx.phases.as_dict()
+    ch = Chunk.concat(chunks) if len(chunks) > 1 else chunks[0]
+    cols = [(np.asarray(c.values), np.asarray(c.valid_mask(), dtype=bool))
+            for c in ch.columns]
+    return cols, wall, ctx.phases.as_dict()
+
+
+def _canonical(cols):
+    """The rows of numpy columns [(values, valid)] in one canonical order
+    (a lexsort over every column, NULL flag first): two results holding
+    the same rows in other orders come out equal."""
+    import numpy as np
+    keys = []
+    for v, m in cols:
+        if v.dtype == object:
+            v = np.unique(np.asarray([str(x) for x in v], dtype=object),
+                          return_inverse=True)[1]
+        keys += [np.where(m, v, np.zeros((), dtype=v.dtype)), m]
+    order = np.lexsort(keys[::-1])
+    return [(v[order], m[order]) for v, m in cols]
+
+
+def same_cols(what, got, want, ordered: bool = False) -> float:
+    """Hold device columns against the host engine's: validity exactly,
+    values exactly where valid — except float columns, within
+    2·n·eps·|x| of the host value (the kernels sum in another order) →
+    the largest float difference seen. An unordered result that differs
+    in row order is compared again in a canonical order."""
+    import numpy as np
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} columns != {len(want)}")
+    if not ordered:
+        try:
+            return same_cols(what, got, want, ordered=True)
+        except AssertionError:
+            got, want = _canonical(got), _canonical(want)
+    err = 0.0
+    for ci, ((gv, gm), (hv, hm)) in enumerate(zip(got, want)):
+        if gv.shape != hv.shape or not np.array_equal(gm, hm):
+            raise AssertionError(f"{what}: column {ci} rows/NULLs differ")
+        gv, hv = gv[hm], hv[hm]
+        if hv.dtype.kind == "f":
+            d = np.abs(gv - hv)
+            tol = 2 * max(len(hv), 1) * EPS64 * np.maximum(np.abs(hv), 1.0)
+            if not bool(((d <= tol) | (np.isnan(gv) & np.isnan(hv))).all()):
+                raise AssertionError(f"{what}: float column {ci} outside "
+                                     f"its bound")
+            if len(d):
+                err = max(err, float(np.nanmax(d)))
+        elif not np.array_equal(gv, hv):
+            raise AssertionError(f"{what}: column {ci} values differ")
+    return err
+
+
+def window_in_fragment(s, sql):
+    """(window inside a device fragment, window anywhere in the plan)."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import PhysTpuFragment, PhysWindow
+    s.vars["tidb_tpu_engine"] = "on"
+    plan = s._plan(parse(sql)[0])
+    found = {"in": False, "any": False}
+
+    def walk(p, inside):
+        inside = inside or isinstance(p, PhysTpuFragment)
+        if isinstance(p, PhysTpuFragment):
+            walk(p.root, True)
+        if isinstance(p, PhysWindow):
+            found["any"] = True
+            found["in"] = found["in"] or inside
+        for c in p.children:
+            walk(c, inside)
+
+    walk(plan, False)
+    return found["in"], found["any"]
+
+
+def window_sql_phase(s):
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    stmts = {"w1": W1, "w2": W2, "w3": W3, "w4": W4, "w6": W6}
+    for name, sql in stmts.items():
+        inside, anywhere = window_in_fragment(s, sql)
+        explain = s.query("EXPLAIN " + sql).rows
+        text = "\n".join(str(r[0]) for r in explain)
+        if name == "w6":
+            if inside or not anywhere:
+                raise AssertionError(f"W6: the Window is not a host operator"
+                                     f"\n{text}")
+        elif not inside or "TpuFragment" not in text:
+            raise AssertionError(f"{name}: the Window is not inside the "
+                                 f"device fragment\n{text}")
+    log("EXPLAIN: W1-W5's windows inside a TpuFragment, W6's Window a host "
+        "operator over one")
+    host = {}
+    walls = {}
+    for name, sql in stmts.items():
+        cols, wall, _ = run_cols(s, sql, device=False)
+        host[name] = cols
+        walls[f"host_{name}"] = wall
+        log(f"host {name}: {len(cols[0][0]) if cols else 0} rows in "
+            f"{wall:.3f} s")
+    runs = []
+    for name in ("w1", "w2", "w3", "w4", "w5", "w6"):
+        for k in ("cold", "warm1", "warm2"):
+            runs.append((f"{name}_{k}", name))
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    float_err = 0.0
+    for run, name in runs:
+        sql = stmts.get(name, W2)
+        ref = "w2" if name == "w5" else name
+        before = ck.launches()
+        cols, wall, phases = run_cols(
+            s, sql, device=True,
+            max_slab=2_097_152 if name == "w5" else None)
+        after = ck.launches()
+        moved = {k: after[k] - before[k] for k in after if after[k] !=
+                 before[k]}
+        float_err = max(float_err, same_cols(run, cols, host[ref]))
+        if name == "w6" and not all(moved.get(k) for k in WINDOW_KERNELS):
+            raise AssertionError(f"{run}: WindowExec's device path did not "
+                                 f"launch K12-K15 ({moved})")
+        walls[run] = wall
+        log(f"{run}: {len(cols[0][0]) if cols else 0} rows, equal to the "
+            f"host engine, wall {wall:.4f} s, launches {moved}, phases "
+            f"{phases}")
+    s.vars.pop("tidb_tpu_max_slab_rows", None)
+    launches = ck.launches()
+    walls["window_phase"] = time.perf_counter() - t_phase
+    for k in WINDOW_KERNELS + ("radix_sort", "sort_encode"):
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was never launched by the "
+                                 f"window path")
+    log(f"window phase: {walls['window_phase']:.1f} s, largest float "
+        f"difference from the host engine {float_err:.3e}, launches "
+        f"{launches}")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 12: window kernel timing
+# ---------------------------------------------------------------------------
+
+
+def window_timing_phase(dev, n: int, f64_err: float):
+    """K12-K15 at phase 11's shapes: lineitem's columns in one
+    8,388,608-row slab (make_lineitem's rows, padded as the device cache
+    pads them)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import window as W
+    li = make_lineitem(n)
+    cap = 1 << 23
+    out = []
+
+    def col(a, dtype):
+        t = torch.zeros(cap, dtype=dtype)
+        t[:n] = torch.from_numpy(np.asarray(a).astype(
+            np.dtype(str(dtype).replace("torch.", ""))))
+        return t.to(dev)
+
+    rows = torch.arange(cap, device=dev) < n
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    okey = col(li["l_orderkey"], torch.int64)
+    ship = col(li["l_shipdate"], torch.int32)
+    price = col(li["l_extendedprice"], torch.int64)
+    qty = col(li["l_quantity"], torch.int64)
+    codes = {c: col(np.unique(li[c], return_inverse=True)[1], torch.int32)
+             for c in ("l_returnflag", "l_linestatus")}
+
+    def exact(what, got, want):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for a, b in zip(got, want):
+            if a is not None and not _same_nan(a, b):
+                raise AssertionError(f"{what} differs from its plain "
+                                     f"version")
+
+    def k12(perm, live, keys, np_):
+        return W.window_positions(*W.window_flags(perm, live, keys, np_))
+
+    def k12_plain(perm, live, keys, np_):
+        return W.window_positions_plain(
+            *W.window_flags_plain(perm, live, keys, np_))
+
+    # K12 over W1's layout (l_shipdate >= 1998-08-01 live; one partition
+    # key, two order keys) and W2's (two dictionary-code partition keys,
+    # two order keys)
+    live1 = rows & (ship >= 10439)
+    k1 = [(okey, ones), (ship, ones), (price, ones)]
+    perm1, _ = F.sort_perm(k1, [False] * 3, live1)
+    k2 = [(codes["l_returnflag"], ones), (codes["l_linestatus"], ones),
+          (price, ones), (okey, ones)]
+    perm2, _ = F.sort_perm(k2, [False, False, True, False], rows)
+    timed = {}
+    for tag, perm, live, keys, np_ in (("W1", perm1, live1, k1, 1),
+                                       ("W2", perm2, rows, k2, 2)):
+        timed[tag] = (time_cuda(lambda: k12(perm, live, keys, np_), reps=10),
+                      time_cuda(lambda: k12_plain(perm, live, keys, np_),
+                                reps=3))
+        exact(f"K12 {tag}", k12(perm, live, keys, np_),
+              k12_plain(perm, live, keys, np_))
+    # inputs read once (perm, live, keys and masks), outputs written once
+    # (the two flags, five int64 positions)
+    b, by = bound_ms(cap * (8 + 1 + 20 + 3 + 2 + 40), cap * 16)
+    out.append({"name": "window_bounds", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/window_scan.cu",
+                "replaces": "tidb_tpu/executor/device_emit.py:452",
+                "max_abs_err": 0, "ms": timed["W1"][0],
+                "plain_ms": timed["W1"][1], "bound_ms": b, "bound_by": by,
+                "library_ms": None})
+    log(f"K12 flags + positions n={cap}: W1 layout {timed['W1'][0]:.4f} ms "
+        f"(plain {timed['W1'][1]:.4f}), W2 layout {timed['W2'][0]:.4f} ms "
+        f"(plain {timed['W2'][1]:.4f}); bound {b:.4f} by {by}")
+
+    # K13: the int64 prefix of W1's running SUM (masked l_extendedprice in
+    # W1's sorted order) and a segmented max over W2's layout
+    ps1, qs1 = W.window_flags(perm1, live1, k1, 1)
+    valid1 = live1[perm1]
+    v1 = price[perm1]
+    ms = time_cuda(lambda: W.window_prefix(v1, valid1), reps=10)
+    plain = time_cuda(lambda: W.window_prefix_plain(v1, valid1), reps=5)
+    z = torch.where(valid1, v1, torch.zeros_like(v1))
+    lib = time_cuda(lambda: torch.cumsum(z, 0), reps=10)
+    exact("K13 prefix", W.window_prefix(v1, valid1),
+          W.window_prefix_plain(v1, valid1))
+    ps2, _ = W.window_flags(perm2, rows, k2, 2)
+    v2 = price[perm2]
+    valid2 = rows[perm2]
+    seg_ms = time_cuda(lambda: W.window_segscan(v2, valid2, ps2, True),
+                       reps=10)
+    seg_plain = time_cuda(lambda: W.window_segscan_plain(v2, valid2, ps2,
+                                                         True), reps=3)
+    exact("K13 segscan", W.window_segscan(v2, valid2, ps2, True),
+          W.window_segscan_plain(v2, valid2, ps2, True))
+    b, by = bound_ms(cap * (8 + 1 + 8 + 8), cap * 2)
+    bs, _ = bound_ms(cap * (8 + 1 + 1 + 8), cap * 2)
+    out.append({"name": "window_scan", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/window_scan.cu",
+                "replaces": "tidb_tpu/ops/window.py:93",
+                "max_abs_err": f64_err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K13 int64 prefix n={cap}: {ms:.4f} ms (plain {plain:.4f}, "
+        f"torch.cumsum {lib:.4f}, bound {b:.4f} by {by}); segmented max over "
+        f"W2's 6 partitions: {seg_ms:.4f} ms (plain Hillis-Steele "
+        f"{seg_plain:.4f}, bound {bs:.4f})")
+
+    # K14 over W3's RANGE key: l_shipdate (int32 DATE) within (returnflag,
+    # linestatus), RANGE BETWEEN 6 PRECEDING AND CURRENT ROW
+    k3 = [(codes["l_returnflag"], ones), (codes["l_linestatus"], ones),
+          (ship, ones)]
+    perm3, _ = F.sort_perm(k3, [False] * 3, rows)
+    ps3, qs3 = W.window_flags(perm3, rows, k3, 2)
+    pos3 = W.window_positions(ps3, qs3)
+    rk = (ship[perm3], rows[perm3], False)
+    ms = time_cuda(lambda: W.frame_bounds(pos3, 6, 0, rk), reps=10)
+    plain = time_cuda(lambda: W.frame_bounds_plain(pos3, 6, 0, rk), reps=3)
+    lo3, hi3 = W.frame_bounds(pos3, 6, 0, rk)
+    exact("K14 range", (lo3, hi3), W.frame_bounds_plain(pos3, 6, 0, rk))
+    rounds = max(cap - 1, 1).bit_length()
+    b, by = bound_ms(cap * (32 + 4 + 1 + 16), cap * rounds * 4)
+    out.append({"name": "frame_bounds", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/window_frame.cu",
+                "replaces": "tidb_tpu/ops/window.py:248",
+                "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": None})
+    log(f"K14 RANGE 6 PRECEDING over an int32 DATE key n={cap} in 6 "
+        f"partitions: {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} by "
+        f"{by})")
+
+    # K15: W3's bounded MAX (ROWS 3 PRECEDING AND 3 FOLLOWING; MIN timed
+    # the same) and its prefix-difference SUM over the RANGE bounds
+    lo7, hi7 = W.frame_bounds(pos3, 3, 3)
+    vp = price[perm3]
+    valid3 = rows[perm3]
+    ms = time_cuda(lambda: W.frame_minmax(vp, valid3, False, lo7, hi7, 7),
+                   reps=10)
+    plain = time_cuda(lambda: W.frame_minmax_plain(vp, valid3, False, lo7,
+                                                   hi7, 7), reps=5)
+    exact("K15 bounded MIN", W.frame_minmax(vp, valid3, False, lo7, hi7, 7),
+          W.frame_minmax_plain(vp, valid3, False, lo7, hi7, 7))
+    cum, ccnt = W.window_prefix(qty[perm3], valid3)
+    sum_ms = time_cuda(lambda: W.frame_agg("sum", cum, ccnt, lo3, hi3),
+                       reps=10)
+    sum_plain = time_cuda(lambda: W.frame_agg_plain("sum", cum, ccnt, lo3,
+                                                    hi3), reps=5)
+    exact("K15 SUM", W.frame_agg("sum", cum, ccnt, lo3, hi3),
+          W.frame_agg_plain("sum", cum, ccnt, lo3, hi3))
+    b, by = bound_ms(cap * (8 + 1 + 16 + 8), cap * 7 * 2)
+    bsum, _ = bound_ms(cap * (8 + 8 + 16 + 8 + 1), cap * 4)
+    out.append({"name": "frame_eval", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/window_frame.cu",
+                "replaces": "tidb_tpu/ops/window.py:167",
+                "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": None})
+    log(f"K15 n={cap}: bounded MIN over 7 rows {ms:.4f} ms (plain sparse "
+        f"table {plain:.4f}, bound {b:.4f} by {by}); prefix-difference SUM "
+        f"over the RANGE bounds {sum_ms:.4f} ms (plain {sum_plain:.4f}, "
+        f"bound {bsum:.4f})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -1498,6 +2105,7 @@ def main() -> int:
     check_k3(dev)
     check_join_kernels(dev)
     check_sort_kernels(dev)
+    f64_err = check_window_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -1522,10 +2130,18 @@ def main() -> int:
         k["launches"] = sort_launches[k["name"]]
     kernels += sort_kernels
     walls.update(sort_walls)
+    window_launches, window_walls = window_sql_phase(s)
+    window_kernels = window_timing_phase(dev, n, f64_err)
+    for k in window_kernels:
+        k["launches"] = window_launches[k["name"]]
+    kernels += window_kernels
+    walls.update(window_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
     log("sort-phase launches of every kernel: " + json.dumps(sort_launches))
+    log("window-phase launches of every kernel: " +
+        json.dumps(window_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,9 +67,20 @@ def test_import_and_query_load_no_jax_module():
         "rows = s.query('SELECT t.a, d FROM t JOIN u ON t.a = u.a '\n"
         "               'LIMIT 7').rows\n"
         "assert len(rows) == 7, rows\n"
+        "rows = s.query('SELECT a, c, ROW_NUMBER() OVER (PARTITION BY c '\n"
+        "               'ORDER BY b), SUM(b) OVER (PARTITION BY a ORDER BY '\n"
+        "               'b ROWS BETWEEN 2 PRECEDING AND CURRENT ROW) '\n"
+        "               'FROM t').rows\n"
+        "assert len(rows) == 300, len(rows)\n"
+        "rows = s.query('SELECT d, n, RANK() OVER (ORDER BY n DESC) FROM '\n"
+        "               '(SELECT d, COUNT(*) AS n FROM t JOIN u ON '\n"
+        "               't.a = u.a GROUP BY d) x').rows\n"
+        "assert len(rows) == 3, rows\n"
         "import tidb_tpu_torch.executor.tree_fragment\n"
+        "import tidb_tpu_torch.executor.window\n"
         "import tidb_tpu_torch.ops.factorize\n"
         "import tidb_tpu_torch.ops.join\n"
+        "import tidb_tpu_torch.ops.window\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tidb_tpu' or m.startswith('tidb_tpu.')]\n"
         "print('BAD', bad)\n")

@@ -398,10 +398,12 @@ def _walk(plan):
      "GROUP BY o_prio", "distinct"),
 ], ids=["window", "distinct"])
 def test_unported_shapes_stay_off_the_device(twins, sql, excluded):
-    """Windows and DISTINCT aggregates are not in the port yet: the plan
-    keeps them outside every device fragment (EXPLAIN shows them as CPU
-    operators), and the statement still answers as the JAX engine
-    does."""
+    """DISTINCT aggregates are not in the port yet: the plan keeps them
+    outside every device fragment (EXPLAIN shows them as CPU operators),
+    and the statement still answers as the JAX engine does. Windows are
+    ported: the window over the join runs inside the device fragment
+    (EXPLAIN's top operator is the TpuFragment) and equals the JAX
+    engine."""
     from tidb_tpu_torch.parser import parse
     js, ts = twins
     ts.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1})
@@ -410,22 +412,25 @@ def test_unported_shapes_stay_off_the_device(twins, sql, excluded):
         explain = ts.query("EXPLAIN " + sql).rows
     finally:
         ts.vars["tidb_tpu_engine"] = "off"
+    nodes = [type(node).__name__ for root in _fragment_roots(plan)
+             for node in _walk(root)]
     for root in _fragment_roots(plan):
         for node in _walk(root):
             if excluded == "distinct":
                 assert not any(d.distinct for d in getattr(node, "aggs",
                                                            []))
-            else:
-                assert type(node).__name__ != excluded
     top = explain[0][0].strip()
-    assert "TpuFragment" not in top, explain
     want, _ = run_jax(js, sql)
-    got = [tuple(r) for r in ts.query(sql).rows]
     if excluded == "PhysWindow":
-        # row numbers over tied keys may pick other rows: compare the
-        # shape of the answer
-        assert len(want) == len(got)
+        assert "PhysWindow" in nodes and "PhysHashJoin" in nodes, nodes
+        assert "TpuFragment" in top, explain
+        got, _ = run_port_tree(ts, sql, extra={"tidb_tpu_strict": 1})
+        # row numbers over tied keys may pick other rows, but (l_oid, rn)
+        # pairs of tied rows are the same multiset
+        assert_same(want, got)
     else:
+        assert "TpuFragment" not in top, explain
+        got = [tuple(r) for r in ts.query(sql).rows]
         assert_same(want, got, ordered="ORDER BY" in sql)
 
 

@@ -1,8 +1,10 @@
 """Device emission helpers for the fragment programs.
 
 One implementation of the root reductions — grouped aggregation (sort-
-factorize or stats-informed perfect-hash), ORDER BY / TopN and row
-roots — used by the linear-chain fragment programs (executor/fragment.py).
+factorize or stats-informed perfect-hash), ORDER BY / TopN, window
+evaluation and row roots — used by the linear-chain fragment programs
+(executor/fragment.py) and the join-tree programs
+(executor/tree_fragment.py).
 The reference splits the same logic between executor/aggregate.go and
 unistore's cophandler/mpp_exec.go.
 
@@ -11,9 +13,10 @@ the fragment's device: `ctx` is an expression EvalContext whose namespace
 is ops/xp.TorchXP, `live` the row-liveness mask (the sel vector analog).
 They run eagerly; the hot row-scale loops are hand-written CUDA kernels
 (K1 segment_reduce under every aggregate state update, K2 unpack_decode
-in emit_decode, K3 perfect_group_ids in _perfect_groups, and the sort
+in emit_decode, K3 perfect_group_ids in _perfect_groups, the sort
 kernels K8-K10 under factorize / sort_perm / topn and the LIMIT
-partition, ops/factorize.py).
+partition, ops/factorize.py, and the window kernels K12-K15 under
+emit_window_cols, ops/window.py).
 """
 
 from __future__ import annotations
@@ -56,13 +59,14 @@ def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
 
     → HashAgg: emit_agg's {keys, states, n_groups, slot_live};
       Limit/TopN/Sort: {cols, n_out} (gathered in output order, truncated
-      to k for Limit/TopN); any row root (Selection/Projection/Scan/Join):
-      padded {cols, live}. Only the join-tree programs reach the LIMIT
-      branch (the chain gate admits no LIMIT root), as in the JAX
-      package."""
+      to k for Limit/TopN); Window: emit_window's {cols, live}; any row
+      root (Selection/Projection/Scan/Join): padded {cols, live}. Only
+      the join-tree programs reach the LIMIT branch (the chain gate admits
+      no LIMIT root), as in the JAX package."""
     from tidb_tpu_torch.ops import factorize as F
     from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysLimit,
-                                                 PhysSort, PhysTopN)
+                                                 PhysSort, PhysTopN,
+                                                 PhysWindow)
     if isinstance(root, PhysHashAgg):
         return emit_agg(ctx, live, root, aggs, group_cap, key_bounds)
     if isinstance(root, PhysLimit):
@@ -86,6 +90,8 @@ def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
             idx, n_out = emit_sort(keys, root.descs, live)
         return {"cols": [(v[idx], m[idx]) for v, m in out_cols],
                 "n_out": n_out}
+    if isinstance(root, PhysWindow):
+        return emit_window(ctx, live, root)
     out_cols = [ctx.column(i) for i in range(len(root.schema))]
     return {"cols": list(out_cols), "live": live}
 
@@ -340,3 +346,94 @@ def agg_states(ctx, live, root, aggs, gids, cap: int, n: int):
         st = agg.init(xp, cap)
         states.append(agg.update(xp, st, gids, cap, v, m))
     return states
+
+
+# ---------------------------------------------------------------------------
+# Window root
+# ---------------------------------------------------------------------------
+
+
+def emit_window(ctx: EvalContext, live, root):
+    """Window root on the device: one sort per distinct (partition, order)
+    spec, then the window kernels of ops/window.py (the whole-column
+    reformulation of executor/window.go). → {cols, live} with the window
+    outputs appended to the child columns."""
+    n_child = len(root.children[0].schema)
+    in_cols = [ctx.column(i) for i in range(n_child)]
+    return {"cols": emit_window_cols(ctx, live, root, in_cols),
+            "live": live}
+
+
+def emit_window_cols(ctx: EvalContext, live, root, in_cols):
+    """The window computation proper → the child's column list (None
+    placeholders preserved) with one appended (value, mask) column per
+    window spec. Shared by the window-ROOT emit above and the interior
+    window of tree_fragment._TreeRun.emit, where the appended columns
+    feed the operator above. Per distinct spec: sort_perm (K9 + K8) with
+    `live` as an operand, K12's boundary flags over the sorted keys (a
+    change of `live` starts a partition, so a filtered slab's dead rows
+    never join a live partition) and K12's positions, kept for every
+    window function of the spec; each value scatters back to row order
+    through the permutation (a permutation: no two rows collide)."""
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import window as W
+    n = live.shape[0]
+    out_cols = list(in_cols)
+    layouts = {}
+    for d in root.wdescs:
+        lkey = repr((d.partition, d.order, d.descs))
+        layout = layouts.get(lkey)
+        if layout is None:
+            pkeys = [e.eval(ctx) for e in d.partition]
+            okeys = [e.eval(ctx) for e in d.order]
+            perm, _ = F.sort_perm(pkeys + okeys,
+                                  [False] * len(pkeys) + list(d.descs),
+                                  live)
+            pstart, peerstart = W.window_flags(perm, live, pkeys + okeys,
+                                               len(pkeys))
+            layout = (perm, pstart, peerstart,
+                      W.window_positions(pstart, peerstart))
+            layouts[lkey] = layout
+        perm, pstart, peerstart, pos = layout
+        v, m = _window_value(ctx, live, d, n, perm, pstart, peerstart, pos)
+        back_v = torch.empty(n, dtype=v.dtype, device=v.device)
+        back_v[perm] = v
+        back_m = torch.empty(n, dtype=torch.bool, device=m.device)
+        back_m[perm] = m
+        out_cols.append((back_v, back_m & live))
+    return out_cols
+
+
+def _window_value(ctx, live, d, n, perm, pstart, peerstart, pos):
+    """One window function over the sorted layout: its argument gathered
+    through `perm` (NULLs and dead rows masked), then ops/window.compute."""
+    from tidb_tpu_torch.ops import window as W
+    from tidb_tpu_torch.types import TypeKind
+    dev = live.device
+    vals = valid = fill = None
+    if d.args:
+        v, m = d.args[0].eval(ctx)
+        vals = v[perm]
+        valid = (m & live)[perm]
+    elif d.name not in ("row_number", "rank", "dense_rank"):
+        vals = torch.zeros(n, dtype=torch.int64, device=dev)   # COUNT(*)
+        valid = live[perm]
+    if d.name in ("lag", "lead"):
+        if d.default is not None and d.default.value is not None:
+            fv = d.args[0].ftype.encode_value(d.default.value)
+            fill = (torch.tensor(fv, dtype=vals.dtype, device=dev),
+                    torch.tensor(True, device=dev))
+        else:
+            fill = (torch.zeros((), dtype=vals.dtype, device=dev),
+                    torch.tensor(False, device=dev))
+    if d.name == "avg" and d.args and \
+            d.args[0].ftype.kind is TypeKind.DECIMAL:
+        vals = vals.to(torch.float64) / d.args[0].ftype.decimal_multiplier
+    frame = getattr(d, "frame", None)
+    range_key = None
+    if frame is not None and frame[0] == "range":
+        kv, km = d.order[0].eval(ctx)
+        range_key = (kv[perm], (km & live)[perm], bool(d.descs[0]))
+    return W.compute(ctx.xp, d.name, vals, valid, pstart, peerstart,
+                     bool(d.order), d.offset, fill, frame=frame,
+                     range_key=range_key, positions=pos)

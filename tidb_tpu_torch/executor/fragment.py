@@ -1,8 +1,9 @@
 """Device fragment extraction & execution (SURVEY §7 stages 3-5).
 
 A fragment is a maximal device-capable chain `scan → selection* →
-projection* → [hash-agg | topN | sort]`, or a join tree of such chains
-under equi hash joins (executor/tree_fragment.py — the TPC-H Q3/Q5 shape),
+projection* → [hash-agg | topN | sort | window]`, or a join tree of such
+chains under equi hash joins (executor/tree_fragment.py — the TPC-H Q3/Q5
+shape; also a window inside a tree, over a join or under another operator),
 run on the engine's torch device — the analog of the coprocessor DAG the
 reference pushes to storage (SURVEY A.2: unistore's closure executor fuses
 scan→selection→agg into a single callback, closure_exec.go; plan_to_pb.go
@@ -55,7 +56,7 @@ from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysHashJoin,
                                              PhysProjection, PhysSelection,
                                              PhysSort, PhysTableScan,
                                              PhysTopN, PhysTpuFragment,
-                                             PhysicalPlan)
+                                             PhysWindow, PhysicalPlan)
 from tidb_tpu_torch.types import FieldType
 
 DEFAULT_MAX_SLAB_ROWS = 1 << 23   # 8M rows per device slab
@@ -188,7 +189,7 @@ def _linearize(root: PhysicalPlan) -> Optional[List[PhysicalPlan]]:
             return nodes
         mid_ok = isinstance(cur, (PhysSelection, PhysProjection))
         root_ok = cur is root and isinstance(cur, (PhysHashAgg, PhysTopN,
-                                                   PhysSort))
+                                                   PhysSort, PhysWindow))
         order_agg = (isinstance(cur, PhysHashAgg)
                      and isinstance(root, (PhysTopN, PhysSort))
                      and all(_identity_projection(n) for n in nodes[1:-1])
@@ -252,11 +253,17 @@ def _row_root_ok(plan: PhysicalPlan) -> bool:
     one) returns its columns as the device holds them. A wide decimal's
     limb planes have no row gather or decode there — the JAX package's
     device run fails on them and reruns on the CPU — so a row root with
-    a wide-decimal output column stays on the CPU engine."""
+    a wide-decimal output column stays on the CPU engine. A window root's
+    own columns are exempt: the window kernels emit them as 1-D int64
+    whatever their declared type (a SUM over a DECIMAL column is typed
+    wide), and they decode like the host engine's."""
     _order, below = _strip_order_root(plan)
     if isinstance(below, PhysHashAgg):
         return True
-    return not any(ft.is_wide_decimal for ft in plan.schema.field_types)
+    fts = plan.schema.field_types
+    if isinstance(plan, PhysWindow):
+        fts = fts[:len(plan.children[0].schema)]
+    return not any(ft.is_wide_decimal for ft in fts)
 
 
 def _fragment_ok(plan: PhysicalPlan, threshold: int) -> bool:
@@ -310,6 +317,10 @@ def _fragment_ok(plan: PhysicalPlan, threshold: int) -> bool:
         elif isinstance(node, (PhysTopN, PhysSort)):
             if not _string_exprs_are_refs(node.by):
                 return False
+        elif isinstance(node, PhysWindow):
+            if not _window_device_ok(node):
+                return False
+            worthwhile = True
         elif isinstance(node, PhysSelection):
             worthwhile = True
         elif isinstance(node, PhysProjection):
@@ -320,12 +331,36 @@ def _fragment_ok(plan: PhysicalPlan, threshold: int) -> bool:
     return worthwhile
 
 
+_DEVICE_WINDOW_FUNCS = ("row_number", "rank", "dense_rank", "sum",
+                        "count", "avg", "min", "max", "lag", "lead",
+                        "first_value", "last_value", "percent_rank",
+                        "cume_dist", "ntile", "nth_value")
+
+
+def _window_device_ok(node: PhysWindow) -> bool:
+    for d in node.wdescs:
+        if d.name not in _DEVICE_WINDOW_FUNCS:
+            return False
+        if d.args and d.args[0].ftype.kind.is_string:
+            return False            # string lag/lead needs dict passthrough
+        if d.args and d.args[0].ftype.is_wide_decimal:
+            return False            # limb planes: window kernels are 1-D
+        fr = getattr(d, "frame", None)
+        if fr is not None and fr[0] == "range" and (
+                not d.order or d.order[0].ftype.kind.is_string):
+            return False            # RANGE bounds need a numeric key
+        if not _string_exprs_are_refs(list(d.partition) + list(d.order)):
+            return False
+    return True
+
+
 def extract_fragments(plan: PhysicalPlan, threshold: int) -> PhysicalPlan:
     """Top-down maximal-chain extraction: try the largest fuse at each node
     first so HashAgg(Sel(Scan)) becomes one fragment, not a CPU agg over a
-    fragment filter. Join trees (the Q3/Q5 shape) fuse through
-    tree_fragment when statically eligible; windows and distributed shapes
-    are not in the port yet and stay on the CPU engine."""
+    fragment filter. Join trees (the Q3/Q5 shape), and windows with no
+    linear-chain lowering (interior, over a join), fuse through
+    tree_fragment when statically eligible; distributed shapes are not in
+    the port yet and stay on the CPU engine."""
     if _fragment_ok(plan, threshold):
         frag = PhysTpuFragment(plan)
         frag.est_rows = plan.est_rows
@@ -422,6 +457,8 @@ def _chain_signature(chain: List[PhysicalPlan], used_cols: Sequence[int],
             off = getattr(node, "offset", 0)
             parts.append(f"{type(node).__name__}(by={node.by!r}, "
                          f"descs={node.descs}, k={k}, off={off})")
+        elif isinstance(node, PhysWindow):
+            parts.append(f"Window({node.wdescs!r})")
     return "|".join(parts)
 
 
@@ -465,6 +502,12 @@ def _used_column_indices(chain: List[PhysicalPlan]) -> List[int]:
             # sort/topn emit every child column
             n_cols = len(node.schema)
             used.update(range(n_cols))
+        elif isinstance(node, PhysWindow):
+            n_child = len(node.children[0].schema)
+            used.update(range(n_child))   # window emits every child column
+            for d in node.wdescs:
+                for e in list(d.args) + list(d.partition) + list(d.order):
+                    used.update(e.references())
     return sorted(used)
 
 
@@ -483,6 +526,13 @@ def _stage_exprs(node: PhysicalPlan) -> List[Expression]:
         return out
     if isinstance(node, (PhysTopN, PhysSort)):
         return list(node.by)
+    if isinstance(node, PhysWindow):
+        out: List[Expression] = []
+        for d in node.wdescs:
+            out.extend(d.args)
+            out.extend(d.partition)
+            out.extend(d.order)
+        return out
     return []
 
 
@@ -1313,12 +1363,15 @@ class TpuFragmentExec:
                                  "execution context carries none")
         chain = _linearize(self.plan.root)
         if chain is None:
-            from tidb_tpu_torch.executor.tree_fragment import has_join
-            if has_join(self.plan.root):
+            from tidb_tpu_torch.executor.tree_fragment import (has_join,
+                                                               has_window)
+            if has_join(self.plan.root) or has_window(self.plan.root):
+                # joins, and windowed shapes with no linear-chain lowering
+                # (interior windows), run as tree programs
                 return self._run_device_tree()
             raise ExecutionError("device fragment is neither a linear "
-                                 "chain nor a join tree (the plan-time "
-                                 "gate admits no other shape)")
+                                 "chain nor a tree (the plan-time gate "
+                                 "admits no other shape)")
         # ORDER BY / TopN directly over the agg: strip the order root and
         # run the rest agg-rooted — the ordering becomes the agg's fused
         # device finalize (or a host re-order when the gate is off)
@@ -1361,6 +1414,13 @@ class TpuFragmentExec:
             zonemap.note_skipped(self.ctx.phases, len(skip))
 
         root = chain[0]
+        if n_slabs > 1 and isinstance(root, PhysWindow):
+            # window partitions span slabs: per-slab results can't merge;
+            # run the chain as ONE program over the concatenated slabs
+            if stream is not None:
+                for _ in stream:    # commit the upload; the tree path
+                    pass            # re-opens the table warm
+            return self._run_device_tree()
         if not slab_ids:
             # every slab pruned: ZERO launches. Drain the stream so the
             # skip accounting commits, then synthesize the result the
@@ -2400,12 +2460,16 @@ def _expr_dict(e: Expression, dicts) -> Optional[np.ndarray]:
 def _positional_dict(node: PhysicalPlan, out_idx: int, dicts
                      ) -> Optional[np.ndarray]:
     """Dictionary for output column `out_idx` of a non-agg root: identity
-    through Selection/TopN/Sort; via ColumnRef for Projection outputs."""
+    through Selection/TopN/Sort and a window's child columns; via
+    ColumnRef for Projection outputs; none for a window's own columns."""
     cur = node
     idx = out_idx
     while True:
         if isinstance(cur, PhysTableScan):
             return dicts.get(idx)
+        if isinstance(cur, PhysWindow) and \
+                idx >= len(cur.children[0].schema):
+            return None
         if isinstance(cur, PhysProjection):
             e = cur.exprs[idx]
             if isinstance(e, ColumnRef):

@@ -41,9 +41,16 @@ dictionary space host-side (`KeyRemap`, a prepared LUT input).
 
 Roots: an aggregate (with its ORDER BY / TopN fused into the finalize),
 TopN / Sort directly over the join's rows (`sort_perm` / `topn`), a LIMIT
-(the first offset+count live rows, a stable partition), or the rows
-themselves. Not in this port yet, each refused at plan time so EXPLAIN
-shows the CPU plan: windows, DISTINCT and ROLLUP aggregates.
+(the first offset+count live rows, a stable partition), a window, or the
+rows themselves. A window may also sit inside the tree (under a TopN,
+an aggregate, a selection on its output, or over a join): its columns
+are computed in the program (device_emit.emit_window_cols, the K12-K15
+kernels) and feed the operator above. Joinless trees are admitted when
+they hold a window, since a mid-chain window has no linear-chain
+lowering; a multi-slab window root runs here too, as one program over
+the concatenated slabs (partitions span slabs). Not in this port yet,
+each refused at plan time so EXPLAIN shows the CPU plan: DISTINCT and
+ROLLUP aggregates.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysHashJoin,
                                              PhysLimit, PhysProjection,
                                              PhysSelection, PhysSort,
                                              PhysTableScan, PhysTopN,
-                                             PhysicalPlan)
+                                             PhysWindow, PhysicalPlan)
 
 JOIN_KINDS = ("inner", "left", "right", "semi", "anti")
 JOIN_DOMAIN_CAP = 1 << 25      # max packed build-key domain for LUT joins
@@ -71,6 +78,12 @@ def has_join(plan: PhysicalPlan) -> bool:
     if isinstance(plan, PhysHashJoin):
         return True
     return any(has_join(c) for c in plan.children)
+
+
+def has_window(plan: PhysicalPlan) -> bool:
+    if isinstance(plan, PhysWindow):
+        return True
+    return any(has_window(c) for c in plan.children)
 
 
 def _string_key_ok(l: Expression, r: Expression) -> bool:
@@ -92,7 +105,8 @@ def tree_ok(plan: PhysicalPlan, threshold: int) -> bool:
                                                   _identity_projection,
                                                   _order_over_agg_ok,
                                                   _row_root_ok,
-                                                  _string_exprs_are_refs)
+                                                  _string_exprs_are_refs,
+                                                  _window_device_ok)
 
     max_scan = [0.0]
 
@@ -155,15 +169,21 @@ def tree_ok(plan: PhysicalPlan, threshold: int) -> bool:
                 return walk(child, True)
             # over the join's rows: sort_perm / topn in the program root
             return walk(node.children[0], False)
+        if isinstance(node, PhysWindow):
+            # root OR interior: an interior window computes its columns in
+            # the program (_TreeRun.emit) and feeds the operator above —
+            # the TopN-over-ROW_NUMBER / agg-over-window shapes
+            return _window_device_ok(node) and walk(node.children[0], False)
         if is_root and isinstance(node, PhysLimit):
             # LIMIT over a join: the program emits the first offset+count
             # live rows in probe row order (device_emit.emit_root)
             return node.count is not None and walk(node.children[0], False)
-        # windows are not ported: CPU
         return False
 
-    return _row_root_ok(plan) and walk(plan, True) and has_join(plan) and \
-        max_scan[0] >= threshold
+    # joinless trees are admitted when a window makes the tree program
+    # worthwhile (mid-chain windows have no linear-chain lowering)
+    return _row_root_ok(plan) and walk(plan, True) and \
+        (has_join(plan) or has_window(plan)) and max_scan[0] >= threshold
 
 
 def _scans(plan: PhysicalPlan) -> List[PhysTableScan]:
@@ -561,6 +581,8 @@ def tree_signature(plan: PhysicalPlan, caps: Dict[int, Tuple[int, int]],
                          f"off={getattr(node, 'offset', 0)})")
         elif isinstance(node, PhysLimit):
             parts.append(f"Limit(k={node.count}, off={node.offset})")
+        elif isinstance(node, PhysWindow):
+            parts.append(f"Window({node.wdescs!r})")
     return "|".join(parts)
 
 
@@ -703,7 +725,16 @@ class _TreeRun:
             return [e.eval(ctx) for e in node.exprs], live
         if isinstance(node, PhysHashJoin):
             return self._emit_join(node, scan_inputs, scan_rows)
-        if isinstance(node, (PhysHashAgg, PhysTopN, PhysSort, PhysLimit)):
+        if isinstance(node, PhysWindow) and node is not self.prog.plan:
+            # interior window: compute the window columns here and hand
+            # them to the operator above (a window ROOT is emitted by
+            # finish through emit_root instead)
+            from tidb_tpu_torch.executor import device_emit
+            cols, live = self.emit(node.children[0], scan_inputs, scan_rows)
+            return device_emit.emit_window_cols(self.ctx(cols), live, node,
+                                                cols), live
+        if isinstance(node, (PhysHashAgg, PhysTopN, PhysSort, PhysLimit,
+                             PhysWindow)):
             return self.emit(node.children[0], scan_inputs, scan_rows)
         raise AssertionError(f"unexpected node {type(node).__name__}")
 
@@ -989,6 +1020,9 @@ def dictionary_flows(plan: PhysicalPlan,
                            and e.index < len(inp) else None)
             out.extend([None] * len(node.aggs))
             return out
+        if isinstance(node, PhysWindow):
+            # window columns are numbers: no dictionary
+            return inp + [None] * len(node.wdescs)
         return inp
 
     root_out = rec(plan)

@@ -30,13 +30,15 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tidb_tpu_torch")
 
 SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups", "lut_join",
-           "join_expand", "radix_sort", "sorted_groups")
+           "join_expand", "radix_sort", "sorted_groups", "window_scan",
+           "window_frame")
 #: launch counters, one per kernel (lut_join.cu holds K4 and K5,
 #: join_expand.cu K6 and K7, radix_sort.cu K8 and K9, sorted_groups.cu K10
-#: and K11)
+#: and K11, window_scan.cu K12 and K13, window_frame.cu K14 and K15)
 COUNTERS = ("segment_reduce", "unpack_decode", "perfect_groups",
             "lut_build", "lut_probe", "lut_order", "join_expand",
-            "radix_sort", "sort_encode", "group_ids", "sorted_search")
+            "radix_sort", "sort_encode", "group_ids", "sorted_search",
+            "window_bounds", "window_scan", "frame_bounds", "frame_eval")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -44,6 +46,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_ulonglong
+_D = ctypes.c_double
 _SIGNATURES = {
     "tt_segment_reduce": [_I, _I, _P, _P, _L, _I, _P, _P, _I, _P],
     "tt_segment_small_cap": [],
@@ -68,6 +71,19 @@ _SIGNATURES = {
     "tt_sorted_search": [_P, _L, _P, _L, _I, _P, _P],
     "tt_sorted_probe_unique": [_P, _P, _L, _P, _P, _L, _P, _P, _P, _P],
     "tt_sorted_probe_multi": [_P, _L, _P, _P, _L, _P, _P, _P],
+    "tt_window_tile": [],
+    "tt_window_flags": [_P, _I, _P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P],
+    "tt_window_positions": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _P],
+    "tt_window_prefix": [_P, _I, _P, _L, _P, _P, _P, _P],
+    "tt_window_segscan": [_P, _I, _P, _P, _L, _I, _I, _L, _D, _P, _P, _P],
+    "tt_frame_direct_width": [],
+    "tt_frame_bounds": [_P, _P, _P, _P, _L, _P, _I, _P, _I, _I, _L, _D, _I,
+                        _L, _D, _I, _P, _P, _P],
+    "tt_frame_rank": [_P, _P, _P, _P, _P, _L, _I, _L, _P, _P],
+    "tt_frame_agg": [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P],
+    "tt_frame_gather": [_P, _I, _P, _P, _L, _P, _P, _L, _P, _L, _P, _L, _P,
+                        _P, _P],
+    "tt_frame_minmax": [_P, _I, _P, _I, _L, _D, _P, _P, _L, _L, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()

@@ -76,7 +76,26 @@ which must pass:
  12. window kernel timing at phase 11's shapes (8,388,608 rows): K12
      over W1's and W2's layouts, K13's int64 prefix (beside torch.cumsum)
      and segmented max, K14 over W3's RANGE key, K15's bounded MIN and
-     prefix-difference SUM.
+     prefix-difference SUM;
+ 13. DISTINCT and ROLLUP aggregates on the card, over lineitem and
+     phase 7's tables: D1 three DISTINCT aggregates (one of two columns)
+     and an AVG by (returnflag, linestatus), D2 = D1 over 2,097,152-row
+     slabs (per-slab pair sets through the pair ladder, merged on the
+     host; its "pairs" rungs are logged), D3 two DISTINCT counts over
+     lineitem ⋈ orders, D4 scalar DISTINCT counts (one of two columns),
+     R1 Q1's keys WITH ROLLUP, R2 a ROLLUP over lineitem ⋈ orders ⋈
+     customer, R3 = R1 over 2,097,152-row slabs; each cold and twice
+     warm under tidb_tpu_strict=1, exactly equal to the host engine
+     (rows sorted where the statement has no ORDER BY), EXPLAIN showing
+     its HashAgg inside a TpuFragment. Counters are zeroed before the
+     phase; K16-K18 and K8-K10 must move (K16 in every D run, K17 and
+     K18 in every R run);
+ 14. DISTINCT/ROLLUP kernel timing at phase 13's shapes, each held
+     exactly to its plain version there: K16's two entries at
+     n = 8,388,608 (beside `gids*(n+1)+vid` and `rep[pg] == arange`),
+     K17 tiling R1's read columns to 3 x 8,388,608 rows and writing the
+     levels of its two key masks (beside torch.cat, repeat_interleave
+     and &), K18 through D2's pair cap (beside per-column index_select).
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
@@ -84,8 +103,12 @@ sorted_search against their plain versions, exactly; the sort functions
 built on K8-K10 (factorize, sort_perm, topn, pack_codes) equal the same
 functions over CPU copies of the inputs; and K12 window_bounds, K13
 window_scan, K14 frame_bounds and K15 frame_eval against theirs, every
-entry, exactly except K13's float64 prefixes (within 2·i·eps·Σ|x|). Phase 4's TopN scan must launch
-K8-K10.
+entry, exactly except K13's float64 prefixes (within 2·i·eps·Σ|x|);
+and K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
+theirs exactly (random gids with dead rows, value ranks with ties,
+1/2/4/8-byte columns and a 2-D limb plane, n_valid below and at the
+cap), with the pair factorize on K8-K10 + K16 equal to its CPU run.
+Phase 4's TopN scan must launch K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -2031,6 +2054,390 @@ def window_timing_phase(dev, n: int, f64_err: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (DISTINCT / ROLLUP): K16-K18 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_distinct_kernels(dev):
+    """K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
+    their plain versions on the card, exactly; and the pair factorize
+    built on K8-K10 and K16 against the same function over CPU copies."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor import device_emit as E
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import gather as G
+    rng = np.random.default_rng(37)
+    cases = 0
+
+    def same(what, got, want):
+        nonlocal cases
+        if not _same_nan(got, want):
+            raise AssertionError(f"{what} differs from its plain version")
+        cases += 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for n, cap in ((1, 1), (1000, 7), (300_001, 4096)):
+        # K16: random gids with dead rows (= cap), value ranks with ties
+        live = rng.random(n) > 0.2
+        gids = np.where(live, rng.integers(0, cap, n), cap).astype(np.int32)
+        vid = rng.integers(0, max(n // 3, 1), n).astype(np.int32)
+        same(f"K16 pair_code n={n}", F.pair_code(t(gids), t(vid), cap),
+             F.pair_code_plain(t(gids), t(vid)))
+        rep = rng.integers(0, n, cap).astype(np.int32)
+        pg = rng.integers(0, cap, n).astype(np.int32)
+        rep[pg[: cap // 2]] = np.arange(min(cap // 2, n))
+        same(f"K16 first_mask n={n}", F.first_mask(t(rep), t(pg)),
+             F.first_mask_plain(t(rep), t(pg)))
+        # the pair factorize over K9 + K8 + K10 + K16 vs over CPU copies
+        vals = rng.integers(-50, 50, n).astype(np.int64)
+        valid = rng.random(n) > 0.1
+        got = F.distinct_pair_factorize(t(gids), t(vals), t(valid), t(live),
+                                        n, gid_cap=cap)
+        want = F.distinct_pair_factorize(*(torch.from_numpy(a) for a in
+                                           (gids, vals, valid, live)), n,
+                                         gid_cap=cap)
+        pl = t(live & valid)
+        same(f"pair factorize first n={n}", got[0][pl],
+             want[0].to(dev)[pl])
+        same(f"pair factorize pg n={n}", got[1][pl], want[1].to(dev)[pl])
+        k = int(want[2])
+        if int(got[2]) != k:
+            raise AssertionError("pair factorize: n_pairs differs")
+        same(f"pair factorize rep n={n}", got[3][:k], want[3].to(dev)[:k])
+        # K17: 1/2/4/8-byte columns and a 2-D limb plane, reps 2..4
+        cols = [t(rng.random(n) > 0.5),
+                t(rng.integers(-9, 9, n).astype(np.int16)),
+                t(rng.integers(0, 7, n).astype(np.int32)),
+                t(rng.normal(size=n)),
+                t(rng.integers(0, 1 << 40, (3, n)).astype(np.int64))]
+        for reps in (2, 3, 4):
+            for a, b in zip(E.rollup_tile(cols, reps),
+                            E.rollup_tile_plain(cols, reps)):
+                same(f"K17 tile n={n} reps={reps}", a, b)
+            masks = [t(np.tile(rng.random(n) > 0.2, reps))
+                     for _ in range(reps - 1)]
+            lev, got_m = E.rollup_levels(masks, n)
+            wlev, want_m = E.rollup_levels_plain(masks, n)
+            same(f"K17 levels n={n}", lev, wlev)
+            for a, b in zip(got_m, want_m):
+                same(f"K17 level masks n={n}", a, b)
+        # K18: 1/4/8-byte columns, masks and none, int32 and int64
+        # indices, n_valid below and at the cap
+        gcols = [(cols[0], t(rng.random(n) > 0.3)), (cols[2], None),
+                 (cols[3], t(rng.random(n) > 0.3)),
+                 (t(rng.integers(-2 ** 62, 2 ** 62, n)), None)]
+        m_out = max(n // 2, 1)
+        for idx_dt in (np.int32, np.int64):
+            idx = t(rng.integers(0, n, m_out).astype(idx_dt))
+            for nv in (m_out // 3, m_out):
+                n_valid = torch.tensor(nv, dtype=torch.int32, device=dev)
+                for (a, am), (b, bm) in zip(
+                        G.gather_columns(gcols, idx, n_valid),
+                        G.gather_columns_plain(gcols, idx, n_valid)):
+                    same(f"K18 values n={n}", a, b)
+                    same(f"K18 masks n={n}", am, bm)
+    torch.cuda.synchronize()
+    log(f"K16/K17/K18 exactly equal to their plain versions ({cases} "
+        f"cases); the pair factorize on K8-K10 + K16 equal to its CPU run")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: DISTINCT and ROLLUP aggregates in SQL
+# ---------------------------------------------------------------------------
+
+D1 = """SELECT l_returnflag, l_linestatus, COUNT(DISTINCT l_orderkey),
+ COUNT(DISTINCT l_shipdate, l_discount), SUM(DISTINCT l_quantity),
+ AVG(l_extendedprice) FROM lineitem GROUP BY l_returnflag, l_linestatus
+ ORDER BY l_returnflag, l_linestatus"""
+
+D3 = """SELECT o_orderpriority, COUNT(DISTINCT l_orderkey),
+ COUNT(DISTINCT o_custkey) FROM lineitem JOIN orders ON l_orderkey =
+ o_orderkey WHERE l_shipdate <= '1998-09-02' GROUP BY o_orderpriority
+ ORDER BY o_orderpriority"""
+
+D4 = """SELECT COUNT(DISTINCT l_orderkey), COUNT(DISTINCT l_orderkey,
+ l_returnflag) FROM lineitem WHERE l_shipdate >= '1995-01-01'"""
+
+R1 = """SELECT l_returnflag, l_linestatus, SUM(l_quantity),
+ SUM(l_extendedprice), AVG(l_discount), COUNT(*) FROM lineitem
+ WHERE l_shipdate <= '1998-09-02'
+ GROUP BY l_returnflag, l_linestatus WITH ROLLUP"""
+
+R2 = """SELECT c_mktsegment, o_orderpriority, COUNT(*), SUM(l_extendedprice)
+ FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+ JOIN customer ON o_custkey = c_custkey
+ GROUP BY c_mktsegment, o_orderpriority WITH ROLLUP"""
+
+DISTINCT_KERNELS = ("distinct_pairs", "rollup_tile", "gather_columns")
+MULTI_SLAB = 2_097_152       # D2's and R3's slabs
+FULL_SLAB = 8_388_608        # the device cache's slab at SF=1
+
+
+def agg_in_fragment(s, sql) -> bool:
+    """Is a HashAgg inside a device fragment of the statement's plan?"""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import PhysHashAgg, PhysTpuFragment
+    s.vars["tidb_tpu_engine"] = "on"
+    plan = s._plan(parse(sql)[0])
+    found = []
+
+    def walk(p, inside):
+        inside = inside or isinstance(p, PhysTpuFragment)
+        if isinstance(p, PhysTpuFragment):
+            walk(p.root, True)
+        if isinstance(p, PhysHashAgg) and inside:
+            found.append(p)
+        for c in p.children:
+            walk(c, inside)
+
+    walk(plan, False)
+    return bool(found)
+
+
+def distinct_sql_phase(s):
+    """D1-D4 and R1-R3 cold and twice warm under tidb_tpu_strict=1, each
+    exactly equal to the host engine (rows sorted where the statement
+    has no ORDER BY) → (launches, walls)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    stmts = {"d1": (D1, None), "d2": (D1, MULTI_SLAB), "d3": (D3, None),
+             "d4": (D4, None), "r1": (R1, None), "r2": (R2, None),
+             "r3": (R1, MULTI_SLAB)}
+    for name, (sql, _slab) in stmts.items():
+        explain = "\n".join(str(r[0]) for r in
+                            s.query("EXPLAIN " + sql).rows)
+        if not agg_in_fragment(s, sql) or "TpuFragment" not in explain:
+            raise AssertionError(f"{name}: the HashAgg is not inside the "
+                                 f"device fragment\n{explain}")
+    log("EXPLAIN: D1-D4's and R1-R3's HashAgg inside a TpuFragment")
+    host = {}
+    walls = {}
+    for name in ("d1", "d3", "d4", "r1", "r2"):
+        sql = stmts[name][0]
+        rows, wall, _, _ = run_sql(s, sql, device=False)
+        host[name] = rows if "ORDER BY" in sql else sorted(rows, key=repr)
+        walls[f"host_{name}"] = wall
+        log(f"host {name}: {len(rows)} rows in {wall:.3f} s"
+            + (" (over 30 s)" if wall > 30 else ""))
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    esc_all = {}
+    for name, (sql, slab) in stmts.items():
+        ref = {"d2": "d1", "r3": "r1"}.get(name, name)
+        for k in ("cold", "warm1", "warm2"):
+            run = f"{name}_{k}"
+            before = ck.launches()
+            rows, wall, phases, esc = run_sql(s, sql, device=True,
+                                              max_slab=slab)
+            after = ck.launches()
+            moved = {c: after[c] - before[c] for c in after
+                     if after[c] != before[c]}
+            if "ORDER BY" not in sql:
+                rows = sorted(rows, key=repr)
+            if rows != host[ref]:
+                raise AssertionError(f"{run}: device rows != host rows\n"
+                                     f"{rows[:3]}\n{host[ref][:3]}")
+            for kind, c in esc.items():
+                esc_all[f"{name}:{kind}"] = esc_all.get(f"{name}:{kind}",
+                                                        0) + c
+            walls[run] = wall
+            log(f"{run}: {len(rows)} rows, exact match, wall {wall:.4f} s, "
+                f"launches {moved}, escalation {esc}, phases {phases}")
+            if name.startswith("d") and not moved.get("distinct_pairs"):
+                raise AssertionError(f"{run}: K16 did not move ({moved})")
+            if name.startswith("r") and not (moved.get("rollup_tile") and
+                                             moved.get("gather_columns")):
+                raise AssertionError(f"{run}: K17/K18 did not move "
+                                     f"({moved})")
+    s.vars.pop("tidb_tpu_max_slab_rows", None)
+    launches = ck.launches()
+    walls["distinct_phase"] = time.perf_counter() - t_phase
+    for k in DISTINCT_KERNELS + ("radix_sort", "sort_encode", "group_ids"):
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was never launched by the "
+                                 f"DISTINCT/ROLLUP path")
+    if not any(k.startswith("d2:pairs") for k in esc_all):
+        raise AssertionError(f"D2 climbed no pairs rung ({esc_all})")
+    log(f"escalation rungs: {json.dumps(esc_all)}")
+    log(f"DISTINCT/ROLLUP phase: {walls['distinct_phase']:.1f} s, launches "
+        f"{launches}")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 14: DISTINCT / ROLLUP kernel timing
+# ---------------------------------------------------------------------------
+
+
+def distinct_timing_phase(dev, n: int):
+    """K16-K18 at phase 13's shapes: K16 over one 8,388,608-row lineitem
+    slab (D1's COUNT(DISTINCT l_orderkey) in (returnflag, linestatus)
+    groups), K17 tiling R1's read columns 3x, K18 gathering D2's pair
+    output (its two key columns and l_orderkey through rep[:pair_cap]
+    over its largest 2,097,152-row slab, at the pair cap D2's ladder
+    settles on: the power of two over the largest per-slab pair count,
+    at most the slab)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor import device_emit as E
+    from tidb_tpu_torch.executor.device_cache import _pow2
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import gather as G
+    li = make_lineitem(n)
+    out = []
+
+    def col(a, dtype, cap):
+        t = torch.zeros(cap, dtype=dtype)
+        m = min(n, cap)
+        t[:m] = torch.from_numpy(np.asarray(a[:m]).astype(
+            np.dtype(str(dtype).replace("torch.", ""))))
+        return t.to(dev)
+
+    def exact(what, a, b):
+        if not _same_nan(a, b):
+            raise AssertionError(f"{what} differs from its plain version")
+
+    cap = FULL_SLAB
+    rows = torch.arange(cap, device=dev) < n
+    codes = {c: col(np.unique(li[c], return_inverse=True)[1], torch.int32,
+                    cap) for c in ("l_returnflag", "l_linestatus")}
+    gids = torch.where(rows, codes["l_returnflag"] * 2 +
+                       codes["l_linestatus"], torch.full_like(
+                           codes["l_returnflag"], 6)).contiguous()
+    okey = col(li["l_orderkey"], torch.int64, cap)
+    vid = F._dense1(okey, None, rows)
+    # K16 pair_code and first_mask at n = 8,388,608
+    ms_code = time_cuda(lambda: F.pair_code(gids, vid, 6), reps=10)
+    plain_code = time_cuda(lambda: F.pair_code_plain(gids, vid), reps=5)
+    exact("K16 pair_code", F.pair_code(gids, vid, 6),
+          F.pair_code_plain(gids, vid))
+    code = F.pair_code(gids, vid, 6)
+    pg, n_pairs, rep = F.factorize([(code, None)], rows, cap,
+                                   hi=7 * (cap + 1))
+    k = int(n_pairs)
+    ms_first = time_cuda(lambda: F.first_mask(rep, pg), reps=10)
+    plain_first = time_cuda(lambda: F.first_mask_plain(rep, pg), reps=5)
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    lib_code = time_cuda(lambda: gids.long() * (cap + 1) + vid.long(),
+                         reps=10)
+    lib_first = time_cuda(lambda: rep[pg.long()] == iota, reps=10)
+    exact("K16 first_mask", F.first_mask(rep, pg),
+          F.first_mask_plain(rep, pg))
+    # inputs read once, outputs written once: the gids and ranks (4 B
+    # each) → the code (8 B); pg (4 B) and the k rep entries the pairs
+    # need → one flag byte
+    b, by = bound_ms(cap * 16 + cap * 5 + k * 4, cap * 3)
+    out.append({"name": "distinct_pairs", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/distinct_pairs.cu",
+                "replaces": "tidb_tpu/ops/factorize.py:206",
+                "max_abs_err": 0, "ms": ms_code + ms_first,
+                "plain_ms": plain_code + plain_first, "bound_ms": b,
+                "bound_by": by, "library_ms": lib_code + lib_first})
+    log(f"K16 n={cap}, {k} pairs: pair_code {ms_code:.4f} ms (plain "
+        f"{plain_code:.4f}, gids*(n+1)+vid {lib_code:.4f}, bound "
+        f"{bound_ms(cap * 16, 0)[0]:.4f}), first_mask {ms_first:.4f} ms "
+        f"(plain {plain_first:.4f}, rep[pg] == arange {lib_first:.4f}, "
+        f"bound {bound_ms(cap * 5 + k * 4, 0)[0]:.4f}); bound of both "
+        f"{b:.4f} by {by}")
+
+    # K17: R1's read columns (live, returnflag/linestatus codes and masks,
+    # l_quantity, l_extendedprice, l_discount and masks) tiled 3x
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    r1 = [rows & (col(li["l_shipdate"], torch.int32, cap) <= 10471)]
+    for c in ("l_returnflag", "l_linestatus"):
+        r1 += [codes[c], ones]
+    for c in ("l_quantity", "l_extendedprice", "l_discount"):
+        r1 += [col(li[c], torch.int64, cap), ones]
+    ms = time_cuda(lambda: E.rollup_tile(r1, 3), reps=10)
+    plain = time_cuda(lambda: E.rollup_tile_plain(r1, 3), reps=5)
+    lib = time_cuda(lambda: [torch.cat([c] * 3) for c in r1], reps=10)
+    for a, c in zip(E.rollup_tile(r1, 3), E.rollup_tile_plain(r1, 3)):
+        exact("K17 tile", a, c)
+    in_bytes = sum(c.numel() * c.element_size() for c in r1)
+    b_tile = bound_ms(in_bytes * 4, 0)[0]
+    # the levels entry over R1's two key masks with NULLs, as tiled
+    g = torch.Generator(device=dev).manual_seed(17)
+    masks = [torch.cat([torch.rand(cap, generator=g, device=dev) < 0.9]
+                       * 3) for _ in range(2)]
+    lev, got_m = E.rollup_levels(masks, cap)
+    wlev, want_m = E.rollup_levels_plain(masks, cap)
+    exact("K17 levels", lev, wlev)
+    for a, c in zip(got_m, want_m):
+        exact("K17 level masks", a, c)
+    ms_lev = time_cuda(lambda: E.rollup_levels(masks, cap), reps=10)
+    plain_lev = time_cuda(lambda: E.rollup_levels_plain(masks, cap), reps=5)
+
+    def lib_levels():
+        lv = torch.arange(3, device=dev).repeat_interleave(cap)
+        return lv, [m & (lv < 2 - i) for i, m in enumerate(masks)]
+    lib_lev = time_cuda(lib_levels, reps=10)
+    # levels: two masks read, the int64 level column and two masks
+    # written, over 3 x cap rows
+    b, by = bound_ms(in_bytes * 4 + 3 * cap * (2 + 8 + 2), 0)
+    out.append({"name": "rollup_tile", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/rollup_tile.cu",
+                "replaces": "tidb_tpu/executor/device_emit.py:332",
+                "max_abs_err": 0, "ms": ms + ms_lev,
+                "plain_ms": plain + plain_lev, "bound_ms": b,
+                "bound_by": by, "library_ms": lib + lib_lev})
+    log(f"K17 tile of R1's {len(r1)} read columns to 3 x {cap} rows: "
+        f"{ms:.4f} ms (plain {plain:.4f}, torch.cat {lib:.4f}, bound "
+        f"{b_tile:.4f}); levels of 2 keys {ms_lev:.4f} ms (plain "
+        f"{plain_lev:.4f}, repeat_interleave + & {lib_lev:.4f}, bound "
+        f"{bound_ms(3 * cap * 12, 0)[0]:.4f}); bound of both {b:.4f} "
+        f"by {by}")
+
+    # K18: D2's pair output over one 2,097,152-row slab — two key columns
+    # (dictionary codes and masks) and l_orderkey through rep[:pair_cap]
+    sc = MULTI_SLAB
+    best = None
+    for lo in range(0, min(n, cap), sc):
+        srows = torch.arange(sc, device=dev) < min(n - lo, sc)
+        part = slice(lo, lo + sc)
+        sg = torch.full((sc,), 6, dtype=torch.int32, device=dev)
+        so = torch.zeros(sc, dtype=torch.int64, device=dev)
+        m = min(n - lo, sc)
+        sg[:m] = gids[part][:m]
+        so[:m] = okey[part][:m]
+        _f, _p, s_pairs, s_rep = F.distinct_pair_factorize(
+            sg, so, srows, srows, sc, gid_cap=6)
+        if best is None or int(s_pairs) > int(best[0]):
+            best = (s_pairs, s_rep, lo, so)
+    s_pairs, s_rep, lo, so = best
+    pc = min(_pow2(int(s_pairs)) if int(s_pairs) > 65_536 else 65_536, sc)
+    idx = s_rep[:pc]
+    gcols = [(codes["l_returnflag"][lo:lo + sc].contiguous(), ones[:sc]),
+             (codes["l_linestatus"][lo:lo + sc].contiguous(), ones[:sc]),
+             (so, None)]
+    ms = time_cuda(lambda: G.gather_columns(gcols, idx, s_pairs), reps=10)
+    plain = time_cuda(lambda: G.gather_columns_plain(gcols, idx, s_pairs),
+                      reps=5)
+    il = idx.long()
+    lib = time_cuda(lambda: [(torch.index_select(v, 0, il),
+                              None if m is None else
+                              torch.index_select(m, 0, il))
+                             for v, m in gcols], reps=10)
+    for (a, am), (c, cm) in zip(G.gather_columns(gcols, idx, s_pairs),
+                                G.gather_columns_plain(gcols, idx,
+                                                       s_pairs)):
+        exact("K18 values", a, c)
+        exact("K18 masks", am, cm)
+    per_slot = 4 + (4 + 1 + 4 + 1) + (4 + 1 + 4 + 1) + (8 + 8 + 1)
+    b, by = bound_ms(pc * per_slot, 0)
+    out.append({"name": "gather_columns", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/gather_columns.cu",
+                "replaces": "tidb_tpu/executor/device_emit.py:53",
+                "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"K18 3 columns through rep[:{pc}] ({int(s_pairs)} pairs) of a "
+        f"{sc}-row slab: {ms:.4f} ms (plain {plain:.4f}, index_select "
+        f"{lib:.4f}, bound {b:.4f} by {by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -2106,6 +2513,7 @@ def main() -> int:
     check_join_kernels(dev)
     check_sort_kernels(dev)
     f64_err = check_window_kernels(dev)
+    check_distinct_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -2136,12 +2544,20 @@ def main() -> int:
         k["launches"] = window_launches[k["name"]]
     kernels += window_kernels
     walls.update(window_walls)
+    distinct_launches, distinct_walls = distinct_sql_phase(s)
+    distinct_kernels = distinct_timing_phase(dev, n)
+    for k in distinct_kernels:
+        k["launches"] = distinct_launches[k["name"]]
+    kernels += distinct_kernels
+    walls.update(distinct_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
     log("sort-phase launches of every kernel: " + json.dumps(sort_launches))
     log("window-phase launches of every kernel: " +
         json.dumps(window_launches))
+    log("DISTINCT/ROLLUP-phase launches of every kernel: " +
+        json.dumps(distinct_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

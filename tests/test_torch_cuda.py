@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels on the card: K1 segment_reduce,
 K2 unpack_decode and K3 perfect_group_ids against their plain torch
 versions on the same CUDA tensors, and a Q1 run on the card against the
-same engine's host result. Needs a CUDA GPU and nvcc; skips without one.
+same engine's host result; K16 distinct_pairs (with the pair factorize
+around it), K17 rollup_tile and K18 gather_columns against their plain
+versions on CPU copies. Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
 Integer, bool and decode results must be exactly equal; f64 sums within
@@ -127,3 +129,77 @@ def test_q1_on_card_equals_host_engine(cuda):
     q1 = ("segment_reduce", "unpack_decode", "perfect_groups", "radix_sort",
           "sort_encode")
     assert all(after[k] > before[k] for k in q1), (before, after)
+
+
+@pytest.mark.parametrize("n,cap", [(1, 1), (5000, 13), (200_003, 4096)])
+def test_k16_matches_plain(cuda, n, cap):
+    from tidb_tpu_torch.ops import factorize as F
+    g = torch.Generator().manual_seed(n)
+    live = torch.rand(n, generator=g) < 0.8
+    gids = torch.where(live, torch.randint(0, cap, (n,), generator=g),
+                       torch.full((n,), cap)).to(torch.int32)
+    vid = torch.randint(0, max(n // 3, 1), (n,), generator=g,
+                        dtype=torch.int32)
+    assert torch.equal(F.pair_code(gids.to(cuda), vid.to(cuda), cap).cpu(),
+                       F.pair_code_plain(gids, vid))
+    rep = torch.randint(0, n, (cap,), generator=g, dtype=torch.int32)
+    pg = torch.randint(0, cap, (n,), generator=g, dtype=torch.int32)
+    rep[pg[: cap // 2].long()] = torch.arange(min(cap // 2, n),
+                                              dtype=torch.int32)
+    assert torch.equal(F.first_mask(rep.to(cuda), pg.to(cuda)).cpu(),
+                       F.first_mask_plain(rep, pg))
+    vals = torch.randint(-40, 40, (n,), generator=g)
+    valid = torch.rand(n, generator=g) < 0.9
+    got = F.distinct_pair_factorize(gids.to(cuda), vals.to(cuda),
+                                    valid.to(cuda), live.to(cuda), n,
+                                    gid_cap=cap)
+    want = F.distinct_pair_factorize(gids, vals, valid, live, n,
+                                     gid_cap=cap)
+    pl = live & valid
+    k = int(want[2])
+    assert int(got[2]) == k
+    assert torch.equal(got[0].cpu()[pl], want[0][pl])
+    assert torch.equal(got[3].cpu()[:k], want[3][:k])
+
+
+@pytest.mark.parametrize("reps", [2, 4])
+def test_k17_matches_plain(cuda, reps):
+    from tidb_tpu_torch.executor import device_emit as E
+    n = 70_001
+    g = torch.Generator().manual_seed(reps)
+    cols = [torch.rand(n, generator=g) < 0.5,
+            torch.randint(-9, 9, (n,), generator=g, dtype=torch.int16),
+            torch.randint(0, 7, (n,), generator=g, dtype=torch.int32),
+            torch.randn(n, generator=g, dtype=torch.float64),
+            torch.randint(0, 1 << 40, (3, n), generator=g)]
+    for a, b in zip(E.rollup_tile([c.to(cuda) for c in cols], reps),
+                    E.rollup_tile_plain(cols, reps)):
+        assert torch.equal(a.cpu(), b)
+    masks = [torch.rand(reps * n, generator=g) < 0.8
+             for _ in range(reps - 1)]
+    lev, got = E.rollup_levels([m.to(cuda) for m in masks], n)
+    wlev, want = E.rollup_levels_plain(masks, n)
+    assert torch.equal(lev.cpu(), wlev)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("idx_dt", [torch.int32, torch.int64])
+def test_k18_matches_plain(cuda, idx_dt):
+    from tidb_tpu_torch.ops import gather as G
+    n, m = 90_000, 40_000
+    g = torch.Generator().manual_seed(3)
+    cols = [(torch.rand(n, generator=g) < 0.5, torch.rand(n, generator=g)
+             < 0.7),
+            (torch.randint(0, 7, (n,), generator=g, dtype=torch.int32),
+             None),
+            (torch.randn(n, generator=g, dtype=torch.float64),
+             torch.rand(n, generator=g) < 0.7)]
+    idx = torch.randint(0, n, (m,), generator=g).to(idx_dt)
+    for nv in (m // 3, m):
+        n_valid = torch.tensor(nv, dtype=torch.int32)
+        got = G.gather_columns(
+            [(v.to(cuda), None if mk is None else mk.to(cuda))
+             for v, mk in cols], idx.to(cuda), n_valid.to(cuda))
+        want = G.gather_columns_plain(cols, idx, n_valid)
+        for (a, am), (b, bm) in zip(got, want):
+            assert torch.equal(a.cpu(), b) and torch.equal(am.cpu(), bm)

@@ -79,6 +79,7 @@ def test_import_and_query_load_no_jax_module():
         "import tidb_tpu_torch.executor.tree_fragment\n"
         "import tidb_tpu_torch.executor.window\n"
         "import tidb_tpu_torch.ops.factorize\n"
+        "import tidb_tpu_torch.ops.gather\n"
         "import tidb_tpu_torch.ops.join\n"
         "import tidb_tpu_torch.ops.window\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -90,6 +91,20 @@ def test_import_and_query_load_no_jax_module():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """Every csrc/*.cu is in cuda_kernels.SOURCES (so build_all compiles
+    it), and the kernels of this slice have launch counters."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    srcs = {f[:-3] for f in os.listdir(ck.CSRC) if f.endswith(".cu")}
+    assert srcs == set(ck.SOURCES)
+    assert len(ck.COUNTERS) == 18 and len(set(ck.COUNTERS)) == 18
+    for name in ("distinct_pairs", "rollup_tile", "gather_columns"):
+        assert name in ck.SOURCES and name in ck.COUNTERS
+    for fn in ("tt_pair_code", "tt_first_mask", "tt_rollup_tile",
+               "tt_rollup_levels", "tt_gather_columns"):
+        assert fn in ck._SIGNATURES
 
 
 def test_default_engine_without_gpu_raises():

@@ -398,12 +398,11 @@ def _walk(plan):
      "GROUP BY o_prio", "distinct"),
 ], ids=["window", "distinct"])
 def test_unported_shapes_stay_off_the_device(twins, sql, excluded):
-    """DISTINCT aggregates are not in the port yet: the plan keeps them
-    outside every device fragment (EXPLAIN shows them as CPU operators),
-    and the statement still answers as the JAX engine does. Windows are
-    ported: the window over the join runs inside the device fragment
-    (EXPLAIN's top operator is the TpuFragment) and equals the JAX
-    engine."""
+    """Both shapes that once stayed off the device are ported now: the
+    window over the join runs inside the device fragment (EXPLAIN's top
+    operator is the TpuFragment), and so does the DISTINCT aggregate over
+    the join (the HashAgg under the TpuFragment in EXPLAIN); each equals
+    the JAX engine."""
     from tidb_tpu_torch.parser import parse
     js, ts = twins
     ts.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1})
@@ -414,11 +413,9 @@ def test_unported_shapes_stay_off_the_device(twins, sql, excluded):
         ts.vars["tidb_tpu_engine"] = "off"
     nodes = [type(node).__name__ for root in _fragment_roots(plan)
              for node in _walk(root)]
-    for root in _fragment_roots(plan):
-        for node in _walk(root):
-            if excluded == "distinct":
-                assert not any(d.distinct for d in getattr(node, "aggs",
-                                                           []))
+    distinct_inside = any(d.distinct for root in _fragment_roots(plan)
+                          for node in _walk(root)
+                          for d in getattr(node, "aggs", []))
     top = explain[0][0].strip()
     want, _ = run_jax(js, sql)
     if excluded == "PhysWindow":
@@ -429,8 +426,10 @@ def test_unported_shapes_stay_off_the_device(twins, sql, excluded):
         # pairs of tied rows are the same multiset
         assert_same(want, got)
     else:
-        assert "TpuFragment" not in top, explain
-        got = [tuple(r) for r in ts.query(sql).rows]
+        assert distinct_inside, nodes
+        text = "\n".join(str(r[0]) for r in explain)
+        assert "HashAgg" in text[text.index("TpuFragment"):], explain
+        got, _ = run_port_tree(ts, sql, extra={"tidb_tpu_strict": 1})
         assert_same(want, got, ordered="ORDER BY" in sql)
 
 

@@ -53,11 +53,42 @@ def emit_topk(keys, descs, live, k: int):
     return F.topn(keys, descs, live, k)
 
 
+def emit_distinct(gids, v, m, live, n: int, keys, pairs_out: bool,
+                  pair_cap: int = 0, vcols=None, group_cap=None):
+    """Per-slab DISTINCT dedup for one aggregate argument tuple →
+    (first_mask, pairs). `first_mask` marks the first live occurrence of
+    each (group, value) pair — the state-update mask. With `pairs_out`,
+    `pairs` is (cols, n_pairs): the deduped (group-keys, args...) tuples
+    for the cross-slab host merge, truncated to `pair_cap` output slots
+    (0 = no truncation). `vcols` is the raw per-arg (value, mask) column
+    list shipped in the pair output — for multi-arg DISTINCT, `v` is a
+    slab-local combined code that means nothing across slabs, so the
+    pairs carry real values instead. The factorize itself ALWAYS runs at
+    the full slab capacity so first_mask stays exact; only the pair
+    OUTPUT arrays shrink — n_pairs reports the TRUE count, so the caller
+    can detect a truncated pair set and resize through the capacity
+    ladder. `group_cap` bounds `gids` (dead rows carry it). The pair
+    output is one K18 gather of the key and argument columns through
+    rep[:pc], cut to the slots below n_pairs."""
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops.gather import gather_columns
+    first, _pg, n_pairs, rep = F.distinct_pair_factorize(
+        gids, v, m, live, n, gid_cap=group_cap)
+    if not pairs_out:
+        return first, None
+    pc = min(pair_cap, n) if pair_cap else n
+    cols = [(kv, km) for kv, km in keys]
+    cols += [(av, None) for av, _am in (vcols if vcols is not None
+                                        else [(v, m)])]
+    return first, (gather_columns(cols, rep[:pc], n_pairs), n_pairs)
+
+
 def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
-              key_bounds=None, slab_cap: int = 0):
+              key_bounds=None, slab_cap: int = 0, pairs_out: bool = False,
+              pair_cap: int = 0):
     """Root reduction dispatch for one slab.
 
-    → HashAgg: emit_agg's {keys, states, n_groups, slot_live};
+    → HashAgg: emit_agg's {keys, states, n_groups, slot_live[, pairs]};
       Limit/TopN/Sort: {cols, n_out} (gathered in output order, truncated
       to k for Limit/TopN); Window: emit_window's {cols, live}; any row
       root (Selection/Projection/Scan/Join): padded {cols, live}. Only
@@ -68,7 +99,8 @@ def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
                                                  PhysSort, PhysTopN,
                                                  PhysWindow)
     if isinstance(root, PhysHashAgg):
-        return emit_agg(ctx, live, root, aggs, group_cap, key_bounds)
+        return emit_agg(ctx, live, root, aggs, group_cap, key_bounds,
+                        pairs_out=pairs_out, pair_cap=pair_cap)
     if isinstance(root, PhysLimit):
         # LIMIT pushdown (no ORDER BY): the first offset+count live rows
         # in row order — a stable partition of the live mask (one 1-bit
@@ -169,22 +201,58 @@ def emit_finalize(root, order_root, aggs: List[AggFunc], group_cap: int,
             "n_groups": merged["n_groups"], "n_out": n_out}
 
 
+def _rows(col, n: int):
+    """A (value, mask) pair as two contiguous (n,) tensors (a constant
+    expression evaluates to 0-d ones)."""
+    return tuple(torch.broadcast_to(t, (n,)).contiguous() for t in col)
+
+
 def emit_agg(ctx: EvalContext, live, root, aggs: List[AggFunc],
-             group_cap: int, key_bounds=None):
+             group_cap: int, key_bounds=None, pairs_out: bool = False,
+             pair_cap: int = 0):
     """Grouped-aggregation partial over one slab → {keys, states,
     n_groups, slot_live}. With `key_bounds` (per-group-key (lo, hi)
     domains) grouping is a direct packed code + segment ops — no sort
-    (the perfect-hash path); otherwise sort-based factorize. ROLLUP and
-    DISTINCT aggregates never reach the device (fragment gate)."""
+    (the perfect-hash path); otherwise sort-based factorize.
+
+    WITH ROLLUP tiles the columns the aggregate reads (nk+1)x (K17) and
+    groups over the keys plus a trailing grouping-level key column.
+    DISTINCT aggregates keep only each (group, value) pair's first row
+    (emit_distinct). With `pairs_out`, the result gains "pairs": {agg_idx:
+    (cols, n_pairs)} — the deduped (group-keys, value) tuples of every
+    DISTINCT agg, for the cross-slab host merge
+    (fragment._merge_distinct_states). The pair factorize runs ONCE per
+    distinct agg and serves both the state mask and the pair output."""
     from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops.gather import gather_columns
     n = live.shape[0]
     cap = group_cap
     dev = live.device
-    if root.group_exprs and key_bounds is not None:
-        gids, n_groups, key_out, slot_live = _perfect_groups(
+    if root.group_exprs and getattr(root, "rollup", False):
+        # WITH ROLLUP: copy l of the tiled slab rolls up the LAST l group
+        # keys (validity masked off, so the rolled-up key is NULL for
+        # free) and a grouping-level column joins the factorize keys
+        # LAST, keeping a genuinely-NULL key group apart from the
+        # super-aggregate over it. key_out carries the level column as a
+        # trailing internal column: emit_merge and the host merges group
+        # over ALL key columns, and the result decode reads only the first nk.
+        ctx, live = _rollup_tile(ctx, live, root)
+        n = live.shape[0]
+        nk = len(root.group_exprs)
+        keys = [_rows(e.eval(ctx), n) for e in root.group_exprs]
+        lev, masks = rollup_levels([m for _v, m in keys], n // (nk + 1))
+        keys = [(v, mm) for (v, _m), mm in zip(keys, masks)]
+        fkeys = keys + [(lev, None)]
+        gids, n_groups, rep = F.factorize(fkeys, live, cap)
+        gids = torch.where(live, gids, torch.full_like(gids, cap))
+        key_out = gather_columns(fkeys, rep, n_groups)
+        slot_live = torch.arange(cap, dtype=torch.int32,
+                                 device=dev) < n_groups
+    elif root.group_exprs and key_bounds is not None:
+        keys, gids, n_groups, key_out, slot_live = _perfect_groups(
             ctx, live, root, cap, key_bounds)
     elif root.group_exprs:
-        keys = [e.eval(ctx) for e in root.group_exprs]
+        keys = [_rows(e.eval(ctx), n) for e in root.group_exprs]
         gids, n_groups, rep = F.factorize(keys, live, cap)
         # dead rows → out-of-range id: segment ops drop them, which is
         # required for order-sensitive states (first_row)
@@ -193,6 +261,7 @@ def emit_agg(ctx: EvalContext, live, root, aggs: List[AggFunc],
                                  device=dev) < n_groups
         key_out = [(v[rep], m[rep] & slot_live) for v, m in keys]
     else:
+        keys = []
         gids = torch.where(live, torch.zeros(n, dtype=torch.int32,
                                              device=dev),
                            torch.full((n,), cap, dtype=torch.int32,
@@ -200,9 +269,24 @@ def emit_agg(ctx: EvalContext, live, root, aggs: List[AggFunc],
         n_groups = torch.tensor(1, dtype=torch.int32, device=dev)
         key_out = []
         slot_live = torch.arange(cap, dtype=torch.int32, device=dev) < 1
-    states = agg_states(ctx, live, root, aggs, gids, cap, n)
-    return {"keys": key_out, "states": states, "n_groups": n_groups,
-            "slot_live": slot_live}
+    dvals, dfirst, dpairs = {}, {}, {}
+    for ai, desc in enumerate(root.aggs):
+        if not (desc.distinct and desc.args):
+            continue
+        v, m, vcols = _distinct_arg(ctx, live, desc)
+        dvals[ai] = (v, m)
+        first, pairs = emit_distinct(gids, v, m, live, n, keys, pairs_out,
+                                     pair_cap, vcols=vcols, group_cap=cap)
+        dfirst[ai] = first
+        if pairs is not None:
+            dpairs[ai] = pairs
+    states = agg_states(ctx, live, root, aggs, gids, cap, n,
+                        distinct_first=dfirst, distinct_vals=dvals)
+    out = {"keys": key_out, "states": states, "n_groups": n_groups,
+           "slot_live": slot_live}
+    if pairs_out:
+        out["pairs"] = dpairs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -328,15 +412,170 @@ def _perfect_groups(ctx: EvalContext, live, root, cap: int, key_bounds):
         c = (perm // stride) % card
         vals = (c - 1 + lo).to(v.dtype)
         key_out.append((vals, (c != 0) & slot_live))
-    return gids, n_groups, key_out, slot_live
+    return keys, gids, n_groups, key_out, slot_live
 
 
-def agg_states(ctx, live, root, aggs, gids, cap: int, n: int):
-    """Per-aggregate partial states over one slab."""
+# ---------------------------------------------------------------------------
+# K17 rollup_tile: WITH ROLLUP level replication
+# ---------------------------------------------------------------------------
+
+#: columns per tile launch / keys per levels launch (csrc/rollup_tile.cu)
+MAX_TILE_COLS = 64
+MAX_ROLLUP_KEYS = 32
+
+
+def rollup_tile_plain(cols, reps: int):
+    """Plain torch version of K17's tile entry: each column (1-D, or 2-D
+    limb planes) concatenated `reps` times along its last axis."""
+    return [torch.cat([c] * reps, dim=-1) for c in cols]
+
+
+def rollup_levels_plain(masks, n0: int):
+    """Plain torch version of K17's levels entry → (lev int64 (nk+1)·n0,
+    [m & (lev < nk - i)])."""
+    nk = len(masks)
+    dev = masks[0].device if masks else torch.device("cpu")
+    lev = torch.arange(nk + 1, dtype=torch.int64,
+                       device=dev).repeat_interleave(n0)
+    return lev, [m & (lev < nk - i) for i, m in enumerate(masks)]
+
+
+def rollup_tile(cols, reps: int):
+    """K17 wrapper (tile): CPU tensors take the plain version; CUDA
+    tensors launch the kernel over the whole column table (or raise on
+    anything it does not take)."""
+    if not cols or cols[0].device.type == "cpu":
+        return rollup_tile_plain(cols, reps)
+    import ctypes
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(*cols, what="rollup_tile")
+    n = cols[0].shape[-1]
+    for c in cols:
+        if c.dim() not in (1, 2) or c.shape[-1] != n or \
+                c.element_size() not in (1, 2, 4, 8) or \
+                c.device != cols[0].device:
+            raise ck.KernelError("rollup_tile: 1-D or 2-D columns of one "
+                                 "row count and 1/2/4/8-byte elements "
+                                 "expected")
+    if reps < 1:
+        raise ck.KernelError("rollup_tile: reps >= 1 expected")
+    dev = cols[0].device
+    out = [torch.empty(c.shape[:-1] + (reps * n,), dtype=c.dtype,
+                       device=dev) for c in cols]
+    lib = ck.library("rollup_tile")
+    for lo in range(0, len(cols), MAX_TILE_COLS):
+        src, dst = cols[lo:lo + MAX_TILE_COLS], out[lo:lo + MAX_TILE_COLS]
+        k = len(src)
+        P = ctypes.c_void_p * k
+        rc = lib.tt_rollup_tile(
+            k, P(*[c.data_ptr() for c in src]),
+            P(*[c.data_ptr() for c in dst]),
+            (ctypes.c_longlong * k)(*[c.numel() // max(n, 1) if n else 0
+                                      for c in src]),
+            (ctypes.c_int * k)(*[c.element_size() for c in src]), n, reps,
+            ck.stream_ptr(dev))
+        if n > 0:
+            ck.count("rollup_tile")
+        ck.check(rc, "rollup_tile")
+    return out
+
+
+def rollup_levels(masks, n0: int):
+    """K17 wrapper (levels), as `rollup_levels_plain`."""
+    if not masks or masks[0].device.type == "cpu":
+        return rollup_levels_plain(masks, n0)
+    import ctypes
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    nk = len(masks)
+    if nk > MAX_ROLLUP_KEYS:
+        raise ck.KernelError(f"rollup_levels: {nk} keys (at most "
+                             f"{MAX_ROLLUP_KEYS})")
+    ck.require_cuda(*masks, what="rollup_levels")
+    total = (nk + 1) * n0
+    for m in masks:
+        if m.dtype != torch.bool or m.shape != (total,):
+            raise ck.KernelError("rollup_levels: bool masks over the tiled "
+                                 "rows expected")
+    dev = masks[0].device
+    lev = torch.empty(total, dtype=torch.int64, device=dev)
+    out = [torch.empty(total, dtype=torch.bool, device=dev) for _ in masks]
+    P = ctypes.c_void_p * nk
+    rc = ck.library("rollup_tile").tt_rollup_levels(
+        nk, P(*[m.data_ptr() for m in masks]),
+        P(*[m.data_ptr() for m in out]), n0, lev.data_ptr(),
+        ck.stream_ptr(dev))
+    if total > 0:
+        ck.count("rollup_tile")
+    ck.check(rc, "rollup_levels")
+    return lev, out
+
+
+def _rollup_tile(ctx: EvalContext, live, root):
+    """Tile the slab (nk+1)x along the row axis for WITH ROLLUP level
+    replication: `live` and the columns the group keys and the aggregate
+    arguments read, in one K17 launch (wide-decimal limb planes are 2-D
+    (limbs, rows) and tile along the last axis). The columns nothing
+    reads stay None in the tiled context: expressions are row-wise, so
+    the results are the reference's over fewer bytes."""
+    reps = len(root.group_exprs) + 1
+    read = set()
+    for e in list(root.group_exprs) + [a for d in root.aggs
+                                        for a in d.args]:
+        read.update(e.references())
+    n_cols = len(ctx._columns)
+    idx = [i for i in sorted(read) if i < n_cols and
+           ctx._columns[i] is not None]
+    flat = [live]
+    for i in idx:
+        v, m = ctx._columns[i]
+        flat += [v, m]
+    tiled = rollup_tile([t.contiguous() for t in flat], reps)
+    cols = [None] * n_cols
+    for j, i in enumerate(idx):
+        cols[i] = (tiled[1 + 2 * j], tiled[2 + 2 * j])
+    ctx_t = EvalContext(ctx.xp, cols, dictionaries=ctx.dictionaries,
+                        prepared=ctx.prepared, on_device=ctx.on_device,
+                        n_rows=live.shape[0] * reps)
+    return ctx_t, tiled[0]
+
+
+def _distinct_arg(ctx: EvalContext, live, desc):
+    """Evaluate a DISTINCT aggregate's argument tuple → (v, m, vcols).
+    Single-arg: the value itself. Multi-arg (COUNT-only — the eligibility
+    gates reject anything else): `v` is one combined dense code per row
+    via factorize.dense_codes, so equal tuples dedup as one value within
+    the slab, and `m` is the AND of the per-arg masks (MySQL skips rows
+    where ANY DISTINCT argument is NULL). `vcols` keeps the raw per-arg
+    (value, mask) columns for the cross-slab pair output — the combined
+    code is slab-local and cannot be compared across slabs."""
+    from tidb_tpu_torch.ops import factorize as F
+    xp = ctx.xp
+    vcols = []
+    m = live
+    for a in desc.args:
+        av, am = _rows((xp.asarray(t) for t in a.eval(ctx)), live.shape[0])
+        am = am & live
+        vcols.append((av, am))
+        m = m & am
+    if len(vcols) == 1:
+        return vcols[0][0], m, vcols
+    return F.dense_codes(vcols, live), m, vcols
+
+
+def agg_states(ctx, live, root, aggs, gids, cap: int, n: int,
+               distinct_first, distinct_vals):
+    """Per-aggregate partial states over one slab. A DISTINCT aggregate
+    updates only at each (group, value) pair's first row: emit_agg
+    evaluated its argument once (`distinct_vals[ai]` = (v, m)) and
+    computed that mask (`distinct_first[ai]`)."""
     xp = ctx.xp
     states = []
-    for agg, desc in zip(aggs, root.aggs):
-        if desc.args:
+    for ai, (agg, desc) in enumerate(zip(aggs, root.aggs)):
+        if desc.distinct and desc.args:
+            # keep only the first (group, value) occurrence
+            v, m = distinct_vals[ai]
+            m = m & distinct_first[ai]
+        elif desc.args:
             v, m = desc.args[0].eval(ctx)
             v = xp.asarray(v)
             m = xp.asarray(m) & live

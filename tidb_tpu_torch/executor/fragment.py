@@ -286,11 +286,14 @@ def _fragment_ok(plan: PhysicalPlan, threshold: int) -> bool:
         if not _exprs_device_ok(stage):
             return False
         if isinstance(node, PhysHashAgg):
-            if getattr(node, "rollup", False):
-                return False    # ROLLUP tiling is not ported: CPU
+            if getattr(node, "rollup", False) and \
+                    any(d.distinct for d in node.aggs):
+                return False    # pair columns assume nk key cols; the
+                # rollup level column breaks that layout → host oracle
             for desc in node.aggs:
-                if desc.distinct:
-                    return False    # DISTINCT pair sets are not ported
+                if desc.distinct and len(desc.args) > 1 and \
+                        desc.name != "count":
+                    return False    # multi-arg DISTINCT is COUNT-only
                 try:
                     if not build_agg(desc).device_capable:
                         return False
@@ -308,6 +311,7 @@ def _fragment_ok(plan: PhysicalPlan, threshold: int) -> bool:
                     # only plain SUM/AVG/COUNT over the bare column
                     # consumes limbs (SumAgg._update_wide)
                     if desc.name not in ("sum", "avg", "count") or \
+                            desc.distinct or \
                             not isinstance(desc.args[0], ColumnRef):
                         return False
                 elif not _exprs_device_ok(desc.args):
@@ -543,7 +547,8 @@ class _FragmentProgram:
 
     def __init__(self, chain: List[PhysicalPlan], used_cols: List[int],
                  in_types: List[FieldType], slab_cap: int, group_cap: int,
-                 device, key_bounds=None, layouts=None):
+                 device, key_bounds=None, layouts=None,
+                 want_pairs: bool = False, pair_cap: int = 0):
         from tidb_tpu_torch.ops.xp import TorchXP
         _count_trace()
         self.chain = chain
@@ -551,6 +556,7 @@ class _FragmentProgram:
         self.in_types = in_types
         self.slab_cap = slab_cap
         self.group_cap = group_cap
+        self.pair_cap = pair_cap   # distinct pair-set output capacity
         self.device = torch.device(device)
         self.xp = TorchXP(self.device)
         self.key_bounds = key_bounds   # [(lo, hi)] → perfect-hash grouping
@@ -560,6 +566,11 @@ class _FragmentProgram:
         self.root = chain[0]
         if isinstance(self.root, PhysHashAgg):
             self.aggs: List[AggFunc] = [build_agg(d) for d in self.root.aggs]
+        # emit distinct (group, value) pair sets only when a multi-slab
+        # execution will merge them — single-slab dedup is already exact
+        self.has_distinct = want_pairs and \
+            isinstance(self.root, PhysHashAgg) and \
+            any(d.distinct and d.args for d in self.root.aggs)
         self.prep_nodes: List[Expression] = []  # walk order, structural
         for node in reversed(chain):
             for e in _stage_exprs(node):
@@ -615,7 +626,8 @@ class _FragmentProgram:
         return device_emit.emit_root(
             ctx, live, self.root, aggs=getattr(self, "aggs", None),
             group_cap=self.group_cap, key_bounds=self.key_bounds,
-            slab_cap=self.slab_cap)
+            slab_cap=self.slab_cap, pairs_out=self.has_distinct,
+            pair_cap=self.pair_cap)
 
     def merge(self, key_cols, states, slot_live):
         """Merge stacked slab partials: re-factorize partial keys, sanitize
@@ -677,14 +689,16 @@ def _charge_compile(kind: str, t0: float) -> None:
 
 
 def get_program(chain, used_cols, in_types, slab_cap, group_cap, device,
-                key_bounds=None, layouts=None, sig=None) -> _FragmentProgram:
+                key_bounds=None, layouts=None, sig=None, want_pairs=False,
+                pair_cap=0) -> _FragmentProgram:
     """`sig` lets a specialization-cache hit skip signature construction
     entirely — valid because the spec key pins the same geometry, layout
-    set and key bounds the signature would encode."""
+    set and key bounds the signature would encode. The pair mode keys
+    the cache: a single-slab program emits no pair sets."""
     if sig is None:
         sig = _chain_signature(chain, used_cols, in_types, slab_cap,
                                group_cap, key_bounds, layouts) + \
-            f"|dev={torch.device(device)}"
+            f"|pairs={want_pairs},{pair_cap}|dev={torch.device(device)}"
     prog = _cache_get(sig)
     if prog is None:
         with _build_lock(sig):
@@ -693,7 +707,8 @@ def get_program(chain, used_cols, in_types, slab_cap, group_cap, device,
                 t0 = time.perf_counter()
                 prog = _FragmentProgram(chain, used_cols, in_types,
                                         slab_cap, group_cap, device,
-                                        key_bounds, layouts)
+                                        key_bounds, layouts, want_pairs,
+                                        pair_cap)
                 _cache_put(sig, prog)
                 _charge_compile("chain", t0)
     return prog
@@ -743,7 +758,8 @@ def get_finalize_program(agg_root, order_root, group_cap: int,
 
 
 def _tree_program(sig: str, kind: str, root, caps, group_cap, device,
-                  join_cfgs, agg_key_bounds, scan_layouts):
+                  join_cfgs, agg_key_bounds, scan_layouts, pairs_out=False,
+                  pair_cap=0):
     prog = _cache_get(sig)
     if prog is None:
         from tidb_tpu_torch.executor.tree_fragment import TreeProgram
@@ -752,8 +768,8 @@ def _tree_program(sig: str, kind: str, root, caps, group_cap, device,
             if prog is None:
                 t0 = time.perf_counter()
                 prog = TreeProgram(root, caps, group_cap, join_cfgs,
-                                   agg_key_bounds, scan_layouts,
-                                   device=device)
+                                   agg_key_bounds, scan_layouts, pairs_out,
+                                   pair_cap, device=device)
                 _cache_put(sig, prog)
                 _charge_compile(kind, t0)
     return prog
@@ -771,21 +787,25 @@ def get_tree_program(root, caps, group_cap, device, join_cfgs=None,
 
 
 def get_pipeline_program(root, caps, group_cap, device, join_cfgs=None,
-                         agg_key_bounds=None, scan_layouts=None, sig=None):
+                         agg_key_bounds=None, scan_layouts=None,
+                         pairs_out=False, pair_cap=0, sig=None):
     """Fused per-slab pipeline program: a TreeProgram whose probe-anchor
     scan capacity is ONE slab, so scan → filter → project → join-probe →
     partial-agg run over that slab with every build side at full size.
     The signature extends tree_signature — the per-scan `cap=CxN` term
     already distinguishes the per-slab anchor shape from the whole-tree
     program — and cold builds charge the `compile:fused` timeline lane.
-    → (program, sig)."""
+    The pair mode (a multi-slab DISTINCT's per-slab pair sets) keys the
+    cache too. → (program, sig)."""
     from tidb_tpu_torch.executor.tree_fragment import tree_signature
     if sig is None:
-        sig = ("fused|" + tree_signature(root, caps, group_cap, join_cfgs,
-                                         agg_key_bounds, scan_layouts)
+        sig = (f"fused|pairs={pairs_out},{pair_cap}|" +
+               tree_signature(root, caps, group_cap, join_cfgs,
+                              agg_key_bounds, scan_layouts)
                + f"|dev={torch.device(device)}")
     return _tree_program(sig, "fused", root, caps, group_cap, device,
-                         join_cfgs, agg_key_bounds, scan_layouts), sig
+                         join_cfgs, agg_key_bounds, scan_layouts, pairs_out,
+                         pair_cap), sig
 
 
 class _AggMergeProgram:
@@ -1501,8 +1521,11 @@ class TpuFragmentExec:
         at are re-executed at the exact-need capacity — partials that fit
         merge back in untouched (ragged caps are fine: the merge
         re-factorizes under slot_live masks). A merged-count-only
-        overflow re-runs ZERO slabs. EscalationStats.slabs_rerun /
-        slabs_reused make the reuse observable (EXPLAIN ANALYZE)."""
+        overflow re-runs ZERO slabs. A multi-slab DISTINCT aggregate
+        also emits per-slab (group, value) pair sets, held to their own
+        capacity through resumable "pairs" rungs (never truncated) and
+        merged on the host. EscalationStats.slabs_rerun / slabs_reused
+        make the reuse observable (EXPLAIN ANALYZE)."""
         from tidb_tpu_torch.util import failpoint
         from tidb_tpu_torch.util.escalation import CapacityLadder
         ph = self.ctx.phases
@@ -1511,13 +1534,20 @@ class TpuFragmentExec:
         ladder = CapacityLadder(guard=getattr(self.ctx, "guard", None),
                                 stats=self.ctx.escalation)
         n_slabs = ent.n_slabs
-        # zone-map survivors: partials/caps index POSITIONS in slab_ids
-        # (ascending physical order — matches the cold stream's yield
-        # order); n_slabs stays the table geometry
+        # zone-map survivors: partials/caps/pairs index POSITIONS in
+        # slab_ids (ascending physical order — matches the cold stream's
+        # yield order); n_slabs stays the table geometry
         slab_ids = list(slab_ids) if slab_ids is not None \
             else list(range(n_slabs))
         n_run = len(slab_ids)
         cap_limit = slab_cap * max(n_slabs, 1)
+        has_distinct = any(d.distinct and d.args for d in root.aggs)
+        want_pairs = n_slabs > 1 and has_distinct
+        # pair-set output capacity: a slab can't emit more pairs than it
+        # has rows, so slab_cap is both the default clamp and the ladder's
+        # hard ceiling (resize through "pairs" rungs, never truncate)
+        pair_cap = min(int(vars_.get("tidb_tpu_distinct_pair_cap", 65536)),
+                       slab_cap) if want_pairs else 0
         use_fin = order_root is not None and \
             _var_bool(vars_.get("tidb_tpu_fused_finalize", "on"))
         skey = None
@@ -1527,7 +1557,8 @@ class TpuFragmentExec:
         if _var_bool(vars_.get("tidb_tpu_specialization_cache", "on")):
             skey = _spec_key(
                 getattr(self.ctx, "guard", None), "chain",
-                (id(ent.td), slab_cap, n_slabs, repr(key_bounds), use_fin,
+                (id(ent.td), slab_cap, n_slabs, repr(key_bounds),
+                 want_pairs, use_fin,
                  _order_sig(order_root) if order_root is not None
                  else None, _plan_fingerprint(chain[0]), str(device)))
         spec = _spec_lookup(skey, lay_sig)
@@ -1536,9 +1567,12 @@ class TpuFragmentExec:
         spec_sig = None
         if spec is not None:
             group_cap = spec["group_cap"]
+            pair_cap = spec["pair_cap"] if want_pairs else 0
             spec_sig = spec["sig"]
         partials: List = [None] * n_run
         caps = [0] * n_run              # group cap each partial ran at
+        pcaps = [0] * n_run             # pair cap each partial ran at
+        pairs_cache: List = [None] * n_run     # host distinct-pair sets
         to_run: Optional[List[int]] = None     # None = cold first pass
         while True:
             if spec_sig is not None:
@@ -1546,9 +1580,10 @@ class TpuFragmentExec:
             else:
                 psig = _chain_signature(chain, used, in_types, slab_cap,
                                         group_cap, key_bounds, layouts) + \
-                    f"|dev={device}"
+                    f"|pairs={want_pairs},{pair_cap}|dev={device}"
             prog = get_program(chain, used, in_types, slab_cap, group_cap,
-                               device, key_bounds, layouts, sig=psig)
+                               device, key_bounds, layouts, sig=psig,
+                               want_pairs=want_pairs, pair_cap=pair_cap)
             prep_vals = prog.collect_preps(dicts)
             if to_run is None:
                 runs = enumerate(self._slab_iter(ent, stream,
@@ -1565,9 +1600,19 @@ class TpuFragmentExec:
                 ph.note_launch()
                 ph.note_fused()
                 caps[s] = group_cap
+                pcaps[s] = pair_cap
+                pairs_cache[s] = None
+            if want_pairs:
+                pover, pair_cap = self._fetch_pairs(
+                    partials, pcaps, pairs_cache, ladder, pair_cap, slab_cap)
+                if pover:
+                    to_run = pover
+                    continue
             with self.ctx.device_slot():
                 with ph.phase("compute"):
                     if use_fin or n_run > 1:
+                        # len(partials[0]["keys"]), not nk: rollup
+                        # partials carry a trailing grouping-level column
                         key_cols = [
                             (torch.cat([p["keys"][kc][0] for p in partials]),
                              torch.cat([p["keys"][kc][1] for p in partials]))
@@ -1638,14 +1683,18 @@ class TpuFragmentExec:
                 continue
             break
         if skey is not None and (spec is None
-                                 or spec["group_cap"] != group_cap):
-            _spec_store(skey, {"group_cap": group_cap, "sig": psig,
+                                 or spec["group_cap"] != group_cap
+                                 or spec["pair_cap"] != pair_cap):
+            _spec_store(skey, {"group_cap": group_cap,
+                               "pair_cap": pair_cap, "sig": psig,
                                "lay_sig": lay_sig})
         if root.group_exprs and n_final == 0:
             from tidb_tpu_torch.executor import _empty_chunk
             return _empty_chunk(self.schema)
         n_rows = int(got[2]) if use_fin else n_final
-        chunk = self._agg_chunk(root, out, dicts, max(n_rows, 1))
+        chunk = self._agg_chunk(root, out, dicts, max(n_rows, 1),
+                                _host_pairs(pairs_cache) if want_pairs
+                                else None)
         if order_root is not None:
             if not use_fin:
                 # finalize gate off: device agg as before, then a host
@@ -1654,8 +1703,53 @@ class TpuFragmentExec:
             chunk = _topn_slice(chunk, order_root)
         return chunk
 
+    def _fetch_pairs(self, partials, pcaps, pairs_cache, ladder,
+                     pair_cap: int, slab_cap: int):
+        """Per-slab deduped (group, value) pair sets ride inside the
+        partial outputs: fetch the true pair counts of the slabs not yet
+        cached. Slabs whose count exceeded the pair cap they ran at climb
+        one resumable "pairs" rung (exact need, at most a slab; past that
+        the `pair-cap` fallback) → (those slabs, the new pair cap). When
+        none did, slice each set to its count on the device and fetch it
+        into `pairs_cache` (host-side per slab: a resumable retry
+        refetches only re-run slabs) → ([], pair_cap)."""
+        from tidb_tpu_torch.util import failpoint
+        ph = self.ctx.phases
+        need = [s for s in range(len(partials)) if pairs_cache[s] is None]
+        if not need:
+            return [], pair_cap
+        counts = ph.fetch([{ai: partials[s]["pairs"][ai][1]
+                            for ai in partials[s]["pairs"]} for s in need])
+        # n_pairs reports the TRUE per-slab pair count, the output arrays
+        # hold only pcaps[s] — a clipped slab must resize and re-run,
+        # never silently truncate
+        failpoint.inject("fused-finalize-overflow")
+        pover = [s for si, s in enumerate(need)
+                 if any(int(c) > pcaps[s] for c in counts[si].values())]
+        if pover:
+            if pair_cap >= slab_cap:
+                ladder.fallback("pairs")
+                raise FragmentFallback("distinct pair overflow",
+                                       reason="pair-cap")
+            worst = max(int(c) for si, s in enumerate(need) if s in pover
+                        for c in counts[si].values())
+            pair_cap = ladder.resize("pairs", pair_cap, need=worst,
+                                     max_cap=slab_cap)
+            ladder.attempt("pairs", _GroupCapOverflow(worst))
+            ladder.partial_resume("pairs", rerun=len(pover),
+                                  reused=len(partials) - len(pover))
+            return pover, pair_cap
+        per_slab = ph.fetch([
+            {ai: [(v[:int(counts[si][ai])], m[:int(counts[si][ai])])
+                  for v, m in partials[s]["pairs"][ai][0]]
+             for ai in partials[s]["pairs"]}
+            for si, s in enumerate(need)])
+        for s, ps in zip(need, per_slab):
+            pairs_cache[s] = ps
+        return [], pair_cap
+
     def _agg_chunk(self, root: PhysHashAgg, out, dicts, n_final,
-                   host_tree=None) -> Chunk:
+                   distinct_pairs=None, host_tree=None) -> Chunk:
         if host_tree is not None:
             # keys/states already came back WITH the flag fetch (small
             # group caps piggyback on the first round trip); slice the
@@ -1673,6 +1767,14 @@ class TpuFragmentExec:
             )
             host_keys, host_states = self.ctx.phases.fetch(dev_tree)
         with self.ctx.phases.phase("decode"):
+            if distinct_pairs:
+                # multi-slab DISTINCT: the device-merged distinct states
+                # deduped only within each slab — recompute them from the
+                # cross-slab-deduped pair sets
+                over = _merge_distinct_states(root, host_keys,
+                                              distinct_pairs, n_final)
+                host_states = [over.get(ai, st)
+                               for ai, st in enumerate(host_states)]
             cols: List[Column] = []
             for kc, e in enumerate(root.group_exprs):
                 ft = self.schema[kc]
@@ -2036,6 +2138,10 @@ class TpuFragmentExec:
                 chunk = _host_order(chunk, order_root, root.schema)
                 chunk = _topn_slice(chunk, order_root)
             return chunk
+        has_distinct = any(d.distinct and d.args for d in root.aggs)
+        want_pairs = has_distinct and n_slabs > 1
+        pair_cap = min(int(vars_.get("tidb_tpu_distinct_pair_cap", 65536)),
+                       slab_cap) if want_pairs else 0
         use_fin = order_root is not None and \
             _var_bool(vars_.get("tidb_tpu_fused_finalize", "on"))
         # per-digest specialization (see _execute_agg): adopt the caps and
@@ -2050,7 +2156,7 @@ class TpuFragmentExec:
             skey = _spec_key(
                 getattr(self.ctx, "guard", None), "tree",
                 (tuple((id(e.td), e.slab_cap, e.n_slabs) for e, _ in ents),
-                 anchor_i, repr(akb), use_fin,
+                 anchor_i, repr(akb), want_pairs, use_fin,
                  _order_sig(order_root) if order_root is not None
                  else None, _plan_fingerprint(root), str(device)))
         spec = _spec_lookup(skey, lay_sig)
@@ -2059,6 +2165,7 @@ class TpuFragmentExec:
         spec_sig = None
         if spec is not None:
             gcap = spec["group_cap"]
+            pair_cap = spec["pair_cap"] if want_pairs else 0
             join_cfgs[:] = list(spec["join_cfgs"])
             spec_sig = spec["sig"]
 
@@ -2097,12 +2204,15 @@ class TpuFragmentExec:
 
         partials: List = [None] * n_run
         caps_ran = [0] * n_run         # group cap each partial ran at
+        pcaps = [0] * n_run            # pair cap each partial ran at
+        pairs_cache: List = [None] * n_run     # host distinct-pair sets
         to_run: Optional[List[int]] = None     # None = cold first pass
         n_joins = len(walk_joins)
         while True:
             prog, pipe_sig = get_pipeline_program(root, pipe_caps, gcap,
                                                   device, join_cfgs, akb,
-                                                  scan_layouts, sig=spec_sig)
+                                                  scan_layouts, want_pairs,
+                                                  pair_cap, sig=spec_sig)
             spec_sig = None
             prep_vals = prog.collect_preps(flow_list)
             sig12 = hashlib.sha1(pipe_sig.encode()).hexdigest()[:12]
@@ -2114,6 +2224,15 @@ class TpuFragmentExec:
                 ph.note_launch()
                 ph.note_fused()
                 caps_ran[s] = gcap
+                pcaps[s] = pair_cap
+                pairs_cache[s] = None
+            if want_pairs:
+                # distinct (group, value) pair sets, as in _execute_agg
+                pover, pair_cap = self._fetch_pairs(
+                    partials, pcaps, pairs_cache, ladder, pair_cap, slab_cap)
+                if pover:
+                    to_run = pover
+                    continue
             # per-slab partials + root merge/finalize queue first; every
             # control value returns in ONE batched fetch
             with self.ctx.device_slot():
@@ -2220,8 +2339,9 @@ class TpuFragmentExec:
             break
         if skey is not None and (spec is None
                                  or spec["group_cap"] != gcap
+                                 or spec["pair_cap"] != pair_cap
                                  or list(spec["join_cfgs"]) != join_cfgs):
-            _spec_store(skey, {"group_cap": gcap,
+            _spec_store(skey, {"group_cap": gcap, "pair_cap": pair_cap,
                                "join_cfgs": tuple(join_cfgs),
                                "sig": pipe_sig, "lay_sig": lay_sig})
         if root.group_exprs and n_final == 0:
@@ -2232,7 +2352,8 @@ class TpuFragmentExec:
         n_rows = int(got["no"]) if use_fin else n_final
         with ph.phase("decode"):
             chunk = self._agg_chunk(root, out, inp_dicts, max(n_rows, 1),
-                                    host_tree=host_tree)
+                                    _host_pairs(pairs_cache) if want_pairs
+                                    else None, host_tree=host_tree)
         if order_root is not None:
             if not use_fin:
                 chunk = _host_order(chunk, order_root, root.schema)
@@ -2267,6 +2388,9 @@ class TpuFragmentExec:
             raise FragmentFallback(
                 f"join fan-out {est_total} exceeds device cap "
                 f"(non-agg root)", reason="join-cap")
+        if any(d.distinct for d in root.aggs):
+            raise FragmentFallback("blocked expand: DISTINCT aggs",
+                                   reason="blocked-expand")
         if any(d.ftype.is_wide_decimal or
                any(a.ftype.is_wide_decimal for a in d.args)
                for d in root.aggs):
@@ -2444,6 +2568,97 @@ class _GroupCapOverflow(Exception):
     def __init__(self, need: int = 0):
         super().__init__(f"group cap overflow (need {need})")
         self.need = int(need)
+
+
+def _host_pairs(pairs_cache) -> dict:
+    """{agg index: [per-slab pair columns]} from the per-slab host cache
+    of a multi-slab DISTINCT run ({} when no aggregate emitted pairs)."""
+    if not pairs_cache or not pairs_cache[0]:
+        return {}
+    return {ai: [ps[ai] for ps in pairs_cache] for ai in pairs_cache[0]}
+
+
+def _host_run_bounds(cols) -> Tuple[np.ndarray, np.ndarray]:
+    """Lexsort rows of [(values, valid), ...] → (order, first_of_run mask
+    over the sorted order). NULL slots canonicalize so all NULLs in a
+    column compare equal (the host mirror of ops/factorize.py)."""
+    arrays: List[np.ndarray] = []
+    for v, m in cols:
+        v = np.asarray(v)
+        m = np.asarray(m)
+        arrays.append(np.where(m, v, np.zeros((), dtype=v.dtype)))
+        arrays.append(m)
+    n = len(arrays[0]) if arrays else 0
+    order = np.lexsort(arrays[::-1]) if arrays else np.arange(0)
+    first = np.zeros(n, dtype=bool)
+    if n:
+        first[0] = True
+        for a in arrays:
+            sa = a[order]
+            first[1:] |= sa[1:] != sa[:-1]
+    return order, first
+
+
+def _host_group_index(final_cols, query_cols) -> np.ndarray:
+    """Map each query row's key tuple to its row index in final_cols
+    (−1 when absent). Vectorized via one shared lexsort — no Python dict,
+    so cross-slab DISTINCT merges scale to millions of pairs."""
+    nf = len(final_cols[0][0]) if final_cols else 0
+    nq = len(query_cols[0][0]) if query_cols else 0
+    if not final_cols:
+        return np.zeros(nq, dtype=np.int64)
+    both = [(np.concatenate([np.asarray(fv), np.asarray(qv)]),
+             np.concatenate([np.asarray(fm), np.asarray(qm)]))
+            for (fv, fm), (qv, qm) in zip(final_cols, query_cols)]
+    order, first = _host_run_bounds(both)
+    gid_sorted = np.cumsum(first) - 1
+    gid = np.empty(nf + nq, dtype=np.int64)
+    gid[order] = gid_sorted
+    slot_of = np.full(int(gid_sorted[-1]) + 1 if len(gid_sorted) else 1,
+                      -1, dtype=np.int64)
+    slot_of[gid[:nf]] = np.arange(nf)
+    return slot_of[gid[nf:]]
+
+
+def _merge_distinct_states(root, host_keys, distinct_pairs, n_final):
+    """Cross-slab DISTINCT merge: concatenate per-slab pair sets, dedup
+    globally (lexsort runs), map pairs onto the final merged groups, and
+    recompute each distinct aggregate's state with the numpy side of the
+    xp-generic agg framework (the distinct-partials split of
+    aggfuncs/func_sum.go:49-59). A pair with a NULL argument never
+    counts. → {agg_index: state_tuple}."""
+    nk = len(root.group_exprs)
+    out = {}
+    for ai, slabs in distinct_pairs.items():
+        na = max(1, len(root.aggs[ai].args))
+        cols = []
+        for c in range(nk + na):
+            v = np.concatenate([np.asarray(s[c][0]) for s in slabs])
+            m = np.concatenate([np.asarray(s[c][1]) for s in slabs])
+            cols.append((v, m))
+        order, first = _host_run_bounds(cols)
+        uniq = np.zeros(len(order), dtype=bool)
+        uniq[order] = first
+        vv = cols[nk][0]
+        vm = np.ones(len(order), dtype=bool)
+        for _av, am in cols[nk:]:
+            vm = vm & np.asarray(am)     # any NULL arg → row never counts
+        keep = uniq & vm
+        if nk:
+            gidx = _host_group_index(
+                host_keys, [(np.asarray(v)[keep], np.asarray(m)[keep])
+                            for v, m in cols[:nk]])
+            ok = gidx >= 0   # every pair's group exists in the final set
+            gids = np.where(ok, gidx, 0).astype(np.int32)
+        else:
+            ok = np.ones(int(keep.sum()), dtype=bool)
+            gids = np.zeros(int(keep.sum()), dtype=np.int32)
+        agg = build_agg(root.aggs[ai])
+        st = agg.init(np, n_final)
+        out[ai] = agg.update(np, st, gids, n_final,
+                             np.asarray(vv)[keep],
+                             np.asarray(vm)[keep] & ok)
+    return out
 
 
 # PhaseTimer of the most recent device fragment run (encode/upload/compute/

@@ -48,9 +48,10 @@ are computed in the program (device_emit.emit_window_cols, the K12-K15
 kernels) and feed the operator above. Joinless trees are admitted when
 they hold a window, since a mid-chain window has no linear-chain
 lowering; a multi-slab window root runs here too, as one program over
-the concatenated slabs (partitions span slabs). Not in this port yet,
-each refused at plan time so EXPLAIN shows the CPU plan: DISTINCT and
-ROLLUP aggregates.
+the concatenated slabs (partitions span slabs). A root aggregate may be
+DISTINCT (per-slab pair sets, merged on the host across slabs) or WITH
+ROLLUP (levels tiled into the program, K17); DISTINCT under ROLLUP stays
+on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -136,11 +137,13 @@ def tree_ok(plan: PhysicalPlan, threshold: int) -> bool:
             return walk(node.children[0], False) and \
                 walk(node.children[1], False)
         if is_root and isinstance(node, PhysHashAgg):
-            if getattr(node, "rollup", False):
-                return False    # ROLLUP tiling is not ported: CPU
+            if getattr(node, "rollup", False) and \
+                    any(d.distinct for d in node.aggs):
+                return False    # DISTINCT+ROLLUP stays on the host oracle
             for desc in node.aggs:
-                if desc.distinct:
-                    return False    # DISTINCT pair sets are not ported
+                if desc.distinct and len(desc.args) > 1 and \
+                        desc.name != "count":
+                    return False    # multi-arg DISTINCT is COUNT-only
                 try:
                     if not build_agg(desc).device_capable:
                         return False
@@ -607,7 +610,8 @@ class TreeProgram:
     def __init__(self, plan: PhysicalPlan, caps: Dict[int, object],
                  group_cap: int,
                  join_cfgs: Optional[Sequence[JoinCfg]] = None,
-                 agg_key_bounds=None, scan_layouts=None, *, device):
+                 agg_key_bounds=None, scan_layouts=None,
+                 pairs_out: bool = False, pair_cap: int = 0, *, device):
         from tidb_tpu_torch.executor.fragment import _count_trace
         from tidb_tpu_torch.ops.xp import TorchXP
         _count_trace()
@@ -619,6 +623,11 @@ class TreeProgram:
                      for k, v in caps.items()}
         self.group_cap = group_cap
         self.agg_key_bounds = agg_key_bounds
+        # the fused per-slab pipeline of a multi-slab DISTINCT aggregate:
+        # per-slab (group, value) pair sets (capped at pair_cap) so the
+        # host can dedup across slabs
+        self.pairs_out = pairs_out
+        self.pair_cap = pair_cap
         joins = _walk_joins(plan)
         if join_cfgs is None:
             join_cfgs = [JoinCfg("unique") for _ in joins]
@@ -967,7 +976,9 @@ class _TreeRun:
             out = device_emit.emit_root(self.ctx(cols), live, root,
                                         aggs=prog.aggs,
                                         group_cap=prog.group_cap,
-                                        key_bounds=prog.agg_key_bounds)
+                                        key_bounds=prog.agg_key_bounds,
+                                        pairs_out=prog.pairs_out,
+                                        pair_cap=prog.pair_cap)
             out.update(out_flags)
             return out
         # row roots emit every schema column; unused (None) positions

@@ -468,13 +468,16 @@ def pack_codes(keys: Sequence[Tuple], live):
     return code
 
 
-def factorize(keys: Sequence[Tuple], live, cap: int):
+def factorize(keys: Sequence[Tuple], live, cap: int,
+              hi: Optional[int] = None):
     """Dense group ids for rows under multi-column keys.
 
     keys: list of (values, valid) pairs — `valid` False means SQL NULL,
           which forms its own group.
     live: (N,) bool — False rows (padding / filtered-out) join no group.
     cap:  maximum number of groups.
+    hi:   for ONE key without NULLs, a host-known bound [0, hi) on its
+          values (a packed code), which spares K9 its min/max read-back.
 
     Returns (gids, n_groups, rep):
       gids     (N,) int32 in [0, cap) — dead rows get an arbitrary in-range
@@ -485,7 +488,6 @@ def factorize(keys: Sequence[Tuple], live, cap: int):
                (clamped to N-1 for empty slots; gather-safe).
     """
     n = live.shape[0]
-    hi = None
     if len(keys) > 1:
         keys = [(pack_codes(keys, live), None)]
         hi = (n + 1) ** 2
@@ -544,3 +546,106 @@ def partition_perm(keep) -> torch.Tensor:
     in row order, then the rest in row order (a one-bit sort: one K8
     pass on the card)."""
     return lexsort([SortOp(keep, desc=True)]).to(torch.int64)
+
+
+def dense_codes(keys: Sequence[Tuple], live):
+    """Dense group codes ONLY — factorize without the representative-row
+    reduction: one key's dense rank, or several keys' packed code."""
+    if len(keys) == 1:
+        return _dense1(keys[0][0], keys[0][1], live)
+    return pack_codes(keys, live)
+
+
+def distinct_pair_factorize(gids, values, validity, live, cap: int,
+                            gid_cap: Optional[int] = None):
+    """Dense ids of live (group, value) pairs → (first_mask, pair_gids,
+    n_pairs, rep). One value-rank sort + one pair-code sort, shared
+    between DISTINCT state masking (first_mask) and the cross-slab
+    distinct-pair partials (rep/n_pairs). `gids` are the rows' group ids
+    (dead rows carry the group cap); `gid_cap`, when known, bounds them,
+    so the pair code gid·(n+1)+vid carries its bound (gid_cap+1)·(n+1)
+    into the sort (K16 pair_code, K9 + K8 + K10, K16 first_mask)."""
+    n = live.shape[0]
+    pair_live = live & validity
+    vid = _dense1(values, None, pair_live)
+    code = pair_code(gids, vid, gid_cap)
+    hi = None if gid_cap is None else (gid_cap + 1) * (n + 1)
+    pg, n_pairs, rep = factorize([(code, None)], pair_live, cap, hi=hi)
+    return first_mask(rep, pg), pg, n_pairs, rep
+
+
+def distinct_mask(gids, values, validity, live,
+                  gid_cap: Optional[int] = None):
+    """True at the first live+valid occurrence of each (group, value) pair.
+    Rows where validity/live is False return garbage; callers keep masking
+    with validity & live as usual."""
+    n = live.shape[0]
+    return distinct_pair_factorize(gids, values, validity, live, n,
+                                   gid_cap)[0]
+
+
+# ---------------------------------------------------------------------------
+# K16 distinct_pairs: the pair code and the first-occurrence mask
+# ---------------------------------------------------------------------------
+
+
+def pair_code_plain(gids, vid):
+    """Plain torch version of K16's first entry: gid·(n+1) + vid (int64)."""
+    n = gids.shape[0]
+    return gids.to(torch.int64) * (n + 1) + vid.to(torch.int64)
+
+
+def first_mask_plain(rep, pg):
+    """Plain torch version of K16's second entry: rep[pg] == iota."""
+    n = pg.shape[0]
+    return rep.to(torch.int64)[pg.to(torch.int64)] == \
+        torch.arange(n, dtype=torch.int64, device=pg.device)
+
+
+def pair_code(gids, vid, gid_cap: Optional[int] = None):
+    """K16 wrapper (pair code): CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise on anything it does not take).
+    `gid_cap` bounds the group ids; the code's bound (gid_cap+1)·(n+1)
+    must stay below 2^63."""
+    if gids.device.type == "cpu":
+        return pair_code_plain(gids, vid)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(gids, vid, what="pair_code")
+    n = gids.shape[0]
+    if gids.dtype != torch.int32 or vid.dtype != torch.int32 or \
+            gids.shape != (n,) or vid.shape != (n,):
+        raise ck.KernelError("pair_code: int32 gids and value ranks of one "
+                             "length expected")
+    if gid_cap is not None and (gid_cap + 1) * (n + 1) >= 2 ** 63:
+        raise ck.KernelError(f"pair_code: (cap+1)·(n+1) = ({gid_cap}+1)·"
+                             f"({n}+1) does not fit int64")
+    out = torch.empty(n, dtype=torch.int64, device=gids.device)
+    rc = ck.library("distinct_pairs").tt_pair_code(
+        gids.data_ptr(), vid.data_ptr(), n, n + 1, out.data_ptr(),
+        ck.stream_ptr(gids.device))
+    if n > 0:
+        ck.count("distinct_pairs")
+    ck.check(rc, "pair_code")
+    return out
+
+
+def first_mask(rep, pg):
+    """K16 wrapper (first-occurrence mask), as `first_mask_plain`."""
+    if pg.device.type == "cpu":
+        return first_mask_plain(rep, pg)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(rep, pg, what="first_mask")
+    n = pg.shape[0]
+    cap = rep.shape[0]
+    if rep.dtype != torch.int32 or pg.dtype != torch.int32 or \
+            not 0 < cap < 2 ** 31 or rep.device != pg.device:
+        raise ck.KernelError("first_mask: int32 rep (cap > 0) and pair ids "
+                             "expected")
+    out = torch.empty(n, dtype=torch.bool, device=pg.device)
+    rc = ck.library("distinct_pairs").tt_first_mask(
+        rep.data_ptr(), pg.data_ptr(), n, cap, out.data_ptr(),
+        ck.stream_ptr(pg.device))
+    if n > 0:
+        ck.count("distinct_pairs")
+    ck.check(rc, "first_mask")
+    return out

@@ -95,7 +95,28 @@ which must pass:
      n = 8,388,608 (beside `gids*(n+1)+vid` and `rep[pg] == arange`),
      K17 tiling R1's read columns to 3 x 8,388,608 rows and writing the
      levels of its two key masks (beside torch.cat, repeat_interleave
-     and &), K18 through D2's pair cap (beside per-column index_select).
+     and &), K18 through D2's pair cap (beside per-column index_select);
+ 15. the delta write path on the lineitem entry phase 13 left resident
+     (R3's 2,097,152-row slabs, 3 base slabs), tidb_tpu_compaction off:
+     a 2-row INSERT its base layouts cannot carry (l_shipdate going back
+     in time against its difference layout; an l_extendedprice past its
+     32-bit pack) declines to a rebuild, which leaves l_extendedprice
+     raw; Q1 and bench.py's Q3 warm as the starting point; an INSERT of
+     1,000 copied rows, a DELETE that tombstones base slab 0 and some
+     delta rows, and a second one on top (the cumulative re-diff), each
+     read back through Q1 twice; bench.py's Q3 over the delta
+     generation; delta.run_pending_compactions() timed (the rebuild
+     every write costs without the delta path) and Q1 after it. Every
+     statement exactly equal to the host engine; after each write the
+     entry is a delta generation with the right delta_rows, the base
+     tensors of untouched slabs are the same objects, and the DELETEs'
+     reads launch K19 and K18 (the INSERT's none). Counters are zeroed
+     before the phase;
+ 16. K19 at phase 15's shapes: DELETE A's merge of base slab 0, every
+     column held exactly to delta_merge_plain and to the slab phase 15
+     wrote; delta_perm beside torch.argsort(~keep, stable=True), the
+     repack of every packed column and of random codes at widths 1 and
+     32, K18 through the permutation for the raw column.
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
@@ -107,8 +128,10 @@ entry, exactly except K13's float64 prefixes (within 2·i·eps·Σ|x|);
 and K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
 theirs exactly (random gids with dead rows, value ranks with ties,
 1/2/4/8-byte columns and a 2-D limb plane, n_valid below and at the
-cap), with the pair factorize on K8-K10 + K16 equal to its CPU run.
-Phase 4's TopN scan must launch K8-K10.
+cap), with the pair factorize on K8-K10 + K16 equal to its CPU run;
+and K19 delta_merge against delta_merge_plain exactly (its partition,
+every packed width, dict, raw and wide columns through K18, four
+tombstone sets). Phase 4's TopN scan must launch K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -2438,6 +2461,409 @@ def distinct_timing_phase(dev, n: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (delta): K19 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _delta_case(rng, kind, width, cap, n_cur):
+    """(layout or None, host slab tuple) of one column as the cache
+    stores it: raw int64, a raw (3, cap) wide decimal, dict, or pack at
+    `width` (chunk/compress.pack_slab pads the codes and the mask)."""
+    import numpy as np
+    from tidb_tpu_torch.chunk import compress as C
+    mask = (rng.random(cap) < 0.8) & (np.arange(cap) < n_cur)
+    if kind == "raw":
+        return None, (rng.integers(-(1 << 50), 1 << 50, cap), mask)
+    if kind == "wide":
+        return None, (rng.integers(-(1 << 40), 1 << 40, (3, cap)), mask)
+    if kind == "dict":
+        dv = np.unique(rng.integers(-999, 999, 300)).astype(np.int64)
+        lay = C.ColLayout("dict", width, 0, "int64", len(dv))
+        return lay, C.pack_slab(lay, dv[rng.integers(0, len(dv), cap)],
+                                mask, dv) + (dv,)
+    lay = C.ColLayout("pack", width, 7, "int64")
+    codes = rng.integers(0, 1 << width, cap) if width else np.zeros(cap)
+    return lay, C.pack_slab(lay, codes.astype(np.int64) + 7, mask)
+
+
+def _keep_mask(rng, tombs, cap, n_cur):
+    import numpy as np
+    keep = np.zeros(cap, dtype=bool)
+    keep[:n_cur] = True
+    if tombs == "few":
+        keep[rng.choice(n_cur, min(9, n_cur), replace=False)] = False
+    elif tombs == "half":
+        keep &= rng.random(cap) < 0.5
+    elif tombs == "all":
+        keep[:] = False
+    return keep
+
+
+def check_delta_kernels(dev):
+    """K19 delta_merge against delta_merge_plain on the card, exactly:
+    the partition and, through it, every packed width (0 included), a
+    dict column, and raw int64 and wide columns (K18 with the same
+    permutation), over four tombstone sets and three slab shapes."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor import device_emit as E
+    from tidb_tpu_torch.executor.device_cache import _upload
+    rng = np.random.default_rng(43)
+    layouts = [("raw", 0), ("wide", 0), ("dict", 16)] + \
+        [("pack", w) for w in (0, 1, 2, 4, 8, 16, 32)]
+    cases = 0
+    for cap, n_cur in ((1024, 1024), (1024, 1), (65_536, 60_001)):
+        for tombs in ("none", "few", "half", "all"):
+            keep = torch.from_numpy(_keep_mask(rng, tombs, cap,
+                                               n_cur)).to(dev)
+            n_new = int(keep.sum())
+            perm = E.delta_perm(keep)
+            if not torch.equal(perm, E.delta_perm_plain(keep)):
+                raise AssertionError(f"K19 delta_perm cap={cap} {tombs}")
+            n_valid = torch.tensor(n_new, dtype=torch.int32, device=dev)
+            for kind, width in layouts:
+                lay, host = _delta_case(rng, kind, width, cap, n_cur)
+                slab = tuple(_upload(a, dev) for a in host)
+                got = E.emit_delta_merge(lay, slab, keep, n_new, cap,
+                                         perm=perm, n_valid=n_valid)
+                want = E.delta_merge_plain(lay, slab, keep, n_new, cap)
+                if len(got) != len(want) or not all(
+                        torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"K19 {kind} w{width} cap={cap} "
+                                         f"{tombs} differs from its plain "
+                                         f"version")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"K19 exactly equal to its plain version ({cases} cases: partition, "
+        f"widths 0-32, dict, raw and wide through K18)")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the delta write path in SQL
+# ---------------------------------------------------------------------------
+
+DELTA_ROWS = 1000            # the INSERT of step 2
+# DELETE A tombstones the rows shipped before 1992-02-01 (base slab 0 of
+# a shipdate-sorted lineitem, and the copies among the inserted rows);
+# DELETE B those before 1992-03-01 with l_linestatus 'F' (slab 0 again,
+# through its applied tombstones, and more inserted copies)
+DELETE_A = "DELETE FROM lineitem WHERE l_shipdate < '1992-02-01'"
+DELETE_B = ("DELETE FROM lineitem WHERE l_shipdate < '1992-03-01' "
+            "AND l_linestatus = 'F'")
+DAY_A, DAY_B = 8066, 8095    # '1992-02-01', '1992-03-01' in days
+
+
+def _dec(v) -> str:
+    v = int(v)
+    return f"{v // 100}.{v % 100:02d}"
+
+
+def _li_row(li, k, shipdate=None, price=None) -> str:
+    """One lineitem row of make_lineitem's arrays as SQL VALUES text,
+    optionally with another l_shipdate (days) or l_extendedprice."""
+    import datetime
+    day = int(li["l_shipdate"][k] if shipdate is None else shipdate)
+    date = datetime.date(1970, 1, 1) + datetime.timedelta(days=day)
+    return (f"({_dec(li['l_quantity'][k])}, "
+            f"{_dec(li['l_extendedprice'][k] if price is None else price)}, "
+            f"{_dec(li['l_discount'][k])}, {_dec(li['l_tax'][k])}, "
+            f"'{li['l_returnflag'][k]}', '{li['l_linestatus'][k]}', "
+            f"'{date.isoformat()}', {int(li['l_orderkey'][k])})")
+
+
+def _lineitem_entry(s):
+    from tidb_tpu_torch.executor import device_cache as DC
+    eng = s.engine
+    tid = eng.catalog.info_schema.table("lineitem").id
+    for (_dev, sid, t, _parts), e in DC._CACHE.items():
+        if sid == id(eng.store) and t == tid:
+            return e
+    return None
+
+
+def _slab_tensor_ids(ent, slabs):
+    return {i: [tuple(id(a) for a in ent.dev[i][s]) for s in slabs]
+            for i in sorted(ent.dev)}
+
+
+def delta_sql_phase(s, n: int, host_q1, host_q3):
+    """Writes that extend the cached lineitem into new generations,
+    each read back through Q1 (and bench.py's Q3) against the host
+    engine exactly, then the compaction a user pays today on every
+    write → (launches, walls, timing inputs). `host_q1` / `host_q3` are
+    phase 4's and phase 7's host rows, which step 0's write (two rows
+    shipped after Q1's and Q3's cutoff) leaves unchanged."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor import delta as D
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ent = _lineitem_entry(s)
+    if ent is None:
+        raise AssertionError("no cached lineitem entry after phase 13")
+    slab = ent.max_slab
+    cols = [c.name for c in
+            s.engine.catalog.info_schema.table("lineitem").columns]
+    ship, price = cols.index("l_shipdate"), cols.index("l_extendedprice")
+    log(f"delta phase on the resident lineitem: {ent.n_slabs} slabs of "
+        f"{ent.slab_cap} (tidb_tpu_max_slab_rows {slab}); layouts "
+        + ", ".join(f"{cols[i]} {'raw' if l is None else l.sig()}"
+                    for i, l in sorted(ent.layouts.items())))
+    li = make_lineitem(n)
+    s.vars["tidb_tpu_compaction"] = "off"      # drained by hand, step 5
+    walls = {}
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+
+    def write(name, sql):
+        s.vars["tidb_tpu_engine"] = "off"
+        t0 = time.perf_counter()
+        done = s.query(sql).affected_rows
+        walls[name] = time.perf_counter() - t0
+        log(f"{name}: {done} rows in {walls[name]:.3f} s")
+        return done
+
+    def host(name, sql):
+        rows, wall, _, _ = run_sql(s, sql, device=False)
+        walls[f"host_{name}"] = wall
+        return rows
+
+    def read(name, sql, ref):
+        before = ck.launches()
+        rows, wall, phases, _ = run_sql(s, sql, device=True, max_slab=slab)
+        after = ck.launches()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        if rows != ref:
+            raise AssertionError(f"{name}: device rows != host rows\n"
+                                 f"{rows[:3]}\n{ref[:3]}")
+        walls[name] = wall
+        log(f"{name}: {len(rows)} rows, exact match, wall {wall:.4f} s, "
+            f"launches {moved}, phases {phases}")
+        return moved
+
+    # step 0: a write the base layouts cannot carry — l_shipdate is
+    # stored as differences (sorted), and these two rows go back in
+    # time (1998-12-01, then 1998-10-01: both past Q1's and Q3's cutoff,
+    # so neither result moves); the second one's l_extendedprice needs
+    # 33 bits — so the extension declines and the read rebuilds,
+    # re-choosing l_shipdate's layout and leaving l_extendedprice raw
+    # (the merge's K18 half)
+    k1, k2 = n // 3, n // 2
+    write("insert_decline", "INSERT INTO lineitem VALUES " +
+          _li_row(li, k1, shipdate=10561) + ", " +
+          _li_row(li, k2, shipdate=10500, price=5_000_000_000))
+    q1, q3 = host_q1, host_q3
+    read("q1_rebuild", Q1, q1)
+    ent = _lineitem_entry(s)
+    lay_ship = ent.layouts.get(ship)
+    if ent.is_delta or lay_ship is None or lay_ship.kind == "delta" or \
+            ent.layouts.get(price) is not None:
+        raise AssertionError("the out-of-layout write did not rebuild "
+                             "into non-delta l_shipdate and raw "
+                             "l_extendedprice")
+    # step 1: the starting point, Q1 and bench Q3 warm (Q3 streams
+    # l_orderkey into the entry, so every column is resident)
+    read("q3_start_cold", Q3, q3)
+    read("q1_start", Q1, q1)
+    read("q3_start", Q3, q3)
+    ent0 = _lineitem_entry(s)
+    base = range(ent0.n_slabs)
+    ids0 = _slab_tensor_ids(ent0, base)
+    if len(ids0) != len(cols):
+        raise AssertionError(f"not every lineitem column is resident "
+                             f"({sorted(ids0)})")
+
+    def check(what, ent, rows, untouched, moved, merged):
+        if not ent.is_delta or ent.delta_rows != rows:
+            raise AssertionError(f"{what}: is_delta {ent.is_delta}, "
+                                 f"delta_rows {ent.delta_rows} != {rows}")
+        if ent.base_slabs != ent0.n_slabs or \
+                ent.slab_rows(ent.base_slabs) != rows:
+            raise AssertionError(f"{what}: delta slab geometry")
+        if _slab_tensor_ids(ent, untouched) != \
+                _slab_tensor_ids(ent0, untouched):
+            raise AssertionError(f"{what}: base slabs {list(untouched)} "
+                                 f"were not shared")
+        k19 = moved.get("delta_merge", 0)
+        k18 = moved.get("gather_columns", 0)
+        if merged and not (k19 and k18):
+            raise AssertionError(f"{what}: K19/K18 did not launch ({moved})")
+        if not merged and k19:
+            raise AssertionError(f"{what}: K19 launched with no tombstone")
+        log(f"{what}: generation {ent.delta_version}, {ent.delta_rows} "
+            f"delta rows, tombstones per slab "
+            f"{ {s: len(v) for s, v in ent.tomb.items()} }, slabs "
+            f"{list(untouched)} shared, K19 {k19} / K18 {k18} launches")
+
+    # step 2: 1,000 rows copied from existing ones (every gate passes)
+    idx = np.arange(DELTA_ROWS) * (n // DELTA_ROWS) + 11
+    write("insert", "INSERT INTO lineitem VALUES " +
+          ", ".join(_li_row(li, k) for k in idx))
+    q1 = host("q1_insert", Q1)
+    moved = read("q1_ext_insert", Q1, q1)
+    read("q1_delta_warm", Q1, q1)
+    ent1 = _lineitem_entry(s)
+    check("insert", ent1, DELTA_ROWS, base, moved, merged=False)
+    # slab 0 as DELETE A finds it, for the timing phase
+    snap = {i: (ent1.layouts.get(i), ent1.dev[i][0]) for i in ent1.dev}
+    cap, n_cur0 = ent1.slab_cap, ent1.slab_rows(0)
+    # step 3: tombstones in base slab 0 (slabs 1.. stay shared) and in
+    # the delta slab; then those of DELETE B on top (the re-diff)
+    sd, ls = li["l_shipdate"][idx], li["l_linestatus"][idx]
+    alive = sd >= DAY_A
+    write("delete_a", DELETE_A)
+    q1 = host("q1_delete_a", Q1)
+    moved = read("q1_ext_delete_a", Q1, q1)
+    read("q1_delete_a_warm", Q1, q1)
+    ent2 = _lineitem_entry(s)
+    check("delete A", ent2, int(alive.sum()), base[1:], moved, merged=True)
+    if set(ent2.tomb) != {0}:
+        raise AssertionError(f"DELETE A hit slabs {sorted(ent2.tomb)}")
+    after = {i: ent2.dev[i][0] for i in ent2.dev}
+    alive &= ~((sd < DAY_B) & (ls == "F"))
+    write("delete_b", DELETE_B)
+    q1 = host("q1_delete_b", Q1)
+    moved = read("q1_ext_delete_b", Q1, q1)
+    read("q1_delete_b_warm", Q1, q1)
+    ent3 = _lineitem_entry(s)
+    check("delete B", ent3, int(alive.sum()), base[1:], moved, merged=True)
+    # step 4: bench Q3 over the delta generation (the fused pipeline; its
+    # FK-aligned join rebuilds for the new lineitem generation)
+    q3 = host("q3_delta", Q3)
+    read("q3_delta", Q3, q3)
+    read("q3_delta_warm", Q3, q3)
+    if _lineitem_entry(s) is not ent3:
+        raise AssertionError("Q3 did not read the delta generation")
+    # step 5: the compaction — the rebuild every write costs without the
+    # delta path — then Q1 on the compacted generation
+    if D.pending_compactions() < 1:
+        raise AssertionError("no compaction was scheduled")
+    t0 = time.perf_counter()
+    done = D.run_pending_compactions()
+    torch.cuda.synchronize()
+    walls["compaction"] = time.perf_counter() - t0
+    ent4 = _lineitem_entry(s)
+    if done != 1 or ent4.is_delta or ent4.n_slabs != ent0.n_slabs:
+        raise AssertionError(f"compaction: {done} jobs, is_delta "
+                             f"{ent4.is_delta}")
+    log(f"compaction: {walls['compaction']:.4f} s, {ent4.n_slabs} slabs of "
+        f"{ent4.slab_cap}, {ent4.total} rows")
+    read("q1_compacted", Q1, q1)
+    read("q1_compacted_warm", Q1, q1)
+    s.vars.pop("tidb_tpu_compaction", None)
+    s.vars.pop("tidb_tpu_max_slab_rows", None)
+    launches = ck.launches()
+    walls["delta_phase"] = time.perf_counter() - t_phase
+    for k in ("delta_merge", "gather_columns"):
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was never launched by the "
+                                 f"delta path")
+    log(f"delta phase: {walls['delta_phase']:.1f} s, launches {launches}")
+    keep = np.zeros(cap, dtype=bool)
+    keep[:n_cur0] = True
+    keep[:min(n_cur0, n)] &= li["l_shipdate"][:min(n_cur0, n)] >= DAY_A
+    return launches, walls, {"snap": snap, "after": after, "keep": keep,
+                             "cap": cap}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: delta merge kernel timing
+# ---------------------------------------------------------------------------
+
+
+def delta_timing_phase(dev, inputs):
+    """K19 at phase 15's shapes: DELETE A's merge of base slab 0 (every
+    resident lineitem column, as the extension ran it), each column held
+    exactly to delta_merge_plain and to the slab the SQL phase wrote;
+    delta_perm beside torch.argsort(~keep, stable=True); delta_repack for
+    every packed layout of the slab (values and masks), plus widths 1 and
+    32 over random codes; K18 through perm for the raw l_extendedprice."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor import device_emit as E
+    cap = inputs["cap"]
+    keep = torch.from_numpy(inputs["keep"]).to(dev)
+    n_new = int(keep.sum())
+    perm = E.delta_perm(keep)
+    if not torch.equal(perm, E.delta_perm_plain(keep)):
+        raise AssertionError("K19 delta_perm differs from its plain version")
+    n_valid = torch.tensor(n_new, dtype=torch.int32, device=dev)
+    ms_perm = time_cuda(lambda: E.delta_perm(keep), reps=10)
+    plain_perm = time_cuda(lambda: E.delta_perm_plain(keep), reps=5)
+    lib = time_cuda(lambda: torch.argsort(~keep, stable=True), reps=10)
+    # bytes: keep read, perm written; per packed column its words and
+    # mask words read once and their rewrites written once
+    n_bytes = cap + 4 * cap
+    ms = ms_perm
+    plain = plain_perm
+    widths = set()
+    for i, (lay, t) in sorted(inputs["snap"].items()):
+        got = E.emit_delta_merge(lay, t, keep, n_new, cap, perm=perm,
+                                 n_valid=n_valid)
+        want = E.delta_merge_plain(lay, t, keep, n_new, cap)
+        main = inputs["after"][i]
+        for a, b, c in zip(got, want, main):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"K19 column {i} differs from its "
+                                     f"plain version or the SQL phase")
+        if lay is None:
+            v, m = t
+            k18 = time_cuda(lambda: E.emit_delta_merge(
+                None, t, keep, n_new, cap, perm=perm, n_valid=n_valid),
+                reps=10)
+            il = perm.long()
+            idx_sel = time_cuda(lambda: (torch.index_select(v, 0, il),
+                                         torch.index_select(m, 0, il)),
+                                reps=10)
+            log(f"K18 through perm, column {i} ({v.dtype}): {k18:.4f} ms "
+                f"(index_select {idx_sel:.4f}, bound "
+                f"{bound_ms(cap * (4 + 2 * (v.element_size() + 1)), 0)[0]:.4f})")
+            continue
+
+        def repack(fn, lay=lay, t=t):
+            out = [fn(t[1], 1, perm, n_new, cap)]
+            if lay.width:
+                out.append(fn(t[0], lay.width, perm, n_new, cap))
+            return out
+        c_ms = time_cuda(lambda: repack(E.delta_repack), reps=10)
+        c_plain = time_cuda(lambda: repack(E.delta_repack_plain), reps=5)
+        c_bytes = 2 * (t[1].nbytes + (t[0].nbytes if lay.width else 0))
+        ms += c_ms
+        plain += c_plain
+        n_bytes += c_bytes
+        widths.add(lay.width)
+        log(f"K19 repack column {i} ({lay.sig()} + mask): {c_ms:.4f} ms "
+            f"(plain {c_plain:.4f}, bound {bound_ms(c_bytes, 0)[0]:.4f})")
+    rng = np.random.default_rng(47)
+    for w in (1, 32):
+        codes = torch.from_numpy(rng.integers(0, 1 << w, cap)).to(dev)
+        words = E.pack_codes_plain(codes, w, cap)
+        a = E.delta_repack(words, w, perm, n_new, cap)
+        if not torch.equal(a, E.delta_repack_plain(words, w, perm, n_new,
+                                                   cap)):
+            raise AssertionError(f"K19 repack width {w} differs")
+        w_ms = time_cuda(lambda: E.delta_repack(words, w, perm, n_new, cap),
+                         reps=10)
+        w_plain = time_cuda(lambda: E.delta_repack_plain(words, w, perm,
+                                                         n_new, cap),
+                            reps=5)
+        log(f"K19 repack of random codes at width {w}: {w_ms:.4f} ms "
+            f"(plain {w_plain:.4f}, bound "
+            f"{bound_ms(2 * words.nbytes, 0)[0]:.4f})")
+    b, by = bound_ms(n_bytes, 0)
+    log(f"K19 over slab 0 ({cap} rows, {n_new} kept, packed widths "
+        f"{sorted(widths)}): delta_perm {ms_perm:.4f} ms (plain "
+        f"{plain_perm:.4f}, torch.argsort(~keep, stable=True) {lib:.4f}), "
+        f"perm + every repack {ms:.4f} ms (plain {plain:.4f}, bound "
+        f"{b:.4f} by {by})")
+    return [{"name": "delta_merge", "route": "cuda",
+             "source": "tidb_tpu_torch/csrc/delta_merge.cu",
+             "replaces": "tidb_tpu/executor/device_emit.py:597",
+             "max_abs_err": 0, "ms": ms, "plain_ms": plain, "bound_ms": b,
+             "bound_by": by, "library_ms": lib}]
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -2514,6 +2940,7 @@ def main() -> int:
     check_sort_kernels(dev)
     f64_err = check_window_kernels(dev)
     check_distinct_kernels(dev)
+    check_delta_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -2550,6 +2977,13 @@ def main() -> int:
         k["launches"] = distinct_launches[k["name"]]
     kernels += distinct_kernels
     walls.update(distinct_walls)
+    delta_launches, delta_walls, delta_inputs = delta_sql_phase(
+        s, n, host["q1"], join_host["q3"])
+    delta_kernels = delta_timing_phase(dev, delta_inputs)
+    for k in delta_kernels:
+        k["launches"] = delta_launches[k["name"]]
+    kernels += delta_kernels
+    walls.update(delta_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
@@ -2558,6 +2992,8 @@ def main() -> int:
         json.dumps(window_launches))
     log("DISTINCT/ROLLUP-phase launches of every kernel: " +
         json.dumps(distinct_launches))
+    log("delta-phase launches of every kernel: " +
+        json.dumps(delta_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@ K2 unpack_decode and K3 perfect_group_ids against their plain torch
 versions on the same CUDA tensors, and a Q1 run on the card against the
 same engine's host result; K16 distinct_pairs (with the pair factorize
 around it), K17 rollup_tile and K18 gather_columns against their plain
-versions on CPU copies. Needs a CUDA GPU and nvcc; skips without one.
+versions on CPU copies; K19 delta_merge (its partition, every packed
+width, dict, raw and wide columns) against delta_merge_plain, and a
+cached table extended on the card by writes against the host engine.
+Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
 Integer, bool and decode results must be exactly equal; f64 sums within
@@ -203,3 +206,84 @@ def test_k18_matches_plain(cuda, idx_dt):
         want = G.gather_columns_plain(cols, idx, n_valid)
         for (a, am), (b, bm) in zip(got, want):
             assert torch.equal(a.cpu(), b) and torch.equal(am.cpu(), bm)
+
+
+def _k19_slab(kind, width, cap, n_cur, rng):
+    """(layout or None, host slab tuple) of one column, as the cache
+    stores it (chunk/compress.pack_slab)."""
+    from tidb_tpu_torch.chunk import compress as C
+    mask = (rng.random(cap) < 0.8) & (np.arange(cap) < n_cur)
+    if kind == "raw":
+        return None, (rng.integers(-(1 << 50), 1 << 50, cap), mask)
+    if kind == "wide":
+        return None, (rng.integers(-(1 << 40), 1 << 40, (3, cap)), mask)
+    if kind == "dict":
+        dv = np.unique(rng.integers(-999, 999, 300)).astype(np.int64)
+        lay = C.ColLayout("dict", width, 0, "int64", len(dv))
+        return lay, C.pack_slab(lay, dv[rng.integers(0, len(dv), cap)],
+                                mask, dv) + (dv,)
+    lay = C.ColLayout("pack", width, 7, "int64")
+    codes = rng.integers(0, 1 << width, cap) if width else np.zeros(cap)
+    return lay, C.pack_slab(lay, codes.astype(np.int64) + 7, mask)
+
+
+@pytest.mark.parametrize("tombs", ["none", "few", "half", "all"])
+def test_k19_matches_plain(cuda, tombs):
+    from tidb_tpu_torch.executor import device_emit as E
+    from tidb_tpu_torch.executor.device_cache import _upload
+    cap, n_cur = 1 << 16, (1 << 16) - 333
+    rng = np.random.default_rng(len(tombs))
+    keep = np.zeros(cap, dtype=bool)
+    keep[:n_cur] = True
+    if tombs == "few":
+        keep[rng.choice(n_cur, 9, replace=False)] = False
+    elif tombs == "half":
+        keep &= rng.random(cap) < 0.5
+    elif tombs == "all":
+        keep[:] = False
+    n_new = int(keep.sum())
+    keep_t = torch.from_numpy(keep)
+    perm = E.delta_perm(keep_t.to(cuda))
+    assert torch.equal(perm.cpu(), E.delta_perm_plain(keep_t))
+    n_valid = torch.tensor(n_new, dtype=torch.int32, device=cuda)
+    cases = [("raw", 0), ("wide", 0), ("dict", 8)] + \
+        [("pack", w) for w in (0, 1, 2, 4, 8, 16, 32)]
+    for kind, width in cases:
+        lay, host = _k19_slab(kind, width, cap, n_cur, rng)
+        cpu = tuple(_upload(a, torch.device("cpu")) for a in host)
+        got = E.emit_delta_merge(lay, tuple(t.to(cuda) for t in cpu),
+                                 keep_t.to(cuda), n_new, cap, perm=perm,
+                                 n_valid=n_valid)
+        want = E.delta_merge_plain(lay, cpu, keep_t, n_new, cap)
+        assert len(got) == len(want), kind
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), (kind, width)
+
+
+def test_delta_writes_on_card_equal_host_engine(cuda):
+    from tidb_tpu_torch.executor import device_cache as DC
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.session import Engine
+    s = Engine(device="cuda").new_session()
+    s.execute("CREATE TABLE t (a BIGINT, b BIGINT, c VARCHAR(10))")
+    s.execute("INSERT INTO t VALUES " + ",".join(
+        f"({i % 40}, {(i * 7919) % 5000}, 'k{i % 5}')" for i in range(3000)))
+    sql = "SELECT a, c, COUNT(*), SUM(b) FROM t GROUP BY a, c ORDER BY a, c"
+    s.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1,
+                   "tidb_tpu_strict": 1, "tidb_tpu_max_slab_rows": 1024,
+                   "tidb_tpu_compaction": "off"})
+    s.query(sql)
+    for write in ("INSERT INTO t VALUES (3, 1234, 'k2')",
+                  "DELETE FROM t WHERE b % 97 = 3",
+                  "DELETE FROM t WHERE b = 1234"):
+        s.query(write)
+        before = ck.launches()
+        rows = s.query(sql).rows
+        after = ck.launches()
+        ent = next(e for e in DC._CACHE.values() if e.n_cols == 3)
+        assert ent.is_delta
+        s.vars["tidb_tpu_engine"] = "off"
+        assert rows == s.query(sql).rows
+        s.vars["tidb_tpu_engine"] = "on"
+        if write.startswith("DELETE FROM t WHERE b %"):
+            assert after["delta_merge"] > before["delta_merge"]

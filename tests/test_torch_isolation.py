@@ -76,6 +76,13 @@ def test_import_and_query_load_no_jax_module():
         "               '(SELECT d, COUNT(*) AS n FROM t JOIN u ON '\n"
         "               't.a = u.a GROUP BY d) x').rows\n"
         "assert len(rows) == 3, rows\n"
+        "s.execute('INSERT INTO t VALUES (1, 2.25, \\'x\\')')\n"
+        "rows = s.query('SELECT c, COUNT(*), SUM(b) FROM t WHERE a < 4 '\n"
+        "               'GROUP BY c ORDER BY c').rows\n"
+        "assert len(rows) == 2, rows\n"
+        "import tidb_tpu_torch.executor.delta as D\n"
+        "from tidb_tpu_torch.executor import device_cache as DC\n"
+        "assert any(e.is_delta for e in DC._CACHE.values())\n"
         "import tidb_tpu_torch.executor.tree_fragment\n"
         "import tidb_tpu_torch.executor.window\n"
         "import tidb_tpu_torch.ops.factorize\n"
@@ -99,11 +106,13 @@ def test_every_kernel_source_is_built_and_counted():
     from tidb_tpu_torch.ops import cuda_kernels as ck
     srcs = {f[:-3] for f in os.listdir(ck.CSRC) if f.endswith(".cu")}
     assert srcs == set(ck.SOURCES)
-    assert len(ck.COUNTERS) == 18 and len(set(ck.COUNTERS)) == 18
-    for name in ("distinct_pairs", "rollup_tile", "gather_columns"):
+    assert len(ck.COUNTERS) == 19 and len(set(ck.COUNTERS)) == 19
+    for name in ("distinct_pairs", "rollup_tile", "gather_columns",
+                 "delta_merge"):
         assert name in ck.SOURCES and name in ck.COUNTERS
     for fn in ("tt_pair_code", "tt_first_mask", "tt_rollup_tile",
-               "tt_rollup_levels", "tt_gather_columns"):
+               "tt_rollup_levels", "tt_gather_columns", "tt_delta_perm",
+               "tt_delta_repack"):
         assert fn in ck._SIGNATURES
 
 

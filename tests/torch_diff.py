@@ -3,6 +3,8 @@ the JAX package's engine and the PyTorch port's engine from the SAME
 seed-made numpy columns, run one SQL text through both with the device
 engine on, and compare under tests/test_fragment.py's rule."""
 
+import gc
+
 import numpy as np
 
 from tidb_tpu.chunk import Chunk as JChunk
@@ -42,10 +44,27 @@ def load_jax_columns(session, table, cols, valid=None):
     txn.commit()
 
 
+def jax_session(configure=None):
+    """A new JAX-package engine's session, made with the garbage collector
+    held off: the reference's ProcessRegistry.register deadlocks when a
+    collection inside it finalizes a dead session (ROADMAP §3), so
+    earlier sessions are collected here first. `configure(engine)` runs
+    before the session is made."""
+    gc.collect()
+    gc.disable()
+    try:
+        eng = JEngine()
+        if configure is not None:
+            configure(eng)
+        return eng.new_session()
+    finally:
+        gc.enable()
+
+
 def twin_sessions(ddl, tables):
     """→ (jax session, port session) holding the same tables.
     `tables` maps a table name to (cols, valid)."""
-    js = JEngine().new_session()
+    js = jax_session()
     ts = TEngine(device="cpu").new_session()
     for stmt in ddl:
         js.execute(stmt)

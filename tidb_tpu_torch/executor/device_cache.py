@@ -12,9 +12,13 @@ changes.
 Invalidation rides the storage engine's immutability discipline
 (tidb_tpu_torch/storage): every committed write replaces the table's
 `TableData` tuple, so identity (`is`) of the snapshot's TableData is an
-exact freshness token. A write therefore rebuilds the cached table on its
-next device read. Reads inside an open transaction bypass the cache
-(staged rows are session-private, the UnionScan view).
+exact freshness token. A write does not throw the cached table away: the
+next device read first tries to EXTEND it into a new generation
+(executor/delta.py — one delta slab for the appended rows, tombstoned
+base slabs rewritten on the device by K19, every untouched base tensor
+shared) and rebuilds only when the extension declines. Reads inside an
+open transaction bypass the cache (staged rows are session-private, the
+UnionScan view).
 
 One device: every entry lives on the device of the statement's execution
 context (`ctx.device`, carried from the Engine), and the cache key holds
@@ -74,7 +78,9 @@ class CachedTable:
 
     __slots__ = ("td", "max_slab", "total", "slab_cap", "n_slabs",
                  "parts", "dicts", "dev", "bounds", "n_cols", "layouts",
-                 "compressed", "zmaps", "holes", "device")
+                 "compressed", "zmaps", "holes", "device", "base_slabs",
+                 "delta_version", "rows_override", "is_delta", "cov",
+                 "max_rid", "tomb", "delta_rows", "dictvals_host")
 
     def __init__(self, td, max_slab: int, total: int, slab_cap: int,
                  n_slabs: int, parts, n_cols: int, compressed: bool = False,
@@ -88,6 +94,28 @@ class CachedTable:
         self.parts = parts              # [(aligned chunk, alive or None)]
         self.compressed = compressed    # tidb_tpu_compression at build
         self.device = device            # torch.device the tensors live on
+        # -- delta-generation state (executor/delta.py) ------------------
+        # base_slabs: slab count of the immutable committed base; equals
+        # n_slabs until a delta extension appends the delta slab at index
+        # base_slabs. delta_version: the store's monotonic commit version
+        # this generation serves (the specialization keys pin it).
+        # rows_override: per-slab LIVE row counts once tombstones or the
+        # delta slab make the uniform slab_cap arithmetic wrong.
+        # cov/max_rid: the base build's region coverage — what the next
+        # extension diffs the current TableData against. tomb: per-slab
+        # sorted arrays of ORIGINAL base-local row positions removed so
+        # far (fresh tombstones map through them into current slab
+        # coordinates). delta_rows: live rows in the delta slab.
+        # dictvals_host: memoized host copies of dict-layout dictionaries.
+        self.base_slabs = n_slabs
+        self.delta_version = 0
+        self.rows_override: Optional[Dict[int, int]] = None
+        self.is_delta = False
+        self.cov = None           # [(rid, n_rows, alive mask, base_off)]
+        self.max_rid = -1         # max region id across the WHOLE td
+        self.tomb: Dict[int, np.ndarray] = {}
+        self.delta_rows = 0
+        self.dictvals_host: Dict[int, np.ndarray] = {}
         self.dicts: Dict[int, Optional[np.ndarray]] = {}
         self.dev: Dict[int, List[Tuple]] = {}  # col → [(vals, valid)] slabs
         # col → ColLayout for packed columns; None/absent = raw layout
@@ -113,6 +141,8 @@ class CachedTable:
         return self.holes.get(col, frozenset()) <= skip
 
     def slab_rows(self, s: int) -> int:
+        if self.rows_override is not None and s in self.rows_override:
+            return self.rows_override[s]
         return min(self.slab_cap, self.total - s * self.slab_cap)
 
     def hbm_bytes(self) -> int:
@@ -150,7 +180,10 @@ class CachedTable:
         """Drop the entry's references to its device tensors NOW: torch
         frees a tensor when its last reference goes, so an evicted entry
         stops pinning device memory unless a running statement still
-        holds its slabs."""
+        holds its slabs — or another generation of the same table shares
+        them (a delta generation shares every untouched base tensor with
+        its predecessor, so dropping one generation frees only what no
+        other holds)."""
         self.dev.clear()
 
 
@@ -284,22 +317,41 @@ def _pow2(n: int, lo: int = 1024) -> int:
     return cap
 
 
-def _collect_parts(ctx, scan):
+def _collect_parts(ctx, scan, coverage: bool = False):
     """Materialize the scan's region stream host-side (no column copies:
-    alignment reuses region arrays; only partially-deleted regions filter)."""
+    alignment reuses region arrays; only partially-deleted regions filter).
+
+    With `coverage`, also return the region-level ledger a later delta
+    extension diffs against: per enumerated region its (id, row count,
+    alive mask, live-row base offset) — regions are immutable (every
+    write builds new Region objects), so holding the build-time alive
+    masks is safe — plus the max region id across the WHOLE TableData
+    (a region that later re-enters partition scope via the part-reset on
+    delete must force a rebuild, and only an id ceiling can tell it
+    apart from a genuinely appended region)."""
     from tidb_tpu_torch.executor.scan import align_chunk_to_schema
     parts = []
+    cov = []
     total = 0
     pruned = getattr(scan, "partitions", None)
-    for _region, chunk, alive in ctx.scan_table(
+    for region, chunk, alive in ctx.scan_table(
             scan.table.id, None if pruned is None else set(pruned)):
         chunk = align_chunk_to_schema(chunk, scan.table)
         mask = None if alive.all() else alive
         n = chunk.num_rows if mask is None else int(mask.sum())
+        if coverage and region is not None:
+            cov.append((region.id, region.num_rows, np.asarray(alive),
+                        total))
         if n:
             parts.append((chunk, mask))
             total += n
-    return parts, total
+    if not coverage:
+        return parts, total
+    td = ctx.snapshot.table_data(scan.table.id) \
+        if getattr(ctx, "txn", None) is None else None
+    max_rid = max((r.id for r in td.regions), default=-1) \
+        if td is not None else -1
+    return parts, total, cov, max_rid
 
 
 def _materialize_col(ent: CachedTable, col_idx: int):
@@ -808,25 +860,70 @@ def open_table(ctx, scan, used_cols, max_slab: int, phases=None,
                 and e.compressed == comp_on)
 
     stale = None
+    extend_from = None
     with _LOCK:
         ent = _CACHE.get(key) if cacheable else None
         if ent is not None and not _usable(ent):
-            # a write (or DDL / compression toggle) moved the table on:
-            # drop the stale generation and rebuild
-            _CACHE.pop(key, None)
-            stale = ent
+            if (ent.td is not None and td is not None
+                    and ent.max_slab == max_slab
+                    and ent.n_cols == len(scan.schema)
+                    and ent.compressed == comp_on
+                    and ent.cov is not None):
+                # stale ONLY because the data moved on (geometry, schema
+                # width and compression all still match): try the
+                # incremental delta extension before paying a rebuild
+                extend_from = ent
+            else:
+                # DDL, a compression toggle or another slab size: drop
+                # the stale generation and rebuild
+                _CACHE.pop(key, None)
+                stale = ent
             ent = None
         elif ent is not None:
             _CACHE.move_to_end(key)
     if stale is not None:
         _safe_delete(stale, key[1:3])
+    if extend_from is not None:
+        from tidb_tpu_torch.executor import delta as _delta
+        new_ent = _delta.extend_entry(ctx, scan, extend_from, max_slab,
+                                      phases)
+        with _LOCK:
+            cur = _CACHE.get(key)
+            if new_ent is not None and cur is extend_from:
+                # atomic generation swap: in-flight readers keep the old
+                # object (their snapshot), new statements see
+                # base∪delta−tombstones. The old generation is NOT
+                # deleted — it shares the base tensors with the new one;
+                # refcounting frees its delta-only tensors.
+                _CACHE[key] = new_ent
+                _CACHE.move_to_end(key)
+                ent = new_ent
+            elif cur is not None and _usable(cur):
+                ent = cur       # raced another extension/rebuild: adopt
+            elif cur is extend_from:
+                # the extension declined: drop the stale generation and
+                # rebuild. Only the entry WE pop is deleted — one another
+                # thread installed may share its base tensors.
+                _CACHE.pop(key, None)
+                stale = extend_from
+        if stale is not None:
+            _safe_delete(stale, key[1:3])
     if ent is None:
-        parts, total = _collect_parts(ctx, scan)
+        if cacheable:
+            parts, total, cov, max_rid = _collect_parts(ctx, scan,
+                                                        coverage=True)
+        else:
+            parts, total = _collect_parts(ctx, scan)
+            cov, max_rid = None, -1
         slab_cap = _pow2(min(total, max_slab)) if total else 1024
         n_slabs = (total + slab_cap - 1) // slab_cap
         built = CachedTable(td, max_slab, total, slab_cap, n_slabs, parts,
                             len(scan.schema), compressed=comp_on,
                             device=device)
+        built.cov = cov
+        built.max_rid = max_rid
+        built.delta_version = int(getattr(ctx.snapshot, "version", 0) or 0) \
+            if cacheable else 0
         if cacheable:
             victims = []
             with _LOCK:
@@ -857,6 +954,8 @@ def open_table(ctx, scan, used_cols, max_slab: int, phases=None,
     if not ent.total:
         return ent, None
     ph = phases if phases is not None else PhaseTimer()
+    if ent.is_delta and ent.delta_rows:
+        ph.note_delta_rows(ent.delta_rows, token=id(ent))
     from tidb_tpu_torch.executor import zonemap
     skip = zonemap.prune_slabs(ent, scan) if prune else frozenset()
     missing = []
@@ -864,6 +963,16 @@ def open_table(ctx, scan, used_cols, max_slab: int, phases=None,
         if i in ent.dev and ent.holes.get(i, frozenset()) <= skip:
             continue
         missing.append(i)
+    if missing and ent.is_delta and cacheable:
+        # a delta generation cannot cold-stream a column it never held:
+        # its parts ledger predates the delta rows and tombstones, so an
+        # encode from it would silently miss them — rebuild fresh
+        with _LOCK:
+            if _CACHE.get(key) is ent:
+                _CACHE.pop(key, None)
+        _safe_delete(ent, key[1:3])
+        return open_table(ctx, scan, used_cols, max_slab, phases=phases,
+                          prune=prune)
     if missing:
         with _LOCK:
             for i in missing:
@@ -1082,6 +1191,12 @@ def get_aligned(ctx, key, tds: Dict[int, object], fact_slabs,
     decodes the probe key. bounds: the build key column's (lo, hi) value
     domain."""
     from tidb_tpu_torch.ops import join as J
+    if build_ent.is_delta:
+        # delta generations break the LUT's prefix-liveness assumption
+        # (row < total): tombstone-compacted slabs and the appended delta
+        # slab make liveness per slab, not a global prefix — the regular
+        # join path handles them; compaction restores alignment
+        return None
     stale = None
     with _LOCK:
         ent = _ALIGNED.get(key)

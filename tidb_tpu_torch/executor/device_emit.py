@@ -15,8 +15,9 @@ They run eagerly; the hot row-scale loops are hand-written CUDA kernels
 (K1 segment_reduce under every aggregate state update, K2 unpack_decode
 in emit_decode, K3 perfect_group_ids in _perfect_groups, the sort
 kernels K8-K10 under factorize / sort_perm / topn and the LIMIT
-partition, ops/factorize.py, and the window kernels K12-K15 under
-emit_window_cols, ops/window.py).
+partition, ops/factorize.py, the window kernels K12-K15 under
+emit_window_cols, ops/window.py, and K19 delta_merge under
+emit_delta_merge, the tombstone rewrite of executor/delta.py).
 """
 
 from __future__ import annotations
@@ -676,3 +677,162 @@ def _window_value(ctx, live, d, n, perm, pstart, peerstart, pos):
     return W.compute(ctx.xp, d.name, vals, valid, pstart, peerstart,
                      bool(d.order), d.offset, fill, frame=frame,
                      range_key=range_key, positions=pos)
+
+
+# ---------------------------------------------------------------------------
+# delta merge — tombstone compaction of one resident slab (K19)
+# ---------------------------------------------------------------------------
+# A delta extension (executor/delta.py) rewrites each base slab that new
+# tombstones hit: the surviving rows stable-permute to the front (base
+# row order is kept, so every column of the slab stays aligned) and the
+# slab's live prefix shrinks to n_new. The permutation is computed ONCE
+# per slab (K19 delta_perm) and every column reuses it: packed columns
+# and packed validity masks repack through it (K19 delta_repack), raw
+# columns gather through it (K18 gather_columns). Packed words live as
+# their int32 view (chunk/compress.words_for_device).
+
+
+def _int32_words(w):
+    """int64 word values in [0, 2^32) → the int32 view of the same bits."""
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def pack_codes_plain(codes, width: int, cap: int):
+    """Plain torch version of the reference's _emit_pack_codes: codes
+    below 2^width (any integer dtype, `cap` of them) → the packed words,
+    byte-identical to the host encoder (compress._pack_codes). Codes sit
+    in disjoint bit ranges of their word, so the reduction is a plain
+    sum with no carries. On the card this stage is fused into K19's
+    delta_repack."""
+    per = 32 // width
+    n_words = -(-cap // per)
+    c = codes.to(torch.int64)
+    if n_words * per != cap:
+        c = torch.cat([c, c.new_zeros(n_words * per - cap)])
+    shifts = torch.arange(per, dtype=torch.int64, device=c.device) * width
+    return _int32_words((c.reshape(n_words, per) << shifts).sum(dim=1))
+
+
+def delta_perm_plain(keep):
+    """Plain torch version of K19's delta_perm: argsort(~keep, stable)
+    as int32 — kept rows first in row order, then the rest in order."""
+    return torch.argsort((~keep).to(torch.int8), stable=True).to(torch.int32)
+
+
+def delta_repack_plain(words, width: int, perm, n_new: int, cap: int):
+    """Plain torch version of K19's delta_repack: the codes of a column
+    packed at `width` bits, gathered through `perm`, zeroed at slots at
+    or past n_new, and packed again."""
+    from tidb_tpu_torch.chunk import compress
+    codes = compress._unpack_codes_torch(words, width, cap)
+    live = torch.arange(cap, device=codes.device) < n_new
+    picked = torch.where(live, codes[perm.to(torch.int64)],
+                         torch.zeros((), dtype=codes.dtype,
+                                     device=codes.device))
+    return pack_codes_plain(picked, width, cap)
+
+
+def _refuse_diff_codes(layout) -> None:
+    if layout is not None and layout.kind == "delta":
+        from tidb_tpu_torch.errors import LayoutError
+        raise LayoutError("delta-kind layouts cannot be rewritten in place "
+                          "(their codes are successive differences)")
+
+
+def delta_merge_plain(layout, slab, keep, n_new: int, cap: int):
+    """Plain torch version of emit_delta_merge (the reference's
+    device_emit.emit_delta_merge, value for value): `slab` is the
+    resident device tuple of one column, `keep` bool (cap,), False at
+    and past the slab's current row count, `n_new` = keep.sum(). → the
+    rewritten tuple; a dict column's dictvals ride along as the same
+    tensor, width 0 keeps its one-word stub."""
+    _refuse_diff_codes(layout)
+    perm = delta_perm_plain(keep).to(torch.int64)
+    if layout is None:
+        v, m = slab[0], slab[1]
+        live = torch.arange(cap, device=m.device) < n_new
+        return (v[..., perm], m[perm] & live)
+    mwords = delta_repack_plain(slab[1], 1, perm, n_new, cap)
+    vwords = slab[0] if layout.width == 0 else \
+        delta_repack_plain(slab[0], layout.width, perm, n_new, cap)
+    return (vwords, mwords) + tuple(slab[2:3] if layout.kind == "dict"
+                                    else ())
+
+
+def delta_perm(keep):
+    """K19 wrapper (perm): CPU tensors take the plain version; a CUDA
+    bool (cap,) launches the three-pass partition (or raises)."""
+    if keep.device.type == "cpu":
+        return delta_perm_plain(keep)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(keep, what="delta_perm")
+    if keep.dtype != torch.bool or keep.dim() != 1:
+        raise ck.KernelError("delta_perm: a 1-D bool keep mask expected")
+    n = keep.shape[0]
+    dev = keep.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(-(-n // 1024) + 1, dtype=torch.int32, device=dev)
+    rc = ck.library("delta_merge").tt_delta_perm(
+        keep.data_ptr(), n, perm.data_ptr(), scratch.data_ptr(),
+        ck.stream_ptr(dev))
+    if n > 0:
+        ck.count("delta_merge")
+    ck.check(rc, "delta_perm")
+    return perm
+
+
+def delta_repack(words, width: int, perm, n_new: int, cap: int):
+    """K19 wrapper (repack), as `delta_repack_plain`."""
+    if words.device.type == "cpu":
+        return delta_repack_plain(words, width, perm, n_new, cap)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(words, perm, what="delta_repack")
+    if words.dtype != torch.int32 or perm.dtype != torch.int32 or \
+            perm.shape != (cap,):
+        raise ck.KernelError("delta_repack: int32 words and an int32 "
+                             "permutation of the slab's capacity expected")
+    n_out = -(-cap // (32 // width))
+    if words.numel() < n_out:
+        raise ck.KernelError("delta_repack: words shorter than the slab")
+    out = torch.empty(n_out, dtype=torch.int32, device=words.device)
+    rc = ck.library("delta_merge").tt_delta_repack(
+        words.data_ptr(), words.numel(), width, perm.data_ptr(), cap,
+        n_new, out.data_ptr(), n_out, ck.stream_ptr(words.device))
+    if n_out > 0:
+        ck.count("delta_merge")
+    ck.check(rc, "delta_repack")
+    return out
+
+
+def emit_delta_merge(layout, slab, keep, n_new: int, cap: int, perm=None,
+                     n_valid=None):
+    """K19 wrapper: one column of one tombstoned slab, as
+    `delta_merge_plain`. CPU slabs take the plain version; CUDA slabs
+    reuse the slab's `perm` (delta_perm(keep), computed here when not
+    given) and `n_valid` (n_new as a 0-d int32 tensor on the card):
+    packed words and masks repack through K19, raw columns gather
+    through K18, a wide decimal's (n_limbs, cap) limb planes as 1-D
+    columns of one launch."""
+    from tidb_tpu_torch.ops import gather as G
+    if slab[1].device.type == "cpu":
+        return delta_merge_plain(layout, slab, keep, n_new, cap)
+    _refuse_diff_codes(layout)
+    dev = slab[1].device
+    if perm is None:
+        perm = delta_perm(keep)
+    if layout is None:
+        if n_valid is None:
+            n_valid = torch.tensor(n_new, dtype=torch.int32, device=dev)
+        v, m = slab[0], slab[1]
+        if v.dim() == 2:
+            out = G.gather_columns([(v[k], m if k == 0 else None)
+                                    for k in range(v.shape[0])],
+                                   perm, n_valid)
+            return (torch.stack([o[0] for o in out]), out[0][1])
+        (ov, om), = G.gather_columns([(v, m)], perm, n_valid)
+        return (ov, om)
+    mwords = delta_repack(slab[1], 1, perm, n_new, cap)
+    vwords = slab[0] if layout.width == 0 else \
+        delta_repack(slab[0], layout.width, perm, n_new, cap)
+    return (vwords, mwords) + tuple(slab[2:3] if layout.kind == "dict"
+                                    else ())

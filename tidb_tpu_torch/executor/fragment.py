@@ -1557,8 +1557,8 @@ class TpuFragmentExec:
         if _var_bool(vars_.get("tidb_tpu_specialization_cache", "on")):
             skey = _spec_key(
                 getattr(self.ctx, "guard", None), "chain",
-                (id(ent.td), slab_cap, n_slabs, repr(key_bounds),
-                 want_pairs, use_fin,
+                (id(ent.td), ent.delta_version, slab_cap, n_slabs,
+                 repr(key_bounds), want_pairs, use_fin,
                  _order_sig(order_root) if order_root is not None
                  else None, _plan_fingerprint(chain[0]), str(device)))
         spec = _spec_lookup(skey, lay_sig)
@@ -2155,7 +2155,8 @@ class TpuFragmentExec:
         if _var_bool(vars_.get("tidb_tpu_specialization_cache", "on")):
             skey = _spec_key(
                 getattr(self.ctx, "guard", None), "tree",
-                (tuple((id(e.td), e.slab_cap, e.n_slabs) for e, _ in ents),
+                (tuple((id(e.td), e.delta_version, e.slab_cap, e.n_slabs)
+                       for e, _ in ents),
                  anchor_i, repr(akb), want_pairs, use_fin,
                  _order_sig(order_root) if order_root is not None
                  else None, _plan_fingerprint(root), str(device)))

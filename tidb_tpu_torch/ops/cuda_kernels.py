@@ -31,16 +31,19 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tidb_tpu_torch")
 
 SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups", "lut_join",
            "join_expand", "radix_sort", "sorted_groups", "window_scan",
-           "window_frame", "distinct_pairs", "rollup_tile", "gather_columns")
+           "window_frame", "distinct_pairs", "rollup_tile", "gather_columns",
+           "delta_merge")
 #: launch counters, one per kernel (lut_join.cu holds K4 and K5,
 #: join_expand.cu K6 and K7, radix_sort.cu K8 and K9, sorted_groups.cu K10
 #: and K11, window_scan.cu K12 and K13, window_frame.cu K14 and K15;
-#: distinct_pairs.cu is K16, rollup_tile.cu K17, gather_columns.cu K18)
+#: distinct_pairs.cu is K16, rollup_tile.cu K17, gather_columns.cu K18,
+#: delta_merge.cu K19)
 COUNTERS = ("segment_reduce", "unpack_decode", "perfect_groups",
             "lut_build", "lut_probe", "lut_order", "join_expand",
             "radix_sort", "sort_encode", "group_ids", "sorted_search",
             "window_bounds", "window_scan", "frame_bounds", "frame_eval",
-            "distinct_pairs", "rollup_tile", "gather_columns")
+            "distinct_pairs", "rollup_tile", "gather_columns",
+            "delta_merge")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -91,6 +94,8 @@ _SIGNATURES = {
     "tt_rollup_tile": [_I, _P, _P, _P, _P, _L, _I, _P],
     "tt_rollup_levels": [_I, _P, _P, _L, _P, _P],
     "tt_gather_columns": [_I, _P, _P, _P, _L, _P, _I, _L, _P, _P, _P, _P],
+    "tt_delta_perm": [_P, _L, _P, _P, _P],
+    "tt_delta_repack": [_P, _L, _I, _P, _L, _L, _P, _L, _P],
 }
 
 _LOCK = threading.Lock()

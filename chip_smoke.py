@@ -116,7 +116,21 @@ which must pass:
      column held exactly to delta_merge_plain and to the slab phase 15
      wrote; delta_perm beside torch.argsort(~keep, stable=True), the
      repack of every packed column and of random codes at widths 1 and
-     32, K18 through the permutation for the raw column.
+     32, K18 through the permutation for the raw column;
+ 17. date, time, CAST and math functions on the card, over the lineitem
+     and orders that stand after phase 16: E1 YEAR/QUARTER groups, E2
+     DAYOFWEEK/WEEK groups under DATE_ADD(.., 3 MONTH), DAYOFYEAR and
+     WEEKDAY filters, E3 DATEDIFF/LAST_DAY/DATE_ADD over lineitem ⋈
+     orders, E4 HOUR/MINUTE/UNIX_TIMESTAMP/DAYOFMONTH of DATETIME values
+     built by TIMESTAMP and DATE_ADD, E5 SQRT/LN/POW/GREATEST/TRUNCATE/
+     CAST aggregates, E6 a SIN/RADIANS/LOG10/EXP/LAST_DAY filter; each
+     cold and twice warm under tidb_tpu_strict=1, held against the host
+     engine column by column (floats within 2·n·eps·|x|), EXPLAIN
+     showing its HashAgg inside a TpuFragment. Counters are zeroed
+     before the phase; K20 must move in every run of E1-E4;
+ 18. K20 at 8,388,608 rows: civil_part for year, week and last_day over
+     DATE days and hour over µs, date_add_months over the days, each
+     held exactly to its plain version there and timed beside it.
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
@@ -131,7 +145,10 @@ theirs exactly (random gids with dead rows, value ranks with ties,
 cap), with the pair factorize on K8-K10 + K16 equal to its CPU run;
 and K19 delta_merge against delta_merge_plain exactly (its partition,
 every packed width, dict, raw and wide columns through K18, four
-tombstone sets). Phase 4's TopN scan must launch K8-K10.
+tombstone sets); and K20 civil_date against its plain version exactly
+(every part over every day of 0001-9999, the int32 extremes, int64 days
+and µs; DATE_ADD by months for constant and per-row counts). Phase 4's
+TopN scan must launch K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -1796,18 +1813,22 @@ def _canonical(cols):
     return [(v[order], m[order]) for v, m in cols]
 
 
-def same_cols(what, got, want, ordered: bool = False) -> float:
+def same_cols(what, got, want, ordered: bool = False,
+              n_terms=None) -> float:
     """Hold device columns against the host engine's: validity exactly,
     values exactly where valid — except float columns, within
-    2·n·eps·|x| of the host value (the kernels sum in another order) →
-    the largest float difference seen. An unordered result that differs
-    in row order is compared again in a canonical order."""
+    2·n·eps·|x| of the host value (the kernels sum in another order),
+    n the number of terms a value may sum: the result's rows (a window's
+    partition), or `n_terms` → the largest float difference seen. An
+    unordered result that differs in row order is compared again in a
+    canonical order."""
     import numpy as np
     if len(got) != len(want):
         raise AssertionError(f"{what}: {len(got)} columns != {len(want)}")
     if not ordered:
         try:
-            return same_cols(what, got, want, ordered=True)
+            return same_cols(what, got, want, ordered=True,
+                             n_terms=n_terms)
         except AssertionError:
             got, want = _canonical(got), _canonical(want)
     err = 0.0
@@ -1817,7 +1838,8 @@ def same_cols(what, got, want, ordered: bool = False) -> float:
         gv, hv = gv[hm], hv[hm]
         if hv.dtype.kind == "f":
             d = np.abs(gv - hv)
-            tol = 2 * max(len(hv), 1) * EPS64 * np.maximum(np.abs(hv), 1.0)
+            tol = 2 * max(n_terms or len(hv), 1) * EPS64 * \
+                np.maximum(np.abs(hv), 1.0)
             if not bool(((d <= tol) | (np.isnan(gv) & np.isnan(hv))).all()):
                 raise AssertionError(f"{what}: float column {ci} outside "
                                      f"its bound")
@@ -2539,6 +2561,88 @@ def check_delta_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (calendar): K20 against its plain version
+# ---------------------------------------------------------------------------
+
+DAY_US = 86_400_000_000
+DAY_0001 = -719162           # 0001-01-01 in days since 1970-01-01
+DAY_9999 = 2932896           # 9999-12-31
+
+
+def _calendar_inputs(dev):
+    """Every day of 0001-9999 plus the int32 extremes and days beyond
+    MySQL's range (int32), and µs at random times of day on both sides of
+    the epoch plus the int64 extremes."""
+    import numpy as np
+    import torch
+    i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+    days = np.concatenate([
+        np.arange(DAY_0001, DAY_9999 + 1),
+        [i32.min, i32.min + 1, -10**9, DAY_0001 - 1, -719468, -719469, -1,
+         DAY_9999 + 1, 10**9, i32.max - 719468, i32.max - 1, i32.max]])
+    rng = np.random.default_rng(20)
+    us = np.concatenate([
+        rng.integers(DAY_0001, DAY_9999 + 1, 1 << 21) * DAY_US
+        + rng.integers(0, DAY_US, 1 << 21),
+        rng.integers(i64.min, i64.max, 1 << 16, endpoint=True),
+        [i64.min, i64.min + 1, -DAY_US - 1, -1, 0, DAY_US - 1, i64.max]])
+    return (torch.from_numpy(days.astype(np.int32)).to(dev),
+            torch.from_numpy(us.astype(np.int64)).to(dev))
+
+
+def check_calendar_kernels(dev):
+    """K20 civil_date against its plain version on the same CUDA tensors,
+    exactly (values and dtypes): every part over every day of 0001-9999,
+    the int32 extremes and negative days (as int32 and as int64 days),
+    and over µs at random times of day before and after the epoch;
+    date_add_months for n in {-1200, -13, -1, 0, 1, 11, 12, 13, 1200}
+    and a per-row n over the same days and µs, with months, quarters and
+    years, and the month-end cases spelled out."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import calendar as CAL
+    days, us = _calendar_inputs(dev)
+    cases = 0
+
+    def same(what, got, want):
+        nonlocal cases
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            bad = (got != want).nonzero()[:3].flatten().tolist()
+            raise AssertionError(f"K20 {what} differs from its plain "
+                                 f"version (rows {bad})")
+        cases += 1
+
+    for part in CAL.PARTS:
+        for v, micros in ((days, False), (days.long(), False), (us, True)):
+            same(f"{part} {v.dtype} micros={micros}",
+                 CAL.civil_part(v, part, micros),
+                 CAL.civil_part_plain(v, part, micros))
+    rng = np.random.default_rng(21)
+    for mult in (1, 3, 12):
+        for v, micros in ((days, False), (us, True)):
+            n = torch.from_numpy(rng.integers(-1200, 1201, v.shape[0])).to(
+                dev)
+            for k in (n, -1200, -13, -1, 0, 1, 11, 12, 13, 1200):
+                same(f"date_add_months x{mult} micros={micros} "
+                     f"n={'tensor' if isinstance(k, torch.Tensor) else k}",
+                     CAL.date_add_months(v, micros, k, mult),
+                     CAL.date_add_months_plain(v, micros, k, mult))
+    # Jan 31 + 1 month, Feb 29 ± 1 year, 1900 / 2000 / 2100 leap rules
+    spot = torch.tensor([18292, 18321, 18321, -25537, 10987, 47512],
+                        dtype=torch.int32, device=dev)
+    got = CAL.date_add_months(spot, False, torch.tensor(
+        [1, 12, -12, 1, 1, 1], device=dev), 1)
+    want = [18321, 18686, 17955, -25509, 11016, 47540]
+    if got.tolist() != want:
+        raise AssertionError(f"K20 month-end cases {got.tolist()} != "
+                             f"{want}")
+    torch.cuda.synchronize()
+    log(f"K20 exactly equal to its plain version ({cases} cases: "
+        f"{days.shape[0]} days, {us.shape[0]} µs values, every part and "
+        f"DATE_ADD by months)")
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the delta write path in SQL
 # ---------------------------------------------------------------------------
 
@@ -2864,6 +2968,162 @@ def delta_timing_phase(dev, inputs):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: date, time, CAST and math functions in SQL
+# ---------------------------------------------------------------------------
+
+E1 = """SELECT YEAR(l_shipdate), QUARTER(l_shipdate), COUNT(*),
+ SUM(l_extendedprice * (1 - l_discount)) FROM lineitem
+ GROUP BY YEAR(l_shipdate), QUARTER(l_shipdate)
+ ORDER BY YEAR(l_shipdate), QUARTER(l_shipdate)"""
+
+E2 = """SELECT DAYOFWEEK(l_shipdate), WEEK(l_shipdate), COUNT(*),
+ SUM(l_quantity) FROM lineitem
+ WHERE DATE_ADD(l_shipdate, INTERVAL 3 MONTH) < '1998-01-31'
+ AND DAYOFYEAR(l_shipdate) BETWEEN 32 AND 300 AND WEEKDAY(l_shipdate) < 5
+ GROUP BY DAYOFWEEK(l_shipdate), WEEK(l_shipdate)"""
+
+E3 = """SELECT o_orderpriority, COUNT(*),
+ SUM(DATEDIFF(l_shipdate, o_orderdate)), MAX(LAST_DAY(o_orderdate)),
+ MIN(DATE_ADD(o_orderdate, INTERVAL 1 QUARTER))
+ FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+ WHERE l_shipdate > DATE_ADD(o_orderdate, INTERVAL 1 MONTH)
+ GROUP BY o_orderpriority ORDER BY o_orderpriority"""
+
+# E4: the DATETIME branch, ts = l_shipdate at a time of day from the key
+_TS = ("DATE_ADD(TIMESTAMP(l_shipdate), "
+       "INTERVAL l_orderkey % 86400 SECOND)")
+E4 = (f"SELECT HOUR({_TS}), COUNT(*), SUM(MINUTE({_TS})), "
+      f"MAX(UNIX_TIMESTAMP({_TS})), MIN(DAYOFMONTH(DATE_ADD("
+      f"TIMESTAMP(l_shipdate), INTERVAL 1 YEAR))) FROM lineitem "
+      f"GROUP BY HOUR({_TS})")
+
+E5 = """SELECT l_returnflag, COUNT(*), SUM(SQRT(l_extendedprice)),
+ SUM(LN(l_quantity)), SUM(POW(l_discount, 2)),
+ MAX(GREATEST(l_tax, l_discount)),
+ SUM(TRUNCATE(l_extendedprice * l_discount, 1)),
+ SUM(CAST(l_quantity AS DOUBLE)) FROM lineitem
+ GROUP BY l_returnflag ORDER BY l_returnflag"""
+
+E6 = """SELECT COUNT(*), SUM(l_extendedprice) FROM lineitem
+ WHERE SIN(RADIANS(l_discount * 100)) > 0.1 AND LOG10(l_extendedprice) > 5
+ AND EXP(l_tax) < 1.05 AND l_shipdate < LAST_DAY('1996-02-10')"""
+
+EXPR_STMTS = {"e1": E1, "e2": E2, "e3": E3, "e4": E4, "e5": E5, "e6": E6}
+
+
+def expression_sql_phase(s):
+    """E1-E6 over the lineitem and orders that stand after phase 16, cold
+    and twice warm under tidb_tpu_strict=1, each held against the host
+    engine column by column (ints, DECIMALs and dates exactly, float
+    columns within phase 11's 2·n·eps·|x|, n lineitem's row count: E5's
+    float SUMs add that many non-negative terms at most, so |x| is their
+    Σ|x|); EXPLAIN shows each aggregate inside a TpuFragment, and K20
+    moves in every run of E1-E4 → (launches, walls)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    for name, sql in EXPR_STMTS.items():
+        explain = "\n".join(str(r[0]) for r in
+                            s.query("EXPLAIN " + sql).rows)
+        if not agg_in_fragment(s, sql) or "TpuFragment" not in explain:
+            raise AssertionError(f"{name}: the HashAgg is not inside the "
+                                 f"device fragment\n{explain}")
+    log("EXPLAIN: E1-E6's HashAgg inside a TpuFragment")
+    host = {}
+    walls = {}
+    for name, sql in EXPR_STMTS.items():
+        host[name], walls[f"host_{name}"], _ = run_cols(s, sql, device=False)
+        log(f"host {name}: {len(host[name][0][0]) if host[name] else 0} "
+            f"rows in {walls[f'host_{name}']:.3f} s")
+    n_rows = s.query("SELECT COUNT(*) FROM lineitem").rows[0][0]
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    err = 0.0
+    for name, sql in EXPR_STMTS.items():
+        for k in ("cold", "warm1", "warm2"):
+            run = f"{name}_{k}"
+            before = ck.launches()
+            cols, wall, phases = run_cols(s, sql, device=True)
+            after = ck.launches()
+            moved = {c: after[c] - before[c] for c in after
+                     if after[c] != before[c]}
+            e = same_cols(run, cols, host[name],
+                          ordered="ORDER BY" in sql, n_terms=n_rows)
+            err = max(err, e)
+            walls[run] = wall
+            log(f"{run}: {len(cols[0][0]) if cols else 0} rows, equal to "
+                f"the host (largest float difference {e:.3g}), wall "
+                f"{wall:.4f} s, launches {moved}, phases {phases}")
+            if name in ("e1", "e2", "e3", "e4") and \
+                    not moved.get("civil_date"):
+                raise AssertionError(f"{run}: K20 did not move ({moved})")
+    launches = ck.launches()
+    walls["expression_phase"] = time.perf_counter() - t_phase
+    log(f"expression phase: {walls['expression_phase']:.1f} s, largest "
+        f"float difference {err:.3g}, launches {launches}")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 18: calendar kernel timing
+# ---------------------------------------------------------------------------
+
+#: integer operations a row of each timed K20 call does (the civil
+#: decomposition is about 30, the inverse about 15, a floor division or
+#: floor modulo 3), for the operations half of its bound
+K20_OPS = {"year": 30, "week": 60, "last_day": 50, "hour": 8,
+           "date_add_months": 95}
+
+
+def calendar_timing_phase(dev):
+    """K20 at 8,388,608 rows (one full slab): civil_part for year, week
+    and last_day over DATE days in lineitem's shipdate range, hour over
+    µs at random times of day, date_add_months (+3 months, E2's) over
+    the same days; each held exactly to its plain version there and timed
+    beside it. No single PyTorch call computes these functions."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import calendar as CAL
+    n = FULL_SLAB
+    rng = np.random.default_rng(18)
+    days = torch.from_numpy(rng.integers(8036, 10590, n).astype(
+        np.int32)).to(dev)
+    us = days.long() * DAY_US + torch.from_numpy(
+        rng.integers(0, DAY_US, n)).to(dev)
+    calls = [(part, (lambda v=v, p=part, mc=mc: CAL.civil_part(v, p, mc)),
+              (lambda v=v, p=part, mc=mc: CAL.civil_part_plain(v, p, mc)),
+              v) for part, v, mc in (("year", days, False),
+                                     ("week", days, False),
+                                     ("last_day", days, False),
+                                     ("hour", us, True))]
+    calls.append(("date_add_months",
+                  lambda: CAL.date_add_months(days, False, 3, 1),
+                  lambda: CAL.date_add_months_plain(days, False, 3, 1),
+                  days))
+    ms = plain = bound = 0.0
+    bound_by = set()
+    for name, kern, ref, v in calls:
+        got = kern()
+        want = ref()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"K20 {name} differs from its plain "
+                                 f"version at {n} rows")
+        k_ms = time_cuda(kern, reps=20)
+        p_ms = time_cuda(ref, reps=10)
+        b, by = bound_ms(v.nbytes + got.nbytes, n * K20_OPS[name])
+        ms, plain, bound = ms + k_ms, plain + p_ms, bound + b
+        bound_by.add(by)
+        log(f"K20 {name} over {n} {'µs' if v is us else 'days'}: "
+            f"{k_ms:.4f} ms (plain {p_ms:.4f}, bound {b:.4f} by {by})")
+    by = "bytes" if bound_by == {"bytes"} else "operations"
+    log(f"K20 over its five timed calls: {ms:.4f} ms (plain {plain:.4f}, "
+        f"bound {bound:.4f} by {by})")
+    return [{"name": "civil_date", "route": "cuda",
+             "source": "tidb_tpu_torch/csrc/civil_date.cu",
+             "replaces": "tidb_tpu/expression/__init__.py:1408",
+             "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": by, "library_ms": None}]
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -2941,6 +3201,7 @@ def main() -> int:
     f64_err = check_window_kernels(dev)
     check_distinct_kernels(dev)
     check_delta_kernels(dev)
+    check_calendar_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -2984,6 +3245,12 @@ def main() -> int:
         k["launches"] = delta_launches[k["name"]]
     kernels += delta_kernels
     walls.update(delta_walls)
+    expr_launches, expr_walls = expression_sql_phase(s)
+    calendar_kernels = calendar_timing_phase(dev)
+    for k in calendar_kernels:
+        k["launches"] = expr_launches[k["name"]]
+    kernels += calendar_kernels
+    walls.update(expr_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
@@ -2994,6 +3261,8 @@ def main() -> int:
         json.dumps(distinct_launches))
     log("delta-phase launches of every kernel: " +
         json.dumps(delta_launches))
+    log("expression-phase launches of every kernel: " +
+        json.dumps(expr_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

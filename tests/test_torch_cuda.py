@@ -287,3 +287,42 @@ def test_delta_writes_on_card_equal_host_engine(cuda):
         s.vars["tidb_tpu_engine"] = "on"
         if write.startswith("DELETE FROM t WHERE b %"):
             assert after["delta_merge"] > before["delta_merge"]
+
+
+def _k20_inputs(cuda):
+    import datetime
+    epoch = datetime.date(1970, 1, 1)
+    first = (datetime.date(1, 1, 1) - epoch).days
+    last = (datetime.date(9999, 12, 31) - epoch).days
+    i32 = np.iinfo(np.int32)
+    days = np.concatenate([np.arange(first, last + 1), [
+        i32.min, i32.min + 1, -10**9, first - 1, -1, 0, last + 1, 10**9,
+        i32.max - 1, i32.max]]).astype(np.int32)
+    rng = np.random.default_rng(20)
+    us = np.concatenate([
+        rng.integers(first * 86_400_000_000, last * 86_400_000_000, 1 << 20),
+        rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                     1 << 16),
+        [np.iinfo(np.int64).min, -1, 0, np.iinfo(np.int64).max]])
+    return torch.from_numpy(days).to(cuda), torch.from_numpy(us).to(cuda)
+
+
+def test_k20_matches_plain(cuda):
+    from tidb_tpu_torch.ops import calendar as CAL
+    days, us = _k20_inputs(cuda)
+    for part in CAL.PARTS:
+        for v, micros in ((days, False), (days.long(), False), (us, True)):
+            got = CAL.civil_part(v, part, micros)
+            want = CAL.civil_part_plain(v, part, micros)
+            assert got.dtype == want.dtype and torch.equal(got, want), \
+                (part, micros, v.dtype)
+    rng = np.random.default_rng(21)
+    for mult in (1, 3, 12):
+        for v, micros in ((days, False), (us, True)):
+            n = torch.from_numpy(rng.integers(-1200, 1201, v.shape[0])).to(
+                cuda)
+            for k in (n, -1200, -13, -1, 0, 1, 11, 12, 13, 1200):
+                got = CAL.date_add_months(v, micros, k, mult)
+                want = CAL.date_add_months_plain(v, micros, k, mult)
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (mult, micros, k if isinstance(k, int) else "tensor")

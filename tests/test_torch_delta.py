@@ -30,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_diff import assert_same, jax_session
+from tests.torch_diff import (assert_same,  # noqa: F401  (autouse)
+                              collect_jax_sessions, jax_session)
 from tidb_tpu_torch.chunk import compress as TC
 from tidb_tpu_torch.errors import LayoutError, TiDBTPUError, TxnError
 from tidb_tpu_torch.executor import delta as TD
@@ -230,14 +231,6 @@ def _table(s, compression):
                    "tidb_tpu_compaction": "off",
                    "tidb_tpu_max_slab_rows": SLAB})
     return s.engine, s
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _collect_jax_sessions():
-    """Leave no dead JAX session of this file to a later file's
-    ProcessRegistry.register() (see torch_diff.jax_session)."""
-    yield
-    gc.collect()
 
 
 class Twins:

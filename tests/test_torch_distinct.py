@@ -34,6 +34,7 @@ from tidb_tpu_torch.expression import EvalContext as TCtx
 from tidb_tpu_torch.ops import factorize as TF
 from tidb_tpu_torch.ops import gather as TG
 from tidb_tpu_torch.ops.xp import TorchXP
+from torch_diff import collect_jax_sessions  # noqa: F401  (autouse)
 
 N = 3000
 

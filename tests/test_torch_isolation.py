@@ -83,12 +83,23 @@ def test_import_and_query_load_no_jax_module():
         "import tidb_tpu_torch.executor.delta as D\n"
         "from tidb_tpu_torch.executor import device_cache as DC\n"
         "assert any(e.is_delta for e in DC._CACHE.values())\n"
+        "s.execute('CREATE TABLE w (e DATE, t DATETIME)')\n"
+        "s.execute('INSERT INTO w VALUES ' + ','.join(\n"
+        "    f'(\\'2021-{1 + i % 12:02d}-{1 + i % 28:02d}\\', '\n"
+        "    f'\\'2020-02-29 {i % 24:02d}:30:00\\')' for i in range(300)))\n"
+        "q = ('SELECT QUARTER(e), COUNT(*), MAX(LAST_DAY(e)), SUM(HOUR(t)) '\n"
+        "     'FROM w WHERE DATE_ADD(e, INTERVAL 1 MONTH) > \\'2021-03-01\\' '\n"
+        "     'GROUP BY QUARTER(e) ORDER BY QUARTER(e)')\n"
+        "assert 'TpuFragment' in str(s.query('EXPLAIN ' + q).rows)\n"
+        "rows = s.query(q).rows\n"
+        "assert len(rows) == 4, rows\n"
         "import tidb_tpu_torch.executor.tree_fragment\n"
         "import tidb_tpu_torch.executor.window\n"
         "import tidb_tpu_torch.ops.factorize\n"
         "import tidb_tpu_torch.ops.gather\n"
         "import tidb_tpu_torch.ops.join\n"
         "import tidb_tpu_torch.ops.window\n"
+        "import tidb_tpu_torch.ops.calendar\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tidb_tpu' or m.startswith('tidb_tpu.')]\n"
         "print('BAD', bad)\n")
@@ -106,13 +117,13 @@ def test_every_kernel_source_is_built_and_counted():
     from tidb_tpu_torch.ops import cuda_kernels as ck
     srcs = {f[:-3] for f in os.listdir(ck.CSRC) if f.endswith(".cu")}
     assert srcs == set(ck.SOURCES)
-    assert len(ck.COUNTERS) == 19 and len(set(ck.COUNTERS)) == 19
+    assert len(ck.COUNTERS) == 20 and len(set(ck.COUNTERS)) == 20
     for name in ("distinct_pairs", "rollup_tile", "gather_columns",
-                 "delta_merge"):
+                 "delta_merge", "civil_date"):
         assert name in ck.SOURCES and name in ck.COUNTERS
     for fn in ("tt_pair_code", "tt_first_mask", "tt_rollup_tile",
                "tt_rollup_levels", "tt_gather_columns", "tt_delta_perm",
-               "tt_delta_repack"):
+               "tt_delta_repack", "tt_civil_part", "tt_date_add_months"):
         assert fn in ck._SIGNATURES
 
 

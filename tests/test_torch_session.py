@@ -11,7 +11,8 @@ used_device."""
 import numpy as np
 import pytest
 
-from torch_diff import assert_same, run_jax, run_port, twin_sessions
+from torch_diff import (assert_same, collect_jax_sessions,  # noqa: F401
+                        run_jax, run_port, twin_sessions)
 
 Q1 = """SELECT l_returnflag, l_linestatus, SUM(l_quantity),
  SUM(l_extendedprice), SUM(l_extendedprice * (1 - l_discount)),

@@ -19,7 +19,8 @@ TopN / Sort / LIMIT roots directly over a join."""
 import numpy as np
 import pytest
 
-from torch_diff import (assert_same, run_jax, run_port_tree, twin_sessions)
+from torch_diff import (assert_same, collect_jax_sessions,  # noqa: F401
+                        run_jax, run_port_tree, twin_sessions)
 
 Q3 = """SELECT o_orderpriority, COUNT(*),
  SUM(l_extendedprice * (1 - l_discount))

@@ -36,6 +36,7 @@ import torch
 from tidb_tpu_torch.executor.fragment import _DEVICE_WINDOW_FUNCS
 from tidb_tpu_torch.ops import window as TW
 from tidb_tpu_torch.ops.xp import TorchXP
+from torch_diff import collect_jax_sessions  # noqa: F401  (autouse)
 
 TX = TorchXP("cpu")
 EPS = 2.0 ** -52

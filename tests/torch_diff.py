@@ -6,6 +6,7 @@ engine on, and compare under tests/test_fragment.py's rule."""
 import gc
 
 import numpy as np
+import pytest
 
 from tidb_tpu.chunk import Chunk as JChunk
 from tidb_tpu.chunk import Column as JColumn
@@ -61,6 +62,16 @@ def jax_session(configure=None):
         gc.enable()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def collect_jax_sessions():
+    """Leave no dead JAX session of a test file to a later file's
+    ProcessRegistry.register() (see jax_session): collected once the
+    file's module-scoped sessions are torn down. A test file imports it
+    to use it."""
+    yield
+    gc.collect()
+
+
 def twin_sessions(ddl, tables):
     """→ (jax session, port session) holding the same tables.
     `tables` maps a table name to (cols, valid)."""
@@ -111,12 +122,38 @@ def run_jax(s, sql, max_slab=None, extra=None):
 
 def run_port(s, sql, max_slab=None, extra=None):
     """Port rows; every fragment must have run on the device."""
+    return run_port_frags(s, sql, max_slab, extra)[0]
+
+
+def run_port_frags(s, sql, max_slab=None, extra=None):
+    """Port rows and fragments, as run_port."""
     rows, frags = _run(s, sql, tparse, tbuild, trun, TFrag, max_slab, extra)
     assert frags, f"no port fragment extracted for: {sql}"
     for f in frags:
         assert f.used_device and f.fallback_code is None, \
             (sql, f.fallback_reason)
-    return rows
+    return rows, frags
+
+
+def fragment_ops(frags):
+    """The scalar function ops evaluated inside the fragments (port or
+    JAX package: both plans carry the same node classes' expressions)."""
+    ops = set()
+
+    def walk(node):
+        for attr in ("filters", "conditions", "exprs", "group_exprs", "by"):
+            for e in getattr(node, attr, None) or ():
+                ops.update(getattr(sub, "op", None) for sub in e.walk())
+        for d in getattr(node, "aggs", None) or ():
+            for e in d.args:
+                ops.update(getattr(sub, "op", None) for sub in e.walk())
+        for c in getattr(node, "children", None) or ():
+            walk(c)
+
+    for f in frags:
+        walk(f.plan.root)
+    ops.discard(None)
+    return ops
 
 
 def run_port_tree(s, sql, max_slab=None, extra=None):
@@ -141,6 +178,8 @@ def assert_same(rows1, rows2, ordered=False, rel=FLOAT_REL):
     for r1, r2 in zip(rows1, rows2):
         for v1, v2 in zip(r1, r2):
             if isinstance(v1, float) and v2 is not None:
-                assert abs(v1 - v2) <= rel * max(1.0, abs(v2)), (r1, r2)
+                # equal values pass first: inf - inf is nan
+                assert v1 == v2 or abs(v1 - v2) <= rel * max(1.0, abs(v2)), \
+                    (r1, r2)
             else:
                 assert v1 == v2, (r1, r2)

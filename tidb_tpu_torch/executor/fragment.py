@@ -204,6 +204,20 @@ def _string_exprs_are_refs(exprs: Sequence[Expression]) -> bool:
                for e in exprs)
 
 
+_MATH_OPS = frozenset({
+    "sqrt", "pow", "exp", "ln", "log", "log2", "log10",
+    "sin", "cos", "tan", "cot", "asin", "acos", "atan", "atan2",
+    "degrees", "radians", "pi", "truncate", "greatest", "least",
+})
+_TEMPORAL_OPS = frozenset({
+    "date", "datediff", "date_add_day", "date_add_week", "date_add_month",
+    "date_add_quarter", "date_add_year", "date_add_hour", "date_add_minute",
+    "date_add_second", "date_add_microsecond", "to_days", "from_days",
+    "dayofweek", "weekday", "dayofyear", "quarter", "week", "last_day",
+    "hour", "minute", "second", "microsecond", "timestamp",
+    "unix_timestamp", "from_unixtime", "time_to_sec", "sec_to_time",
+    "to_seconds", "time", "timediff",
+})
 #: scalar functions the port evaluates on the device. Each one is held
 #: against the JAX package's device branch by tests/test_torch_expression.py;
 #: any other function keeps its fragment on the CPU at plan time.
@@ -211,10 +225,38 @@ DEVICE_OPS = frozenset({
     "plus", "minus", "mul", "div", "intdiv", "mod", "unary_minus",
     "eq", "ne", "lt", "le", "gt", "ge", "nulleq",
     "and", "or", "xor", "not", "isnull",
-    "if", "ifnull", "coalesce", "case", "in", "like",
-    "abs", "ceil", "floor", "round", "sign",
+    "if", "ifnull", "coalesce", "case", "in", "like", "regexp_like",
+    "abs", "ceil", "floor", "round", "sign", "cast",
     "year", "month", "dayofmonth",
-})
+}) | _MATH_OPS | _TEMPORAL_OPS
+
+#: ops whose device branch reads its arguments as numbers, DATE days or
+#: µs: a string argument (a dictionary code on the device) stays on the
+#: CPU, where the host branches parse it
+_NO_STRING_ARGS = _MATH_OPS | _TEMPORAL_OPS | {"cast"}
+
+
+def _device_shape_ok(f) -> bool:
+    """Shapes of DEVICE_OPS that the device branch cannot evaluate (the
+    JAX package's raises on them, or would compute on dictionary codes),
+    refused at plan time."""
+    from tidb_tpu_torch.expression import Constant
+    if f.op in ("like", "regexp_like"):
+        # the device lowering is a prepared per-dictionary LUT: only
+        # column-vs-constant shapes can prepare
+        return isinstance(f.args[0], ColumnRef) and \
+            isinstance(f.args[1], Constant) and f.args[1].value is not None
+    if f.op == "in" and f.args[0].ftype.kind.is_string:
+        # string IN-lists prepare a per-dictionary codeset; a COMPUTED
+        # string has no dictionary to prepare against
+        return isinstance(f.args[0], ColumnRef)
+    if f.op in ("greatest", "least", "cast") and \
+            f.ftype.np_dtype == np.dtype(object):
+        return False    # a computed string (JSON, wide decimal) result
+    if f.op in _NO_STRING_ARGS and \
+            any(a.ftype.kind.is_string for a in f.args):
+        return False
+    return True
 
 
 def _exprs_device_ok(exprs: Sequence[Expression]) -> bool:
@@ -223,25 +265,13 @@ def _exprs_device_ok(exprs: Sequence[Expression]) -> bool:
     decimals (limb-plane representation) are rejected here too: only the
     SUM/AVG/COUNT agg arguments handled by _fragment_ok's special case
     consume limbs."""
-    from tidb_tpu_torch.expression import Constant, ScalarFunc
+    from tidb_tpu_torch.expression import ScalarFunc
     for e in exprs:
         for sub in e.walk():
             if isinstance(sub, ScalarFunc) and type(sub) is not ScalarFunc:
                 return False    # planner subclasses (apply subqueries)
-            if isinstance(sub, ScalarFunc) and sub.op not in DEVICE_OPS:
-                return False
-            if isinstance(sub, ScalarFunc) and sub.op == "like":
-                # the device lowering is a prepared per-dictionary LUT:
-                # only column-vs-constant shapes can prepare
-                if not (isinstance(sub.args[0], ColumnRef) and
-                        isinstance(sub.args[1], Constant) and
-                        sub.args[1].value is not None):
-                    return False
-            if isinstance(sub, ScalarFunc) and sub.op == "in" and \
-                    sub.args[0].ftype.kind.is_string and \
-                    not isinstance(sub.args[0], ColumnRef):
-                # string IN-lists prepare a per-dictionary codeset; a
-                # COMPUTED string has no dictionary to prepare against
+            if isinstance(sub, ScalarFunc) and \
+                    (sub.op not in DEVICE_OPS or not _device_shape_ok(sub)):
                 return False
             if isinstance(sub, ColumnRef) and sub.ftype.is_wide_decimal:
                 return False

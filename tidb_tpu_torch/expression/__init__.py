@@ -25,10 +25,12 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from tidb_tpu_torch import types as T
 from tidb_tpu_torch.errors import (ExecutionError, TypeError_,
                              UnknownColumnError)
+from tidb_tpu_torch.ops import calendar
 from tidb_tpu_torch.ops.xp import astype
 from tidb_tpu_torch.types import FieldType, TypeKind
 
@@ -250,6 +252,10 @@ class ScalarFunc(Expression):
         return prep(self, dictionaries) if prep else None
 
     def __repr__(self):
+        if self.op == "cast":
+            # the target type is the cast's only operand besides its
+            # argument: the program cache and GROUP BY matching key on repr
+            return f"cast({self.args[0]!r} AS {self.ftype})"
         return f"{self.op}({', '.join(map(repr, self.args))})"
 
 
@@ -634,7 +640,15 @@ def _coerced(expr: Expression, target: FieldType, ctx: EvalContext):
             xp, v, ft, np.float64 if not ctx.on_device else v.dtype)), m
     if target.kind.is_string or ft.kind.is_string:
         return v, m  # same dictionary domain or host objects
+    if ft.kind is TypeKind.DATE and target.kind in _DATETIME_KINDS:
+        return astype(v, xp.int64) * 86_400_000_000, m
+    if ft.kind in _DATETIME_KINDS and target.kind is TypeKind.DATE:
+        return astype(_floor_div_neg(xp, astype(v, xp.int64),
+                                     86_400_000_000), xp.int32), m
     return v, m
+
+
+_DATETIME_KINDS = (TypeKind.DATETIME, TypeKind.TIMESTAMP)
 
 
 def _round_half_away(xp, x):
@@ -1405,10 +1419,13 @@ def _dayofmonth(func, ctx):
 
 def _date_part(func, ctx, part):
     """Civil-date decomposition from days-since-epoch (Howard Hinnant algo —
-    pure integer ops, traces cleanly under jit)."""
+    pure integer ops; torch tensors go through ops.calendar, K20 on the
+    card)."""
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
     ft = func.args[0].ftype
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, ft, part), m
     if ft.kind in (TypeKind.DATETIME, TypeKind.TIMESTAMP):
         days = _floor_div_neg(xp, v, 86_400_000_000)
     else:
@@ -1849,9 +1866,31 @@ _nary_minmax("least", lambda xp, a, b: xp.minimum(a, b))
 # ---------------------------------------------------------------------------
 
 
+def _calendar_part(v, ft, part):
+    """One calendar part of a DATE/DATETIME tensor through ops.calendar
+    (K20 on the card): the time parts read every non-DATE input as µs,
+    the date parts only DATETIME/TIMESTAMP, as the numpy branches do."""
+    micros = ft.kind is not TypeKind.DATE if part in ("hour", "minute",
+                                                      "second") \
+        else ft.kind in _DATETIME_KINDS
+    return calendar.civil_part(_int_days_or_us(v), part, micros)
+
+
+def _int_days_or_us(v):
+    """The kernel reads contiguous int32/int64: anything else truncates
+    to int64 first, as the numpy branches' `astype(v, int64)`."""
+    if v.dtype not in (torch.int32, torch.int64):
+        v = v.to(torch.int64)
+    return v.contiguous()
+
+
 def _civil_from_days(xp, days):
     """days-since-epoch → (year, month, day) — Hinnant algorithm, pure
-    integer ops (device-traceable)."""
+    integer ops; torch tensors go through ops.calendar (K20 on the
+    card)."""
+    if isinstance(days, torch.Tensor):
+        return tuple(calendar.civil_part(days, p, False)
+                     for p in ("year", "month", "day"))
     z = astype(days, xp.int64) + 719468
     era = _floor_div_neg(xp, z, 146097)
     doe = z - era * 146097
@@ -1910,7 +1949,13 @@ def _date_add_interval(func, ctx):
         out_days = days + delta
         tod = usec - days * 86_400_000_000 if is_dt else None
     elif unit in ("month", "quarter", "year"):
-        months = n * {"month": 1, "quarter": 3, "year": 12}[unit]
+        mult = {"month": 1, "quarter": 3, "year": 12}[unit]
+        if isinstance(v, torch.Tensor):
+            k = _host_int_const(func.args[1], ctx)
+            return calendar.date_add_months(
+                _int_days_or_us(v), is_dt,
+                n.contiguous() if k is None else k, mult), m & nm
+        months = n * mult
         y, mth, d = _civil_from_days(xp, days)
         tot = y * 12 + (mth - 1) + months
         ny = _floor_div_neg(xp, tot, 12)
@@ -1936,6 +1981,18 @@ def _date_add_interval(func, ctx):
     return astype(out_days, xp.int32), m & nm
 
 
+def _host_int_const(e, ctx):
+    """A plain non-NULL numeric constant's value as `astype(eval, int64)`
+    would give it, without reading the device; else None."""
+    if type(e) is not Constant or e.value is None:
+        return None
+    dt = _xp_dtype(ctx.xp, e.ftype, ctx.on_device)
+    if dt is None:
+        return None
+    raw = np.asarray(e.ftype.encode_value(e.value), dtype=dt)
+    return int(raw.astype(np.int64))
+
+
 INTERVAL_UNITS = ("day", "week", "month", "quarter", "year", "hour",
                   "minute", "second", "microsecond")
 for _u in INTERVAL_UNITS:
@@ -1947,6 +2004,8 @@ def _dayofweek(func, ctx):
     # 1 = Sunday … 7 = Saturday; epoch 1970-01-01 was a Thursday
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, func.args[0].ftype, "dayofweek"), m
     days = _as_days(xp, v, func.args[0].ftype)
     return astype((_floor_mod(xp, days + 4, 7) + 1), xp.int64), m
 
@@ -1956,6 +2015,8 @@ def _weekday(func, ctx):
     # 0 = Monday … 6 = Sunday
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, func.args[0].ftype, "weekday"), m
     days = _as_days(xp, v, func.args[0].ftype)
     return astype(_floor_mod(xp, days + 3, 7), xp.int64), m
 
@@ -1964,6 +2025,8 @@ def _weekday(func, ctx):
 def _dayofyear(func, ctx):
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, func.args[0].ftype, "dayofyear"), m
     days = _as_days(xp, v, func.args[0].ftype)
     y, _, _ = _civil_from_days(xp, days)
     jan1 = _days_from_civil(xp, y, xp.ones_like(y), xp.ones_like(y))
@@ -1974,6 +2037,8 @@ def _dayofyear(func, ctx):
 def _quarter(func, ctx):
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, func.args[0].ftype, "quarter"), m
     _, mth, _ = _civil_from_days(xp, _as_days(xp, v, func.args[0].ftype))
     return astype(((mth + 2) // 3), xp.int64), m
 
@@ -1984,6 +2049,8 @@ def _week(func, ctx):
     week containing a Sunday of the year."""
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, func.args[0].ftype, "week"), m
     days = _as_days(xp, v, func.args[0].ftype)
     y, _, _ = _civil_from_days(xp, days)
     jan1 = _days_from_civil(xp, y, xp.ones_like(y), xp.ones_like(y))
@@ -1997,6 +2064,8 @@ def _week(func, ctx):
 def _last_day(func, ctx):
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, func.args[0].ftype, "last_day"), m
     days = _as_days(xp, v, func.args[0].ftype)
     y, mth, _ = _civil_from_days(xp, days)
     ny = xp.where(mth == 12, y + 1, y)
@@ -2024,6 +2093,8 @@ def _time_part(func, ctx, unit_usec, modulo):
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
     ft = func.args[0].ftype
+    if isinstance(v, torch.Tensor):
+        return _calendar_part(v, ft, func.op), m
     if ft.kind is TypeKind.DATE:
         return xp.zeros(v.shape[0], dtype=xp.int64), m
     usec = astype(v, xp.int64)
@@ -3571,7 +3642,8 @@ def _timediff(func, ctx):
         xp = ctx.xp
         av, am = func.args[0].eval(ctx)
         bv, bm = func.args[1].eval(ctx)
-        return astype(av, xp.int64) - astype(bv, xp.int64), am & bm
+        return (_as_us(xp, av, func.args[0].ftype) -
+                _as_us(xp, bv, func.args[1].ftype)), am & bm
     av, am = _temporal_us(func, ctx, 0)
     bv, bm = _temporal_us(func, ctx, 1)
     return av - bv, am & bm
@@ -3943,8 +4015,7 @@ def _time_extract(func, ctx):
     xp = ctx.xp
     v, m = func.args[0].eval(ctx)
     if ft.kind in (TypeKind.DATETIME, TypeKind.TIMESTAMP):
-        day_us = xp.int64(86_400_000_000)
-        return astype(v, xp.int64) % day_us, m
+        return astype(v, xp.int64) % 86_400_000_000, m
     if ft.kind is TypeKind.DATE:
         return xp.zeros_like(astype(v, xp.int64)), m
     return v, m

@@ -169,6 +169,56 @@ class TorchXP:
     def trunc(self, a):
         return torch.trunc(self._t(a))
 
+    # float math: numpy's dtype results (an integer input computes in
+    # float64, as numpy's ufuncs do; torch would pick float32)
+    def sqrt(self, a):
+        return torch.sqrt(self._f(a))
+
+    def exp(self, a):
+        return torch.exp(self._f(a))
+
+    def log(self, a):
+        return torch.log(self._f(a))
+
+    def log2(self, a):
+        return torch.log2(self._f(a))
+
+    def log10(self, a):
+        return torch.log10(self._f(a))
+
+    def sin(self, a):
+        return torch.sin(self._f(a))
+
+    def cos(self, a):
+        return torch.cos(self._f(a))
+
+    def tan(self, a):
+        return torch.tan(self._f(a))
+
+    def arcsin(self, a):
+        return torch.asin(self._f(a))
+
+    def arccos(self, a):
+        return torch.acos(self._f(a))
+
+    def arctan(self, a):
+        return torch.atan(self._f(a))
+
+    def arctan2(self, a, b):
+        return torch.atan2(self._f(a), self._f(b))
+
+    def power(self, a, b):
+        a, b = self._t(a), self._t(b)
+        if a.dtype.is_floating_point or b.dtype.is_floating_point:
+            a, b = self._f(a), self._f(b)
+        return torch.pow(a, b)
+
+    def maximum(self, a, b):
+        return torch.maximum(*self._pair(a, b))
+
+    def minimum(self, a, b):
+        return torch.minimum(*self._pair(a, b))
+
     # -- gathers / reshaping -------------------------------------------------
     def take(self, a, idx, axis=None, mode=None):
         a = self._t(a)
@@ -202,6 +252,16 @@ class TorchXP:
         if isinstance(a, torch.Tensor):
             return a
         return self.asarray(a)
+
+    def _f(self, a):
+        a = self._t(a)
+        return a if a.dtype.is_floating_point else a.to(torch.float64)
+
+    def _pair(self, a, b):
+        """Two operands promoted to one dtype, as numpy's binary ufuncs."""
+        a, b = self._t(a), self._t(b)
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return a.to(dt), b.to(dt)
 
 
 

@@ -130,7 +130,28 @@ which must pass:
      before the phase; K20 must move in every run of E1-E4;
  18. K20 at 8,388,608 rows: civil_part for year, week and last_day over
      DATE days and hour over µs, date_add_months over the days, each
-     held exactly to its plain version there and timed beside it.
+     held exactly to its plain version there and timed beside it;
+ 19. the dictionary string functions on the card, over three tables
+     made here from their own seeds: lineitem_str (n rows: l_orderkey,
+     l_quantity, l_extendedprice, TPC-H's 7 ship modes and 4 ship
+     instructions), orders_str (n/4 rows: TPC-H's 5 order priorities,
+     1,000 clerks, 19-78-character comments of a fixed word list, nearly
+     all distinct, 1% of them with "special requests") and shipmode (7
+     rows): S1 INSTR/CHAR_LENGTH filters, S2 LENGTH/ASCII group keys, S3
+     TPC-H Q13's NOT LIKE '%special%requests%' with SUM(LENGTH), S4
+     LOCATE/INSTR/CHAR_LENGTH over the comments, S5 FIND_IN_SET and LIKE
+     over lineitem_str ⋈ orders_str, S6 UPPER/SUBSTR under IS NOT NULL,
+     S7 a string equi-join (KeyRemap); each cold and twice warm under
+     tidb_tpu_strict=1, exactly equal to the host engine, EXPLAIN showing
+     its aggregate inside a TpuFragment, the host preparation and upload
+     of its dictionary tables (collect_preps) timed with their bytes.
+     Counters are zeroed before the phase; K21 must move in every run.
+     Two refused shapes (UPPER(o_comment) = 'X', LOCATE(l_shipmode,
+     'REG AIR')) show no TpuFragment, launch nothing and equal the host;
+ 20. K21 at 8,388,608 rows: 7-entry int64 and bool tables, o_comment's
+     1,500,303-entry int64 table over random codes, and fill mode, each
+     held exactly to its plain version there and timed beside it and
+     beside torch.take of the clamped codes.
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
@@ -147,7 +168,10 @@ and K19 delta_merge against delta_merge_plain exactly (its partition,
 every packed width, dict, raw and wide columns through K18, four
 tombstone sets); and K20 civil_date against its plain version exactly
 (every part over every day of 0001-9999, the int32 extremes, int64 days
-and µs; DATE_ADD by months for constant and per-row counts). Phase 4's
+and µs; DATE_ADD by months for constant and per-row counts); and K21
+dict_lut against its plain version exactly (bool/int32/int64 tables from
+empty to 1,500,303 entries, across the shared-memory edge, int32/int64
+codes out of range, n up to a full slab, clip and fill). Phase 4's
 TopN scan must launch K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
@@ -2643,6 +2667,84 @@ def check_calendar_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (dictionary LUTs): K21 against its plain version
+# ---------------------------------------------------------------------------
+
+#: table sizes: empty, one entry, l_shipmode's 7, the largest table staged
+#: in shared memory and the smallest one above it (per entry width), and
+#: o_comment's dictionary at SF=1
+K21_SIZES = ("0", "1", "7", "edge", "edge+1", "1500303")
+
+
+def _k21_size(size: str, dtype) -> int:
+    from tidb_tpu_torch.ops import dict_lut as DL
+    import torch
+    edge = DL.SMEM_BYTES // torch.tensor([], dtype=dtype).element_size()
+    return {"edge": edge, "edge+1": edge + 1}.get(size) or int(size)
+
+
+def check_dict_lut_kernels(dev):
+    """K21 dict_lut against its plain version on the same CUDA tensors,
+    exactly (values and dtypes): bool, int32 and int64 tables of every
+    K21_SIZES size, int32 and int64 codes with negatives, codes at and
+    past the table's end, the NULL code (0) and the int32 extremes, n of
+    0, 1, an odd count and a full slab (8,388,608), clip and fill modes;
+    an empty table raises IndexError in clip mode, as its plain version
+    and jnp.take do."""
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import dict_lut as DL
+    smem = ck.library("dict_lut").tt_dict_lut_smem_bytes()
+    if smem != DL.SMEM_BYTES:
+        raise AssertionError(f"K21 stages {smem} bytes in shared memory, "
+                             f"ops/dict_lut.py says {DL.SMEM_BYTES}")
+    g = torch.Generator(device=dev).manual_seed(21)
+    cases = 0
+    for dtype in (torch.bool, torch.int32, torch.int64):
+        for size in K21_SIZES:
+            n_lut = _k21_size(size, dtype)
+            raw = torch.randint(-(1 << 40), 1 << 40, (n_lut,), device=dev,
+                                generator=g)
+            table = (raw & 1).bool() if dtype == torch.bool else \
+                raw.to(dtype)
+            for code_dtype in (torch.int32, torch.int64):
+                for n in (0, 1, 100_003, FULL_SLAB):
+                    codes = torch.randint(-3, n_lut + 3, (n,), device=dev,
+                                          generator=g, dtype=code_dtype)
+                    special = torch.tensor(
+                        [0, -1, n_lut, n_lut + 1, -(1 << 31),
+                         (1 << 31) - 1, max(n_lut - 1, 0)],
+                        dtype=code_dtype, device=dev)[:n]
+                    codes[:special.shape[0]] = special
+                    for mode in DL.MODES:
+                        if mode == "clip" and n_lut == 0 and n > 0:
+                            for fn in (DL.dict_lut, DL.dict_lut_plain):
+                                try:
+                                    fn(table, codes, mode)
+                                except IndexError:
+                                    continue
+                                raise AssertionError(
+                                    "K21 clip over an empty table did not "
+                                    "raise IndexError")
+                            cases += 1
+                            continue
+                        got = DL.dict_lut(table, codes, mode, -1)
+                        want = DL.dict_lut_plain(table, codes, mode, -1)
+                        if got.dtype != want.dtype or \
+                                not torch.equal(got, want):
+                            raise AssertionError(
+                                f"K21 {mode} differs from its plain version "
+                                f"({dtype} table of {n_lut}, {code_dtype} "
+                                f"codes, n={n})")
+                        cases += 1
+    torch.cuda.synchronize()
+    log(f"K21 exactly equal to its plain version ({cases} cases: bool, "
+        f"int32 and int64 tables of {list(K21_SIZES)} entries, int32/int64 "
+        f"codes, n up to {FULL_SLAB}, clip and fill; shared-memory edge "
+        f"{smem} bytes)")
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the delta write path in SQL
 # ---------------------------------------------------------------------------
 
@@ -3124,6 +3226,332 @@ def calendar_timing_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the dictionary string functions in SQL
+# ---------------------------------------------------------------------------
+
+SHIPMODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+SHIPINSTRUCT = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                "TAKE BACK RETURN")
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+N_CLERKS = 1000
+#: o_comment's words, in the spirit of dbgen's text grammar (TPC-H
+#: 4.2.2.10: adverbs, adjectives, nouns, verbs, prepositions). "special"
+#: is left out: it opens the phrase "special requests", written into 1% of
+#: the comments so that Q13's predicate matches about that share
+COMMENT_WORDS = (
+    "furiously", "slyly", "carefully", "blithely", "quickly", "fluffily",
+    "slowly", "quietly", "ruthlessly", "thinly", "closely", "doggedly",
+    "daringly", "bravely", "stealthily", "permanently", "enticingly",
+    "idly", "busily", "regularly", "finally", "ironically", "evenly",
+    "boldly", "silently", "final", "regular", "ironic", "express", "even",
+    "bold", "pending", "unusual", "careful", "quick", "fluffy", "silent",
+    "foxes", "ideas", "theodolites", "pinto", "beans", "instructions",
+    "dependencies", "excuses", "platelets", "asymptotes", "courts",
+    "dolphins", "multipliers", "sauternes", "warthogs", "frets", "dinos",
+    "attainments", "somas", "patterns", "forges", "braids", "frays",
+    "warhorses", "dugouts", "epitaphs", "pearls", "tithes", "waters",
+    "orbits", "gifts", "sheaves", "depths", "sentiments", "decoys",
+    "realms", "pains", "grouches", "escapades", "packages", "requests",
+    "accounts", "deposits", "sleep", "wake", "are", "cajole", "haggle",
+    "nag", "use", "boost", "affix", "detect", "integrate", "maintain",
+    "nod", "was", "lose", "sublate", "solve", "thrash", "promise",
+    "engage", "hinder", "print", "breach", "eat", "grow", "impress",
+    "mold", "poach", "serve", "run", "dazzle", "snooze", "doze", "unwind",
+    "kindle", "play", "hang", "believe", "doubt", "about", "above",
+    "across", "after", "against", "along", "among", "around", "at",
+    "atop", "before", "behind", "beneath", "beside", "between", "beyond",
+    "by", "despite", "during", "except", "for", "from", "inside", "into",
+    "near", "of", "on", "outside", "over", "past", "since", "through",
+    "to", "toward", "under", "until", "up", "upon", "without", "with",
+    "within", "the")
+
+S1 = """SELECT l_shipmode, COUNT(*), SUM(l_quantity) FROM lineitem_str
+ WHERE INSTR(l_shipmode, 'AIR') > 0 OR CHAR_LENGTH(l_shipinstruct) > 12
+ GROUP BY l_shipmode"""
+S2 = """SELECT LENGTH(l_shipinstruct), ASCII(l_shipmode), COUNT(*),
+ SUM(l_extendedprice) FROM lineitem_str
+ GROUP BY LENGTH(l_shipinstruct), ASCII(l_shipmode)"""
+# TPC-H Q13's predicate
+S3 = """SELECT o_orderpriority, COUNT(*), SUM(LENGTH(o_comment))
+ FROM orders_str WHERE o_comment NOT LIKE '%special%requests%'
+ GROUP BY o_orderpriority"""
+S4 = """SELECT CHAR_LENGTH(o_comment) DIV 10, COUNT(*),
+ MAX(INSTR(o_comment, 'the')) FROM orders_str
+ WHERE LOCATE('deposits', o_comment, 5) > 0
+ GROUP BY CHAR_LENGTH(o_comment) DIV 10"""
+S5 = """SELECT l_shipmode, COUNT(*),
+ SUM(FIND_IN_SET('Clerk#000000042', o_clerk))
+ FROM lineitem_str JOIN orders_str ON l_orderkey = o_orderkey
+ WHERE o_comment LIKE '%pending%' GROUP BY l_shipmode"""
+S6 = """SELECT COUNT(*) FROM lineitem_str WHERE UPPER(l_shipmode) IS NOT NULL
+ AND SUBSTR(l_shipinstruct, 1, 4) IS NOT NULL"""
+# a string equi-join: l_shipmode's codes remapped into shipmode's
+# dictionary (KeyRemap, K21's fill mode)
+S7 = """SELECT sm_cost, COUNT(*) FROM lineitem_str JOIN shipmode
+ ON l_shipmode = sm_name GROUP BY sm_cost"""
+STRING_STMTS = {"s1": S1, "s2": S2, "s3": S3, "s4": S4, "s5": S5,
+                "s6": S6, "s7": S7}
+#: refused at plan time: a computed string under a comparison, and the
+#: string column passed where the function takes a constant
+STRING_REFUSED = {
+    "upper_eq": "SELECT COUNT(*) FROM orders_str "
+                "WHERE UPPER(o_comment) = 'X'",
+    "locate_col": "SELECT COUNT(*) FROM lineitem_str "
+                  "WHERE LOCATE(l_shipmode, 'REG AIR') > 0"}
+
+
+def make_comments(rng, n: int):
+    """n TPC-H-shaped comments: 19-78 characters of COMMENT_WORDS (cut at
+    the length drawn, as dbgen cuts its text), nearly all distinct; 1%
+    open with "special requests"."""
+    import numpy as np
+    words = np.array(COMMENT_WORDS, dtype=object)
+    idx = rng.integers(0, len(words), (n, 14))
+    lens = rng.integers(19, 79, n)
+    special = rng.random(n) < 0.01
+    out = np.empty(n, dtype=object)
+    for k, (row, ln, sp) in enumerate(zip(words[idx].tolist(),
+                                          lens.tolist(), special.tolist())):
+        text = " ".join(row)
+        if sp:
+            text = "special requests " + text
+        out[k] = text[:ln].rstrip()
+    return out
+
+
+def make_string_tables(n: int):
+    """lineitem_str (n rows), orders_str (n/4) and shipmode (7), each from
+    its own seed: l_orderkey drawn as lineitem's, TPC-H's ship modes,
+    ship instructions and order priorities, 1,000 clerks, comments from
+    make_comments."""
+    import numpy as np
+    rng = np.random.default_rng(1901)
+    n_orders = max(n // 4, 1)
+    lineitem = {
+        "l_orderkey": rng.integers(0, n_orders, n).astype(np.int64),
+        "l_quantity": rng.integers(100, 5001, n).astype(np.int64),
+        "l_extendedprice": rng.integers(90_000, 10_500_001, n).astype(
+            np.int64),
+        "l_shipmode": np.array(SHIPMODES, dtype=object)[
+            rng.integers(0, len(SHIPMODES), n)],
+        "l_shipinstruct": np.array(SHIPINSTRUCT, dtype=object)[
+            rng.integers(0, len(SHIPINSTRUCT), n)]}
+    rng = np.random.default_rng(1902)
+    clerks = np.array([f"Clerk#{k:09d}" for k in range(1, N_CLERKS + 1)],
+                      dtype=object)
+    orders = {
+        "o_orderkey": np.arange(n_orders, dtype=np.int64),
+        "o_orderpriority": np.array(PRIORITIES, dtype=object)[
+            rng.integers(0, len(PRIORITIES), n_orders)],
+        "o_clerk": clerks[rng.integers(0, N_CLERKS, n_orders)],
+        "o_comment": make_comments(rng, n_orders)}
+    shipmode = {"sm_name": np.array(SHIPMODES, dtype=object),
+                "sm_cost": np.array([5, 7, 3, 2, 4, 1, 6], dtype=np.int64)}
+    return lineitem, orders, shipmode
+
+
+def _prep_meter():
+    """Wrap both program kinds' collect_preps (the host preparation of
+    every dictionary table and its upload) to total their seconds and the
+    bytes the prepared tensors hold → (meter dict, restore function)."""
+    import torch
+    from tidb_tpu_torch.executor.fragment import _FragmentProgram
+    from tidb_tpu_torch.executor.tree_fragment import TreeProgram
+    meter = {"s": 0.0, "bytes": 0, "calls": 0}
+
+    def nbytes(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.nbytes
+        if isinstance(tree, (list, tuple)):
+            return sum(nbytes(t) for t in tree)
+        return 0
+
+    saved = []
+    for cls in (_FragmentProgram, TreeProgram):
+        orig = cls.collect_preps
+
+        def timed(self, *a, _orig=orig, **k):
+            t0 = time.perf_counter()
+            out = _orig(self, *a, **k)
+            torch.cuda.synchronize()
+            meter["s"] += time.perf_counter() - t0
+            meter["bytes"] += nbytes(out)
+            meter["calls"] += 1
+            return out
+
+        saved.append((cls, orig))
+        cls.collect_preps = timed
+
+    def restore():
+        for cls, orig in saved:
+            cls.collect_preps = orig
+
+    return meter, restore
+
+
+def string_sql_phase(s, n: int):
+    """S1-S7 over lineitem_str, orders_str and shipmode, made here: each
+    cold and twice warm under tidb_tpu_strict=1, rows exactly equal to
+    the host engine (sorted where the statement has no ORDER BY),
+    EXPLAIN showing the aggregate inside a TpuFragment, K21 launched in
+    every run; the host preparation and upload of the dictionary tables
+    timed per run (collect_preps) with their bytes. Then the two refused
+    shapes: no TpuFragment, no kernel launched, equal to the host engine.
+    → (launches, walls)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.testing import load_numpy_columns
+    t0 = time.perf_counter()
+    s.execute("CREATE TABLE lineitem_str (l_orderkey BIGINT, "
+              "l_quantity DECIMAL(15,2), l_extendedprice DECIMAL(15,2), "
+              "l_shipmode CHAR(10), l_shipinstruct CHAR(25))")
+    s.execute("CREATE TABLE orders_str (o_orderkey BIGINT PRIMARY KEY, "
+              "o_orderpriority CHAR(15), o_clerk CHAR(15), "
+              "o_comment VARCHAR(79))")
+    s.execute("CREATE TABLE shipmode (sm_name CHAR(10), sm_cost INT)")
+    lineitem, orders, shipmode = make_string_tables(n)
+    t_gen = time.perf_counter() - t0
+    for name, cols in (("lineitem_str", lineitem), ("orders_str", orders),
+                       ("shipmode", shipmode)):
+        load_numpy_columns(s, name, cols)
+        s.execute(f"ANALYZE TABLE {name}")
+    n_comments = len(set(orders["o_comment"].tolist()))
+    n_special = sum(1 for c in orders["o_comment"].tolist()
+                    if "special" in c and "requests" in
+                    c[c.index("special"):])
+    log(f"lineitem_str {n} rows, orders_str {len(orders['o_orderkey'])} "
+        f"rows ({n_comments} distinct comments, {n_special} with "
+        f"'special…requests'), shipmode 7: generated in {t_gen:.1f} s, "
+        f"loaded and analyzed in {time.perf_counter() - t0 - t_gen:.1f} s")
+    del lineitem, orders
+    for name, sql in STRING_STMTS.items():
+        explain = "\n".join(str(r[0]) for r in
+                            s.query("EXPLAIN " + sql).rows)
+        if not agg_in_fragment(s, sql) or "TpuFragment" not in explain:
+            raise AssertionError(f"{name}: the aggregate is not inside the "
+                                 f"device fragment\n{explain}")
+    log("EXPLAIN: S1-S7's aggregate inside a TpuFragment")
+    host = {}
+    walls = {}
+    for name, sql in STRING_STMTS.items():
+        rows, wall, _, _ = run_sql(s, sql, device=False)
+        host[name] = sorted(rows, key=str)
+        walls[f"host_{name}"] = wall
+        log(f"host {name}: {len(rows)} rows in {wall:.3f} s")
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    meter, restore = _prep_meter()
+    try:
+        for name, sql in STRING_STMTS.items():
+            for k in ("cold", "warm1", "warm2"):
+                run = f"{name}_{k}"
+                before = ck.launches()
+                s0, b0 = meter["s"], meter["bytes"]
+                rows, wall, phases, _ = run_sql(s, sql, device=True)
+                after = ck.launches()
+                moved = {c: after[c] - before[c] for c in after
+                         if after[c] != before[c]}
+                if sorted(rows, key=str) != host[name]:
+                    raise AssertionError(f"{run}: device rows != host "
+                                         f"rows\n{rows[:3]}\n"
+                                         f"{host[name][:3]}")
+                if not moved.get("dict_lut"):
+                    raise AssertionError(f"{run}: K21 did not move "
+                                         f"({moved})")
+                walls[run] = wall
+                walls[f"{run}_prep"] = meter["s"] - s0
+                log(f"{run}: {len(rows)} rows, exact match, wall "
+                    f"{wall:.4f} s, collect_preps {meter['s'] - s0:.4f} s "
+                    f"for {meter['bytes'] - b0} bytes of prepared "
+                    f"tables, launches {moved}, phases {phases}")
+    finally:
+        restore()
+    launches = ck.launches()
+    walls["string_phase"] = time.perf_counter() - t_phase
+    for name, sql in STRING_REFUSED.items():
+        explain = "\n".join(str(r[0]) for r in
+                            s.query("EXPLAIN " + sql).rows)
+        if "TpuFragment" in explain:
+            raise AssertionError(f"{name}: refused shape planned on the "
+                                 f"device\n{explain}")
+        s.vars["tidb_tpu_engine"] = "on"
+        before = ck.launches()
+        t0 = time.perf_counter()
+        dev_rows = s.query(sql).rows
+        wall = time.perf_counter() - t0
+        if ck.launches() != before:
+            raise AssertionError(f"{name}: a kernel launched")
+        host_rows, _, _, _ = run_sql(s, sql, device=False)
+        if dev_rows != host_rows:
+            raise AssertionError(f"{name}: {dev_rows} != host {host_rows}")
+        log(f"refused {name}: no TpuFragment, {dev_rows} equal to the "
+            f"host engine ({wall:.3f} s on the CPU engine)")
+    log(f"string phase: {walls['string_phase']:.1f} s, launches "
+        f"{launches}")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 20: dictionary LUT kernel timing
+# ---------------------------------------------------------------------------
+
+
+def dict_lut_timing_phase(dev):
+    """K21 at n = 8,388,608 (one full slab) over int32 codes: a 7-entry
+    int64 table (l_shipmode's, in shared memory), a 7-entry bool table
+    (a LIKE's), the 1,500,303-entry int64 table of o_comment's
+    dictionary over uniformly random codes (read through L2) and fill
+    mode (KeyRemap's, codes in [-1, 8) over 7 entries); each held
+    exactly to its plain version there and timed beside it and beside
+    torch.take of the clamped codes. The bound counts the codes read and
+    the output written once a row and the table once."""
+    import torch
+    from tidb_tpu_torch.ops import dict_lut as DL
+    n = FULL_SLAB
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def table(n_lut, dtype):
+        raw = torch.randint(0, 1 << 40, (n_lut,), device=dev, generator=g)
+        return (raw & 1).bool() if dtype == torch.bool else raw.to(dtype)
+
+    small = torch.randint(0, 7, (n,), device=dev, generator=g,
+                          dtype=torch.int32)
+    big = torch.randint(0, 1_500_303, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    remap = torch.randint(-1, 8, (n,), device=dev, generator=g,
+                          dtype=torch.int32)
+    cases = [("7 int64", table(7, torch.int64), small, "clip"),
+             ("7 bool", table(7, torch.bool), small, "clip"),
+             ("1500303 int64", table(1_500_303, torch.int64), big, "clip"),
+             ("7 int64 fill", table(7, torch.int64), remap, "fill")]
+    ms = plain = lib = bound = 0.0
+    for name, tab, codes, mode in cases:
+        got = DL.dict_lut(tab, codes, mode, -1)
+        want = DL.dict_lut_plain(tab, codes, mode, -1)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"K21 {name} differs from its plain "
+                                 f"version at {n} rows")
+        # torch.take indexes with int64 only: the widened clamped codes
+        # are made outside the timed call
+        clamped = torch.clamp(codes, 0, tab.shape[0] - 1).long()
+        k_ms = time_cuda(lambda: DL.dict_lut(tab, codes, mode, -1), reps=30)
+        p_ms = time_cuda(lambda: DL.dict_lut_plain(tab, codes, mode, -1),
+                         reps=30)
+        l_ms = time_cuda(lambda: torch.take(tab, clamped), reps=30)
+        b, by = bound_ms(codes.nbytes + got.nbytes + tab.nbytes, 3 * n)
+        ms, plain, lib, bound = ms + k_ms, plain + p_ms, lib + l_ms, \
+            bound + b
+        log(f"K21 {name} ({mode}) at {n} rows: {k_ms:.4f} ms (plain "
+            f"{p_ms:.4f}, torch.take {l_ms:.4f}, bound {b:.4f} by {by})")
+    log(f"K21 over its four timed calls: {ms:.4f} ms (plain {plain:.4f}, "
+        f"torch.take {lib:.4f}, bound {bound:.4f} by bytes)")
+    return [{"name": "dict_lut", "route": "cuda",
+             "source": "tidb_tpu_torch/csrc/dict_lut.cu",
+             "replaces": "tidb_tpu/expression/__init__.py:858",
+             "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}]
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -3202,6 +3630,7 @@ def main() -> int:
     check_distinct_kernels(dev)
     check_delta_kernels(dev)
     check_calendar_kernels(dev)
+    check_dict_lut_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -3251,6 +3680,12 @@ def main() -> int:
         k["launches"] = expr_launches[k["name"]]
     kernels += calendar_kernels
     walls.update(expr_walls)
+    string_launches, string_walls = string_sql_phase(s, n)
+    lut_kernels = dict_lut_timing_phase(dev)
+    for k in lut_kernels:
+        k["launches"] = string_launches[k["name"]]
+    kernels += lut_kernels
+    walls.update(string_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
@@ -3263,6 +3698,8 @@ def main() -> int:
         json.dumps(delta_launches))
     log("expression-phase launches of every kernel: " +
         json.dumps(expr_launches))
+    log("string-phase launches of every kernel: " +
+        json.dumps(string_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ same engine's host result; K16 distinct_pairs (with the pair factorize
 around it), K17 rollup_tile and K18 gather_columns against their plain
 versions on CPU copies; K19 delta_merge (its partition, every packed
 width, dict, raw and wide columns) against delta_merge_plain, and a
-cached table extended on the card by writes against the host engine.
+cached table extended on the card by writes against the host engine;
+K20 civil_date and K21 dict_lut (both modes, every table width, codes
+out of range, tables in and above shared memory) against theirs.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -326,3 +328,30 @@ def test_k20_matches_plain(cuda):
                 want = CAL.date_add_months_plain(v, micros, k, mult)
                 assert got.dtype == want.dtype and torch.equal(got, want), \
                     (mult, micros, k if isinstance(k, int) else "tensor")
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.int64])
+def test_k21_matches_plain(cuda, dtype, code_dtype):
+    from tidb_tpu_torch.ops import dict_lut as DL
+    rng = np.random.default_rng(21)
+    edge = DL.SMEM_BYTES // torch.tensor([], dtype=dtype).element_size()
+    for n_lut in (0, 1, 7, edge, edge + 1, 1_500_303):
+        table = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n_lut)) \
+            .to(dtype).to(cuda)
+        for n in (0, 1, 1001, 1 << 20):
+            codes = torch.from_numpy(rng.integers(-3, n_lut + 3, n)).to(
+                code_dtype)
+            codes[:min(n, 3)] = torch.tensor([0, -1, n_lut])[:min(n, 3)] \
+                .to(code_dtype)
+            codes = codes.to(cuda)
+            got = DL.dict_lut(table, codes, mode="fill", fill=-1)
+            assert torch.equal(got, DL.dict_lut_plain(table, codes, "fill",
+                                                      -1))
+            if n_lut == 0 and n > 0:
+                with pytest.raises(IndexError):
+                    DL.dict_lut(table, codes)
+                continue
+            got = DL.dict_lut(table, codes)
+            assert got.dtype == dtype
+            assert torch.equal(got, DL.dict_lut_plain(table, codes))

@@ -168,7 +168,10 @@ def twins():
 
 
 def test_every_allowlisted_op_is_tested():
-    assert set(OPS) == set(DEVICE_OPS)
+    """DEVICE_OPS is exactly the ops held here and the dictionary string
+    functions held in tests/test_torch_string.py."""
+    from test_torch_string import OPS as STRING_OPS
+    assert set(OPS) | set(STRING_OPS) == set(DEVICE_OPS)
 
 
 @pytest.mark.parametrize("op", sorted(OPS))

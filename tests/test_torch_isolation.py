@@ -117,13 +117,14 @@ def test_every_kernel_source_is_built_and_counted():
     from tidb_tpu_torch.ops import cuda_kernels as ck
     srcs = {f[:-3] for f in os.listdir(ck.CSRC) if f.endswith(".cu")}
     assert srcs == set(ck.SOURCES)
-    assert len(ck.COUNTERS) == 20 and len(set(ck.COUNTERS)) == 20
+    assert len(ck.COUNTERS) == 21 and len(set(ck.COUNTERS)) == 21
     for name in ("distinct_pairs", "rollup_tile", "gather_columns",
-                 "delta_merge", "civil_date"):
+                 "delta_merge", "civil_date", "dict_lut"):
         assert name in ck.SOURCES and name in ck.COUNTERS
     for fn in ("tt_pair_code", "tt_first_mask", "tt_rollup_tile",
                "tt_rollup_levels", "tt_gather_columns", "tt_delta_perm",
-               "tt_delta_repack", "tt_civil_part", "tt_date_add_months"):
+               "tt_delta_repack", "tt_civil_part", "tt_date_add_months",
+               "tt_dict_lut", "tt_dict_lut_smem_bytes"):
         assert fn in ck._SIGNATURES
 
 

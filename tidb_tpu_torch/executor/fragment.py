@@ -218,17 +218,33 @@ _TEMPORAL_OPS = frozenset({
     "unix_timestamp", "from_unixtime", "time_to_sec", "sec_to_time",
     "to_seconds", "time", "timediff",
 })
+#: the dictionary string functions: the host applies the function to
+#: every entry of the string column's dictionary once per statement, and
+#: the device gathers the result by code (K21 dict_lut). An integer
+#: result is an integer expression like any other.
+_STRING_INT_OPS = frozenset({
+    "length", "char_length", "ascii", "ord", "bit_length", "instr",
+    "locate", "find_in_set",
+})
+#: a string result is a code into a dictionary derived at run time, which
+#: no device consumer but IS NULL (the mask alone) can read
+_STRING_RESULT_OPS = frozenset({
+    "upper", "lower", "reverse", "ltrim", "rtrim", "trim", "hex", "substr",
+    "left", "right", "repeat", "replace", "lpad", "rpad", "substring_index",
+    "concat",
+})
 #: scalar functions the port evaluates on the device. Each one is held
-#: against the JAX package's device branch by tests/test_torch_expression.py;
-#: any other function keeps its fragment on the CPU at plan time.
+#: against the JAX package's device branch by tests/test_torch_expression.py
+#: or tests/test_torch_string.py; any other function keeps its fragment on
+#: the CPU at plan time.
 DEVICE_OPS = frozenset({
     "plus", "minus", "mul", "div", "intdiv", "mod", "unary_minus",
     "eq", "ne", "lt", "le", "gt", "ge", "nulleq",
     "and", "or", "xor", "not", "isnull",
     "if", "ifnull", "coalesce", "case", "in", "like", "regexp_like",
     "abs", "ceil", "floor", "round", "sign", "cast",
-    "year", "month", "dayofmonth",
-}) | _MATH_OPS | _TEMPORAL_OPS
+    "year", "month", "dayofmonth", "any_value",
+}) | _MATH_OPS | _TEMPORAL_OPS | _STRING_INT_OPS | _STRING_RESULT_OPS
 
 #: ops whose device branch reads its arguments as numbers, DATE days or
 #: µs: a string argument (a dictionary code on the device) stays on the
@@ -236,11 +252,63 @@ DEVICE_OPS = frozenset({
 _NO_STRING_ARGS = _MATH_OPS | _TEMPORAL_OPS | {"cast"}
 
 
+def _dict_string_shape_ok(f) -> bool:
+    """A dictionary string function prepares its table over ONE string
+    column's dictionary with every other argument folded in: the column
+    at its position, every other argument a non-NULL constant (CONCAT:
+    exactly one string column among constants). A ci column is refused:
+    its dictionary holds one representative of each fold class, so a
+    table built over it answers for the representative, not for the
+    row's own string (the JAX package's device does so, and differs from
+    its host)."""
+    from tidb_tpu_torch.expression import (_HOST_STRING_FNS,
+                                           _STRING_FNS_EXTRA, Constant)
+    args = list(f.args)
+    if f.op == "concat":
+        cols = [a for a in args if isinstance(a, ColumnRef) and
+                a.ftype.kind.is_string]
+        if len(cols) != 1:
+            return False
+        col = cols[0]
+    else:
+        # the unary functions read argument 0; the others name the string
+        # column's position (LOCATE and FIND_IN_SET take it second)
+        k = 0 if f.op in _HOST_STRING_FNS else _STRING_FNS_EXTRA[f.op][1]
+        if k >= len(args) or (f.op in _HOST_STRING_FNS and len(args) != 1):
+            return False
+        col = args[k]
+        if not (isinstance(col, ColumnRef) and col.ftype.kind.is_string):
+            return False
+    if col.ftype.is_ci:
+        return False
+    return all(isinstance(a, Constant) and a.value is not None
+               for a in args if a is not col)
+
+
+def _string_results_reach_isnull(e, parent_op=None) -> bool:
+    """Every string-result function of `e` is the direct argument of IS
+    NULL. Any other consumer (a comparison, IN, LIKE, COALESCE, IF/CASE,
+    another string function, a projection, a key, an aggregate) would
+    read its derived-dictionary code as a string, which the device has no
+    preparation for: such a shape stays on the CPU at plan time."""
+    from tidb_tpu_torch.expression import ScalarFunc
+    if isinstance(e, ScalarFunc) and e.op in _STRING_RESULT_OPS and \
+            parent_op != "isnull":
+        return False
+    op = e.op if isinstance(e, ScalarFunc) else None
+    return all(_string_results_reach_isnull(c, op) for c in e.children())
+
+
 def _device_shape_ok(f) -> bool:
     """Shapes of DEVICE_OPS that the device branch cannot evaluate (the
     JAX package's raises on them, or would compute on dictionary codes),
     refused at plan time."""
     from tidb_tpu_torch.expression import Constant
+    if f.op in _STRING_INT_OPS or f.op in _STRING_RESULT_OPS:
+        return _dict_string_shape_ok(f)
+    if f.op == "any_value":
+        # identity; a string argument is a code no comparison can read
+        return not f.args[0].ftype.kind.is_string
     if f.op in ("like", "regexp_like"):
         # the device lowering is a prepared per-dictionary LUT: only
         # column-vs-constant shapes can prepare
@@ -275,6 +343,8 @@ def _exprs_device_ok(exprs: Sequence[Expression]) -> bool:
                 return False
             if isinstance(sub, ColumnRef) and sub.ftype.is_wide_decimal:
                 return False
+        if not _string_results_reach_isnull(e):
+            return False
     return True
 
 

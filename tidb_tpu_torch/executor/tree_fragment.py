@@ -226,13 +226,15 @@ class KeyRemap(Expression):
         return [self.child]
 
     def prepare(self, dictionaries):
+        # int64, the remapped key's type: the device gather (K21, fill
+        # mode) writes the table's type, so no widening pass follows it
         pdict = dictionaries[self.my_flow_idx] \
             if self.my_flow_idx < len(dictionaries) else None
         bdict = dictionaries[self.build_flow_idx] \
             if self.build_flow_idx < len(dictionaries) else None
         if pdict is None or bdict is None or len(bdict) == 0:
             return np.full(max(len(pdict) if pdict is not None else 0, 1),
-                           -1, np.int32)
+                           -1, np.int64)
         if self.ci:
             # ci dictionaries are representatives sorted by fold
             # (chunk/device.encode_strings): match in fold space
@@ -242,19 +244,16 @@ class KeyRemap(Expression):
         pos = np.searchsorted(bdict, pdict)
         pos_c = np.clip(pos, 0, len(bdict) - 1)
         hit = bdict[pos_c] == pdict
-        return np.where(hit, pos_c, -1).astype(np.int32)
+        return np.where(hit, pos_c, -1).astype(np.int64)
 
     def eval(self, ctx: EvalContext):
-        from tidb_tpu_torch.ops.xp import astype
+        from tidb_tpu_torch.ops.dict_lut import dict_lut
         lut = ctx.prepared.get(id(self))
         if lut is None:
             raise AssertionError("KeyRemap without prepared LUT")
-        xp = ctx.xp
         v, m = self.child.eval(ctx)
-        n_lut = lut.shape[0]
-        vc = astype(xp.clip(v, 0, n_lut - 1), xp.int32)
-        out = astype(xp.take(xp.asarray(lut), vc), xp.int64)
-        return xp.where((v >= 0) & (v < n_lut), out, -1), m
+        # a probe code outside the probe dictionary matches nothing (-1)
+        return dict_lut(ctx.xp.asarray(lut), v, mode="fill", fill=-1), m
 
     def __repr__(self):
         return f"remap({self.child!r})"

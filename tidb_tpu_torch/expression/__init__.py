@@ -31,6 +31,7 @@ from tidb_tpu_torch import types as T
 from tidb_tpu_torch.errors import (ExecutionError, TypeError_,
                              UnknownColumnError)
 from tidb_tpu_torch.ops import calendar
+from tidb_tpu_torch.ops.dict_lut import dict_lut
 from tidb_tpu_torch.ops.xp import astype
 from tidb_tpu_torch.types import FieldType, TypeKind
 
@@ -858,7 +859,6 @@ def _make_string_fn_kernel(name):
     host = _HOST_STRING_FNS[name]
 
     def fn(func: ScalarFunc, ctx: EvalContext):
-        xp = ctx.xp
         v, m = func.args[0].eval(ctx)
         if not ctx.on_device:
             out = np.array([host(str(x)) for x in v],
@@ -867,7 +867,7 @@ def _make_string_fn_kernel(name):
             return out, m
         table = ctx.prepared.get(id(func))
         assert table is not None, f"{name}: missing dictionary preparation"
-        return xp.take(table, astype(v, xp.int32), mode="clip"), m
+        return dict_lut(table, v), m
 
     def prep(func: ScalarFunc, dictionaries):
         col = func.args[0]
@@ -961,7 +961,6 @@ def _make_string_extra_kernel(name):
     host, col_idx, rkind = _STRING_FNS_EXTRA[name]
 
     def k(func: ScalarFunc, ctx: EvalContext):
-        xp = ctx.xp
         if ctx.on_device:
             # the prepared LUT folds constant co-args; only the string
             # column's codes are evaluated (string constants cannot trace)
@@ -970,7 +969,7 @@ def _make_string_extra_kernel(name):
                 raise TypeError_(f"{name}: device path needs constant "
                                  f"co-arguments")
             codes, m = func.args[col_idx].eval(ctx)
-            return xp.take(table, astype(codes, xp.int32), mode="clip"), m
+            return dict_lut(table, codes), m
         evals = [a.eval(ctx) for a in func.args]
         m = evals[0][1]
         for _, am in evals[1:]:
@@ -1020,7 +1019,6 @@ def _concat(func, ctx):
     """CONCAT(a, b, …): NULL if any arg NULL. Host-only for multi-column
     inputs; single string column + constants goes through the dictionary
     preparation (prepared table of result codes)."""
-    xp = ctx.xp
     if ctx.on_device:
         table = ctx.prepared.get(id(func))
         if table is None:
@@ -1029,7 +1027,7 @@ def _concat(func, ctx):
                        if isinstance(a, ColumnRef) and
                        a.ftype.kind.is_string)
         codes, m = func.args[col_idx].eval(ctx)
-        return xp.take(table, astype(codes, xp.int32), mode="clip"), m
+        return dict_lut(table, codes), m
     evals = [a.eval(ctx) for a in func.args]
     m = evals[0][1]
     for _, am in evals[1:]:
@@ -1128,7 +1126,6 @@ def _like_to_regex(pattern: str) -> str:
 
 @kernel("like")
 def _like(func, ctx):
-    xp = ctx.xp
     v, m = func.args[0].eval(ctx)
     pat = func.args[1]
     assert isinstance(pat, Constant), "LIKE pattern must be a constant"
@@ -1143,7 +1140,7 @@ def _like(func, ctx):
         return out, m
     table = ctx.prepared.get(id(func))
     assert table is not None, "LIKE: missing dictionary preparation"
-    return xp.take(table, astype(v, xp.int32), mode="clip"), m
+    return dict_lut(table, v), m
 
 
 @preparer("like")
@@ -1164,13 +1161,12 @@ def _prepare_like(func: ScalarFunc, dictionaries):
 def _regexp_like(func, ctx):
     """REGEXP / RLIKE (ref: builtin_regexp.go; re2 → python re). Device
     path = prepared per-dictionary-entry boolean LUT, like LIKE."""
-    xp = ctx.xp
     v, m = func.args[0].eval(ctx)
     pat = func.args[1]
     if ctx.on_device:
         table = ctx.prepared.get(id(func))
         assert table is not None, "REGEXP: missing dictionary preparation"
-        return xp.take(table, astype(v, xp.int32), mode="clip"), m
+        return dict_lut(table, v), m
     pv, pm = pat.eval(ctx)
     # ci collations match case-insensitively (util/collate semantics) —
     # and the device's ci dictionary keeps ONE arbitrary-case

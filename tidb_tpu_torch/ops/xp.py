@@ -220,11 +220,9 @@ class TorchXP:
         return torch.minimum(*self._pair(a, b))
 
     # -- gathers / reshaping -------------------------------------------------
-    def take(self, a, idx, axis=None, mode=None):
+    def take(self, a, idx, axis=None):
         a = self._t(a)
         idx = self._t(idx)
-        if mode == "clip":
-            idx = torch.clamp(idx, 0, a.shape[-1 if axis == -1 else 0] - 1)
         if idx.dtype not in (torch.int64, torch.int32):
             idx = idx.to(torch.int64)
         if axis == -1 and a.dim() > 1:

@@ -151,7 +151,24 @@ which must pass:
  20. K21 at 8,388,608 rows: 7-entry int64 and bool tables, o_comment's
      1,500,303-entry int64 table over random codes, and fill mode, each
      held exactly to its plain version there and timed beside it and
-     beside torch.take of the clamped codes.
+     beside torch.take of the clamped codes;
+ 21. same-plan micro-batching on the card, over lineitem as the earlier
+     phases left it (one 8,388,608-row slab; l_orderkey is random, so
+     zone maps keep it for every key): M1, 16 point reads of three
+     columns by l_orderkey (about 4 rows each), and M2, 5 range reads
+     with three DECIMAL parameters (l_extendedprice in a 20.00-wide
+     range, l_discount equal; about 100 rows each). Each batch: every
+     member once solo (the individual oracle, equal to the host
+     engine), then all of them piled up behind the held scheduler (the
+     leader queued, the followers parked) and released; twice. Under
+     tidb_tpu_strict=1 every member equals its solo run, the members'
+     launches sum to one per surviving slab, K22 and K18 launch once
+     per slab, and the batch counters move by 1 and by the member
+     count; the batch wall, the solo walls and the leader's compute,
+     fetch, decode and d2h bytes are logged;
+ 22. K22 at B = 16, cap = 8,388,608 over M1's own live mask and over a
+     half-live one, each held exactly to its plain version there and
+     timed beside it and beside torch.nonzero.
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
@@ -171,8 +188,10 @@ tombstone sets); and K20 civil_date against its plain version exactly
 and µs; DATE_ADD by months for constant and per-row counts); and K21
 dict_lut against its plain version exactly (bool/int32/int64 tables from
 empty to 1,500,303 entries, across the shared-memory edge, int32/int64
-codes out of range, n up to a full slab, clip and fill). Phase 4's
-TopN scan must launch K8-K10.
+codes out of range, n up to a full slab, clip and fill); and K22
+member_compact against its plain version exactly (B = 1, 3, 16; cap =
+1, 1,000, 8,388,608; no, all and random live rows). Phase 4's TopN scan
+must launch K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -3552,6 +3571,267 @@ def dict_lut_timing_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (K22) and phases 21-22: same-plan micro-batching
+# ---------------------------------------------------------------------------
+
+
+def check_member_compact_kernels(dev):
+    """K22 member_compact against its plain version on the card: B in
+    {1, 3, 16}, cap in {1, 1,000, 8,388,608}, with no live rows, every
+    row live and a random mask; counts, offsets and ids exactly equal."""
+    import torch
+    from tidb_tpu_torch.ops import compact as MC
+    g = torch.Generator(device=dev).manual_seed(22)
+    for b in (1, 3, 16):
+        for cap in (1, 1000, FULL_SLAB):
+            for kind in ("none", "all", "random"):
+                if kind == "random":
+                    live = torch.rand((b, cap), device=dev, generator=g) < 0.3
+                else:
+                    live = torch.full((b, cap), kind == "all",
+                                      dtype=torch.bool, device=dev)
+                got = MC.member_compact(live)
+                want = MC.member_compact_plain(live)
+                for name, x, y in zip(("counts", "offsets", "ids"), got,
+                                      want):
+                    if x.dtype != y.dtype or not torch.equal(x, y):
+                        raise AssertionError(f"K22 {name} differs from its "
+                                             f"plain version at B={b}, "
+                                             f"cap={cap}, {kind}")
+                del live, got, want
+    torch.cuda.synchronize()
+    log("K22 member_compact: exactly equal to its plain version at B in "
+        "{1, 3, 16} x cap in {1, 1000, 8388608} x {no, all, random} live "
+        "rows")
+
+
+MB_MAX = 16
+# M1: 16 point reads; every l_orderkey appears about 4 times
+M1 = ("SELECT l_quantity, l_extendedprice, l_shipdate FROM lineitem "
+      "WHERE l_orderkey = {k}")
+M1_KEYS = [1_000 + 93_751 * i for i in range(MB_MAX)]
+# M2: 5 range reads with three parameters each (two DECIMAL bounds 20.00
+# apart and a DECIMAL discount): about 100 rows each, and a member count
+# that is not a power of two
+M2 = ("SELECT l_orderkey, l_extendedprice FROM lineitem "
+      "WHERE l_extendedprice >= {p} AND l_extendedprice < {q} "
+      "AND l_discount = {d}")
+M2_ARGS = [(1_000_000 + 1_700_000 * i, 1 + i) for i in range(5)]
+
+
+def _m2_sql(p_cents: int, d: int) -> str:
+    return M2.format(p=_dec(p_cents), q=_dec(p_cents + 2000), d=_dec(d))
+
+
+def _mb_session(eng):
+    s = eng.new_session()
+    s.vars["tidb_tpu_engine"] = "on"
+    s.vars["tidb_tpu_row_threshold"] = 1
+    s.vars["tidb_tpu_strict"] = 1
+    s.vars["tidb_tpu_microbatch_max"] = MB_MAX
+    return s
+
+
+def _wait_for(cond, what: str, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting: {what}")
+        time.sleep(0.002)
+
+
+def _batch_run(eng, name: str, sqls, host_rows, capture=None):
+    """One batch: each member once solo (the individual oracle, which
+    also warms the program), then all of them piled up behind the held
+    scheduler — the first queued as the leader, the others parked — and
+    released. → (launch counts of the batched run, log record)."""
+    import threading
+    from tidb_tpu_torch.executor import fragment
+    from tidb_tpu_torch.executor import microbatch
+    from tidb_tpu_torch.executor.scheduler import SCHEDULER
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.util.observability import REGISTRY
+    sessions = [_mb_session(eng) for _ in sqls]
+    solo, solo_walls, solo_launches = [], [], []
+    for s, sql in zip(sessions, sqls):
+        t0 = time.perf_counter()
+        rows = s.query(sql).rows
+        solo_walls.append(time.perf_counter() - t0)
+        solo.append(rows)
+        solo_launches.append(s.last_guard.phases.programs_launched)
+    for i, rows in enumerate(solo):
+        if sorted(rows, key=str) != host_rows[i]:
+            raise AssertionError(f"{name} member {i}: solo device rows != "
+                                 f"host rows\n{rows[:3]}\n{host_rows[i][:3]}")
+    n_slabs = solo_launches[0]
+    if any(x != n_slabs for x in solo_launches):
+        raise AssertionError(f"{name}: members' surviving slabs differ "
+                             f"{solo_launches}")
+
+    def counter(c):
+        return REGISTRY.counters.get((c, ()), 0)
+
+    b0 = counter("tidb_tpu_microbatch_batches_total")
+    m0 = counter("tidb_tpu_microbatch_members_total")
+    results, errors = {}, {}
+
+    def worker(i):
+        try:
+            results[i] = sessions[i].query(sqls[i]).rows
+        except BaseException as e:      # reported below, per member
+            errors[i] = e
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(len(sqls))]
+    real_compact = fragment.compact_rows
+
+    def spy(cols, live):
+        if capture is not None and live.shape[0] == len(sqls):
+            capture["live"] = live
+        return real_compact(cols, live)
+
+    ck.reset_launches()
+    SCHEDULER.acquire(conn_id=-1)
+    released = False
+    try:
+        fragment.compact_rows = spy
+        base = microbatch.queued_members()
+        threads[0].start()
+        _wait_for(lambda: SCHEDULER.queue_depth() >= 2,
+                  f"{name}: the leader never queued")
+        for i in range(1, len(sqls)):
+            threads[i].start()
+        _wait_for(lambda: microbatch.queued_members() >= base + len(sqls)
+                  - 1, f"{name}: the followers never parked")
+        t0 = time.perf_counter()
+        SCHEDULER.release()
+        released = True
+        for t in threads:
+            t.join(timeout=120.0)
+        wall = time.perf_counter() - t0
+    finally:
+        if not released:
+            SCHEDULER.release()
+        fragment.compact_rows = real_compact
+    launches = ck.launches()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{name}: members failed {errors}")
+    for i in range(len(sqls)):
+        if results[i] != solo[i]:
+            raise AssertionError(f"{name} member {i}: batched rows != its "
+                                 f"solo run\n{results[i][:3]}\n{solo[i][:3]}")
+    summed = sum(s.last_guard.phases.programs_launched for s in sessions)
+    if summed != n_slabs:
+        raise AssertionError(f"{name}: {summed} launches summed over the "
+                             f"members, {n_slabs} surviving slabs")
+    for k in ("member_compact", "gather_columns"):
+        if launches[k] != n_slabs:
+            raise AssertionError(f"{name}: {k} launched {launches[k]} times "
+                                 f"for {n_slabs} slabs")
+    if counter("tidb_tpu_microbatch_batches_total") - b0 != 1 or \
+            counter("tidb_tpu_microbatch_members_total") - m0 != len(sqls):
+        raise AssertionError(f"{name}: the batch counters did not move by "
+                             f"1 and {len(sqls)}")
+    ph = sessions[0].last_guard.phases.as_dict()
+    rec = {"members": len(sqls), "slabs": n_slabs,
+           "rows": [len(r) for r in solo], "batch_wall_s": wall,
+           "solo_warm_mean_s": sum(solo_walls) / len(solo_walls),
+           "solo_sum_s": sum(solo_walls),
+           "leader_compute_s": ph["compute_s"],
+           "leader_fetch_s": ph["fetch_s"],
+           "leader_decode_s": ph["decode_s"],
+           "leader_d2h_bytes": ph["d2h_bytes"],
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"{name}: {len(sqls)} members, {n_slabs} slab(s), rows "
+        f"{rec['rows']}, each equal to its solo run and to the host engine; "
+        f"one launch per slab; batch wall {wall:.4f} s (solo warm mean "
+        f"{rec['solo_warm_mean_s']:.4f} s, sum of {len(sqls)} solo walls "
+        f"{rec['solo_sum_s']:.4f} s); leader compute {ph['compute_s']} s, "
+        f"fetch {ph['fetch_s']} s, decode {ph['decode_s']} s, d2h "
+        f"{ph['d2h_bytes']} bytes; launches {rec['launches']}")
+    return launches, rec
+
+
+def microbatch_sql_phase(eng, s):
+    """M1 (16 point reads) and M2 (5 range reads) over lineitem as the
+    earlier phases left it, each piled up twice. → (K22/K18 launches of
+    the batched runs, walls, the M1 live mask of the last run)."""
+    import torch
+    m1 = [M1.format(k=k) for k in M1_KEYS]
+    m2 = [_m2_sql(p, d) for p, d in M2_ARGS]
+    t0 = time.perf_counter()
+    host = {}
+    for name, sqls in (("M1", m1), ("M2", m2)):
+        host[name] = []
+        for sql in sqls:
+            rows, _, _, _ = run_sql(s, sql, device=False)
+            host[name].append(sorted(rows, key=str))
+    t_host = time.perf_counter() - t0
+    log(f"host engine: M1's 16 and M2's 5 statements in {t_host:.1f} s")
+    totals = {"member_compact": 0, "gather_columns": 0}
+    walls = {"mb_host": t_host}
+    capture = {}
+    t_phase = time.perf_counter()
+    for run in (1, 2):
+        for name, sqls in (("M1", m1), ("M2", m2)):
+            launches, rec = _batch_run(eng, f"{name} run {run}", sqls,
+                                       host[name], capture if name == "M1"
+                                       else None)
+            for k in totals:
+                totals[k] += launches[k]
+            walls[f"{name}_run{run}_batch"] = rec["batch_wall_s"]
+            walls[f"{name}_run{run}_solo_mean"] = rec["solo_warm_mean_s"]
+            walls[f"{name}_run{run}_solo_sum"] = rec["solo_sum_s"]
+    walls["microbatch_phase"] = time.perf_counter() - t_phase
+    live = capture["live"]
+    if tuple(live.shape) != (MB_MAX, FULL_SLAB) or live.dtype != torch.bool:
+        raise AssertionError(f"M1's live mask is {tuple(live.shape)}")
+    log(f"micro-batch phase: {walls['microbatch_phase']:.1f} s after the "
+        f"host runs; K22/K18 launches of the batched runs {totals}")
+    return totals, walls, live
+
+
+def member_compact_timing_phase(dev, m1_live):
+    """K22 at B = 16, cap = 8,388,608: over M1's own live mask (a few rows
+    a member) and over a random half-live mask, each held exactly to its
+    plain version there and timed beside it and beside torch.nonzero (the
+    library call: the (member, row) pairs of the same rows). The bound
+    counts the mask read once and each id, count and offset written
+    once."""
+    import torch
+    from tidb_tpu_torch.ops import compact as MC
+    g = torch.Generator(device=dev).manual_seed(21)
+    half = torch.rand(m1_live.shape, device=dev, generator=g) < 0.5
+    ms = plain = lib = bound = 0.0
+    for name, live in (("M1", m1_live.contiguous()), ("50% live", half)):
+        got = MC.member_compact(live)
+        want = MC.member_compact_plain(live)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"K22 over {name} differs from its plain "
+                                 f"version")
+        b, cap = live.shape
+        total = int(got[1][-1])
+        k_ms = time_cuda(lambda: MC.member_compact(live), reps=20)
+        p_ms = time_cuda(lambda: MC.member_compact_plain(live), reps=5,
+                         warmup=1)
+        l_ms = time_cuda(lambda: torch.nonzero(live), reps=20)
+        bb, by = bound_ms(live.numel() + 4 * total + 8 * (2 * b + 1),
+                          live.numel())
+        ms, plain, lib, bound = ms + k_ms, plain + p_ms, lib + l_ms, \
+            bound + bb
+        log(f"K22 over {name} (B={b}, cap={cap}, {total} live rows): "
+            f"{k_ms:.4f} ms (plain {p_ms:.4f}, torch.nonzero {l_ms:.4f}, "
+            f"bound {bb:.4f} by {by})")
+    log(f"K22 over its two timed masks: {ms:.4f} ms (plain {plain:.4f}, "
+        f"torch.nonzero {lib:.4f}, bound {bound:.4f} by bytes)")
+    return [{"name": "member_compact", "route": "cuda",
+             "source": "tidb_tpu_torch/csrc/member_compact.cu",
+             "replaces": "tidb_tpu/executor/microbatch.py:294",
+             "max_abs_err": 0, "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}]
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -3631,6 +3911,7 @@ def main() -> int:
     check_delta_kernels(dev)
     check_calendar_kernels(dev)
     check_dict_lut_kernels(dev)
+    check_member_compact_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -3686,6 +3967,13 @@ def main() -> int:
         k["launches"] = string_launches[k["name"]]
     kernels += lut_kernels
     walls.update(string_walls)
+    mb_launches, mb_walls, m1_live = microbatch_sql_phase(eng, s)
+    mb_kernels = member_compact_timing_phase(dev, m1_live)
+    del m1_live
+    for k in mb_kernels:
+        k["launches"] = mb_launches[k["name"]]
+    kernels += mb_kernels
+    walls.update(mb_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
@@ -3700,6 +3988,7 @@ def main() -> int:
         json.dumps(expr_launches))
     log("string-phase launches of every kernel: " +
         json.dumps(string_launches))
+    log("micro-batch launches of K22 and K18: " + json.dumps(mb_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

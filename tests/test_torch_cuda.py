@@ -7,7 +7,9 @@ versions on CPU copies; K19 delta_merge (its partition, every packed
 width, dict, raw and wide columns) against delta_merge_plain, and a
 cached table extended on the card by writes against the host engine;
 K20 civil_date and K21 dict_lut (both modes, every table width, codes
-out of range, tables in and above shared memory) against theirs.
+out of range, tables in and above shared memory) against theirs; K22
+member_compact (B = 1, 3, 16; empty, full and random masks) against its
+plain version.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -355,3 +357,24 @@ def test_k21_matches_plain(cuda, dtype, code_dtype):
             got = DL.dict_lut(table, codes)
             assert got.dtype == dtype
             assert torch.equal(got, DL.dict_lut_plain(table, codes))
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_k22_matches_plain(cuda, b):
+    """K22 member_compact: counts, offsets and ids exactly equal to the
+    plain version (and to per-member nonzero), with no live rows, every
+    row live and random masks, across the tile edge."""
+    from tidb_tpu_torch.ops.compact import member_compact, \
+        member_compact_plain
+    rng = np.random.default_rng(22 + b)
+    for cap in (0, 1, 1000, 1024, 1025, 1 << 20):
+        for p in (0.0, 1.0, 0.5, 1e-3):
+            live = torch.from_numpy(rng.random((b, cap)) < p)
+            got = member_compact(live.to(cuda))
+            want = member_compact_plain(live)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+            for k in range(b):
+                lo, hi = int(want[1][k]), int(want[1][k + 1])
+                assert torch.equal(want[2][lo:hi].long(),
+                                   torch.nonzero(live[k]).reshape(-1))

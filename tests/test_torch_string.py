@@ -9,10 +9,11 @@ inside a device fragment with no fallback; rows exactly equal. The
 gathers go through ops/dict_lut (K21's plain version here), the string
 equi-join's KeyRemap in its fill mode.
 
-Shapes the device branch cannot evaluate (the JAX package's device fails
-on them and reruns on its CPU), the IF/CASE-under-IS-NULL shape and every
-string function over a ci column stay on the CPU at plan time and equal
-the port's host engine. `dict_lut_plain` is held to `jnp.take(...,
+A string result under the result branches of IF / CASE whose own result
+is the argument of IS [NOT] NULL runs on both devices. Shapes the device
+branch cannot evaluate (the JAX package's device fails on them and reruns
+on its CPU) and every string function over a ci column stay on the CPU at
+plan time and equal the port's host engine. `dict_lut_plain` is held to `jnp.take(...,
 mode="clip")` and to the JAX package's KeyRemap arithmetic."""
 
 import jax.numpy as jnp
@@ -198,8 +199,7 @@ def test_window_and_order_roots_match_jax(twins, sql):
 
 
 #: shapes refused at plan time: each fails on the JAX package's device
-#: (a device error and a CPU rerun, or a plan-time refusal there too),
-#: but the IF/CASE-under-IS-NULL ones, which it runs
+#: (a device error and a CPU rerun, or a plan-time refusal there too)
 REFUSED = [
     "UPPER(s) = 'BB'",                      # string comparison, no prep
     "HEX(s) = '6161'",
@@ -214,12 +214,37 @@ REFUSED = [
     "RAND(1) > 0.5",
     "IS_IPV4(s)",
     "TIDB_SHARD(i) > 0",
-    "IF(i > 0, UPPER(s), LOWER(s)) IS NULL",    # runs on the reference
-    "CASE WHEN i > 0 THEN UPPER(s) END IS NULL",
+    "IF(i > 0, UPPER(s), 'x') IS NULL",     # a string constant branch
+    "IF(i > 0, UPPER(s), LOWER(s)) = 'X'",  # a branch read as a value
     "ASCII(c) > 70",                        # ci columns
     "LOCATE('b', c) > 0",
     "UPPER(c) IS NULL",
 ]
+
+
+#: a string result carried to IS [NOT] NULL through the result branches
+#: of IF / CASE: only its mask is read, so it runs on both devices
+MASK_ONLY = [
+    "IF(i > 0, UPPER(s), LOWER(s)) IS NULL",
+    "CASE WHEN i > 0 THEN UPPER(s) END IS NULL",
+    "IF(j > 20, REVERSE(s), IF(i < 0, LTRIM(s), HEX(s))) IS NOT NULL",
+    "CASE WHEN i > 3 THEN LEFT(s, 2) WHEN j < 9 THEN CONCAT(s, '!') "
+    "ELSE RPAD(s, 6, '-') END IS NULL",
+]
+
+
+@pytest.mark.parametrize("where", MASK_ONLY)
+def test_string_result_under_if_case_matches_jax_device(twins, where):
+    """Both engines run the statement inside a device fragment with no
+    fallback, and their rows are exactly equal."""
+    js, ts = twins
+    sql = f"SELECT i, COUNT(*), SUM(j) FROM x WHERE {where} GROUP BY i"
+    jrows, jfrags = run_jax(js, sql)
+    assert jfrags and all(f.used_device and f.fallback_code is None
+                          for f in jfrags)
+    rows, frags = run_port_frags(ts, sql)
+    assert {"if", "case"} & fragment_ops(frags)
+    assert_same(rows, jrows, rel=0)
 
 
 @pytest.mark.parametrize("where", REFUSED)

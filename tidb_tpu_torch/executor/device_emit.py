@@ -129,6 +129,26 @@ def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
     return {"cols": list(out_cols), "live": live}
 
 
+def emit_batched(prog, b: int, cols, n_rows: int, stacked_preps):
+    """Same-plan micro-batching: one filter-rooted program's per-slab
+    partial for `b` queued statements at once. The reference vmaps the
+    traced partial over a leading member axis of the stacked prepared
+    inputs; here the chain runs ONCE over the slab (decode, and so K2,
+    shared by every member) and the members' stacked ParamExpr values,
+    `[b, 1]` each, broadcast through the comparisons and the logical ops
+    to a `[b, cap]` live mask. Only filters are parametrized, so every
+    output column stays `[cap]`, shared by the members.
+    → {"cols": [(v, m)] each [cap], "live": [b, cap]}."""
+    ctx, live = prog._eval_chain(cols, n_rows, stacked_preps)
+    out = emit_root(ctx, live, prog.root, slab_cap=prog.slab_cap)
+    for v, m in out["cols"]:
+        assert v.dim() == 1 and m.dim() == 1, \
+            "a batched output column carries a member axis"
+    live = out["live"]
+    assert tuple(live.shape) == (b, prog.slab_cap), tuple(live.shape)
+    return {"cols": out["cols"], "live": live}
+
+
 def _xp_of(t: torch.Tensor) -> TorchXP:
     return TorchXP(t.device)
 

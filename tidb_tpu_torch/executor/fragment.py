@@ -285,18 +285,40 @@ def _dict_string_shape_ok(f) -> bool:
                for a in args if a is not col)
 
 
-def _string_results_reach_isnull(e, parent_op=None) -> bool:
-    """Every string-result function of `e` is the direct argument of IS
-    NULL. Any other consumer (a comparison, IN, LIKE, COALESCE, IF/CASE,
-    another string function, a projection, a key, an aggregate) would
-    read its derived-dictionary code as a string, which the device has no
-    preparation for: such a shape stays on the CPU at plan time."""
-    from tidb_tpu_torch.expression import ScalarFunc
-    if isinstance(e, ScalarFunc) and e.op in _STRING_RESULT_OPS and \
-            parent_op != "isnull":
+def _string_results_reach_isnull(e, mask_only: bool = False) -> bool:
+    """Every string-result function of `e` is read by IS NULL alone: as
+    its direct argument, or as a result branch of IF / CASE whose own
+    result is (`mask_only`: the value of `e` reaches no consumer but an
+    IS NULL's mask; the branches' codes, from different derived
+    dictionaries, are mixed and never read). Any other consumer (a
+    comparison, IN, LIKE, COALESCE, an IF/CASE condition or a branch
+    read as a value, another string function, a projection, a key, an
+    aggregate) would read its derived-dictionary code as a string, which
+    the device has no preparation for: such a shape stays on the CPU at
+    plan time."""
+    from tidb_tpu_torch.expression import Constant, ScalarFunc
+    if not isinstance(e, ScalarFunc):
+        return all(_string_results_reach_isnull(c) for c in e.children())
+    if e.op in _STRING_RESULT_OPS and not mask_only:
         return False
-    op = e.op if isinstance(e, ScalarFunc) else None
-    return all(_string_results_reach_isnull(c, op) for c in e.children())
+    args = e.children()
+    if e.op == "isnull":
+        flags = [True] * len(args)
+    elif e.op == "if":
+        flags = [False] + [mask_only] * (len(args) - 1)
+    elif e.op == "case":
+        # WHEN, THEN pairs, then an optional ELSE: every THEN and the ELSE
+        # are results
+        flags = [mask_only and (i % 2 == 1 or i == len(args) - 1)
+                 for i in range(len(args))]
+    else:
+        flags = [False] * len(args)
+    if e.op != "isnull" and any(
+            f and isinstance(c, Constant) and c.value is not None and
+            c.ftype.kind.is_string for c, f in zip(args, flags)):
+        return False    # a string constant branch has no device value
+    return all(_string_results_reach_isnull(c, f)
+               for c, f in zip(args, flags))
 
 
 def _device_shape_ok(f) -> bool:
@@ -773,6 +795,78 @@ def collect_chain_preps(chain: List[PhysicalPlan],
     return vals
 
 
+# comparison ops whose numeric literals are safe to parametrize: both
+# sides evaluate as arrays with no host fast path keyed on the python
+# value. "in" is deliberately excluded — its integer fast path builds a
+# host-side sorted table from Constant values, and its string preparation
+# is variable-length.
+_PARAM_CMP_OPS = frozenset({"eq", "ne", "lt", "le", "gt", "ge"})
+#: the only functions a parametrized comparison may sit under: their
+#: device branches are elementwise and take a [B, n] operand beside [n]
+#: masks. Under any other function (IF, CASE, arithmetic, a calendar or
+#: dictionary function) the member axis would reach a kernel or wrapper
+#: that takes one row axis, so such a comparison keeps its literal.
+_PARAM_LOGIC_OPS = frozenset({"and", "or", "xor", "not"})
+
+
+def _parametrize_expr(e: Expression):
+    """→ (expr, changed): `expr` with the numeric literals of comparisons
+    reached from the condition's root through logical ops alone replaced
+    by ParamExpr leaves (the value rides the prepared inputs, the repr is
+    value-free). Structure is cloned only where a child changed."""
+    from tidb_tpu_torch.expression import Constant, ParamExpr, ScalarFunc
+    if type(e) is not ScalarFunc:
+        return e, False
+    changed = False
+    new_args: List[Expression] = []
+    if e.op in _PARAM_CMP_OPS:
+        for a in e.args:
+            if (type(a) is Constant and a.value is not None
+                    and not a.ftype.kind.is_string
+                    and a.ftype.np_dtype != np.dtype(object)):
+                new_args.append(ParamExpr(a.value, a.ftype))
+                changed = True
+            else:
+                new_args.append(a)
+    elif e.op in _PARAM_LOGIC_OPS:
+        for a in e.args:
+            na, ch = _parametrize_expr(a)
+            new_args.append(na)
+            changed = changed or ch
+    if not changed:
+        return e, False
+    return e.rebuild(new_args), True
+
+
+def _parametrize_chain(chain: List[PhysicalPlan]):
+    """Clone the chain with scan-filter / selection comparison literals
+    lifted into ParamExpr parameters, so `WHERE k = 17` and `= 42` share
+    one program and can micro-batch. → the cloned chain, or None when
+    nothing was parametrizable (the caller keeps the literal-baked path)
+    or the chain holds a window (its kernels take one row axis). Nodes
+    are shallow-copied; the original plan is never mutated."""
+    import copy
+    if any(isinstance(node, PhysWindow) for node in chain):
+        return None
+    out: List[PhysicalPlan] = []
+    any_changed = False
+    for node in chain:
+        attr = "filters" if isinstance(node, PhysTableScan) else \
+            "conditions" if isinstance(node, PhysSelection) else None
+        if attr is not None and getattr(node, attr):
+            new_c, ch = [], False
+            for f in getattr(node, attr):
+                nf, c = _parametrize_expr(f)
+                new_c.append(nf)
+                ch = ch or c
+            if ch:
+                node = copy.copy(node)
+                setattr(node, attr, new_c)
+                any_changed = True
+        out.append(node)
+    return out if any_changed else None
+
+
 def _charge_compile(kind: str, t0: float) -> None:
     """Attribute one cold program build to the running statement: bump its
     PhaseTimer compile counter (thread-local — the single-flight builders
@@ -811,6 +905,39 @@ def get_program(chain, used_cols, in_types, slab_cap, group_cap, device,
                                         pair_cap)
                 _cache_put(sig, prog)
                 _charge_compile("chain", t0)
+    return prog
+
+
+class _BatchedProgram:
+    """A filter-rooted fragment program over a leading member axis: one
+    launch per slab serves `b` statements whose ParamExpr values are
+    stacked along axis 0 (executor/microbatch.py). Shares the program
+    cache with the scalar programs under sig `batched[B]|<base sig>`."""
+
+    __slots__ = ("base", "b")
+
+    def __init__(self, base: _FragmentProgram, b: int):
+        self.base = base
+        self.b = b
+
+    def partial(self, cols, n_rows: int, stacked_preps):
+        from tidb_tpu_torch.executor import device_emit
+        return device_emit.emit_batched(self.base, self.b, cols, n_rows,
+                                        stacked_preps)
+
+
+def get_batched_program(base: _FragmentProgram, b: int,
+                        base_sig: str) -> _BatchedProgram:
+    sig = f"batched[{b}]|{base_sig}"
+    prog = _cache_get(sig)
+    if prog is None:
+        with _build_lock(sig):
+            prog = _cache_get(sig)      # double-checked: one build per sig
+            if prog is None:
+                t0 = time.perf_counter()
+                prog = _BatchedProgram(base, b)
+                _cache_put(sig, prog)
+                _charge_compile("batched", t0)
     return prog
 
 
@@ -1577,12 +1704,41 @@ class TpuFragmentExec:
                                      used, in_types, slab_cap, group_cap,
                                      key_bounds, layouts, order_root,
                                      slab_ids=slab_ids)
-        prog = get_program(chain, used, in_types, slab_cap, group_cap,
-                           self.ctx.device, layouts=layouts)
-        prep_vals = prog.collect_preps(dicts)
         if isinstance(root, (PhysTopN, PhysSort)):
+            prog = get_program(chain, used, in_types, slab_cap, group_cap,
+                               self.ctx.device, layouts=layouts)
+            prep_vals = prog.collect_preps(dicts)
             return self._execute_order(prog, root, ent, dicts, prep_vals,
                                        stream, slab_ids=slab_ids)
+        # filter roots: lift comparison literals into prepared parameters
+        # so `k = 17` and `k = 42` share one program — and, when several
+        # such statements are queued at once, ONE batched launch per slab
+        # (executor/microbatch.py). The literal-baked program runs when
+        # nothing is parametrizable.
+        mb_max = int(vars_.get("tidb_tpu_microbatch_max", 16) or 0)
+        chain_p = _parametrize_chain(chain) if mb_max >= 1 else None
+        if chain_p is None:
+            prog = get_program(chain, used, in_types, slab_cap, group_cap,
+                               self.ctx.device, layouts=layouts)
+            prep_vals = prog.collect_preps(dicts)
+        else:
+            sig = _chain_signature(chain_p, used, in_types, slab_cap,
+                                   group_cap, None, layouts) + \
+                f"|pairs=False,0|dev={torch.device(self.ctx.device)}"
+            prog = get_program(chain_p, used, in_types, slab_cap,
+                               group_cap, self.ctx.device, layouts=layouts,
+                               sig=sig)
+            # prep values MUST come from THIS statement's chain: the
+            # cached program may hold another statement's ParamExpr nodes
+            host_preps = collect_chain_preps(chain_p, dicts)
+            if mb_max >= 2 and stream is None:
+                from tidb_tpu_torch.executor import microbatch
+                res = microbatch.execute(self, prog, root, ent, dicts,
+                                         host_preps, slab_ids, sig, mb_max)
+                if res is not None:
+                    return res
+            from tidb_tpu_torch.ops.xp import to_device_tree
+            prep_vals = [to_device_tree(prog.xp, v) for v in host_preps]
         return self._execute_filter(prog, root, ent, dicts, prep_vals,
                                     stream, slab_ids=slab_ids)
 
@@ -1935,10 +2091,10 @@ class TpuFragmentExec:
             with self.ctx.device_slot():
                 with ph.phase("compute"):
                     out = prog.partial(cols, n, prep_vals)
-                    # compact the surviving rows on the device: only they
-                    # cross back to the host
-                    idx = torch.nonzero(out["live"]).reshape(-1)
-                    outs.append([(v[idx], m[idx]) for v, m in out["cols"]])
+                    # compact the surviving rows on the device (K22 with
+                    # one member, K18): only they cross back to the host
+                    outs.append(compact_rows(out["cols"],
+                                             out["live"].reshape(1, -1))[0])
             ph.note_launch()
             ph.note_fused()
         with ph.phase("compute"):
@@ -2807,6 +2963,20 @@ def _compact_decode(ph, cols_vm, live, ftypes, dicts_root) -> Chunk:
         return Chunk([_decode_col(ft, np.asarray(v), np.asarray(m),
                                   dicts_root.get(ci))
                       for ci, ((v, m), ft) in enumerate(zip(host, ftypes))])
+
+
+def compact_rows(cols, live):
+    """The live rows of every output column, member-major: K22 turns the
+    [B, cap] mask into row ids and K18 gathers every (value, mask)
+    column through them in one launch. → (gathered columns, offsets
+    [B+1] int64): member k's rows are slots offsets[k]:offsets[k+1]."""
+    from tidb_tpu_torch.ops.compact import member_compact
+    from tidb_tpu_torch.ops.gather import gather_columns
+    _counts, offsets, ids = member_compact(live.contiguous())
+    n_valid = offsets[-1:].to(torch.int32).reshape(())
+    gathered = gather_columns([(v.contiguous(), m.contiguous())
+                               for v, m in cols], ids, n_valid)
+    return gathered, offsets
 
 
 def _topn_slice(chunk: Chunk, root) -> Chunk:

@@ -186,7 +186,12 @@ class ParamExpr(Constant):
     and so the micro-batcher can stack many statements' parameters along
     a leading batch axis of one program. `prepare()` returns the encoded
     scalar — it travels positionally with the dictionary preparations —
-    and `eval()` broadcasts the traced scalar instead of a literal."""
+    and `eval()` broadcasts the scalar instead of a literal.
+
+    A micro-batch (executor/microbatch.py) stacks the members' values
+    into one `[B]` prep: `eval()` then gives a `[B, 1]` value, which
+    broadcasts through the comparison and the logical ops above it to a
+    `[B, n]` result; the validity stays `[n]`."""
 
     def prepare(self, dictionaries):
         raw = self.ftype.encode_value(self.value)
@@ -200,6 +205,8 @@ class ParamExpr(Constant):
         xp = ctx.xp
         n = ctx.num_rows
         dt = _xp_dtype(xp, self.ftype, ctx.on_device)
+        if getattr(prep, "ndim", 0) == 1:
+            return astype(prep, dt).reshape(-1, 1), xp.ones(n, dtype=bool)
         return (xp.full(n, prep, dtype=dt) if dt is not None
                 else np.full(n, prep, dtype=object)), \
             xp.ones(n, dtype=bool)

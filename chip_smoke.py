@@ -168,7 +168,22 @@ which must pass:
      fetch, decode and d2h bytes are logged;
  22. K22 at B = 16, cap = 8,388,608 over M1's own live mask and over a
      half-live one, each held exactly to its plain version there and
-     timed beside it and beside torch.nonzero.
+     timed beside it and beside torch.nonzero;
+ 23. distributed SQL with tidb_tpu_dist_devices = 4 (four ranks, all on
+     the one card) over lineitem as phases 15-22 left it and phase 7's
+     orders: X1 = Q1 on the staged agg path (rank partials, host merge),
+     twice; X2 = lineitem ⋈ orders on the order key with a GROUP BY
+     through StagedDistExchange on hash exchanges (K23); X2B = bench.py's
+     Q3 text, whose planner picks a broadcast exchange; X3 = a COUNT
+     DISTINCT re-key exchange. Every dist statement encodes on the host,
+     so each run is cold. Under tidb_tpu_strict=1 each equals the host
+     engine exactly, EXPLAIN shows shards:4 (and the Exchange and its
+     kind for X2, X2B, X3), K23 moves on X2 and X3; each run's wall,
+     PhaseTimer phases, d2h bytes and K23/K18 launches are logged.
+     Counters are zeroed before the phase;
+ 24. K23 on X2's first exchange call's own inputs (one rank's slab,
+     2,097,152 rows at SF=1), held exactly to its plain version there and
+     timed beside it and beside torch.argsort + index_copy_.
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
@@ -190,8 +205,10 @@ dict_lut against its plain version exactly (bool/int32/int64 tables from
 empty to 1,500,303 entries, across the shared-memory edge, int32/int64
 codes out of range, n up to a full slab, clip and fill); and K22
 member_compact against its plain version exactly (B = 1, 3, 16; cap =
-1, 1,000, 8,388,608; no, all and random live rows). Phase 4's TopN scan
-must launch K8-K10.
+1, 1,000, 8,388,608; no, all and random live rows); and K23
+hash_partition against its plain version exactly (1, 4, 64
+destinations; n = 1, 1,025, 2,097,152; int64, int32 + bool and float
+keys; an overflowing cap). Phase 4's TopN scan must launch K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -3832,6 +3849,238 @@ def member_compact_timing_phase(dev, m1_live):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (K23) and phases 23-24: distributed fragments
+# ---------------------------------------------------------------------------
+
+
+def check_hash_partition_kernels(dev):
+    """K23 hash_partition against its plain version on the card: every
+    bucket buffer, sent_live, counts and need exactly equal, for 1, 4 and
+    64 destinations, at n = 1, 1,025 and 2,097,152 rows, with an int64,
+    an int32 + bool and a float key (NaN and ±inf included), dead rows,
+    NULL keys, payload columns of 1, 2, 4 and 8 bytes, and a cap that
+    overflows (need > bucket_cap)."""
+    import torch
+    from tidb_tpu_torch.ops import partition as P
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def key(kind, n):
+        if kind == "float":
+            v = torch.randn(n, device=dev, generator=g,
+                            dtype=torch.float64) * 1e6
+            v[:min(n, 3)] = torch.tensor([float("nan"), float("inf"),
+                                          -float("inf")],
+                                         device=dev)[:min(n, 3)]
+        elif kind == "bool":
+            v = torch.rand(n, device=dev, generator=g) < 0.5
+        elif kind == "int32":
+            v = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), device=dev,
+                              generator=g, dtype=torch.int32)
+        else:
+            v = torch.randint(-(1 << 62), 1 << 62, (n,), device=dev,
+                              generator=g)
+        return v, torch.rand(n, device=dev, generator=g) < 0.9
+
+    for n in (1, 1025, 2_097_152):
+        for n_shards in (1, 4, 64):
+            for kinds, cap in ((("int64",), n), (("int32", "bool"), n),
+                               (("float",), max(n // 256, 1))):
+                keys = [key(k, n) for k in kinds]
+                live = torch.rand(n, device=dev, generator=g) < 0.8
+                arrays = [torch.randint(0, 1 << 40, (n,), device=dev,
+                                        generator=g),
+                          torch.rand(n, device=dev, generator=g) < 0.5,
+                          torch.randint(0, 1000, (n,), device=dev,
+                                        generator=g, dtype=torch.int32),
+                          torch.randint(0, 1000, (n,), device=dev,
+                                        generator=g, dtype=torch.int16)]
+                got = P.hash_partition(keys, live, arrays, n_shards, cap)
+                want = P.hash_partition_plain(keys, live, arrays, n_shards,
+                                              cap)
+                for x, y in zip(list(got[0]) + list(got[1:]),
+                                list(want[0]) + list(want[1:])):
+                    if x.dtype != y.dtype or not torch.equal(x, y):
+                        raise AssertionError(
+                            f"K23 differs from its plain version at n={n}, "
+                            f"n_shards={n_shards}, keys {kinds}, cap {cap}")
+    torch.cuda.synchronize()
+    log("K23 hash_partition: exactly equal to its plain version at n in "
+        "{1, 1025, 2097152} x n_shards in {1, 4, 64} x {int64, int32+bool, "
+        "float (NaN, inf) with an overflowing cap} keys")
+
+
+DIST_RANKS = 4
+# X2: bench.py's Q3 shape (lineitem ⋈ orders on the order key, its
+# o_orderdate filter, GROUP BY o_orderpriority) with l_shipdate cut to
+# mid-1994, so the two filtered sides are within a factor of two and
+# insert_exchanges picks a hash exchange on both; X2B is bench.py's Q3
+# text itself, whose filtered orders (~1.38M of 1.5M) are under half the
+# filtered lineitem (~5.9M): a broadcast exchange of the orders side
+X2 = """SELECT o_orderpriority, COUNT(*),
+ SUM(l_extendedprice * (1 - l_discount))
+ FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+ WHERE l_shipdate <= '1994-06-30' AND o_orderdate < '1998-01-01'
+ GROUP BY o_orderpriority"""
+# X3: the DISTINCT re-key exchange (on the group key). This lineitem has
+# no l_suppkey: l_orderkey stands in as the counted column
+X3 = ("SELECT l_returnflag, COUNT(DISTINCT l_orderkey) FROM lineitem "
+      "GROUP BY l_returnflag")
+DIST_STMTS = {"X1": Q1, "X2": X2, "X2B": Q3, "X3": X3}
+DIST_RUNS = ("X1", "X1", "X2", "X2B", "X3")
+
+
+def dist_sql_phase(s):
+    """X1-X3 (and X2B) with tidb_tpu_dist_devices = 4 over lineitem as
+    the earlier phases left it and phase 7's orders: 4 ranks, all on the
+    one card. Each statement equals the host engine exactly (rows sorted:
+    none has an ORDER BY the ranks keep), EXPLAIN shows shards:4 and, for
+    the joins and the DISTINCT, the Exchange (its kind logged), K23 moves
+    on X2 and X3. Every dist statement encodes its columns on the host
+    (the reference's _dist_exec), so every run is cold. → (launches of
+    the phase, walls, X2's first K23 call's inputs)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import partition as P
+    host, walls = {}, {}
+    t0 = time.perf_counter()
+    for name, sql in DIST_STMTS.items():
+        rows, wall, _, _ = run_sql(s, sql, device=False)
+        host[name] = sorted(rows, key=str)
+        walls[f"host_{name}"] = wall
+        log(f"host {name}: {len(rows)} rows in {wall:.3f} s")
+    s.vars["tidb_tpu_dist_devices"] = DIST_RANKS
+    real = P.hash_partition
+    capture = {}
+
+    def spy(keys, live, arrays, n_shards, bucket_cap):
+        if capture.get("armed") and "keys" not in capture:
+            capture.update(keys=keys, live=live, arrays=list(arrays),
+                           n_shards=n_shards, bucket_cap=bucket_cap)
+        return real(keys, live, arrays, n_shards, bucket_cap)
+
+    try:
+        for name, sql in DIST_STMTS.items():
+            s.vars["tidb_tpu_engine"] = "on"
+            explain = "\n".join(str(r[0]) + " " + str(r[2]) for r in
+                                s.query("EXPLAIN " + sql).rows)
+            kinds = sorted({k for k in ("hash", "broadcast")
+                            if f"Exchange[{k}]" in explain})
+            if "shards:4" not in explain or \
+                    (name != "X1") != bool(kinds):
+                raise AssertionError(f"{name}: not distributed as "
+                                     f"expected\n{explain}")
+            log(f"EXPLAIN {name}: shards:4, exchanges {kinds or 'none'}")
+        P.hash_partition = spy
+        t_phase = time.perf_counter()
+        ck.reset_launches()
+        for i, name in enumerate(DIST_RUNS):
+            capture["armed"] = name == "X2"
+            before = ck.launches()
+            rows, wall, phases, esc = run_sql(s, DIST_STMTS[name],
+                                              device=True)
+            after = ck.launches()
+            moved = {c: after[c] - before[c] for c in after
+                     if after[c] != before[c]}
+            if sorted(rows, key=str) != host[name]:
+                raise AssertionError(f"{name}: device rows != host rows\n"
+                                     f"{rows[:3]}\n{host[name][:3]}")
+            # a rank that zone maps prove empty runs no program
+            if phases["programs_launched"] + phases["slabs_skipped"] < \
+                    DIST_RANKS:
+                raise AssertionError(f"{name}: {phases['programs_launched']}"
+                                     f" programs and {phases['slabs_skipped']}"
+                                     f" pruned ranks for {DIST_RANKS} ranks")
+            if name in ("X2", "X3") and not moved.get("hash_partition"):
+                raise AssertionError(f"{name}: K23 did not move ({moved})")
+            run = f"{name}_run{i}" if name == "X1" else name
+            walls[run] = wall
+            log(f"{run}: {len(rows)} rows, exact match, wall {wall:.4f} s, "
+                f"encode {phases['encode_s']} s, upload "
+                f"{phases['upload_s']} s, compute {phases['compute_s']} s, "
+                f"fetch {phases['fetch_s']} s, decode {phases['decode_s']} "
+                f"s, h2d {phases['h2d_bytes']} bytes, d2h "
+                f"{phases['d2h_bytes']} bytes, programs "
+                f"{phases['programs_launched']}, pruned ranks "
+                f"{phases['slabs_skipped']}, escalation {esc}, K23 "
+                f"{moved.get('hash_partition', 0)}, K18 "
+                f"{moved.get('gather_columns', 0)}, launches {moved}")
+        launches = ck.launches()
+        walls["dist_phase"] = time.perf_counter() - t_phase
+    finally:
+        P.hash_partition = real
+        s.vars.pop("tidb_tpu_dist_devices", None)
+    if "keys" not in capture:
+        raise AssertionError("X2 made no K23 call")
+    log(f"dist phase: {walls['dist_phase']:.1f} s after the host runs "
+        f"({time.perf_counter() - t0:.1f} s in all); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches, walls, capture
+
+
+def hash_partition_timing_phase(dev, x2):
+    """K23 at X2's first exchange: one rank's stage-1 inputs as X2 gave
+    them (n = the rank slab, X2's key and payload columns, 4
+    destinations, X2's bucket_cap), held exactly to its plain version
+    there and timed beside it and beside a library yardstick the port
+    never calls: torch.argsort of the destinations (stable) and one
+    index_copy_ per column into zeros. The bound counts each key, mask,
+    live and payload byte read once and every one of the n_shards *
+    bucket_cap slots of each output written once."""
+    import torch
+    from tidb_tpu_torch.ops import partition as P
+    from tidb_tpu_torch.parallel import collective as C
+    keys, live, arrays = x2["keys"], x2["live"], x2["arrays"]
+    ns, cap = x2["n_shards"], x2["bucket_cap"]
+    n = live.shape[0]
+    got = P.hash_partition(keys, live, arrays, ns, cap)
+    want = P.hash_partition_plain(keys, live, arrays, ns, cap)
+    for x, y in zip(list(got[0]) + list(got[1:]),
+                    list(want[0]) + list(want[1:])):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError("K23 at X2's shape differs from its plain "
+                                 "version")
+    need = int(got[3])
+    d = torch.where(live, C.shard_of(C.mix_key_code(keys), ns).long(),
+                    torch.full((n,), ns, dtype=torch.int64, device=dev))
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+
+    def library():
+        order = torch.argsort(d, stable=True)
+        per = torch.bincount(d, minlength=ns + 1)
+        first = torch.cumsum(per, 0) - per
+        sd = d[order]
+        keep = sd < ns
+        slot = (sd * cap + iota - first[sd])[keep]
+        src = order[keep]
+        sent = torch.zeros(ns * cap, dtype=torch.bool, device=dev)
+        sent[slot] = True
+        for a in arrays:
+            torch.zeros(ns * cap, dtype=a.dtype, device=dev).index_copy_(
+                0, slot, a[src])
+
+    k_ms = time_cuda(lambda: P.hash_partition(keys, live, arrays, ns, cap),
+                     reps=20)
+    p_ms = time_cuda(lambda: P.hash_partition_plain(keys, live, arrays, ns,
+                                                    cap), reps=10)
+    l_ms = time_cuda(library, reps=20)
+    read = sum(v.nbytes + m.nbytes for v, m in keys) + live.nbytes + \
+        sum(a.nbytes for a in arrays)
+    written = ns * cap * (sum(a.element_size() for a in arrays) + 1) + \
+        4 * ns + 4
+    b, by = bound_ms(read + written, 40 * n * len(keys))
+    log(f"K23 at X2's first exchange (n={n}, {len(keys)} key(s) "
+        f"{[str(v.dtype) for v, _ in keys]}, {len(arrays)} payload columns "
+        f"{[str(a.dtype) for a in arrays]}, n_shards={ns}, bucket_cap="
+        f"{cap}, need={need}, live={int(live.sum())}): {k_ms:.4f} ms (plain "
+        f"{p_ms:.4f}, argsort + index_copy_ {l_ms:.4f}, bound {b:.4f} by "
+        f"{by}: {read} bytes read, {written} written)")
+    return [{"name": "hash_partition", "route": "cuda",
+             "source": "tidb_tpu_torch/csrc/hash_partition.cu",
+             "replaces": "tidb_tpu/executor/device_emit.py:516",
+             "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": b, "bound_by": by, "library_ms": l_ms}]
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MySQL wire protocol
 # ---------------------------------------------------------------------------
 
@@ -3912,6 +4161,7 @@ def main() -> int:
     check_calendar_kernels(dev)
     check_dict_lut_kernels(dev)
     check_member_compact_kernels(dev)
+    check_hash_partition_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -3974,6 +4224,13 @@ def main() -> int:
         k["launches"] = mb_launches[k["name"]]
     kernels += mb_kernels
     walls.update(mb_walls)
+    dist_launches, dist_walls, x2_part = dist_sql_phase(s)
+    part_kernels = hash_partition_timing_phase(dev, x2_part)
+    del x2_part
+    for k in part_kernels:
+        k["launches"] = dist_launches[k["name"]]
+    kernels += part_kernels
+    walls.update(dist_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
@@ -3989,6 +4246,7 @@ def main() -> int:
     log("string-phase launches of every kernel: " +
         json.dumps(string_launches))
     log("micro-batch launches of K22 and K18: " + json.dumps(mb_launches))
+    log("dist-phase launches of every kernel: " + json.dumps(dist_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ cached table extended on the card by writes against the host engine;
 K20 civil_date and K21 dict_lut (both modes, every table width, codes
 out of range, tables in and above shared memory) against theirs; K22
 member_compact (B = 1, 3, 16; empty, full and random masks) against its
-plain version.
+plain version; K23 hash_partition (1-64 destinations, the tile edge, an
+overflowing cap, two key passes, three scatter launches) against its.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -378,3 +379,55 @@ def test_k22_matches_plain(cuda, b):
                 lo, hi = int(want[1][k]), int(want[1][k + 1])
                 assert torch.equal(want[2][lo:hi].long(),
                                    torch.nonzero(live[k]).reshape(-1))
+
+
+def _k23_case(rng, n, key_kinds, n_cols):
+    keys = []
+    for kind in key_kinds:
+        if kind == "float":
+            v = torch.from_numpy(rng.normal(0.0, 1e6, n))
+            v[:min(n, 4)] = torch.tensor([float("nan"), float("inf"),
+                                          -float("inf"), 1e19])[:min(n, 4)]
+        elif kind == "bool":
+            v = torch.from_numpy(rng.random(n) < 0.5)
+        elif kind == "int32":
+            v = torch.from_numpy(rng.integers(-(1 << 31), (1 << 31) - 1, n,
+                                              dtype=np.int32))
+        else:
+            v = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n))
+        keys.append((v, torch.from_numpy(rng.random(n) < 0.9)))
+    live = torch.from_numpy(rng.random(n) < 0.8)
+    pool = [torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n)),
+            torch.from_numpy(rng.random(n) < 0.5),
+            torch.from_numpy(rng.integers(0, 1000, n, dtype=np.int32)),
+            torch.from_numpy(rng.integers(0, 1000, n, dtype=np.int16)),
+            torch.from_numpy(rng.normal(0.0, 1.0, n))]
+    arrays = [pool[i % len(pool)] for i in range(n_cols)]
+    return keys, live, arrays
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 4, 64])
+def test_k23_matches_plain(cuda, n_shards):
+    """K23 hash_partition: every bucket buffer, sent_live, counts and
+    need exactly equal to the plain version, across the 1,024-row tile
+    edge; with an overflowing cap, 17-18 key columns (two passes) and 40
+    payload columns (three scatter launches)."""
+    from tidb_tpu_torch.ops import partition as P
+    rng = np.random.default_rng(23 + n_shards)
+    cases = [(0, ("int64",), 2, 8), (1, ("int64",), 2, 8),
+             (1023, ("int32", "bool"), 4, 2048),
+             (1025, ("float",), 6, 2048),
+             (100_000, ("int64", "int32"), 5, 64),         # overflow
+             (300_000, ("int64",) * 17 + ("bool",), 40, 300_000),
+             (1 << 21, ("int64",), 4, 1 << 21)]
+    for n, kinds, n_cols, cap in cases:
+        keys, live, arrays = _k23_case(rng, n, kinds, n_cols)
+        got = P.hash_partition([(v.to(cuda), m.to(cuda)) for v, m in keys],
+                               live.to(cuda), [a.to(cuda) for a in arrays],
+                               n_shards, cap)
+        want = P.hash_partition_plain(keys, live, arrays, n_shards, cap)
+        for g, w in zip(got[0], want[0]):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), \
+                (n, kinds, n_shards)

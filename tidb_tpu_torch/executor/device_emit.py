@@ -16,8 +16,9 @@ They run eagerly; the hot row-scale loops are hand-written CUDA kernels
 in emit_decode, K3 perfect_group_ids in _perfect_groups, the sort
 kernels K8-K10 under factorize / sort_perm / topn and the LIMIT
 partition, ops/factorize.py, the window kernels K12-K15 under
-emit_window_cols, ops/window.py, and K19 delta_merge under
-emit_delta_merge, the tombstone rewrite of executor/delta.py).
+emit_window_cols, ops/window.py, K19 delta_merge under
+emit_delta_merge, the tombstone rewrite of executor/delta.py, and K23
+hash_partition under emit_partition, the staged exchange's scatter).
 """
 
 from __future__ import annotations
@@ -147,6 +148,26 @@ def emit_batched(prog, b: int, cols, n_rows: int, stacked_preps):
     live = out["live"]
     assert tuple(live.shape) == (b, prog.slab_cap), tuple(live.shape)
     return {"cols": out["cols"], "live": live}
+
+
+def emit_partition(keys, arrays, live, n_shards: int, bucket_cap: int):
+    """Per-rank bucket scatter — stage 1 of the staged exchange.
+
+    ONE rank's rows land in `n_shards` fixed-capacity destination
+    buckets, ready for a device→host checkpoint and host routing
+    (parallel/collective.route_buckets). The destination is the hash of
+    the exchange keys (collective.shard_of(mix_key_code(keys))), computed
+    with the scatter in one kernel (K23, ops/partition.py). Rows are
+    ranked densely and stably per destination; rows past bucket_cap are
+    dropped and `need` (= counts.max()) reports the true per-bucket
+    requirement for the capacity ladder's ONE exact resize.
+
+    keys: [(values, validity)]; arrays: per-row payload [(N,)...];
+    live: (N,) bool. → (bufs [(n_shards*bucket_cap,)...], sent_live,
+    counts (n_shards,), need ()). Within bucket d the prefix
+    [0:counts[d]] is contiguous live rows in source order."""
+    from tidb_tpu_torch.ops.partition import hash_partition
+    return hash_partition(keys, live, arrays, n_shards, bucket_cap)
 
 
 def _xp_of(t: torch.Tensor) -> TorchXP:

@@ -485,8 +485,9 @@ def extract_fragments(plan: PhysicalPlan, threshold: int) -> PhysicalPlan:
     first so HashAgg(Sel(Scan)) becomes one fragment, not a CPU agg over a
     fragment filter. Join trees (the Q3/Q5 shape), and windows with no
     linear-chain lowering (interior, over a join), fuse through
-    tree_fragment when statically eligible; distributed shapes are not in
-    the port yet and stay on the CPU engine."""
+    tree_fragment when statically eligible. With tidb_tpu_dist_devices > 1
+    the planner then distributes the fragments a staged path runs
+    (planner/physical._distribute_fragments)."""
     if _fragment_ok(plan, threshold):
         frag = PhysTpuFragment(plan)
         frag.est_rows = plan.est_rows
@@ -1580,7 +1581,12 @@ class TpuFragmentExec:
 
     def _fallback_next(self) -> Optional[Chunk]:
         from tidb_tpu_torch.executor import build
-        self._cpu_root = build(self.plan.root)
+        root = self.plan.root
+        if getattr(self.plan, "dist", 0) > 1:
+            # distributed plans carry Exchange nodes — pure repartitioning
+            # boundaries with no single-node executor; strip them
+            root = _strip_exchanges(root)
+        self._cpu_root = build(root)
         self._cpu_root.open(self.ctx)
         return self._cpu_root.next()
 
@@ -1608,6 +1614,8 @@ class TpuFragmentExec:
         if getattr(self.ctx, "device", None) is None:
             raise ExecutionError("device fragment without a device: the "
                                  "execution context carries none")
+        if getattr(self.plan, "dist", 0) > 1:
+            return self._run_device_dist()
         chain = _linearize(self.plan.root)
         if chain is None:
             from tidb_tpu_torch.executor.tree_fragment import (has_join,
@@ -2755,6 +2763,253 @@ class TpuFragmentExec:
         raise FragmentFallback("blocked expand: skew beyond 128 passes",
                                reason="blocked-expand")
 
+    # ---- distributed (multi-rank) pipeline ---------------------------------
+    @staticmethod
+    def _staged_dist_chain(root) -> Optional[List[PhysicalPlan]]:
+        """Root→scan chain when this dist fragment is eligible for the
+        staged agg path: an agg root over an exchange-free
+        Scan/Selection/Projection chain (a PhysExchange anywhere breaks
+        _linearize), no DISTINCT aggs (per-rank dedup cannot merge
+        without key co-location), every stage device-capable for the
+        single-device chain program, and the chain's columns among the
+        scan's encoded ones."""
+        if not isinstance(root, PhysHashAgg):
+            return None
+        if any(d.distinct and d.args for d in root.aggs):
+            return None
+        chain = _linearize(root)
+        if chain is None or not _fragment_ok(root, 0):
+            return None
+        scan = chain[-1]
+        if scan.used_columns and \
+                not set(_used_column_indices(chain)) <= \
+                set(scan.used_columns):
+            return None
+        return chain
+
+    def _run_dist_agg_staged(self, root, mesh, host_cols,
+                             scan_meta) -> Optional[Chunk]:
+        """Staged checkpointable dist agg (dist_fragment.StagedDistAgg):
+        per-rank partials → host checkpoints → host merge. Returns None
+        when the fragment is not eligible."""
+        chain = self._staged_dist_chain(root)
+        if chain is None or len(scan_meta) != 1:
+            return None
+        from tidb_tpu_torch.executor import tree_fragment as TF
+        from tidb_tpu_torch.executor.device_cache import _pow2
+        from tidb_tpu_torch.executor.dist_fragment import StagedDistAgg
+        from tidb_tpu_torch.util.escalation import CapacityLadder
+        scan, used_enc, total = scan_meta[0]
+        used_cols = _used_column_indices(chain)
+        nd = len(mesh)
+        cap = _pow2((total + nd - 1) // nd, lo=8)
+        # per-column compressed layouts, chosen GLOBALLY (one layout must
+        # serve every rank's slab — the per-rank chain partials share one
+        # program). Each rank packs its own slab independently, so no
+        # cap/word-alignment constraint applies here; dictionaries would
+        # need per-device replication, so allow_dict=False.
+        from tidb_tpu_torch.chunk import compress as _compress
+        comp_on = _var_bool(self.ctx.vars.get("tidb_tpu_compression", "on"))
+        layouts = {}
+        if comp_on:
+            for i in used_cols:
+                vals, valid, _d = host_cols[(id(scan), i)]
+                if vals.ndim != 1:
+                    continue
+                lay, _dv = _compress.choose_layout(vals, valid,
+                                                   allow_dict=False)
+                if lay is not None and lay.width > 0:
+                    layouts[i] = lay
+        dicts = {i: host_cols[(id(scan), i)][2] for i in used_cols}
+        # rank-level zone maps: the per-rank slice is this path's
+        # dispatch unit, so stats are built per rank (slab_cap=cap) and
+        # the scan's conjuncts evaluate exactly as on the slab path. A
+        # pruned rank packs nothing, uploads nothing and runs nothing —
+        # its checkpoint is the ng=0 merge identity.
+        skip_ranks: frozenset = frozenset()
+        if comp_on and getattr(scan, "filters", None):
+            from tidb_tpu_torch.executor import zonemap
+            zmaps = {}
+            for i in used_cols:
+                vals, valid, _d = host_cols[(id(scan), i)]
+                if vals.ndim != 1:
+                    continue
+                kind = "code" if _d is not None else \
+                    ("float" if vals.dtype.kind == "f" else "num")
+                zmaps[i] = zonemap.column_stats(vals, valid, cap, total,
+                                                kind=kind)
+            shim = _RankZoneEnt(nd, zmaps, dicts)
+            skip_ranks = zonemap.prune_slabs(shim, scan)
+            if skip_ranks:
+                zonemap.note_skipped(self.ctx.phases, len(skip_ranks))
+                phys_b = logi_b = 0
+                for i in used_cols:
+                    vals, valid, _d = host_cols[(id(scan), i)]
+                    lay = layouts.get(i)
+                    if lay is not None:
+                        phys_b += _compress.packed_slab_bytes(lay, cap)
+                        logi_b += _compress.raw_slab_bytes(lay, cap)
+                    else:
+                        b = cap * vals.dtype.itemsize + cap
+                        phys_b += b
+                        logi_b += b
+                zonemap.note_h2d_skipped(self.ctx.phases,
+                                         phys_b * len(skip_ranks))
+                self.ctx.phases.add_scan(
+                    0, logical=logi_b * len(skip_ranks))
+        # per-rank host slices — the checkpoint story's source of truth:
+        # a retry or re-dispatch re-uploads ONLY its rank's slice
+        # (pruned ranks hold None: never packed, never touched)
+        rank_cols = []
+        for r in range(nd):
+            if r in skip_ranks:
+                rank_cols.append(None)
+                continue
+            lo = r * cap
+            cols = {}
+            for i in used_cols:
+                vals, valid, _d = host_cols[(id(scan), i)]
+                pv = np.zeros(cap, dtype=vals.dtype)
+                pm = np.zeros(cap, dtype=bool)
+                seg = vals[lo:lo + cap]
+                pv[:seg.shape[0]] = seg
+                segm = valid[lo:lo + cap]
+                pm[:segm.shape[0]] = segm
+                lay = layouts.get(i)
+                cols[i] = _compress.pack_slab(lay, pv, pm) \
+                    if lay is not None else (pv, pm)
+            rank_cols.append(cols)
+        rank_rows = np.clip(total - np.arange(nd) * cap, 0,
+                            cap).astype(np.int32)
+        in_types = [scan.schema.field_types[i] for i in used_cols]
+        vars_ = self.ctx.vars
+        group_cap = int(vars_.get("tidb_tpu_group_cap",
+                                  DEFAULT_GROUP_CAP))
+        cap_limit = cap * nd
+        gcap = _initial_group_cap(root, group_cap, cap_limit)
+        ladder = CapacityLadder(guard=getattr(self.ctx, "guard", None),
+                                stats=self.ctx.escalation)
+        runner = StagedDistAgg(root, chain, mesh, rank_cols, rank_rows,
+                               dicts, used_cols, in_types, cap, gcap,
+                               cap_limit, self.ctx, ladder,
+                               layouts=layouts or None,
+                               skip_ranks=skip_ranks)
+        pass_outs = runner.execute()
+        flows, _root_dicts = TF.dictionary_flows(root, {id(scan): dicts})
+        inp_dicts = {i: d for i, d in
+                     enumerate(flows.get(id(root), []))}
+        with self.ctx.phases.phase("decode"):
+            return self._merge_tree_agg_passes(root, pass_outs, inp_dicts)
+
+    def _run_dist_exchange_staged(self, root, mesh, host_cols,
+                                  scan_meta) -> Optional[Chunk]:
+        """Staged checkpointable dist exchange (dist_fragment.
+        StagedDistExchange): per-rank partition programs (K23) →
+        device→host bucket checkpoints + host routing → per-rank probe
+        programs over the rewritten (exchange→leaf) plan. Returns None
+        when the plan is ineligible."""
+        from tidb_tpu_torch.executor.dist_fragment import (
+            StagedDistExchange, staged_exchange_plan)
+        from tidb_tpu_torch.util.escalation import CapacityLadder
+        grafted = staged_exchange_plan(root)
+        if grafted is None:
+            return None
+        new_root, grafts = grafted
+        ladder = CapacityLadder(guard=getattr(self.ctx, "guard", None),
+                                stats=self.ctx.escalation)
+        runner = StagedDistExchange(root, new_root, grafts, mesh,
+                                    host_cols, scan_meta, self.ctx,
+                                    ladder)
+        outs = runner.execute()
+        if isinstance(new_root, PhysHashAgg):
+            # the exchange re-keyed on the group keys, so each group's
+            # rows landed wholly on ONE rank: the host merge never
+            # combines two partials of one group (DISTINCT states stay
+            # exact)
+            inp_dicts = {i: d for i, d in
+                         enumerate(runner.flows2.get(id(new_root), []))}
+            with self.ctx.phases.phase("decode"):
+                return self._merge_tree_agg_passes(new_root, outs,
+                                                   inp_dicts)
+        # row roots: each rank's live rows, concatenated in rank order
+        dicts_root = {i: d for i, d in enumerate(runner.root_dicts2)}
+        with self.ctx.phases.phase("decode"):
+            return Chunk([_decode_col(
+                ft, np.concatenate([o["cols"][ci][0] for o in outs]),
+                np.concatenate([o["cols"][ci][1] for o in outs]),
+                dicts_root.get(ci))
+                for ci, ft in enumerate(new_root.schema.field_types)])
+
+    def _run_device_dist(self) -> Chunk:
+        # ORDER BY / TopN over the agg: the ranks compute the agg only —
+        # the ordering stays a host concern after the rank merge
+        order_root, root = _strip_order_root(self.plan.root)
+        chunk = self._dist_exec(root)
+        if order_root is not None:
+            chunk = _host_order(chunk, order_root, root.schema)
+            chunk = _topn_slice(chunk, order_root)
+        return chunk
+
+    def _dist_exec(self, root) -> Chunk:
+        """The planner-fragmented tree over `plan.dist` ranks on the
+        engine's device type (parallel.make_mesh): the host encodes every
+        scan, unifies string join dictionaries, and one of the two staged
+        paths runs it (the MPPGather role of executor/mpp_gather.go:42
+        lives here)."""
+        import types as pytypes
+
+        from tidb_tpu_torch.executor import tree_fragment as TF
+        from tidb_tpu_torch.executor.device_cache import (_collect_parts,
+                                                          _encode_col,
+                                                          _materialize_col)
+        from tidb_tpu_torch.executor.dist_fragment import \
+            unify_string_join_dicts
+        from tidb_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(self.plan.dist, self.ctx.device)
+        host_cols: Dict[Tuple[int, int], list] = {}
+        scan_meta = []
+        ph = self.ctx.phases
+        for scan in TF._scans(root):
+            used = scan.used_columns if scan.used_columns else \
+                list(range(len(scan.schema)))
+            parts, total = _collect_parts(self.ctx, scan)
+            if total == 0:
+                raise FragmentFallback("empty input", reason="empty-input")
+            shim = pytypes.SimpleNamespace(parts=parts)
+            ftypes = scan.schema.field_types
+            with ph.phase("encode"):
+                for i in used:
+                    vals, valid = _materialize_col(shim, i)
+                    vals, dictionary = _encode_col(ftypes[i], vals, valid)
+                    host_cols[(id(scan), i)] = [vals, valid, dictionary]
+            scan_meta.append((scan, used, total))
+        # string equi-join keys: unify dictionaries BEFORE slicing so
+        # equal strings hash equal on every rank
+        unify_string_join_dicts(root, host_cols)
+        # an exchange-free agg chain runs as per-rank single-device
+        # partials with device→host checkpoints (StagedDistAgg);
+        # exchange-carrying plans (distributed joins, DISTINCT re-keys,
+        # windows) cut at the exchange instead (StagedDistExchange).
+        # Either way a shard fault re-executes ONLY the failed rank.
+        if _var_bool(self.ctx.vars.get("tidb_tpu_dist_staged", "on")):
+            staged = self._run_dist_agg_staged(root, mesh, host_cols,
+                                               scan_meta)
+            if staged is not None:
+                return staged
+        if _var_bool(self.ctx.vars.get("tidb_tpu_dist_staged_exchange",
+                                       "on")):
+            staged = self._run_dist_exchange_staged(root, mesh, host_cols,
+                                                    scan_meta)
+            if staged is not None:
+                return staged
+        # the planner marks a fragment dist only when a staged path takes
+        # it (planner/physical._staged_dist_ok): reaching here is a bug
+        raise ExecutionError(
+            "distributed fragment that neither staged path runs: the "
+            "plan-time gate admits none (the monolithic program is not "
+            "in this port)")
+
     def _merge_tree_agg_passes(self, root: PhysHashAgg, pass_outs,
                                inp_dicts) -> Chunk:
         """Host-side cross-pass group merge: concatenate each pass's live
@@ -2815,6 +3070,35 @@ class TpuFragmentExec:
                 keys_out.append((v[rep], m[rep]))
         out = {"keys": keys_out, "states": merged_states}
         return self._agg_chunk(root, out, inp_dicts, max(n_final, 1))
+
+
+def _strip_exchanges(plan: PhysicalPlan) -> PhysicalPlan:
+    """The plan without its Exchange nodes, for the CPU engine. Nodes
+    above an exchange are copied: the cached plan keeps its exchanges."""
+    import copy
+    from tidb_tpu_torch.planner.physical import PhysExchange
+    if isinstance(plan, PhysExchange):
+        return _strip_exchanges(plan.children[0])
+    kids = [_strip_exchanges(c) for c in plan.children]
+    if all(k is c for k, c in zip(kids, plan.children)):
+        return plan
+    clone = copy.copy(plan)
+    clone.children = kids
+    return clone
+
+
+class _RankZoneEnt:
+    """Duck-typed zone-map carrier for staged-dist rank pruning: the
+    per-rank slice plays the slab role, so zonemap.prune_slabs runs
+    unchanged over rank-granular stats."""
+
+    __slots__ = ("compressed", "n_slabs", "zmaps", "dicts")
+
+    def __init__(self, nd: int, zmaps: dict, dicts: dict):
+        self.compressed = True
+        self.n_slabs = nd
+        self.zmaps = zmaps
+        self.dicts = dicts
 
 
 class _GroupCapOverflow(Exception):

@@ -64,11 +64,12 @@ import torch
 
 from tidb_tpu_torch.expression import ColumnRef, EvalContext, Expression
 from tidb_tpu_torch.expression.aggfuncs import build_agg
-from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysHashJoin,
-                                             PhysLimit, PhysProjection,
-                                             PhysSelection, PhysSort,
-                                             PhysTableScan, PhysTopN,
-                                             PhysWindow, PhysicalPlan)
+from tidb_tpu_torch.planner.physical import (PhysExchange, PhysHashAgg,
+                                             PhysHashJoin, PhysLimit,
+                                             PhysProjection, PhysSelection,
+                                             PhysSort, PhysTableScan,
+                                             PhysTopN, PhysWindow,
+                                             PhysicalPlan)
 
 JOIN_KINDS = ("inner", "left", "right", "semi", "anti")
 JOIN_DOMAIN_CAP = 1 << 25      # max packed build-key domain for LUT joins
@@ -189,6 +190,91 @@ def tree_ok(plan: PhysicalPlan, threshold: int) -> bool:
         (has_join(plan) or has_window(plan)) and max_scan[0] >= threshold
 
 
+def dist_ok(plan: PhysicalPlan, threshold: int) -> bool:
+    """Eligibility for distribution over ranks: the same operator
+    allowlist as tree_ok, but joins are optional (a linear Q1 chain
+    distributes as per-rank partials + a host merge). Reducible roots
+    (agg/TopN/Sort) merge across ranks; window roots repartition on their
+    partition keys; selection/projection/join roots emit per-rank rows
+    the host concatenates. String join keys work because the dist
+    executor unifies the key dictionaries host-side before slicing, so
+    equal strings hash equal on every rank (the mpp repartition invariant
+    of cophandler/mpp_exec.go:158-173). Which of these shapes the port's
+    staged paths take is the planner's second gate
+    (planner/physical._staged_dist_ok)."""
+    if isinstance(plan, PhysExchange):
+        return False               # already fragmented
+    if isinstance(plan, (PhysTopN, PhysSort)) and plan.children:
+        from tidb_tpu_torch.executor.fragment import _identity_projection
+        below = plan.children[0]
+        while _identity_projection(below) and below.children:
+            below = below.children[0]
+        if isinstance(below, PhysHashAgg):
+            # ORDER-over-agg: _run_device_dist strips the order root
+            # before running (the ranks compute the agg; the host orders
+            # after the merge) — eligibility is the agg's
+            return dist_ok(below, threshold)
+    if isinstance(plan, PhysHashAgg):
+        if getattr(plan, "rollup", False):
+            return False    # super-aggregate levels don't rank-merge yet
+        if any(d.distinct for d in plan.aggs):
+            # DISTINCT distributes by re-keying the exchange so every
+            # group (or every distinct value, for global aggs) is wholly
+            # on one rank (the repartition trick of cophandler/
+            # mpp_exec.go); a global agg needs all distinct args equal to
+            # pick ONE key
+            if not plan.group_exprs:
+                if any(d.distinct and len(d.args) != 1
+                       for d in plan.aggs):
+                    return False    # tuple re-key has no single column
+                dargs = {repr(d.args[0]) for d in plan.aggs
+                         if d.distinct and d.args}
+                if len(dargs) != 1:
+                    return False
+    elif isinstance(plan, PhysWindow):
+        pass        # the per-window spec check below covers the root too
+    elif not isinstance(plan, (PhysTopN, PhysSort, PhysSelection,
+                               PhysProjection, PhysHashJoin)):
+        return False
+
+    # per-rank windows need every partition wholly on one rank: all specs
+    # must share ONE non-empty bare-ColumnRef partition list so a single
+    # hash exchange directly below the window co-locates them
+    # (insert_exchanges). Above the window only row-wise projections are
+    # distributable (window root, or the select list over it) — a
+    # reducing ancestor (agg/TopN/join) would need its own repartition
+    # point mid-tree
+    def _windows_ok(n, proj_chain):
+        if isinstance(n, PhysWindow):
+            if not proj_chain:
+                return False
+            parts = {repr(d.partition) for d in n.wdescs}
+            if len(parts) != 1 or not n.wdescs[0].partition:
+                return False
+            if not all(isinstance(e, ColumnRef)
+                       for e in n.wdescs[0].partition):
+                return False
+            proj_chain = False       # no second window below the first
+        elif not isinstance(n, PhysProjection):
+            proj_chain = False
+        return all(_windows_ok(c, proj_chain) for c in n.children)
+
+    if not _windows_ok(plan, True):
+        return False
+    # wide-decimal COLUMNS can't be sliced (the dist scan encoder is 1-D);
+    # wide RESULTS over narrow/computed args are fine
+    if isinstance(plan, PhysHashAgg) and any(
+            isinstance(sub, ColumnRef) and sub.ftype.is_wide_decimal
+            for d in plan.aggs for a in d.args for sub in a.walk()):
+        return False
+    if has_join(plan) or has_window(plan):
+        # windowed shapes run as tree programs (mirrors the single-device
+        # dispatch in fragment.py)
+        return tree_ok(plan, threshold)
+    from tidb_tpu_torch.executor.fragment import _fragment_ok
+    return _fragment_ok(plan, threshold)
+
+
 def _scans(plan: PhysicalPlan) -> List[PhysTableScan]:
     if isinstance(plan, PhysTableScan):
         return [plan]
@@ -291,6 +377,8 @@ def _stage_exprs(node: PhysicalPlan) -> List[Expression]:
     if isinstance(node, PhysHashJoin):
         bkeys, pkeys = join_key_exprs(node)
         return list(bkeys) + list(pkeys) + list(node.other_conditions or [])
+    if isinstance(node, PhysExchange):
+        return list(node.keys)
     return chain_stage(node)
 
 
@@ -426,7 +514,7 @@ def _trace_scan_col(node: PhysicalPlan, idx: int):
     while True:
         if isinstance(node, PhysTableScan):
             return node, idx
-        if isinstance(node, PhysSelection):
+        if isinstance(node, (PhysSelection, PhysExchange)):
             node = node.children[0]
             continue
         if isinstance(node, PhysProjection):
@@ -585,6 +673,8 @@ def tree_signature(plan: PhysicalPlan, caps: Dict[int, Tuple[int, int]],
             parts.append(f"Limit(k={node.count}, off={node.offset})")
         elif isinstance(node, PhysWindow):
             parts.append(f"Window({node.wdescs!r})")
+        elif isinstance(node, PhysExchange):
+            parts.append(f"Exch({node.kind}, keys={node.keys!r})")
     return "|".join(parts)
 
 

@@ -32,19 +32,21 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tidb_tpu_torch")
 SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups", "lut_join",
            "join_expand", "radix_sort", "sorted_groups", "window_scan",
            "window_frame", "distinct_pairs", "rollup_tile", "gather_columns",
-           "delta_merge", "civil_date", "dict_lut", "member_compact")
+           "delta_merge", "civil_date", "dict_lut", "member_compact",
+           "hash_partition")
 #: launch counters, one per kernel (lut_join.cu holds K4 and K5,
 #: join_expand.cu K6 and K7, radix_sort.cu K8 and K9, sorted_groups.cu K10
 #: and K11, window_scan.cu K12 and K13, window_frame.cu K14 and K15;
 #: distinct_pairs.cu is K16, rollup_tile.cu K17, gather_columns.cu K18,
 #: delta_merge.cu K19, civil_date.cu K20, dict_lut.cu K21,
-#: member_compact.cu K22)
+#: member_compact.cu K22, hash_partition.cu K23)
 COUNTERS = ("segment_reduce", "unpack_decode", "perfect_groups",
             "lut_build", "lut_probe", "lut_order", "join_expand",
             "radix_sort", "sort_encode", "group_ids", "sorted_search",
             "window_bounds", "window_scan", "frame_bounds", "frame_eval",
             "distinct_pairs", "rollup_tile", "gather_columns",
-            "delta_merge", "civil_date", "dict_lut", "member_compact")
+            "delta_merge", "civil_date", "dict_lut", "member_compact",
+            "hash_partition")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -103,6 +105,8 @@ _SIGNATURES = {
     "tt_dict_lut_smem_bytes": [],
     "tt_member_count": [_P, _I, _L, _P, _P, _P, _P],
     "tt_member_scatter": [_P, _I, _L, _P, _P, _P],
+    "tt_hash_partition": [_I, _P, _P, _P, _P, _L, _I, _L, _I, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()

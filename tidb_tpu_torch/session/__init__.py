@@ -539,9 +539,37 @@ class _PlanContext:
 
     @property
     def dist_devices(self) -> int:
-        """Distributed fragments are not in this port: always 0, whatever
-        tidb_tpu_dist_devices says."""
-        return 0
+        """Ranks for distributed fragments: tidb_tpu_dist_devices=N pins
+        N ranks (sharing the engine's devices round-robin: on one GPU
+        every rank runs on it); 'auto' uses every visible device of the
+        engine's type — 1 on one card or on the CPU, which means no
+        distribution (>1 ⇒ MPP-style distribution; the tidb_allow_mpp
+        analog)."""
+        v = self.session.vars.get("tidb_tpu_dist_devices", 0)
+        if str(v) == "auto":
+            if self.session.engine.device.type == "cuda":
+                import torch
+                return torch.cuda.device_count()
+            return 1
+        try:
+            return int(v)
+        except (TypeError, ValueError):
+            return 0
+
+    @property
+    def dist_staged(self) -> bool:
+        """tidb_tpu_dist_staged: the staged agg path may take a dist
+        fragment (read by the planner's distribution gate)."""
+        from tidb_tpu_torch.executor.fragment import _var_bool
+        return _var_bool(self.session.vars.get("tidb_tpu_dist_staged", "on"))
+
+    @property
+    def dist_staged_exchange(self) -> bool:
+        """tidb_tpu_dist_staged_exchange: the staged exchange path may
+        take a dist fragment (read by the planner's distribution gate)."""
+        from tidb_tpu_torch.executor.fragment import _var_bool
+        return _var_bool(self.session.vars.get(
+            "tidb_tpu_dist_staged_exchange", "on"))
 
 
 class Session:
@@ -1147,6 +1175,9 @@ class Session:
                 str(v.get("tidb_tpu_engine")),
                 int(v.get("tidb_tpu_row_threshold", 32768)),
                 str(v.get("tidb_tpu_dist_devices", 0)),
+                # the planner's distribution gate reads both staged flags
+                str(v.get("tidb_tpu_dist_staged", "on")),
+                str(v.get("tidb_tpu_dist_staged_exchange", "on")),
                 str(v.get("time_zone", "SYSTEM")),  # tz folds into plans
                 self.user)
 

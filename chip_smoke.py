@@ -183,7 +183,25 @@ which must pass:
      Counters are zeroed before the phase;
  24. K23 on X2's first exchange call's own inputs (one rank's slab,
      2,097,152 rows at SF=1), held exactly to its plain version there and
-     timed beside it and beside torch.argsort + index_copy_.
+     timed beside it and beside torch.argsort + index_copy_;
+ 25. the monolithic distributed program (DistTreeProgram: 4 ranks on the
+     card, the collectives device-side copies) under tidb_tpu_strict=1:
+     X1 with tidb_tpu_dist_staged off (gather of partials, K25 + K26),
+     X2, X2B and X3 with tidb_tpu_dist_staged_exchange off (hash
+     exchanges through K24, a broadcast through K25), X4 = a TopN over a
+     join's rows and X5 = bench.py's Q5 (lineitem ⋈ orders ⋈ customer by
+     c_mktsegment: an Exchange over a join) with both off. Each equals
+     the host engine exactly (phase 23's host rows for X1-X3 and X2B),
+     EXPLAIN shows shards:4 and the expected Exchange kinds, the expected
+     kernels' counters move; wall, PhaseTimer phases, h2d/d2h bytes and
+     escalation counts are logged. Counters are zeroed before the phase;
+ 26. K24 at X2's first monolithic exchange, K25 at X2B's broadcast and
+     K26 at X1's and X3's gathered partials, on the inputs those calls
+     had, each held exactly to its plain version there and timed beside
+     it and beside a yardstick the port never calls (argsort +
+     index_copy_; torch.cat; the plain torch hash); K24 with its K26
+     routing pass also beside K23 + torch.cat of the bucket slices, and
+     K25's call profiled once (host time against the card's).
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
 join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
@@ -208,7 +226,11 @@ member_compact against its plain version exactly (B = 1, 3, 16; cap =
 1, 1,000, 8,388,608; no, all and random live rows); and K23
 hash_partition against its plain version exactly (1, 4, 64
 destinations; n = 1, 1,025, 2,097,152; int64, int32 + bool and float
-keys; an overflowing cap). Phase 4's TopN scan must launch K8-K10.
+keys; an overflowing cap); and K24 rank_exchange, K25 rank_gather and
+K26 hash_dest against theirs exactly (n = 1, 1,025, 2,097,152 rows over
+1, 4, 64 ranks; K26 over keys and an int64 code; K24 routed by K26's
+destinations and by destinations outside the ranks, its need shared by
+every source; mixed itemsizes, dead rows, an overflowing cap). Phase 4's TopN scan must launch K8-K10.
 
 It prints one JSON `kernels` line and then, last, the JSON device line. It
 exits non-zero, printing neither, when no CUDA device is available, when
@@ -3926,7 +3948,7 @@ X2 = """SELECT o_orderpriority, COUNT(*),
 X3 = ("SELECT l_returnflag, COUNT(DISTINCT l_orderkey) FROM lineitem "
       "GROUP BY l_returnflag")
 DIST_STMTS = {"X1": Q1, "X2": X2, "X2B": Q3, "X3": X3}
-DIST_RUNS = ("X1", "X1", "X2", "X2B", "X3")
+DIST_RUNS = ("X1", "X2", "X2B", "X3")
 
 
 def dist_sql_phase(s):
@@ -3937,7 +3959,7 @@ def dist_sql_phase(s):
     the joins and the DISTINCT, the Exchange (its kind logged), K23 moves
     on X2 and X3. Every dist statement encodes its columns on the host
     (the reference's _dist_exec), so every run is cold. → (launches of
-    the phase, walls, X2's first K23 call's inputs)."""
+    the phase, walls, X2's first K23 call's inputs, the host rows)."""
     from tidb_tpu_torch.ops import cuda_kernels as ck
     from tidb_tpu_torch.ops import partition as P
     host, walls = {}, {}
@@ -3972,7 +3994,7 @@ def dist_sql_phase(s):
         P.hash_partition = spy
         t_phase = time.perf_counter()
         ck.reset_launches()
-        for i, name in enumerate(DIST_RUNS):
+        for name in DIST_RUNS:
             capture["armed"] = name == "X2"
             before = ck.launches()
             rows, wall, phases, esc = run_sql(s, DIST_STMTS[name],
@@ -3991,9 +4013,8 @@ def dist_sql_phase(s):
                                      f" pruned ranks for {DIST_RANKS} ranks")
             if name in ("X2", "X3") and not moved.get("hash_partition"):
                 raise AssertionError(f"{name}: K23 did not move ({moved})")
-            run = f"{name}_run{i}" if name == "X1" else name
-            walls[run] = wall
-            log(f"{run}: {len(rows)} rows, exact match, wall {wall:.4f} s, "
+            walls[name] = wall
+            log(f"{name}: {len(rows)} rows, exact match, wall {wall:.4f} s, "
                 f"encode {phases['encode_s']} s, upload "
                 f"{phases['upload_s']} s, compute {phases['compute_s']} s, "
                 f"fetch {phases['fetch_s']} s, decode {phases['decode_s']} "
@@ -4013,7 +4034,7 @@ def dist_sql_phase(s):
     log(f"dist phase: {walls['dist_phase']:.1f} s after the host runs "
         f"({time.perf_counter() - t0:.1f} s in all); launches "
         f"{ {k: v for k, v in launches.items() if v} }")
-    return launches, walls, capture
+    return launches, walls, capture, host
 
 
 def hash_partition_timing_phase(dev, x2):
@@ -4078,6 +4099,439 @@ def hash_partition_timing_phase(dev, x2):
              "replaces": "tidb_tpu/executor/device_emit.py:516",
              "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
              "bound_ms": b, "bound_by": by, "library_ms": l_ms}]
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (K24-K26) and phases 25-26: the monolithic distributed program
+# ---------------------------------------------------------------------------
+
+
+def check_rank_kernels(dev):
+    """K24 rank_exchange, K25 rank_gather and K26 hash_dest against their
+    plain versions on the card, exactly: n = 1, 1,025 and 2,097,152 rows
+    spread over 1, 4 and 64 ranks (the last rank shorter); K26 over an
+    int64, an int32 + bool and a float key (NaN and ±inf) with NULLs,
+    and over an int64 code; K24 routed by K26's destinations (the code
+    one for the int64 key; for the int32 + bool key with a tenth of the
+    rows sent outside the ranks, which are dead), with dead rows,
+    payload columns of 1, 2, 4 and 8 bytes, a roomy and an overflowing
+    cap, and its need shared by every source's call; K25 over pieces of
+    1, 2, 4 and 8 bytes (unaligned ones too) and a limb plane."""
+    import torch
+    from tidb_tpu_torch.ops import partition as P
+    from tidb_tpu_torch.ops.rank_gather import (rank_gather,
+                                                rank_gather_plain)
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def key(kind, n):
+        if kind == "float":
+            v = torch.randn(n, device=dev, generator=g,
+                            dtype=torch.float64) * 1e6
+            v[:min(n, 3)] = torch.tensor([float("nan"), float("inf"),
+                                          -float("inf")],
+                                         device=dev)[:min(n, 3)]
+        elif kind == "bool":
+            v = torch.rand(n, device=dev, generator=g) < 0.5
+        elif kind == "int32":
+            v = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), device=dev,
+                              generator=g, dtype=torch.int32)
+        else:
+            v = torch.randint(-(1 << 62), 1 << 62, (n,), device=dev,
+                              generator=g)
+        return v, torch.rand(n, device=dev, generator=g) < 0.9
+
+    def payload(n):
+        return [torch.randint(0, 1 << 40, (n,), device=dev, generator=g),
+                torch.rand(n, device=dev, generator=g) < 0.5,
+                torch.randint(0, 1000, (n,), device=dev, generator=g,
+                              dtype=torch.int32),
+                torch.randint(0, 1000, (n,), device=dev, generator=g,
+                              dtype=torch.int16)]
+
+    def same(xs, ys, what):
+        for x, y in zip(xs, ys):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"{what} differs from its plain "
+                                     f"version")
+
+    for n in (1, 1025, 2_097_152):
+        for nd in (1, 4, 64):
+            per = -(-n // nd)
+            sizes = [max(min(per, n - r * per), 0) for r in range(nd)]
+            roomy = 2 * -(-per // nd) + 16
+            for kinds, cap in ((("int64",), roomy),
+                               (("int32", "bool"), roomy),
+                               (("float",), max(per // (4 * nd), 1))):
+                keys = [[key(k, m) for k in kinds] for m in sizes]
+                live = [torch.rand(m, device=dev, generator=g) < 0.8
+                        for m in sizes]
+                arrays = [payload(m) for m in sizes]
+                dest = [P.hash_dest(k, nd) for k in keys]
+                same(dest, [P.hash_dest_plain(k, nd) for k in keys],
+                     f"K26 at n={n}, shards={nd}, keys {kinds}")
+                if kinds == ("int64",):
+                    codes = [k[0][0] for k in keys]
+                    dest = [P.hash_dest(None, nd, code=c) for c in codes]
+                    same(dest, [P.hash_dest_plain(None, nd, code=c)
+                                for c in codes],
+                         f"K26 at n={n}, shards={nd}, an int64 code")
+                elif kinds == ("int32", "bool"):
+                    dest = [torch.where(
+                        torch.rand(m, device=dev, generator=g) < 0.1,
+                        torch.full_like(d, nd) if r % 2 else
+                        torch.full_like(d, -1), d)
+                        for r, (d, m) in enumerate(zip(dest, sizes))]
+                got = P.rank_exchange(arrays, dest, live, nd, cap)
+                want = P.rank_exchange_plain(arrays, dest, live, nd, cap)
+                what = f"K24 at n={n}, ranks={nd}, keys {kinds}, cap {cap}"
+                for d in range(nd):
+                    same(got[0][d] + [got[1][d]], want[0][d] + [want[1][d]],
+                         what)
+                same([got[2]], [want[2]], what)
+            cols = [[a[j] for a in arrays] for j in range(4)]
+            cols.append([torch.randint(0, 1 << 30, (3, m + 1), device=dev,
+                                       generator=g) for m in sizes])
+            cols.append([a[2][:max(m - 1, 0)].to(torch.uint8)
+                         for a, m in zip(arrays, sizes)])
+            same(rank_gather(cols), rank_gather_plain(cols),
+                 f"K25 at n={n}, ranks={nd}")
+    torch.cuda.synchronize()
+    log("K24 rank_exchange, K25 rank_gather, K26 hash_dest: exactly equal "
+        "to their plain versions at n in {1, 1025, 2097152} over {1, 4, 64} "
+        "ranks; K26 over {int64, int32+bool, float (NaN, inf)} keys and an "
+        "int64 code; K24 routed by K26's destinations and by destinations "
+        "outside the ranks, with an overflowing cap")
+
+
+# X4: a TopN directly over a join's rows (a broadcast of the filtered
+# orders); X5 is bench.py's Q5 text, whose planner broadcasts the
+# customer ⋈ orders join: an Exchange over a join
+X4 = ("SELECT l_orderkey, l_extendedprice, o_orderpriority FROM lineitem "
+      "JOIN orders ON l_orderkey = o_orderkey "
+      "WHERE o_orderdate < '1995-03-15' "
+      "ORDER BY l_extendedprice DESC, l_orderkey LIMIT 10")
+_NO_AGG = {"tidb_tpu_dist_staged": "off"}
+_NO_EXCH = {"tidb_tpu_dist_staged_exchange": "off"}
+_NO_STAGED = {**_NO_AGG, **_NO_EXCH}
+# name, text, flags, exchange kinds EXPLAIN must show, kernels that must
+# move, whether the rows keep their order
+MONO_RUNS = (
+    ("X1", Q1, _NO_AGG, [], ("rank_gather", "hash_dest"), False),
+    ("X2", X2, _NO_EXCH, ["hash"], ("rank_exchange", "rank_gather",
+                                    "hash_dest"), False),
+    ("X2B", Q3, _NO_EXCH, ["broadcast"], ("rank_gather", "hash_dest"),
+     False),
+    ("X3", X3, _NO_EXCH, ["hash"], ("rank_exchange", "rank_gather",
+                                    "hash_dest"), False),
+    ("X4", X4, _NO_STAGED, ["broadcast"], ("rank_gather",), True),
+    ("X5", Q5, _NO_STAGED, ["broadcast"], ("rank_gather", "hash_dest"),
+     True),
+)
+MONO_KERNELS = ("rank_exchange", "rank_gather", "hash_dest")
+
+
+def _exchange_over_join(explain_rows) -> bool:
+    """Does some Exchange of an EXPLAIN have a join for its child?"""
+    names = [str(r[0]) for r in explain_rows]
+    return any("Exchange" in a and "HashJoin" in b
+               for a, b in zip(names, names[1:]))
+
+
+def mono_sql_phase(s, host):
+    """X1-X5 through the monolithic program: 4 ranks on the card,
+    tidb_tpu_strict = 1, the staged flags as MONO_RUNS sets them. Phase
+    23's host rows serve X1-X3 and X2B (phase 23 writes nothing); X4 and
+    X5 get one host run each. → (launches of the phase, walls, the
+    inputs of K24's first call on X2 with the keys K26 routed it by,
+    K25's first call on X2B and K26's first call on X1 and last on X3)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import partition as P
+    from tidb_tpu_torch.ops import rank_gather as RG
+    from tidb_tpu_torch.parallel import collective as C
+    walls = {}
+    host = dict(host)
+    for name, sql, _flags, _kinds, _ks, ordered in MONO_RUNS:
+        if name not in host:
+            rows, wall, _, _ = run_sql(s, sql, device=False)
+            host[name] = rows if ordered else sorted(rows, key=str)
+            walls[f"host_{name}"] = wall
+            log(f"host {name}: {len(rows)} rows in {wall:.3f} s")
+    capture = {}
+    real = {"ex": C.exchange, "rg": RG.rank_gather, "hd": P.hash_dest}
+
+    def spy_ex(arrays, dest, live, n_shards, bucket_cap):
+        if capture.get("run") == "X2" and "ex" not in capture:
+            # the keys of the last n_shards K26 calls routed this exchange
+            capture["ex"] = ([list(a) for a in arrays], list(dest),
+                             list(live), n_shards, bucket_cap,
+                             capture.pop("x2_keys", [])[-n_shards:])
+        return real["ex"](arrays, dest, live, n_shards, bucket_cap)
+
+    def spy_rg(columns):
+        if capture.get("run") == "X2B" and "rg" not in capture:
+            capture["rg"] = [list(c) for c in columns]
+        return real["rg"](columns)
+
+    def spy_hd(keys, n_shards, **kw):
+        run = capture.get("run")
+        if run == "X1" and "hd" not in capture:
+            capture["hd"] = (keys, n_shards, kw)
+        elif run == "X2" and "ex" not in capture:
+            capture.setdefault("x2_keys", []).append(keys)
+        elif run == "X3":
+            # the last call of X3 is the owner hash of its partials
+            capture["hd3"] = (keys, n_shards, kw)
+        return real["hd"](keys, n_shards, **kw)
+
+    s.vars["tidb_tpu_dist_devices"] = DIST_RANKS
+    C.exchange, RG.rank_gather, P.hash_dest = spy_ex, spy_rg, spy_hd
+    try:
+        t_phase = time.perf_counter()
+        ck.reset_launches()
+        for name, sql, flags, kinds, kernels, ordered in MONO_RUNS:
+            s.vars.update(flags)
+            try:
+                s.vars["tidb_tpu_engine"] = "on"
+                ex_rows = s.query("EXPLAIN " + sql).rows
+                explain = "\n".join(str(r[0]) + " " + str(r[2])
+                                    for r in ex_rows)
+                got_kinds = sorted({k for k in ("hash", "broadcast")
+                                    if f"Exchange[{k}]" in explain})
+                if "shards:4" not in explain or got_kinds != kinds:
+                    raise AssertionError(f"{name}: not distributed as "
+                                         f"expected\n{explain}")
+                if name == "X5" and not _exchange_over_join(ex_rows):
+                    raise AssertionError(f"X5: no Exchange over a join\n"
+                                         f"{explain}")
+                capture["run"] = name
+                before = ck.launches()
+                rows, wall, phases, esc = run_sql(s, sql, device=True)
+                after = ck.launches()
+            finally:
+                capture["run"] = None
+                for k in flags:
+                    s.vars.pop(k, None)
+            moved = {c: after[c] - before[c] for c in after
+                     if after[c] != before[c]}
+            if (rows if ordered else sorted(rows, key=str)) != host[name]:
+                raise AssertionError(f"{name}: device rows != host rows\n"
+                                     f"{rows[:3]}\n{host[name][:3]}")
+            missing = [k for k in kernels if not moved.get(k)]
+            if missing:
+                raise AssertionError(f"{name}: {missing} did not move "
+                                     f"({moved})")
+            walls[f"mono_{name}"] = wall
+            log(f"mono {name}: {len(rows)} rows, exact match, exchanges "
+                f"{kinds or 'none'}, wall {wall:.4f} s, encode "
+                f"{phases['encode_s']} s, upload {phases['upload_s']} s, "
+                f"compute {phases['compute_s']} s, fetch "
+                f"{phases['fetch_s']} s, decode {phases['decode_s']} s, h2d "
+                f"{phases['h2d_bytes']} bytes, d2h {phases['d2h_bytes']} "
+                f"bytes, programs {phases['programs_launched']}, "
+                f"escalation {esc}, K24 {moved.get('rank_exchange', 0)}, "
+                f"K25 {moved.get('rank_gather', 0)}, K26 "
+                f"{moved.get('hash_dest', 0)}, launches {moved}")
+        launches = ck.launches()
+        walls["mono_phase"] = time.perf_counter() - t_phase
+    finally:
+        C.exchange, RG.rank_gather, P.hash_dest = (real["ex"], real["rg"],
+                                                   real["hd"])
+        s.vars.pop("tidb_tpu_dist_devices", None)
+    for k in MONO_KERNELS:
+        if not launches[k]:
+            raise AssertionError(f"kernel {k} was never launched by the "
+                                 f"monolithic path")
+    for k in ("ex", "rg", "hd", "hd3"):
+        if k not in capture:
+            raise AssertionError(f"phase 25 captured no {k} call")
+    log(f"monolithic phase: {walls['mono_phase']:.1f} s after the host "
+        f"runs; launches { {k: v for k, v in launches.items() if v} }")
+    return launches, walls, capture
+
+
+def rank_timing_phase(dev, capture):
+    """K24 at X2's first monolithic exchange, K25 at X2B's broadcast and
+    K26 at X1's and X3's gathered partials, on the inputs those calls
+    had: each held exactly to its plain version there, timed beside it
+    and beside a yardstick the port never calls (K24: a stable argsort
+    and one index_copy_ per column per source into the receive buffers;
+    K25: torch.cat; K26: the plain torch hash), with a byte bound that
+    reads every input once and writes every output once (K24's
+    n_shards² · bucket_cap slots of each column included). K24 is also
+    timed with its K26 routing pass beside K23 + torch.cat of the bucket
+    slices, which hashes in its own pass; K25's call is profiled once
+    to split its time between the host and the card."""
+    import torch
+    from tidb_tpu_torch.ops import partition as P
+    from tidb_tpu_torch.ops import rank_gather as RG
+    from tidb_tpu_torch.parallel import collective as C
+    out = []
+    # ---- K24
+    arrays, dest, live, nd, cap, keys = capture["ex"]
+    if len(keys) != nd or not all(
+            torch.equal(P.hash_dest_plain(k, nd), d)
+            for k, d in zip(keys, dest)):
+        raise AssertionError("X2's exchange keys were not captured")
+    got = P.rank_exchange(arrays, dest, live, nd, cap)
+    want = P.rank_exchange_plain(arrays, dest, live, nd, cap)
+    for d in range(nd):
+        for x, y in zip(got[0][d] + [got[1][d]], want[0][d] + [want[1][d]]):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError("K24 at X2's exchange differs from its "
+                                     "plain version")
+    need = int(got[2])
+    if need != int(want[2]):
+        raise AssertionError("K24's need differs from its plain version")
+    del got, want
+    iotas = [torch.arange(lv.shape[0], dtype=torch.int64, device=dev)
+             for lv in live]
+
+    def library():
+        recv = [torch.zeros(nd * nd * cap, dtype=a.dtype, device=dev)
+                for a in arrays[0]]
+        recv_live = torch.zeros(nd * nd * cap, dtype=torch.bool,
+                                device=dev)
+        for s_ in range(nd):
+            d = dest[s_].long()
+            d = torch.where(live[s_] & (d >= 0) & (d < nd), d,
+                            torch.full_like(d, nd))
+            order = torch.argsort(d, stable=True)
+            per = torch.bincount(d, minlength=nd + 1)
+            sd = d[order]
+            rank = iotas[s_] - (torch.cumsum(per, 0) - per)[sd]
+            keep = (sd < nd) & (rank < cap)
+            slot = (sd * (nd * cap) + s_ * cap + rank)[keep]
+            src = order[keep]
+            recv_live[slot] = True
+            for r, a in zip(recv, arrays[s_]):
+                r.index_copy_(0, slot, a[src])
+
+    def k23_cat():
+        sent = [P.hash_partition(keys[s_], live[s_], arrays[s_], nd, cap)
+                for s_ in range(nd)]
+        for d in range(nd):
+            for j in range(len(arrays[0])):
+                torch.cat([b[0][j].view(nd, cap)[d] for b in sent])
+            torch.cat([b[1].view(nd, cap)[d] for b in sent])
+
+    k_ms = time_cuda(lambda: P.rank_exchange(arrays, dest, live, nd, cap),
+                     reps=10)
+    r_ms = time_cuda(lambda: P.rank_exchange(
+        arrays, [P.hash_dest(k, nd) for k in keys], live, nd, cap), reps=10)
+    p_ms = time_cuda(lambda: P.rank_exchange_plain(arrays, dest, live, nd,
+                                                   cap), reps=5)
+    l_ms = time_cuda(library, reps=5)
+    c_ms = time_cuda(k23_cat, reps=10)
+    n_rows = sum(lv.shape[0] for lv in live)
+    read = sum(d.nbytes for d in dest) + sum(lv.nbytes for lv in live) + \
+        sum(a.nbytes for arr in arrays for a in arr)
+    written = nd * nd * cap * (sum(a.element_size() for a in arrays[0]) + 1)
+    # a row's rank: its histogram, the scan and the in-block rank
+    b, by = bound_ms(read + written, 16 * n_rows)
+    log(f"K24 at X2's first monolithic exchange ({nd} sources of "
+        f"{[lv.shape[0] for lv in live]} rows, {len(arrays[0])} payload "
+        f"columns {[str(a.dtype) for a in arrays[0]]}, bucket_cap {cap}, "
+        f"need {need}, live {sum(int(lv.sum()) for lv in live)}): "
+        f"{k_ms:.4f} ms (plain {p_ms:.4f}, argsort + index_copy_ "
+        f"{l_ms:.4f}, bound {b:.4f} by {by}: {read} bytes read, {written} "
+        f"written); with its K26 routing over {len(keys[0])} key(s) "
+        f"{r_ms:.4f} ms, K23 + torch.cat {c_ms:.4f} ms")
+    out.append({"name": "rank_exchange", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/hash_partition.cu",
+                "replaces": "tidb_tpu/parallel/collective.py:46",
+                "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b, "bound_by": by, "library_ms": l_ms})
+    del arrays, dest, live, keys, iotas, capture["ex"]
+    torch.cuda.empty_cache()
+    # ---- K25
+    cols = capture["rg"]
+    got = RG.rank_gather(cols)
+    want = RG.rank_gather_plain(cols)
+    for x, y in zip(got, want):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError("K25 at X2B's broadcast differs from its "
+                                 "plain version")
+    del got, want
+    k_ms = time_cuda(lambda: RG.rank_gather(cols), reps=20)
+    p_ms = time_cuda(lambda: RG.rank_gather_plain(cols), reps=20)
+    l_ms = time_cuda(lambda: [torch.cat(c, dim=-1) for c in cols], reps=20)
+    nbytes = sum(p.nbytes for c in cols for p in c)
+    b, by = bound_ms(2 * nbytes, 0)
+    log(f"K25 at X2B's broadcast ({len(cols)} columns x {len(cols[0])} "
+        f"ranks, {[p.shape[-1] for p in cols[0]]} rows a rank, "
+        f"{[str(c[0].dtype) for c in cols]}): {k_ms:.4f} ms (plain "
+        f"{p_ms:.4f}, torch.cat {l_ms:.4f}, bound {b:.4f} by {by}: "
+        f"{nbytes} bytes read and written)")
+    out.append({"name": "rank_gather", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/rank_gather.cu",
+                "replaces": "tidb_tpu/parallel/collective.py:151",
+                "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b, "bound_by": by, "library_ms": l_ms})
+    profile_rank_gather(cols)
+    del cols, capture["rg"]
+    # ---- K26 (the kernels line keeps the last: X1's)
+    for run, tag in (("X3", "hd3"), ("X1", "hd")):
+        keys, nd, kw = capture.pop(tag)
+        got = P.hash_dest(keys, nd, **kw)
+        want = P.hash_dest_plain(keys, nd, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K26 at {run}'s partials differs from "
+                                 f"its plain version")
+        n = got.shape[0]
+        k_ms = time_cuda(lambda: P.hash_dest(keys, nd, **kw), reps=20)
+        p_ms = time_cuda(lambda: P.hash_dest_plain(keys, nd, **kw), reps=20)
+        l_ms = time_cuda(lambda: C.shard_of(C.mix_key_code(keys), nd),
+                         reps=20)
+        read = sum(v.nbytes + m.nbytes for v, m in keys)
+        b, by = bound_ms(read + 4 * n, 40 * n * len(keys))
+        log(f"K26 at {run}'s gathered partials (n = {n} slots, {len(keys)} "
+            f"keys {[str(v.dtype) for v, _ in keys]}, {nd} shards): "
+            f"{k_ms:.4f} ms (plain {p_ms:.4f}, shard_of(mix_key_code) "
+            f"{l_ms:.4f}, bound {b:.4f} by {by})")
+    out.append({"name": "hash_dest", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/hash_partition.cu",
+                "replaces": "tidb_tpu/executor/dist_fragment.py:245",
+                "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b, "bound_by": by, "library_ms": l_ms})
+    return out
+
+
+def profile_rank_gather(cols):
+    """One look at where K25's time goes at X2B's broadcast: the host
+    time of a call (the wrapper's pointer tables, its checks and the
+    launch, with the card not waited for) and the card's time in the
+    kernel, from torch.profiler (CUDA events around the kernel alone
+    where the profiler sees no device time)."""
+    import torch
+    from tidb_tpu_torch.ops import rank_gather as RG
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        RG.rank_gather(cols)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    kernel_ms = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                RG.rank_gather(cols)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0))
+            if "rg_copy" in e.key and t:
+                kernel_ms = t / 1e3 / 5
+        how = "torch.profiler"
+    except Exception as e:              # the profiler is a measurement aid
+        how = f"no profile ({type(e).__name__}: {e})"
+    log(f"K25 profile at X2B's broadcast: host time of a call "
+        f"{host_ms:.4f} ms (wrapper and launch, not waiting for the "
+        f"card), the card's time in rg_copy "
+        f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f} ms'}"
+        f" ({how})")
 
 
 # ---------------------------------------------------------------------------
@@ -4162,6 +4616,7 @@ def main() -> int:
     check_dict_lut_kernels(dev)
     check_member_compact_kernels(dev)
     check_hash_partition_kernels(dev)
+    check_rank_kernels(dev)
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -4224,13 +4679,20 @@ def main() -> int:
         k["launches"] = mb_launches[k["name"]]
     kernels += mb_kernels
     walls.update(mb_walls)
-    dist_launches, dist_walls, x2_part = dist_sql_phase(s)
+    dist_launches, dist_walls, x2_part, dist_host = dist_sql_phase(s)
     part_kernels = hash_partition_timing_phase(dev, x2_part)
     del x2_part
     for k in part_kernels:
         k["launches"] = dist_launches[k["name"]]
     kernels += part_kernels
     walls.update(dist_walls)
+    mono_launches, mono_walls, mono_capture = mono_sql_phase(s, dist_host)
+    rank_kernels = rank_timing_phase(dev, mono_capture)
+    del mono_capture
+    for k in rank_kernels:
+        k["launches"] = mono_launches[k["name"]]
+    kernels += rank_kernels
+    walls.update(mono_walls)
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))
@@ -4247,6 +4709,8 @@ def main() -> int:
         json.dumps(string_launches))
     log("micro-batch launches of K22 and K18: " + json.dumps(mb_launches))
     log("dist-phase launches of every kernel: " + json.dumps(dist_launches))
+    log("monolithic-phase launches of every kernel: " +
+        json.dumps(mono_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ K20 civil_date and K21 dict_lut (both modes, every table width, codes
 out of range, tables in and above shared memory) against theirs; K22
 member_compact (B = 1, 3, 16; empty, full and random masks) against its
 plain version; K23 hash_partition (1-64 destinations, the tile edge, an
-overflowing cap, two key passes, three scatter launches) against its.
+overflowing cap, two key passes, three scatter launches) against its;
+K24 rank_exchange, K25 rank_gather and K26 hash_dest (1-64 ranks, the
+key, code and dest modes, unaligned pieces, limb columns) against
+theirs.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -431,3 +434,108 @@ def test_k23_matches_plain(cuda, n_shards):
         for g, w in zip(got[1:], want[1:]):
             assert g.dtype == w.dtype and torch.equal(g.cpu(), w), \
                 (n, kinds, n_shards)
+
+
+def _ranks_of(rng, nd, n, kinds, n_cols):
+    """nd sources of n rows each (the last one shorter), K23's cases."""
+    out = []
+    for s in range(nd):
+        m = n if s < nd - 1 else max(n - 7, 0)
+        out.append(_k23_case(rng, m, kinds, n_cols))
+    return out
+
+
+def _cuda_lists(srcs, cuda):
+    keys = [[(v.to(cuda), m.to(cuda)) for v, m in k] for k, _l, _a in srcs]
+    live = [lv.to(cuda) for _k, lv, _a in srcs]
+    arrays = [[a.to(cuda) for a in arr] for _k, _l, arr in srcs]
+    return keys, live, arrays
+
+
+@pytest.mark.parametrize("n_shards", [1, 4, 64])
+def test_k24_matches_plain(cuda, n_shards):
+    """K24 rank_exchange: every rank's receive buffers, receive-live mask
+    and the need shared by every source exactly equal to the plain
+    version, across the tile edge, with an overflowing cap and 40
+    payload columns (several scatter launches at 64 ranks), routed by
+    K26 over the keys (17-18 key columns: two passes) or over an int64
+    code, and by destinations given as they are, some outside the
+    ranks (dead rows)."""
+    from tidb_tpu_torch.ops import partition as P
+    rng = np.random.default_rng(24 + n_shards)
+    cases = [(1, ("int64",), 2, 8), (1025, ("int32", "bool"), 5, 2048),
+             (50_000, ("float",), 4, 64),                  # overflow
+             (20_000, ("int64",) * 17 + ("bool",), 40, 20_000)]
+    if n_shards <= 4:
+        cases.append((1 << 19, ("int64",), 4, 1 << 19))
+    for n, kinds, n_cols, cap in cases:
+        srcs = _ranks_of(rng, n_shards, n, kinds, n_cols)
+        keys, live, arrays = _cuda_lists(srcs, cuda)
+        modes = {"keys": [P.hash_dest(k, n_shards) for k in keys],
+                 "given": [torch.from_numpy(rng.integers(
+                     -1, n_shards + 1, lv.shape[0]).astype(np.int32))
+                     .to(cuda) for lv in live]}
+        if len(kinds) == 1 and kinds[0] == "int64":
+            modes["code"] = [P.hash_dest(None, n_shards, code=k[0][0])
+                             for k in keys]
+        for mode, dest in modes.items():
+            got = P.rank_exchange(arrays, dest, live, n_shards, cap)
+            want = P.rank_exchange_plain(
+                [[a.cpu() for a in arr] for arr in arrays],
+                [d.cpu() for d in dest], [x.cpu() for x in live],
+                n_shards, cap)
+            for d in range(n_shards):
+                for g, w in zip(got[0][d], want[0][d]):
+                    assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+                assert torch.equal(got[1][d].cpu(), want[1][d])
+            assert int(got[2]) == int(want[2]), (n, kinds, mode)
+
+
+@pytest.mark.parametrize("n_ranks", [1, 4, 64])
+def test_k25_matches_plain(cuda, n_ranks):
+    """K25 rank_gather: every gathered column exactly equal to
+    torch.cat of the pieces, over 1-, 2-, 4- and 8-byte items, odd
+    lengths (unaligned pieces), an empty piece, a 2-D limb column and
+    more pieces than one launch takes."""
+    from tidb_tpu_torch.ops.rank_gather import rank_gather, \
+        rank_gather_plain
+    g = torch.Generator().manual_seed(25 + n_ranks)
+    for n in (0, 1, 1025, 1 << 19):
+        if n_ranks == 64 and n > 1025:
+            continue
+        cols = []
+        for dt in (torch.bool, torch.int16, torch.int32, torch.int64,
+                   torch.float64, torch.uint8):
+            pieces = []
+            for r in range(n_ranks):
+                m = n + (r % 3)
+                pieces.append(torch.randint(0, 100, (m,), generator=g)
+                              .to(dt))
+            cols.append(pieces)
+        cols.append([torch.randint(0, 1 << 30, (3, n + r), generator=g)
+                     for r in range(n_ranks)])
+        got = rank_gather([[p.to(cuda) for p in ps] for ps in cols])
+        want = rank_gather_plain(cols)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y), n
+
+
+@pytest.mark.parametrize("n_shards", [1, 4, 64, 1000])
+def test_k26_matches_plain(cuda, n_shards):
+    """K26 hash_dest: the owner of every row exactly equal to
+    shard_of(mix_key_code(keys)), over K23's key kinds, 17-18 key
+    columns (two passes) and the code mode."""
+    from tidb_tpu_torch.ops import partition as P
+    rng = np.random.default_rng(26 + n_shards)
+    for n, kinds in ((0, ("int64",)), (1025, ("int32", "bool")),
+                     (70_000, ("float",)), (1 << 20, ("int64", "int32")),
+                     (5000, ("int64",) * 17 + ("bool",))):
+        keys, _live, _arr = _k23_case(rng, n, kinds, 0)
+        got = P.hash_dest([(v.to(cuda), m.to(cuda)) for v, m in keys],
+                          n_shards)
+        want = P.hash_dest_plain(keys, n_shards)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+        code = keys[0][0].to(torch.int64)
+        assert torch.equal(P.hash_dest(None, n_shards,
+                                       code=code.to(cuda)).cpu(),
+                           P.hash_dest_plain(None, n_shards, code=code))

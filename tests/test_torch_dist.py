@@ -1,5 +1,6 @@
 """Distributed fragments on the port (tidb_tpu_torch/executor/
-dist_fragment.py, the staged paths) against the JAX package's, with
+dist_fragment.py: the staged paths, and the monolithic program for
+what they do not take) against the JAX package's, with
 `tidb_tpu_dist_devices = 4` on both sides: the JAX package runs 4 of its
 8 virtual XLA CPU devices, the port 4 ranks on `cpu`.
 
@@ -17,10 +18,12 @@ Also pinned: EXPLAIN shows the Exchange and `shards:4`; a skewed
 exchange resizes once, at the exact need of the one skewed rank, with
 the reference's escalation counts; the per-rank failpoint ladder (one
 `shard-step` fault heals, a persistent one degrades the mesh with one
-warning, a rank dead everywhere is one typed ShardFailure); and the
-plan-time gate: a TopN over a join, an exchange over a join, and
-fragments under the staged flags off, stay single-device with the same
-rows."""
+warning, a rank dead everywhere is one typed ShardFailure); the shapes
+no staged path takes (a TopN over a join, an exchange over a join) and
+fragments under the staged flags off are distributed too, through the
+monolithic program, with the JAX package's rows; and the two plan-time
+refusals (a wide-decimal scan column, a ci-collated string join key)
+keep a fragment single-device with the same rows."""
 
 import numpy as np
 import pytest
@@ -45,6 +48,9 @@ DDL = [
     "PARTITION p2 VALUES LESS THAN (MAXVALUE))",
     "CREATE TABLE xsk (k BIGINT, v BIGINT)",
     "CREATE TABLE xd (id BIGINT, w BIGINT)",
+    "CREATE TABLE wdec (k BIGINT, w DECIMAL(30,2))",
+    "CREATE TABLE cia (k VARCHAR(8) COLLATE utf8mb4_general_ci, v BIGINT)",
+    "CREATE TABLE cib (k VARCHAR(8) COLLATE utf8mb4_general_ci, w BIGINT)",
 ]
 
 
@@ -77,9 +83,17 @@ def _tables():
     i = np.arange(4000)
     xsk = {"k": np.where(i < 1000, 7, i % 89), "v": i % 13}
     xd = {"id": np.arange(3000), "w": np.arange(3000) ** 2}
+    wdec = {"k": rng.integers(0, 9, 2000),
+            "w": rng.integers(0, 10 ** 6, 2000)}
+    words = np.array(["ab", "AB", "cd", "Ef", "ef"], dtype=object)
+    cia = {"k": words[rng.integers(0, 5, 1500)],
+           "v": rng.integers(0, 100, 1500)}
+    cib = {"k": np.array(["ab", "cd", "ef"], dtype=object),
+           "w": np.arange(3)}
     return {"orders": (orders, None), "li": (li, li_valid),
             "dup_orders": (dup, None), "segs": (segtab, None),
-            "pt": (pt, None), "xsk": (xsk, None), "xd": (xd, None)}
+            "pt": (pt, None), "xsk": (xsk, None), "xd": (xd, None),
+            "wdec": (wdec, None), "cia": (cia, None), "cib": (cib, None)}
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +108,8 @@ Q3 = ("SELECT o_prio, COUNT(*), SUM(l_price * (1 - l_disc)) FROM li "
 TOPN_JOIN = ("SELECT l_oid, l_price, o_prio FROM li JOIN orders "
              "ON l_oid = o_id ORDER BY l_price DESC, l_oid LIMIT 9")
 # the planner builds segs ⋈ orders first: the exchange above it has a
-# join for its child, which only the monolithic program runs
+# join for its child, which no staged path takes (the monolithic program
+# runs it)
 JOIN3 = ("SELECT s_rank, COUNT(*) FROM li JOIN orders ON l_oid = o_id "
          "JOIN segs ON o_seg = s_name GROUP BY s_rank")
 SKEW = ("SELECT xsk.k, COUNT(*), SUM(xd.w) FROM xsk JOIN xd "
@@ -278,28 +293,51 @@ def test_fully_dead_rank_is_one_typed_error(twins, sql, redispatch,
     assert_same(_query(js, sql, {}), _query(ts, sql, {}))
 
 
-@pytest.mark.parametrize("sql,extra", [
-    (TOPN_JOIN, {}),
-    (JOIN3, {}),
-    (Q1, {"tidb_tpu_dist_staged": "off"}),
-    (Q3, {"tidb_tpu_dist_staged_exchange": "off"}),
+@pytest.mark.parametrize("sql,extra,exchange", [
+    (TOPN_JOIN, {}, True),
+    (JOIN3, {}, True),
+    (Q1, {"tidb_tpu_dist_staged": "off"}, False),
+    (Q3, {"tidb_tpu_dist_staged_exchange": "off"}, True),
     (SHAPES["distinct_global"], {"tidb_tpu_dist_staged": "off",
-                                 "tidb_tpu_dist_staged_exchange": "off"})],
+                                 "tidb_tpu_dist_staged_exchange": "off"},
+     True)],
     ids=["topn_over_join", "exchange_over_join", "staged_agg_off",
          "staged_exchange_off",
          "both_off"])
-def test_unstaged_shapes_stay_single_device(twins, sql, extra):
-    """What only the reference's monolithic program runs stays a
-    single-device fragment on the port, decided at plan time: no
-    shards, no Exchange in EXPLAIN, the JAX package's rows."""
+def test_monolithic_shape_matches_jax(twins, sql, extra, exchange):
+    """What no staged path runs (a TopN over a join, an exchange over a
+    join, anything with the path's flag off) is distributed all the same:
+    the monolithic program runs it on 4 ranks, EXPLAIN shows shards:4
+    and the Exchange, and the rows are the JAX package's."""
     js, ts = twins
     txt = _explain(ts, sql, {**DIST, **extra})
-    assert "TpuFragment" in txt and "shards:" not in txt and \
-        "Exchange" not in txt, txt
+    assert "TpuFragment" in txt and "shards:4" in txt, txt
+    assert ("Exchange[" in txt) == exchange, txt
     want, _ = run_jax(js, sql, extra={**DIST, **extra})
     got, frags = run_port_frags(ts, sql, extra={**DIST, **extra})
-    assert all(f.plan.dist == 0 for f in frags)
+    assert frags and all(f.plan.dist == 4 for f in frags)
     assert_same(want, got, ordered="ORDER BY" in sql)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT k, COUNT(*), SUM(w) FROM wdec GROUP BY k",
+    "SELECT cib.w, COUNT(*), SUM(cia.v) FROM cia JOIN cib "
+    "ON cia.k = cib.k GROUP BY cib.w"],
+    ids=["wide_decimal_scan_column", "ci_string_join_key"])
+def test_plan_time_refusals_stay_single_device(twins, sql):
+    """The two shapes the port keeps single-device at plan time: a scan
+    reading a wide-decimal column (its (limbs, rows) values are not
+    sliced over ranks) and a string join key no dictionary unification
+    serves (ci-collated). No shards and no Exchange in EXPLAIN, and the
+    rows of the JAX engine's single-device run."""
+    js, ts = twins
+    txt = _explain(ts, sql)
+    assert "TpuFragment" in txt and "shards:" not in txt and \
+        "Exchange" not in txt, txt
+    want, _ = run_jax(js, sql)
+    got, frags = run_port_frags(ts, sql, extra=DIST)
+    assert frags and all(f.plan.dist == 0 for f in frags)
+    assert_same(want, got)
 
 
 def test_auto_on_the_cpu_is_one_rank(twins):

@@ -109,9 +109,17 @@ def test_import_and_query_load_no_jax_module():
         "          'GROUP BY c'):\n"
         "    assert 'shards:4' in str(s.query('EXPLAIN ' + q).rows), q\n"
         "    assert s.query(q).rows\n"
+        "s.vars['tidb_tpu_dist_staged'] = 'off'\n"
+        "s.vars['tidb_tpu_dist_staged_exchange'] = 'off'\n"
+        "q = ('SELECT d, COUNT(*), SUM(b) FROM t JOIN u ON t.a = u.a '\n"
+        "     'GROUP BY d ORDER BY d')\n"
+        "assert 'shards:4' in str(s.query('EXPLAIN ' + q).rows), q\n"
+        "assert len(s.query(q).rows) == 3\n"
         "import tidb_tpu_torch.executor.dist_fragment\n"
         "import tidb_tpu_torch.parallel.collective\n"
+        "import tidb_tpu_torch.parallel.dist_query\n"
         "import tidb_tpu_torch.ops.partition\n"
+        "import tidb_tpu_torch.ops.rank_gather\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tidb_tpu' or m.startswith('tidb_tpu.')]\n"
         "print('BAD', bad)\n")
@@ -129,16 +137,20 @@ def test_every_kernel_source_is_built_and_counted():
     from tidb_tpu_torch.ops import cuda_kernels as ck
     srcs = {f[:-3] for f in os.listdir(ck.CSRC) if f.endswith(".cu")}
     assert srcs == set(ck.SOURCES)
-    assert len(ck.COUNTERS) == 23 and len(set(ck.COUNTERS)) == 23
+    assert len(ck.COUNTERS) == 26 and len(set(ck.COUNTERS)) == 26
     for name in ("distinct_pairs", "rollup_tile", "gather_columns",
                  "delta_merge", "civil_date", "dict_lut", "member_compact",
-                 "hash_partition"):
+                 "hash_partition", "rank_gather"):
         assert name in ck.SOURCES and name in ck.COUNTERS
+    # hash_partition.cu also holds K24 and K26
+    for name in ("rank_exchange", "hash_dest"):
+        assert name in ck.COUNTERS
     for fn in ("tt_pair_code", "tt_first_mask", "tt_rollup_tile",
                "tt_rollup_levels", "tt_gather_columns", "tt_delta_perm",
                "tt_delta_repack", "tt_civil_part", "tt_date_add_months",
                "tt_dict_lut", "tt_dict_lut_smem_bytes", "tt_member_count",
-               "tt_member_scatter", "tt_hash_partition"):
+               "tt_member_scatter", "tt_hash_partition", "tt_rank_exchange",
+               "tt_rank_gather", "tt_hash_dest"):
         assert fn in ck._SIGNATURES
 
 

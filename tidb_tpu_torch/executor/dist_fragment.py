@@ -1,12 +1,16 @@
-"""Distributed device fragments: the JAX package's staged paths over N ranks.
+"""Distributed device fragments over N ranks: the JAX package's staged
+paths and its monolithic program.
 
 The planner inserts PhysExchange boundaries (planner/physical.py
 insert_exchanges — the fragmentation pass of planner/core/fragment.go:64)
-and marks a fragment `dist = N` only when one of the two staged paths
-below will run it (planner/physical._staged_dist_ok). Every rank runs as
-an ordinary single-device program on its device (parallel.make_mesh: on
-one GPU all ranks share `cuda:0`), and the ranks meet only on the host,
-so no collective library is involved:
+and marks every `dist_ok` fragment `dist = N`. The staged paths take
+what they take; DistTreeProgram, the monolithic program, runs the rest
+(and everything when both staged flags are off).
+
+In the staged paths every rank runs as an ordinary single-device program
+on its device (parallel.make_mesh: on one GPU all ranks share `cuda:0`),
+and the ranks meet only on the host, so no collective library is
+involved:
 
   * Exchange-free agg fragments (a plain group-by) run via StagedDistAgg:
     each rank's local partial aggregation is dispatched as its own
@@ -31,10 +35,14 @@ error raises as it is (ROADMAP §3). Healthy ranks' checkpoints are never
 recomputed (EscalationStats shards_rerun/shards_reused), and a bucket-cap
 overflow resizes only the overflowed rank's buckets at the exact need.
 
-The JAX package's monolithic shard_map program (`DistTreeProgram`, with
-in-trace all_to_all / all_gather) is not ported: the planner keeps the
-shapes only it runs (a TopN/Sort root over rows, an exchange over a
-non-scan child) single-device.
+DistTreeProgram is the JAX package's monolithic shard_map program, run
+in one process: every rank lives on one device and runs its own
+_TreeRun, an exchange is a barrier where all ranks meet, and the
+collectives are device-side copies between the ranks' buffers (K24
+rank_exchange, K25 rank_gather; K26 hash_dest computes an exchange's
+destinations and the agg root's owners). Its
+fault retry is full-step, as in the JAX package: the collectives
+entangle every rank's state.
 """
 
 from __future__ import annotations
@@ -47,16 +55,18 @@ import numpy as np
 import torch
 
 from tidb_tpu_torch.executor.tree_fragment import (JOIN_OUT_CAP, TreeProgram,
-                                                   _scans, _TreeRun,
+                                                   _scans, _take, _TreeRun,
                                                    _walk_nodes,
                                                    dictionary_flows,
                                                    escalate_join,
                                                    plan_join_configs,
                                                    tree_signature)
+from tidb_tpu_torch.parallel import collective as C
 from tidb_tpu_torch.planner.physical import (PhysExchange, PhysHashAgg,
-                                             PhysProjection, PhysSelection,
-                                             PhysSort, PhysTableScan,
-                                             PhysTopN, PhysicalPlan)
+                                             PhysHashJoin, PhysProjection,
+                                             PhysSelection, PhysSort,
+                                             PhysTableScan, PhysTopN,
+                                             PhysicalPlan)
 
 
 def _is_shard_fault(e: BaseException) -> bool:
@@ -283,6 +293,277 @@ class StagedDistAgg:
             # buffers must go BEFORE the retry / re-dispatch uploads its
             # generation (the traceback would otherwise hold them)
             dcols = out = None
+
+
+# ---------------------------------------------------------------------------
+# The monolithic program: every rank in one process, collectives on device
+# ---------------------------------------------------------------------------
+
+
+class DistTreeProgram(TreeProgram):
+    """The JAX package's shard_map-compiled fragment, run eagerly over
+    every rank at once on one device. Per-rank emission is TreeProgram's
+    (_TreeRun, one per rank: scans read the rank's slab and row count,
+    compressed columns decode through K2), plus the Exchange barrier and
+    the distributed root reduction. Join modes are the tree engine's
+    (unique bet, expand with per-rank out caps); lost bets and capacity
+    overflows come back as flags reduced over the ranks, so the executor
+    re-runs once at the exact need (never a CPU fallback).
+
+    `bucket_caps` holds one bucket cap per HASH exchange in _walk_nodes
+    order. Everything per call lives in the runs and the call's shared
+    state, so a cached program serves fresh plan objects."""
+
+    def __init__(self, plan: PhysicalPlan, caps, group_cap: int,
+                 n_shards: int, bucket_caps, join_cfgs=None,
+                 scan_layouts=None, *, device):
+        super().__init__(plan, caps, group_cap, join_cfgs,
+                         scan_layouts=scan_layouts, device=device)
+        self.n_shards = int(n_shards)
+        self.bucket_caps = [int(c) for c in bucket_caps]
+        exchanges = [n for n in _walk_nodes(plan)
+                     if isinstance(n, PhysExchange)]
+        # the exchange barrier's memo key: position in _walk_nodes order
+        self.exchange_pos = {id(n): k for k, n in enumerate(exchanges)}
+        hashes = [n for n in exchanges if n.kind == "hash"]
+        self.hash_pos = {id(n): k for k, n in enumerate(hashes)}
+        self.n_joins = sum(isinstance(n, PhysHashJoin)
+                           for n in _walk_nodes(plan))
+
+    def __call__(self, rank_inputs, rank_rows, prep_vals):
+        """rank_inputs[r]: per scan slot {col: [slab tuple]} of rank r's
+        slab; rank_rows[r]: per scan slot, rank r's row count. → {"ranks":
+        per-rank root outputs, the flags reduced over the ranks}."""
+        from tidb_tpu_torch.util import failpoint
+        nd = self.n_shards
+        # the per-rank dispatch seam of the JAX package: a shard fault
+        # fires once per rank before the step (after_hits=K picks the
+        # rank); the executor retries the WHOLE step once
+        for _rank in range(nd):
+            failpoint.inject("shard-step")
+        shared = {"memo": {}, "needs": {}}
+        runs = [_DistRun(self, prep_vals, r, rank_inputs[r], rank_rows[r],
+                         shared) for r in range(nd)]
+        shared["runs"] = runs
+        locals_ = []
+        for run in runs:
+            cols, live = run.emit(self.plan, run.scan_inputs,
+                                  run.scan_rows)
+            run.order_join_flags()
+            locals_.append(run.finish(cols, live))
+            cols = live = None
+        dev = self.device
+        nj = self.n_joins
+        if nj:
+            ju = torch.stack([loc["join_unique"] for loc in locals_]
+                             ).all(dim=0)
+            jn = torch.stack([loc["join_totals"] for loc in locals_]
+                             ).max(dim=0).values
+        else:
+            ju = torch.zeros(0, dtype=torch.bool, device=dev)
+            jn = torch.zeros(0, dtype=torch.int64, device=dev)
+        needs = shared["needs"]
+        xneed = (torch.stack([needs[k].to(torch.int64)
+                              for k in range(len(self.hash_pos))])
+                 if self.hash_pos else
+                 torch.zeros(0, dtype=torch.int64, device=dev))
+        root = self.plan
+        if isinstance(root, PhysHashAgg):
+            ranks, gneed = self._merge_partials(locals_)
+            rank_n = torch.stack([o["out_live"].sum() for o in ranks])
+        else:
+            ranks = locals_
+            gneed = torch.zeros((), dtype=torch.int64, device=dev)
+            rank_n = torch.stack([o["n_out"].to(torch.int64).reshape(())
+                                  if "n_out" in o else o["live"].sum()
+                                  for o in ranks])
+        return {"ranks": ranks, "join_unique": ju, "join_need": jn,
+                "group_need": gneed, "exchange_need": xneed,
+                "rank_n": rank_n}
+
+    def read_flags(self, out) -> dict:
+        """The reduced flags in ONE device→host read → numpy arrays."""
+        nj = out["join_unique"].shape[0]
+        nx = out["exchange_need"].shape[0]
+        flat = torch.cat([out["join_unique"].to(torch.int64),
+                          out["join_need"].to(torch.int64),
+                          out["group_need"].to(torch.int64).reshape(1),
+                          out["exchange_need"].to(torch.int64),
+                          out["rank_n"].to(torch.int64)]).cpu().numpy()
+        return {"join_unique": flat[:nj].astype(bool),
+                "join_need": flat[nj:2 * nj],
+                "group_need": int(flat[2 * nj]),
+                "exchange_need": flat[2 * nj + 1:2 * nj + 1 + nx],
+                "rank_n": flat[2 * nj + 1 + nx:]}
+
+    # -- the exchange barrier -------------------------------------------------
+    def exchange_step(self, node: PhysExchange, shared) -> List:
+        """Emit the exchange's child on every rank of the call's shared
+        state, run the collective once, → one (cols, live) per rank. The
+        senders' columns go out of scope as the collective returns."""
+        from tidb_tpu_torch.executor.device_emit import _rows
+        nd = self.n_shards
+        runs = shared["runs"]
+        sent = [run.emit(node.children[0], run.scan_inputs, run.scan_rows)
+                for run in runs]
+        lives = [live for _c, live in sent]
+        flats, meta = [], None
+        for cols, live in sent:
+            flat, meta = _flatten_rows(cols, live.shape[0])
+            flats.append(flat)
+        dests = None
+        if node.kind == "hash":
+            from tidb_tpu_torch.ops import partition as P
+            dests = [P.hash_dest([_rows((v, m.to(torch.bool)),
+                                        live.shape[0])
+                                  for v, m in (e.eval(run.ctx(cols))
+                                               for e in node.keys)], nd)
+                     for run, (cols, live) in zip(runs, sent)]
+        sent = None
+        if node.kind == "broadcast":
+            out_flat, out_live = C.broadcast_build(flats, lives)
+            return [(_unflatten_rows(out_flat[r], meta), out_live[r])
+                    for r in range(nd)]
+        hk = self.hash_pos[id(node)]
+        recv, recv_live, need = C.exchange(flats, dests, lives, nd,
+                                           self.bucket_caps[hk])
+        shared["needs"][hk] = need
+        return [(_unflatten_rows(recv[d], meta), recv_live[d])
+                for d in range(nd)]
+
+    # -- the distributed agg root ----------------------------------------------
+    def _merge_partials(self, locals_):
+        """Gather every rank's partial (K25), then each rank merges the
+        groups it owns (the owner hash of the key VALUE, K26, computed
+        once: it is the same on every rank). An ungrouped agg's one slot
+        belongs to rank 0. → (per-rank {keys, states, out_live}, the
+        largest true group count of any partial or owned merge)."""
+        from tidb_tpu_torch.ops import factorize as F
+        from tidb_tpu_torch.ops import partition as P
+        root = self.plan
+        cap = self.group_cap
+        nd = self.n_shards
+        xp = self.xp
+        dev = self.device
+        gk, gs, gsl = C.gather_partials(
+            [loc["keys"] for loc in locals_],
+            [[tuple(st) for st in loc["states"]] for loc in locals_],
+            [loc["slot_live"] for loc in locals_])
+        gkeys, gstates, gslot = gk[0], gs[0], gsl[0]
+        grouped = bool(root.group_exprs)
+        needs = [loc["n_groups"].to(torch.int64).reshape(()) if grouped
+                 else torch.zeros((), dtype=torch.int64, device=dev)
+                 for loc in locals_]
+        locals_.clear()
+        owner = P.hash_dest(gkeys, nd) if grouped else None
+        iota = torch.arange(cap, dtype=torch.int32, device=dev)
+        ranks = []
+        for r in range(nd):
+            if grouped:
+                own = gslot & (owner == r)
+                fgids, n_own, frep = F.factorize(gkeys, own, cap)
+                fgids = torch.where(own, fgids, torch.full_like(fgids, cap))
+                out_live = iota < n_own
+                f_keys = [(_take(v, frep), m[frep] & out_live)
+                          for v, m in gkeys]
+                needs.append(n_own.to(torch.int64).reshape(()))
+            else:
+                own = gslot if r == 0 else torch.zeros_like(gslot)
+                fgids = torch.where(own, torch.zeros_like(gslot,
+                                                          dtype=torch.int32),
+                                    torch.full(gslot.shape, cap,
+                                               dtype=torch.int32,
+                                               device=dev))
+                out_live = (iota < 1) & (r == 0)
+                f_keys = []
+            f_states = []
+            for agg, gstate in zip(self.aggs, gstates):
+                clean = tuple(torch.where(own, a, torch.zeros_like(a))
+                              for a in gstate)
+                st = agg.init(xp, cap)
+                f_states.append(agg.merge(xp, st, fgids, cap, clean))
+            ranks.append({"keys": f_keys, "states": f_states,
+                          "out_live": out_live})
+        return ranks, torch.stack(needs).max()
+
+
+class _DistRun(_TreeRun):
+    """One rank's run of a DistTreeProgram. Scans are _TreeRun's over the
+    rank's slab; an Exchange is the barrier of the call's shared state:
+    the first rank to reach it emits the exchange's child on EVERY
+    rank's run, calls the collective once and leaves each rank its
+    slice; nested exchanges follow from the recursion."""
+
+    def __init__(self, prog: DistTreeProgram, prep_vals, rank: int,
+                 scan_inputs, scan_rows, shared):
+        super().__init__(prog, prep_vals, (), None)
+        self.rank = rank
+        self.scan_inputs = scan_inputs
+        self.scan_rows = scan_rows
+        self.shared = shared
+        self.join_ids: List[int] = []
+
+    def emit(self, node: PhysicalPlan, scan_inputs, scan_rows):
+        if isinstance(node, PhysExchange):
+            memo = self.shared["memo"]
+            pos = self.prog.exchange_pos[id(node)]
+            if pos not in memo:
+                memo[pos] = self.prog.exchange_step(node, self.shared)
+            got = memo[pos]
+            # hand the slice over: the memo keeps no reference to it
+            out, got[self.rank] = got[self.rank], None
+            return out
+        return super().emit(node, scan_inputs, scan_rows)
+
+    def _emit_join(self, node, scan_inputs, scan_rows):
+        out = super()._emit_join(node, scan_inputs, scan_rows)
+        self.join_ids.append(self.prog.join_order[id(node)])
+        return out
+
+    def order_join_flags(self) -> None:
+        """A join under an exchange completes during another rank's
+        barrier, so the flags arrive in a rank-dependent order: put them
+        in join order."""
+        order = sorted(range(len(self.join_ids)),
+                       key=lambda i: self.join_ids[i])
+        self.unique_flags = [self.unique_flags[i] for i in order]
+        self.totals = [self.totals[i] for i in order]
+
+
+def _flatten_rows(cols, n: int):
+    """[(v, m) or None...] → (1-D row columns for a collective, meta): a
+    constant broadcasts to the rows, a wide-decimal (limbs, n) value
+    becomes one column a limb."""
+    flat: List = []
+    meta: List = []
+    for c in cols:
+        if c is None:
+            meta.append(None)
+            continue
+        v, m = c
+        limbs = v.shape[0] if v.dim() == 2 else 0
+        meta.append((len(flat), limbs))
+        if limbs:
+            flat.extend(v[k].contiguous() for k in range(limbs))
+        else:
+            flat.append(torch.broadcast_to(v, (n,)).contiguous())
+        flat.append(torch.broadcast_to(m, (n,)).contiguous())
+    return flat, meta
+
+
+def _unflatten_rows(flat, meta):
+    out = []
+    for mt in meta:
+        if mt is None:
+            out.append(None)
+            continue
+        pos, limbs = mt
+        if limbs:
+            out.append((torch.stack(flat[pos:pos + limbs]),
+                        flat[pos + limbs]))
+        else:
+            out.append((flat[pos], flat[pos + 1]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -776,7 +1057,6 @@ class StagedDistExchange:
         shared cap keeps stage 3 ONE program for all ranks (skew shows
         up as padding, not as per-rank programs)."""
         from tidb_tpu_torch.executor.device_cache import _pow2
-        from tidb_tpu_torch.parallel import collective as C
         from tidb_tpu_torch.util import timeline
         nd = self.nd
         t0 = timeline.now_us() if timeline.ENABLED else 0.0

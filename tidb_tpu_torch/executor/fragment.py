@@ -1003,6 +1003,32 @@ def _tree_program(sig: str, kind: str, root, caps, group_cap, device,
     return prog
 
 
+def _get_dist_program(root, caps, group_cap, n_shards: int, bucket_caps,
+                      device, join_cfgs=None, scan_layouts=None):
+    """The monolithic distributed program, cached under the JAX
+    package's key: `dist=N|bux=<hash exchanges' bucket caps>|` plus the
+    tree signature (and the device, as every program of the port)."""
+    from tidb_tpu_torch.executor.dist_fragment import DistTreeProgram
+    from tidb_tpu_torch.executor.tree_fragment import tree_signature
+    bux = ",".join(str(c) for c in bucket_caps)
+    sig = (f"dist={n_shards}|bux={bux}|" +
+           tree_signature(root, caps, group_cap, join_cfgs,
+                          scan_layouts=scan_layouts) +
+           f"|dev={torch.device(device)}")
+    prog = _cache_get(sig)
+    if prog is None:
+        with _build_lock(sig):
+            prog = _cache_get(sig)      # double-checked: one build per sig
+            if prog is None:
+                t0 = time.perf_counter()
+                prog = DistTreeProgram(root, caps, group_cap, n_shards,
+                                       bucket_caps, join_cfgs, scan_layouts,
+                                       device=device)
+                _cache_put(sig, prog)
+                _charge_compile("dist", t0)
+    return prog
+
+
 def get_tree_program(root, caps, group_cap, device, join_cfgs=None,
                      agg_key_bounds=None, scan_layouts=None):
     """The join tree as one program over every scan's full capacity (the
@@ -2954,8 +2980,8 @@ class TpuFragmentExec:
         """The planner-fragmented tree over `plan.dist` ranks on the
         engine's device type (parallel.make_mesh): the host encodes every
         scan, unifies string join dictionaries, and one of the two staged
-        paths runs it (the MPPGather role of executor/mpp_gather.go:42
-        lives here)."""
+        paths or the monolithic program runs it (the MPPGather role of
+        executor/mpp_gather.go:42 lives here)."""
         import types as pytypes
 
         from tidb_tpu_torch.executor import tree_fragment as TF
@@ -3003,12 +3029,266 @@ class TpuFragmentExec:
                                                     scan_meta)
             if staged is not None:
                 return staged
-        # the planner marks a fragment dist only when a staged path takes
-        # it (planner/physical._staged_dist_ok): reaching here is a bug
-        raise ExecutionError(
-            "distributed fragment that neither staged path runs: the "
-            "plan-time gate admits none (the monolithic program is not "
-            "in this port)")
+        # plans neither staged path accepts (TopN/Sort roots, non-scan-
+        # chain exchange children), and every plan with both staged flags
+        # off: the monolithic program, whose fault retry is full-step
+        return self._run_dist_monolithic(root, len(mesh), host_cols,
+                                         scan_meta)
+
+    def _run_dist_monolithic(self, root, nd: int, host_cols,
+                             scan_meta) -> Chunk:
+        """The JAX package's monolithic shard_map path
+        (dist_fragment.DistTreeProgram): every rank on the engine's one
+        device, each scan split into nd slabs of cap = pow2(ceil(total /
+        nd)) rows, the collectives device-side copies between the ranks'
+        buffers (K24, K25, K26). Capacity flags come back reduced over
+        the ranks: a lost join bet or an expand overflow re-runs at the
+        exact need, an exchange resizes only where it overflowed (to its
+        exact need), a group overflow resizes the group cap. A shard
+        fault retries the WHOLE step once, then raises one typed
+        ShardFailure."""
+        from dataclasses import replace as d_replace
+
+        from tidb_tpu_torch.chunk import compress as _compress
+        from tidb_tpu_torch.errors import ShardFailure
+        from tidb_tpu_torch.executor import tree_fragment as TF
+        from tidb_tpu_torch.executor.device_cache import (_col_bounds,
+                                                          _pow2, _upload)
+        from tidb_tpu_torch.planner.physical import PhysExchange
+        from tidb_tpu_torch.util.escalation import CapacityLadder
+        dev = torch.device(self.ctx.device)
+        ph = self.ctx.phases
+        comp_on = _var_bool(self.ctx.vars.get("tidb_tpu_compression", "on"))
+        caps: Dict[int, Tuple[int, int]] = {}
+        rank_inputs: List[List[dict]] = [[] for _ in range(nd)]
+        rank_rows: List[List[int]] = [[] for _ in range(nd)]
+        scan_dicts = {}
+        scan_bounds: Dict[int, Dict[int, Tuple[int, int]]] = {}
+        dist_layouts = []
+        for scan, used, total in scan_meta:
+            cap = _pow2((total + nd - 1) // nd, lo=8)
+            caps[id(scan)] = (cap, 1)
+            dicts = {}
+            bounds: Dict[int, Tuple[int, int]] = {}
+            lay_pairs = []
+            cols = [{} for _ in range(nd)]
+            for i in used:
+                vals, valid, dictionary = host_cols[(id(scan), i)]
+                dicts[i] = dictionary
+                b = _col_bounds(vals, valid, dictionary)
+                if b is not None:
+                    bounds[i] = b
+                # the JAX package packs one array for the whole mesh, so
+                # word boundaries must coincide with rank boundaries (cap
+                # a multiple of WORD_BITS); dictionaries would need
+                # replication, a width-0 stub and a delta slab (one
+                # global base) cannot split: the same rule here
+                lay = None
+                if comp_on and vals.ndim == 1 and \
+                        cap % _compress.WORD_BITS == 0:
+                    lay, _dv = _compress.choose_layout(vals, valid,
+                                                       allow_dict=False)
+                    if lay is not None and (lay.width == 0
+                                            or lay.kind == "delta"):
+                        lay = None
+                with ph.phase("encode"):
+                    pv = np.zeros(nd * cap, dtype=vals.dtype)
+                    pv[:total] = vals
+                    pm = np.zeros(nd * cap, dtype=bool)
+                    pm[:total] = valid
+                    slabs = [
+                        _compress.pack_slab(lay, pv[r * cap:(r + 1) * cap],
+                                            pm[r * cap:(r + 1) * cap])
+                        if lay is not None else
+                        (pv[r * cap:(r + 1) * cap], pm[r * cap:(r + 1) * cap])
+                        for r in range(nd)]
+                logical_b = pv.nbytes + pm.nbytes
+                with ph.phase("upload"):
+                    for r in range(nd):
+                        cols[r][i] = [tuple(_upload(a, dev)
+                                            for a in slabs[r])]
+                phys_b = sum(a.nbytes for sl in slabs for a in sl)
+                ph.add_h2d(phys_b, logical=logical_b)
+                # the ranks stream these slabs from device memory too
+                ph.add_scan(phys_b, logical=logical_b)
+                if lay is not None:
+                    lay_pairs.append((i, lay))
+            dist_layouts.append(tuple(lay_pairs))
+            rows = np.clip(total - np.arange(nd) * cap, 0, cap)
+            for r in range(nd):
+                rank_inputs[r].append(cols[r])
+                rank_rows[r].append(int(rows[r]))
+            scan_dicts[id(scan)] = dicts
+            scan_bounds[id(scan)] = bounds
+        rank_inputs = [tuple(x) for x in rank_inputs]
+        rank_rows = [tuple(x) for x in rank_rows]
+        layouts = tuple(dist_layouts) if any(dist_layouts) else None
+
+        flows, root_dicts = TF.dictionary_flows(root, scan_dicts)
+        flow_list = [flows.get(id(n), []) for n in TF._walk_nodes(root)]
+        # initial bucket cap per hash exchange: 4× the balanced share
+        # (tidb_tpu_exchange_bucket_cap overrides — skew/retry testing)
+        cap_override = int(self.ctx.vars.get(
+            "tidb_tpu_exchange_bucket_cap", 0) or 0)
+        hash_exchanges = [n for n in TF._walk_nodes(root)
+                          if isinstance(n, PhysExchange) and
+                          n.kind == "hash"]
+        bucket_caps = [cap_override or _pow2(
+            4 * ((max(int(n.est_rows), 1) + nd - 1) // nd), lo=64)
+            for n in hash_exchanges]
+        vars_ = self.ctx.vars
+        group_cap = int(vars_.get("tidb_tpu_group_cap", DEFAULT_GROUP_CAP))
+        is_agg = isinstance(root, PhysHashAgg)
+        max_cap = max(c for c, _n in caps.values())
+        gcap = _initial_group_cap(root, group_cap, max_cap * nd) \
+            if is_agg else 1
+
+        def _shard_out_cap(cfg):
+            # expand caps are PER RANK: the balanced share of the global
+            # estimate; skew comes back as join_need → one retry
+            return _pow2(int(cfg.est * 1.3 / nd) + 16, lo=1024)
+
+        join_cfgs = TF.plan_join_configs(root, scan_bounds)
+        join_cfgs = [d_replace(c, out_cap=_shard_out_cap(c))
+                     if c.mode == "expand" else c for c in join_cfgs]
+        out_cap_max = int(vars_.get("tidb_tpu_join_out_cap",
+                                    TF.JOIN_OUT_CAP))
+        ladder = CapacityLadder(guard=getattr(self.ctx, "guard", None),
+                                stats=self.ctx.escalation)
+        shard_faults = 0
+        while True:
+            # each re-run round is a checkpoint: a killed query must not
+            # queue another multi-rank step
+            self.ctx.check_killed("device-dispatch")
+            prog = _get_dist_program(root, caps, gcap, nd, bucket_caps,
+                                     dev, join_cfgs, layouts)
+            prep_vals = prog.collect_preps(flow_list)
+            out = None
+            try:
+                with self.ctx.device_slot():
+                    with ph.phase("compute"):
+                        out = prog(rank_inputs, rank_rows, prep_vals)
+                ph.note_launch()
+                with ph.phase("compute"):
+                    _sync(dev)
+                with ph.phase("fetch"):
+                    flags = prog.read_flags(out)
+                ph.add_d2h(8 * (2 * len(join_cfgs) + 1 +
+                                len(hash_exchanges) + nd))
+            except ShardFailure as e:
+                # one rank's step failing heals by re-running the WHOLE
+                # step: the collectives entangle every rank's state, and
+                # the step is deterministic over host-resident inputs
+                out = None
+                shard_faults += 1
+                if shard_faults > 1:
+                    # the fault persisted through the retry: ONE typed
+                    # error (the store and session stay usable)
+                    raise ShardFailure(
+                        "distributed fragment shard step failed twice: "
+                        f"{e}") from e
+                ladder.shard_retry(e)
+                continue
+            retry = False
+            for ji, cfg in enumerate(join_cfgs):
+                new_cfg, action = TF.escalate_join(
+                    cfg, bool(flags["join_unique"][ji]),
+                    int(flags["join_need"][ji]), out_cap_max,
+                    flip_out_cap=_shard_out_cap(cfg), ladder=ladder)
+                if action == "over-max":
+                    ladder.fallback("join")
+                    raise FragmentFallback(
+                        f"join fan-out {int(flags['join_need'][ji])} "
+                        f"exceeds the per-rank device cap",
+                        reason="join-cap")
+                if new_cfg is not None:
+                    # a lost PK-FK bet re-runs in expand mode; an expand
+                    # overflow resizes to the largest rank's true need
+                    join_cfgs[ji] = new_cfg
+                    retry = True
+            for k, need in enumerate(flags["exchange_need"]):
+                if int(need) > bucket_caps[k]:
+                    from tidb_tpu_torch.util import failpoint
+                    failpoint.inject("exchange-overflow")
+                    # resize only the overflowed exchange, to its exact
+                    # reported need
+                    bucket_caps[k] = ladder.resize(
+                        "exchange", bucket_caps[k], need=int(need), lo=64)
+                    retry = True
+            gneed = flags["group_need"]
+            if gneed > gcap:
+                if gcap >= max_cap * nd:
+                    ladder.fallback("group")
+                    raise FragmentFallback("group cap overflow",
+                                           reason="group-cap")
+                gcap = ladder.resize("group", gcap, need=gneed,
+                                     max_cap=max_cap * nd)
+                retry = True
+            if not retry:
+                break
+            out = None
+            ladder.attempt("dist")
+        return self._dist_host_finish(root, out, flags["rank_n"], flows,
+                                      root_dicts)
+
+    def _dist_host_finish(self, root, out, rank_n, flows,
+                          root_dicts) -> Chunk:
+        """The MPPGather role over the ranks' outputs: an agg root
+        decodes each rank's owned slots (a prefix of its slots); a
+        TopN/Sort root takes each rank's n_out candidates and orders them
+        on the host; a row root compacts each rank's live rows on the
+        device (K22 at B = 1, then K18) — all in rank order."""
+        ph = self.ctx.phases
+        ranks = out["ranks"]
+        dicts_root = {i: d for i, d in enumerate(root_dicts)}
+        if isinstance(root, PhysHashAgg):
+            got = ph.fetch([{"keys": [(v[..., :k], m[:k])
+                                      for v, m in o["keys"]],
+                             "states": [tuple(a[..., :k] for a in st)
+                                        for st in o["states"]]}
+                            for o, k in zip(ranks, (int(x)
+                                                    for x in rank_n))])
+            if root.group_exprs and not int(np.sum(rank_n)):
+                from tidb_tpu_torch.executor import _empty_chunk
+                return _empty_chunk(self.schema)
+            inp = flows.get(id(root), [])
+            cols: List[Column] = []
+            with ph.phase("decode"):
+                for kc, e in enumerate(root.group_exprs):
+                    d = inp[e.index] if isinstance(e, ColumnRef) and \
+                        e.index < len(inp) else None
+                    cols.append(_decode_col(
+                        self.schema[kc],
+                        np.concatenate([g["keys"][kc][0] for g in got]),
+                        np.concatenate([g["keys"][kc][1] for g in got]), d))
+                for ai, agg in enumerate(build_agg(d) for d in root.aggs):
+                    st = tuple(np.concatenate([g["states"][ai][c]
+                                               for g in got], axis=-1)
+                               for c in range(len(got[0]["states"][ai])))
+                    v, m = agg.final(np, st)
+                    cols.append(_decode_col(agg.ftype, np.asarray(v),
+                                            np.asarray(m), None))
+            return Chunk(cols)
+        ftypes = root.schema.field_types
+        if isinstance(root, (PhysTopN, PhysSort)):
+            got = ph.fetch([[(v[..., :k], m[:k]) for v, m in o["cols"]]
+                            for o, k in zip(ranks, (int(x)
+                                                    for x in rank_n))])
+        else:
+            got = []
+            for o in ranks:
+                gathered, _offsets = compact_rows(o["cols"],
+                                                  o["live"].view(1, -1))
+                got.append(ph.fetch(gathered))
+        with ph.phase("decode"):
+            chunk = Chunk([_decode_col(
+                ft, np.concatenate([g[ci][0] for g in got], axis=-1),
+                np.concatenate([g[ci][1] for g in got]), dicts_root.get(ci))
+                for ci, ft in enumerate(ftypes)])
+        if isinstance(root, (PhysTopN, PhysSort)):
+            chunk = _host_order(chunk, root, root.schema)
+            chunk = _topn_slice(chunk, root)
+        return chunk
 
     def _merge_tree_agg_passes(self, root: PhysHashAgg, pass_outs,
                                inp_dicts) -> Chunk:

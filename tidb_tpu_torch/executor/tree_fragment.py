@@ -199,9 +199,8 @@ def dist_ok(plan: PhysicalPlan, threshold: int) -> bool:
     the host concatenates. String join keys work because the dist
     executor unifies the key dictionaries host-side before slicing, so
     equal strings hash equal on every rank (the mpp repartition invariant
-    of cophandler/mpp_exec.go:158-173). Which of these shapes the port's
-    staged paths take is the planner's second gate
-    (planner/physical._staged_dist_ok)."""
+    of cophandler/mpp_exec.go:158-173). The planner's second gate
+    (planner/physical._dist_refused) keeps two shapes single-device."""
     if isinstance(plan, PhysExchange):
         return False               # already fragmented
     if isinstance(plan, (PhysTopN, PhysSort)) and plan.children:

@@ -33,20 +33,21 @@ SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups", "lut_join",
            "join_expand", "radix_sort", "sorted_groups", "window_scan",
            "window_frame", "distinct_pairs", "rollup_tile", "gather_columns",
            "delta_merge", "civil_date", "dict_lut", "member_compact",
-           "hash_partition")
+           "hash_partition", "rank_gather")
 #: launch counters, one per kernel (lut_join.cu holds K4 and K5,
 #: join_expand.cu K6 and K7, radix_sort.cu K8 and K9, sorted_groups.cu K10
 #: and K11, window_scan.cu K12 and K13, window_frame.cu K14 and K15;
 #: distinct_pairs.cu is K16, rollup_tile.cu K17, gather_columns.cu K18,
 #: delta_merge.cu K19, civil_date.cu K20, dict_lut.cu K21,
-#: member_compact.cu K22, hash_partition.cu K23)
+#: member_compact.cu K22, hash_partition.cu K23, K24 and K26,
+#: rank_gather.cu K25)
 COUNTERS = ("segment_reduce", "unpack_decode", "perfect_groups",
             "lut_build", "lut_probe", "lut_order", "join_expand",
             "radix_sort", "sort_encode", "group_ids", "sorted_search",
             "window_bounds", "window_scan", "frame_bounds", "frame_eval",
             "distinct_pairs", "rollup_tile", "gather_columns",
             "delta_merge", "civil_date", "dict_lut", "member_compact",
-            "hash_partition")
+            "hash_partition", "rank_exchange", "rank_gather", "hash_dest")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -107,6 +108,10 @@ _SIGNATURES = {
     "tt_member_scatter": [_P, _I, _L, _P, _P, _P],
     "tt_hash_partition": [_I, _P, _P, _P, _P, _L, _I, _L, _I, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P, _P],
+    "tt_rank_exchange": [_P, _P, _L, _I, _L, _L, _I, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P],
+    "tt_hash_dest": [_I, _P, _P, _P, _P, _L, _I, _P, _P, _P],
+    "tt_rank_gather": [_I, _P, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()

@@ -1,17 +1,19 @@
-"""The exchange's key hash and host routing.
+"""The monolithic program's collectives, and the staged exchange's host
+routing.
 
-The plain torch versions of the JAX package's hash partition function
-(`tidb_tpu/parallel/collective.py` `_mix64`, `shard_of`, `mix_key_code`):
-the CPU path of ops/partition.py and the oracle of K23 `hash_partition`,
-which computes the same bits on the card. Torch has no usable uint64
-arithmetic, so the splitmix64 finalizer runs in int64: a multiply wraps
-as it is, a logical right shift masks off the sign extension, and the
-unsigned modulus is taken from the two 32-bit halves.
+The collectives (`exchange`, `broadcast_build`, `gather_partials`) take
+one entry per rank and return one entry per rank, with the reference's
+shapes and contents (`tidb_tpu/parallel/collective.py`); every rank
+lives in one process (executor/dist_fragment.DistTreeProgram), so a
+collective is one function over every rank's tensors at once.
+`lax.axis_index` is the position in the rank list and `lax.pmax` a max
+over the ranks. On CUDA tensors the exchange is K24 and the all_gathers
+K25; on CPU tensors their plain versions run. The exchange and the key
+hash (`shard_of`, `mix_key_code`) live with their kernels in
+ops/partition and are re-exported here.
 
 `route_buckets` is the staged exchange's host routing, numpy as in the
-JAX package. The in-trace collectives of the monolithic shard_map
-program (`exchange`'s all_to_all, `broadcast_build`, `gather_partials`)
-are not ported: the port runs only the staged paths.
+JAX package.
 """
 
 from __future__ import annotations
@@ -19,75 +21,50 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
-import torch
 
-_M1 = 0xBF58476D1CE4E5B9
-_M2 = 0x94D049BB133111EB
-_INT64_MAX = (1 << 63) - 1
-_INT64_MIN = -(1 << 63)
-
-
-def _signed(c: int) -> int:
-    """A uint64 constant as the int64 with the same bits."""
-    return c - (1 << 64) if c >= 1 << 63 else c
+from tidb_tpu_torch.ops import rank_gather as RG
+from tidb_tpu_torch.ops.partition import (  # noqa: F401 (re-exported)
+    _mix64, key_canon, mix_key_code, shard_of)
+from tidb_tpu_torch.ops.partition import (  # noqa: F401 (re-exported)
+    rank_exchange as exchange, rank_exchange_plain as exchange_plain)
 
 
-def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of int64 bits: the arithmetic shift with the
-    copied sign bits masked off."""
-    return (x >> s) & ((1 << (64 - s)) - 1)
+def broadcast_build(arrays, live):
+    """Broadcast-join pattern: every rank receives the full build side —
+    the ranks' columns and live masks concatenated in rank order (the
+    tiled all_gather; K25 on CUDA tensors). arrays[r]: rank r's columns.
+    → (columns, live), one entry per rank: every rank's entry is the
+    same gathered tensors, which nothing may write in place."""
+    nd = len(live)
+    n_cols = len(arrays[0]) if nd else 0
+    out = RG.rank_gather([[arrays[r][j] for r in range(nd)]
+                       for j in range(n_cols)] + [list(live)])
+    return [out[:-1]] * nd, [out[-1]] * nd
 
 
-def _mix64(x: torch.Tensor) -> torch.Tensor:
-    """splitmix64 finalizer over int64 bits (the uint64 result's bits)."""
-    x = x.to(torch.int64)
-    x = (x ^ _srl(x, 30)) * _signed(_M1)
-    x = (x ^ _srl(x, 27)) * _signed(_M2)
-    return x ^ _srl(x, 31)
-
-
-def shard_of(codes: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """Owner shard of each key code: `(uint64) _mix64(code) % n_shards`,
-    int32. The unsigned modulus comes from the halves:
-    h = hi·2³² + lo ⇒ h mod n = ((hi mod n)·(2³² mod n) + lo mod n) mod n."""
-    n = int(n_shards)
-    h = _mix64(codes)
-    hi = _srl(h, 32)
-    lo = h & 0xFFFFFFFF
-    r = ((hi % n) * ((1 << 32) % n) + lo % n) % n
-    return r.to(torch.int32)
-
-
-def key_canon(v: torch.Tensor) -> torch.Tensor:
-    """A key column's values as int64: the JAX package's `astype(int64)`.
-    Integers and bools widen; floats truncate toward zero. Where that
-    conversion has no defined value the port defines one, which K23
-    shares: NaN → 0, v ≥ 2⁶³ → INT64_MAX, v < -2⁶³ → INT64_MIN. Equal
-    keys still map equally, so only balance can change."""
-    if not v.dtype.is_floating_point:
-        return v.to(torch.int64)
-    v = v.to(torch.float64)
-    big = v >= 2.0 ** 63
-    small = v < -(2.0 ** 63)
-    nan = torch.isnan(v)
-    safe = torch.where(big | small | nan, torch.zeros_like(v), v)
-    out = torch.trunc(safe).to(torch.int64)
-    out = torch.where(big, torch.full_like(out, _INT64_MAX), out)
-    return torch.where(small, torch.full_like(out, _INT64_MIN), out)
-
-
-def mix_key_code(keys) -> torch.Tensor:
-    """Collapse key columns [(values, validity), ...] into one int64 hash
-    input for shard_of. Equal values map equally; validity is mixed in
-    so NULL keys, whose slot values may differ, co-locate."""
-    code = None
-    for v, m in keys:
-        m = m.to(torch.bool)
-        canon = torch.where(m, key_canon(v), torch.zeros((), dtype=torch.int64,
-                                                         device=v.device))
-        part = canon * 2 + m.to(torch.int64)
-        code = part if code is None else code * 1000003 + part
-    return code
+def gather_partials(key_cols, state_arrays, slot_live):
+    """Two-phase aggregation exchange: every rank's partial keys
+    [(values, validity)], states [tuple of arrays] and slot_live, each
+    concatenated in rank order along the slot axis — ONE K25 launch for
+    all of them on CUDA tensors. → (keys, states, slot_live), one entry
+    per rank, every entry the same gathered tensors (read-only)."""
+    nd = len(slot_live)
+    flat_per_rank = []
+    for r in range(nd):
+        flat = [x for vm in key_cols[r] for x in vm]
+        flat += [a for st in state_arrays[r] for a in st]
+        flat.append(slot_live[r])
+        flat_per_rank.append(flat)
+    out = RG.rank_gather([[flat_per_rank[r][j] for r in range(nd)]
+                       for j in range(len(flat_per_rank[0]))])
+    nk = len(key_cols[0])
+    keys = [(out[2 * k], out[2 * k + 1]) for k in range(nk)]
+    states = []
+    pos = 2 * nk
+    for st in state_arrays[0]:
+        states.append(tuple(out[pos:pos + len(st)]))
+        pos += len(st)
+    return [keys] * nd, [states] * nd, [out[-1]] * nd
 
 
 def require_capacity(need: int, bucket_cap: int, what: str = "exchange"):

@@ -638,14 +638,15 @@ def _distribute_fragments(plan: PhysicalPlan, n_shards: int,
                           threshold: int, ctx) -> None:
     """Turn eligible device fragments into n-rank distributed fragments:
     insert exchange boundaries (the fragmentation pass) into a copy of
-    the fragment's tree and mark the fragment — only when a staged path
-    of the port will run the result (_staged_dist_ok). Any other
-    fragment stays a single-device fragment, unchanged."""
+    the fragment's tree and mark the fragment. Every dist_ok fragment is
+    distributed — a staged path or the monolithic program runs it —
+    except the two shapes _dist_refused names, which stay single-device
+    fragments, unchanged."""
     if isinstance(plan, PhysTpuFragment):
         from tidb_tpu_torch.executor.tree_fragment import dist_ok
         if dist_ok(plan.root, threshold):
             root = insert_exchanges(_clone_tree(plan.root), n_shards)
-            if _staged_dist_ok(root, ctx):
+            if not _dist_refused(root):
                 plan.root = root
                 plan.dist = n_shards
         return
@@ -661,38 +662,24 @@ def _clone_tree(node: PhysicalPlan) -> PhysicalPlan:
     return clone
 
 
-def _staged_dist_ok(root: PhysicalPlan, ctx) -> bool:
-    """Will one of the port's staged paths run this exchange-annotated
-    fragment? The executor's own choice, made at plan time (with the
-    ORDER BY over an agg stripped, as _run_device_dist strips it):
-
-      * the staged agg path (fragment._staged_dist_chain) with
-        tidb_tpu_dist_staged on; or
-      * the staged exchange path (dist_fragment.staged_exchange_plan)
-        with tidb_tpu_dist_staged_exchange on;
-
-    and every scan column 1-D (no wide decimal) and every string join
-    key unifiable. The shapes only the JAX package's monolithic
-    shard_map program runs (a TopN/Sort root over rows, an exchange over
-    a join or an agg) stay single-device (ROADMAP §3)."""
-    from tidb_tpu_torch.executor.dist_fragment import (
-        staged_exchange_plan, string_join_keys_unifiable)
-    from tidb_tpu_torch.executor.fragment import (TpuFragmentExec,
-                                                  _strip_order_root)
+def _dist_refused(root: PhysicalPlan) -> bool:
+    """The exchange-annotated fragments the port keeps single-device
+    (with the ORDER BY over an agg stripped, as _run_device_dist strips
+    it): a wide-decimal scan column, whose (limbs, rows) values the rank
+    slicing does not take (the JAX package's monolithic scan encoder
+    writes 1-D values), and a string join key no dictionary unification
+    can serve (ci-collated, or not a bare scan column)."""
+    from tidb_tpu_torch.executor.dist_fragment import \
+        string_join_keys_unifiable
+    from tidb_tpu_torch.executor.fragment import _strip_order_root
     from tidb_tpu_torch.executor.tree_fragment import _scans
     _order, root = _strip_order_root(root)
     for scan in _scans(root):
         fts = scan.schema.field_types
         used = scan.used_columns or range(len(fts))
         if any(fts[i].is_wide_decimal for i in used):
-            return False
-    if not string_join_keys_unifiable(root):
-        return False
-    if getattr(ctx, "dist_staged", True) and \
-            TpuFragmentExec._staged_dist_chain(root) is not None:
-        return True
-    return bool(getattr(ctx, "dist_staged_exchange", True) and
-                staged_exchange_plan(root) is not None)
+            return True
+    return not string_join_keys_unifiable(root)
 
 
 def _indexed_col(table, col_idx: int):

@@ -556,21 +556,6 @@ class _PlanContext:
         except (TypeError, ValueError):
             return 0
 
-    @property
-    def dist_staged(self) -> bool:
-        """tidb_tpu_dist_staged: the staged agg path may take a dist
-        fragment (read by the planner's distribution gate)."""
-        from tidb_tpu_torch.executor.fragment import _var_bool
-        return _var_bool(self.session.vars.get("tidb_tpu_dist_staged", "on"))
-
-    @property
-    def dist_staged_exchange(self) -> bool:
-        """tidb_tpu_dist_staged_exchange: the staged exchange path may
-        take a dist fragment (read by the planner's distribution gate)."""
-        from tidb_tpu_torch.executor.fragment import _var_bool
-        return _var_bool(self.session.vars.get(
-            "tidb_tpu_dist_staged_exchange", "on"))
-
 
 class Session:
     _next_conn_id = itertools.count(1)
@@ -1175,9 +1160,6 @@ class Session:
                 str(v.get("tidb_tpu_engine")),
                 int(v.get("tidb_tpu_row_threshold", 32768)),
                 str(v.get("tidb_tpu_dist_devices", 0)),
-                # the planner's distribution gate reads both staged flags
-                str(v.get("tidb_tpu_dist_staged", "on")),
-                str(v.get("tidb_tpu_dist_staged_exchange", "on")),
                 str(v.get("time_zone", "SYSTEM")),  # tz folds into plans
                 self.user)
 

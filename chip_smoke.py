@@ -52,13 +52,17 @@ which must pass:
      join (EXPLAIN shows both inside the device fragment; LIMIT is held
      by its count and by membership in the host's unlimited join), and
      bench.py's Q3 over the sparse keys (equal to the host engine and to
-     the dense Q3). Counters are zeroed before the phase; K8-K11 must
-     move, and in the sparse-key statement K11 but not K4/K5;
+     the dense Q3), and a GROUP BY over a full-range BIGINT token with
+     NULLs (`orders_sk.o_ref`: a sort of two radix words, K10's gather
+     entry). Counters are zeroed before the phase; K8-K11 must move (K10
+     through both its entries), and in the sparse-key statement K11 but
+     not K4/K5;
  10. sort kernel timing at the main path's shapes: K8 over 8,388,608
-     full-range int64 keys and over the sparse join's 10,485,760 keys,
-     K9 over 8,388,608 float64 and int64 values, K10 at 8,388,608 rows
-     and ~10^5 groups, K11 with 2,097,152 build codes and 8,388,608
-     probes;
+     full-range int64 keys and over the sparse join's 10,485,760 keys
+     (each beside torch.sort(stable=True)), K9 over 8,388,608 float64 and
+     int64 values, K10's word and gather entries at 8,388,608 rows and
+     ~10^5 groups (beside unique_consecutive), K11 with 2,097,152 build
+     codes and 8,388,608 probes;
  11. window functions on the card, over lineitem and phase 7's tables:
      W1 a chain window root over a filtered scan (every rank function, a
      running SUM with ties, LAG, FIRST_VALUE, NTILE, CUME_DIST over ~1.5M
@@ -204,8 +208,11 @@ which must pass:
      K25's call profiled once (host time against the card's).
 
 Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
-join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids and K11
-sorted_search against their plain versions, exactly; the sort functions
+join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids (both
+entries: the word entry over K8's sorted word and the gather entry for
+two-word sorts, with NaN, ±0.0, ±inf, NULLs, dead rows, a dead row keyed
+like the last live one, cap overflow) and K11 sorted_search against
+their plain versions, exactly; the sort functions
 built on K8-K10 (factorize, sort_perm, topn, pack_codes) equal the same
 functions over CPU copies of the inputs; and K12 window_bounds, K13
 window_scan, K14 frame_bounds and K15 frame_eval against theirs, every
@@ -324,16 +331,24 @@ Q3_SK = """SELECT o_orderpriority, COUNT(*),
  WHERE l_shipdate <= '1998-09-02' AND o_orderdate < '1998-01-01'
  GROUP BY o_orderpriority ORDER BY o_orderpriority"""
 
+# a GROUP BY over a full-range BIGINT with NULLs (orders_sk.o_ref, a
+# 64-bit token such as a hashed external id): its sort (dead flag, NULL
+# flag, 64 value bits) takes two radix words, so K10 runs its gather entry
+REF_GROUPS = """SELECT o_ref, COUNT(*), MIN(o_orderdate) FROM orders_sk
+ GROUP BY o_ref ORDER BY o_ref"""
+
 SF1_ROWS = 6_001_215
 KERNELS = ("segment_reduce", "unpack_decode", "perfect_groups",
            "lut_build", "lut_probe", "lut_order", "join_expand",
-           "radix_sort", "sort_encode", "group_ids", "sorted_search")
+           "radix_sort", "sort_encode", "group_ids", "group_ids_words",
+           "sorted_search")
 # the first slice's path (Q1/Q6/TopN) runs these; the join path the first
-# seven; the sort formulation the last four (the windows' K12-K15 are
-# WINDOW_KERNELS, with phase 11)
+# seven; the sort formulation the last five, K10 as two entries (the
+# windows' K12-K15 are WINDOW_KERNELS, with phase 11)
 Q1_KERNELS = KERNELS[:3]
 JOIN_KERNELS = KERNELS[:7]
 SORT_KERNELS = KERNELS[7:]
+K10_ENTRIES = ("group_ids", "group_ids_words")
 
 
 def log(msg: str) -> None:
@@ -649,9 +664,11 @@ def sql_phase(dev, sf: float):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was never launched by the "
                                  f"main path")
-    for k in ("radix_sort", "sort_encode", "group_ids"):
+    for k in ("radix_sort", "sort_encode"):
         if per_query["topn"][k] == 0:
             raise AssertionError(f"the TopN scan did not launch {k}")
+    if not any(per_query["topn"][k] for k in K10_ENTRIES):
+        raise AssertionError("the TopN scan launched neither K10 entry")
     return eng, s, host, launches, walls, q1_slab
 
 
@@ -1202,6 +1219,49 @@ def _words(rng, kind, n):
     return full & 1, 1                                        # "bit"
 
 
+def _k10_case(rng, case, n):
+    """→ (key values, NULL mask or None, live, radix words of its sort)
+    for K10's cases: NaNs (each its own group) beside +inf, -0.0 beside
+    +0.0, -inf, all NaN (a value field of no bits), NULLs, a dead row
+    keyed like the last live one, all rows dead; and two sorts of two
+    words (NaN and ±0.0 with NULLs; a full-range int64 with NULLs)."""
+    import numpy as np
+    live = rng.random(n) > 0.2
+    m = rng.random(n) > 0.15
+    if case == "nan":
+        v = rng.choice(np.array([2.0, 3.5, 4.0, 1e300, np.inf, np.nan]), n)
+        return v, None, live, 1
+    if case == "signed_zero":
+        return rng.choice(np.array([-0.0, 0.0, 0.5, 3.0]), n), None, live, 1
+    if case == "neg_inf":
+        v = rng.choice(np.array([-np.inf, -1e300, -2.0, -3.5]), n)
+        return v, None, live, 1
+    if case == "all_nan":
+        return np.full(n, np.nan), None, live, 1
+    if case == "nulls":
+        return rng.integers(-40, 40, n).astype(np.int64), m, live, 1
+    if case == "dead_equal":
+        v = rng.integers(0, 9, n).astype(np.int64)
+        k = min(n, 5)
+        v[:k] = 9
+        live[:k] = [True, False, True, False, False][:k]
+        return v, None, live, 1
+    if case == "all_dead":
+        return rng.integers(0, 30, n).astype(np.int32), m, \
+            np.zeros(n, dtype=bool), 1
+    if case == "nan_two_words":
+        v = rng.choice(np.array([0.0, -0.0, -np.inf, np.inf, 1.5, np.nan]),
+                       n)
+        return v, m, live, 2
+    v = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)  # two_words
+    v[:n // 3] = rng.integers(-3, 3, n // 3)
+    return v, m, live, 2
+
+
+K10_CASES = ("nan", "signed_zero", "neg_inf", "all_nan", "nulls",
+             "dead_equal", "all_dead", "nan_two_words", "two_words")
+
+
 def check_sort_kernels(dev):
     import numpy as np
     import torch
@@ -1253,7 +1313,10 @@ def check_sort_kernels(dev):
                 same(f"K9 {kind} desc={desc} n={n}", got, want)
                 cases += 1
         # K10 over the kernel's own sort: factorize (cap above and below
-        # the group count) and _dense1 modes, with NULLs and dead rows
+        # the group count) and _dense1 modes, with NULLs and dead rows;
+        # the gather entry on every sort, the word entry (and its plain
+        # version) on the one-word sorts, and the route the word count
+        # picks against the plain route on CPU copies
         live = torch.from_numpy(rng.random(n) > 0.2).to(dev)
         for kind in ("f64", "i64", "code"):
             v = torch.from_numpy(np.asarray(_values(rng, kind, n))).to(dev)
@@ -1264,6 +1327,35 @@ def check_sort_kernels(dev):
                 same(f"K10 {kind} cap={cap} n={n}",
                      F.group_ids(sidx, v, m, live, cap),
                      F.group_ids_plain(sidx, v, m, live, cap))
+                cases += 1
+        for case in K10_CASES:
+            hv, hm, hl, n_words = _k10_case(rng, case, n)
+            hv, hl = torch.from_numpy(hv), torch.from_numpy(hl)
+            hm = None if hm is None else torch.from_numpy(hm)
+            dv, dl = hv.to(dev), hl.to(dev)
+            dm = None if hm is None else hm.to(dev)
+            ops = F._key_operands([(dv, dm)], dl)
+            sidx, words = F._lexsort_kernel(ops)
+            if n > 1 and words.count != n_words:
+                raise AssertionError(f"K10 {case}: {words.count} words, "
+                                     f"{n_words} expected")
+            n_words = words.count       # one row: no operand takes bits
+            for cap in (0, 3, n + 1):
+                want = F.group_ids_plain(sidx, dv, dm, dl, cap)
+                same(f"K10 gather {case} cap={cap} n={n}",
+                     F.group_ids(sidx, dv, dm, dl, cap), want)
+                if n_words == 1:
+                    key = F._word_key(words)
+                    same(f"K10 words {case} cap={cap} n={n}",
+                         F.group_ids_words(words.last, sidx, *key, cap),
+                         want)
+                    same(f"K10 words plain {case} cap={cap} n={n}",
+                         F.group_ids_words_plain(words.last, sidx, *key,
+                                                 cap), want)
+                same(f"K10 route {case} cap={cap} n={n}",
+                     F._sort_groups_kernel(ops, dv, dm, dl, cap),
+                     F._sort_groups(F._key_operands([(hv, hm)], hl), hv,
+                                    hm, hl, cap))
                 cases += 1
         # the functions over K8-K10 against the same functions on CPU
         # copies of the inputs (the plain versions): 1-3 key columns
@@ -1317,13 +1409,15 @@ def check_sort_kernels(dev):
                  torch.searchsorted(table, probe, right=right))
         cases += 5
     torch.cuda.synchronize()
-    log(f"K8-K11 radix_sort/sort_encode/group_ids/sorted_search: {cases} "
-        f"cases exactly equal to the plain versions (n = 1, 1000, 4097, "
-        f"1,000,003; int32/int64/float64 with ±0.0, ±inf, NaN/bool/dict "
-        f"codes; ASC/DESC, NULLs, dead rows; all-equal, sorted, reversed "
-        f"keys; a 1-bit partition; 1-3 key columns through factorize/"
-        f"sort_perm/topn/pack_codes; cap below n_groups; K11 with "
-        f"duplicates, missing keys, sentinels, nb = 1, P = 0)")
+    log(f"K8-K11 radix_sort/sort_encode/group_ids(_words)/sorted_search: "
+        f"{cases} cases exactly equal to the plain versions (n = 1, 1000, "
+        f"4097, 1,000,003; int32/int64/float64 with ±0.0, ±inf, NaN/bool/"
+        f"dict codes; ASC/DESC, NULLs, dead rows; all-equal, sorted, "
+        f"reversed keys; a 1-bit partition; K10's word entry and its "
+        f"gather entry on one- and two-word sorts ({', '.join(K10_CASES)}); "
+        f"1-3 key columns through factorize/sort_perm/topn/pack_codes; cap "
+        f"below n_groups; K11 with duplicates, missing keys, sentinels, "
+        f"nb = 1, P = 0)")
 
 
 # ---------------------------------------------------------------------------
@@ -1566,18 +1660,23 @@ def sort_sql_phase(s, n: int, orders, dense_q3_host):
     t0 = time.perf_counter()
     li = make_lineitem(n)
     s.execute("CREATE TABLE orders_sk (o_okey BIGINT, o_orderdate DATE, "
-              "o_orderpriority CHAR(1))")
+              "o_orderpriority CHAR(1), o_ref BIGINT)")
     s.execute("CREATE TABLE lineitem_sk (l_extendedprice DECIMAL(15,2), "
               "l_discount DECIMAL(15,2), l_shipdate DATE, l_okey BIGINT)")
+    n_o = len(orders["o_orderkey"])
+    rng = np.random.default_rng(31)
+    tokens = rng.integers(-2 ** 63, 2 ** 63 - 1, 4096, dtype=np.int64)
     orders_sk = {"o_okey": sparse_key(orders["o_orderkey"]),
                  "o_orderdate": orders["o_orderdate"],
-                 "o_orderpriority": orders["o_orderpriority"]}
+                 "o_orderpriority": orders["o_orderpriority"],
+                 "o_ref": tokens[rng.integers(0, 4096, n_o)]}
+    valid = {"orders_sk": {"o_ref": rng.random(n_o) > 0.05}}
     lineitem_sk = {c: li[c] for c in ("l_extendedprice", "l_discount",
                                       "l_shipdate")}
     lineitem_sk["l_okey"] = sparse_key(li["l_orderkey"])
     for name, cols in (("orders_sk", orders_sk),
                        ("lineitem_sk", lineitem_sk)):
-        load_numpy_columns(s, name, cols)
+        load_numpy_columns(s, name, cols, valid.get(name))
         s.execute(f"ANALYZE TABLE {name}")
     log(f"orders_sk {len(orders_sk['o_okey'])} rows, lineitem_sk "
         f"{len(lineitem_sk['l_okey'])} rows (62-bit keys): generated, "
@@ -1593,7 +1692,8 @@ def sort_sql_phase(s, n: int, orders, dense_q3_host):
     host = {}
     walls = {}
     for name, sql in (("tpch_q3", TPCH_Q3), ("topn_join", TOPN_JOIN),
-                      ("join_rows", JOIN_ROWS), ("q3_sk", Q3_SK)):
+                      ("join_rows", JOIN_ROWS), ("q3_sk", Q3_SK),
+                      ("ref_groups", REF_GROUPS)):
         rows, wall, _, _ = run_sql(s, sql, device=False)
         host[name] = rows
         walls[f"host_{name}"] = wall
@@ -1605,7 +1705,8 @@ def sort_sql_phase(s, n: int, orders, dense_q3_host):
             ("tpch_q3_warm2", TPCH_Q3, "tpch_q3"),
             ("topn_join", TOPN_JOIN, "topn_join"),
             ("limit_join", LIMIT_JOIN, None),
-            ("q3_sk_cold", Q3_SK, "q3_sk"), ("q3_sk_warm", Q3_SK, "q3_sk")]
+            ("q3_sk_cold", Q3_SK, "q3_sk"), ("q3_sk_warm", Q3_SK, "q3_sk"),
+            ("ref_groups", REF_GROUPS, "ref_groups")]
     t_phase = time.perf_counter()
     ck.reset_launches()
     for name, sql, ref in runs:
@@ -1634,6 +1735,9 @@ def sort_sql_phase(s, n: int, orders, dense_q3_host):
                     not moved.get("sorted_search"):
                 raise AssertionError(f"{name}: not the sort formulation "
                                      f"({moved})")
+        if name == "ref_groups" and not moved.get("group_ids"):
+            raise AssertionError(f"{name}: K10's gather entry did not run "
+                                 f"({moved})")
         walls[name] = wall
         log(f"{name}: {len(rows)} rows, "
             f"{'count + membership' if ref is None else 'exact match'}, "
@@ -1682,7 +1786,8 @@ def sort_timing_phase(dev, sparse):
     lib = time_cuda(lambda: torch.sort(keys, stable=True), reps=10)
     err = exact("K8 full-range", zip(F.radix_sort(keys, None, 64),
                                      F.radix_sort_plain(keys, None, 64)))
-    b, by = bound_ms(n * (8 + 4), n * 8)
+    # each key read once; the sorted words and their row ids written once
+    b, by = bound_ms(n * (8 + 8 + 4), n * 8)
     out.append({"name": "radix_sort", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/radix_sort.cu",
                 "replaces": "tidb_tpu/ops/factorize.py:96",
@@ -1704,15 +1809,14 @@ def sort_timing_phase(dev, sparse):
     live[nb:nb + min(n_l, P)] = True
     v, live = v.to(dev), live.to(dev)
     valid = torch.ones_like(live)
-    words = []
-    for op in reversed(F._key_operands([(v, valid)], live)):
-        vv, code = F._k9_operand(op.v)
-        words.append((op, vv, code) + F._field(op, vv, code, nb + P))
+    ops = F._key_operands([(v, valid)], live)
+    fields = F._fields(ops, nb + P)
     word = torch.empty(nb + P, dtype=torch.int64, device=dev)
     shift = 0
-    for j, (op, vv, code, base, width) in enumerate(words):
-        F.sort_encode(vv, code, None, op.m, op.desc, base, shift, word,
-                      accumulate=j > 0)
+    for j in reversed(range(len(ops))):
+        vv, code, base, width, _nan = fields[j]
+        F.sort_encode(vv, code, None, ops[j].m, ops[j].desc, base, shift,
+                      word, accumulate=shift > 0)
         shift += width
     ms2 = time_cuda(lambda: F.radix_sort(word, None, shift), reps=10)
     plain2 = time_cuda(lambda: F.radix_sort_plain(word, None, shift),
@@ -1720,7 +1824,7 @@ def sort_timing_phase(dev, sparse):
     lib2 = time_cuda(lambda: torch.sort(word, stable=True), reps=10)
     exact("K8 sparse-join word", zip(F.radix_sort(word, None, shift),
                                      F.radix_sort_plain(word, None, shift)))
-    b2, _ = bound_ms((nb + P) * (8 + 4), (nb + P) * 8)
+    b2, _ = bound_ms((nb + P) * (8 + 8 + 4), (nb + P) * 8)
     log(f"K8 sparse join N={nb + P} ({shift} bits): {ms2:.4f} ms (plain "
         f"{plain2:.4f}, torch.sort(stable) {lib2:.4f}, bound {b2:.4f})")
 
@@ -1750,30 +1854,55 @@ def sort_timing_phase(dev, sparse):
         f"{timed['float64'][1]:.4f}); int64: {timed['int64'][0]:.4f} ms "
         f"(plain {timed['int64'][1]:.4f}); bound {b:.4f} by {by}")
 
-    # K10: 8,388,608 rows in ~10^5 groups, over the kernel's own sort
+    # K10: 8,388,608 rows in ~10^5 groups, over the kernel's own sort (one
+    # word: the dead flag and 17 value bits): the word entry over K8's
+    # sorted word, and the gather entry on the same sort
     gk = torch.from_numpy(rng.integers(0, 100_000, n)).to(dev)
     glive = torch.from_numpy(rng.random(n) > 0.02).to(dev)
-    sidx = F.lexsort(F._key_operands([(gk, None)], glive))
+    sidx, words = F._lexsort_kernel(F._key_operands([(gk, None)], glive))
+    if words.count != 1:
+        raise AssertionError(f"K10's sort took {words.count} words")
+    key = F._word_key(words)
     cap = 131_072
-    ms = time_cuda(lambda: F.group_ids(sidx, gk, None, glive, cap),
-                   reps=10)
-    plain = time_cuda(lambda: F.group_ids_plain(sidx, gk, None, glive, cap),
-                      reps=5)
     sorted_keys = gk[sidx.long()]
     lib = time_cuda(lambda: torch.unique_consecutive(sorted_keys,
                                                      return_inverse=True),
                     reps=10)
-    got = F.group_ids(sidx, gk, None, glive, cap)
     want = F.group_ids_plain(sidx, gk, None, glive, cap)
-    exact("K10", zip(got, want))
+    ms_w = time_cuda(lambda: F.group_ids_words(words.last, sidx, *key, cap),
+                     reps=10)
+    plain_w = time_cuda(lambda: F.group_ids_words_plain(words.last, sidx,
+                                                        *key, cap), reps=5)
+    exact("K10 words", zip(F.group_ids_words(words.last, sidx, *key, cap),
+                           want))
+    exact("K10 words plain", zip(F.group_ids_words_plain(
+        words.last, sidx, *key, cap), want))
+    ms = time_cuda(lambda: F.group_ids(sidx, gk, None, glive, cap),
+                   reps=10)
+    plain = time_cuda(lambda: F.group_ids_plain(sidx, gk, None, glive, cap),
+                      reps=5)
+    exact("K10 gather", zip(F.group_ids(sidx, gk, None, glive, cap), want))
+    fact = time_cuda(lambda: F.factorize([(gk, None)], glive, cap), reps=10)
+    # words: the sorted word and the row ids read, the gids written, rep
+    b_w, by_w = bound_ms(n * (8 + 4 + 4) + cap * 4, n * 4)
+    out.append({"name": "group_ids_words", "route": "cuda",
+                "source": "tidb_tpu_torch/csrc/sorted_groups.cu",
+                "replaces": "tidb_tpu/ops/factorize.py:96",
+                "max_abs_err": 0, "ms": ms_w, "plain_ms": plain_w,
+                "bound_ms": b_w, "bound_by": by_w, "library_ms": lib})
+    # gather: the permutation, the key and the live mask read, the gids
+    # written, rep
     b, by = bound_ms(n * (4 + 8 + 1 + 4) + cap * 4, n * 4)
     out.append({"name": "group_ids", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/sorted_groups.cu",
                 "replaces": "tidb_tpu/ops/factorize.py:96",
                 "max_abs_err": 0, "ms": ms, "plain_ms": plain,
                 "bound_ms": b, "bound_by": by, "library_ms": lib})
-    log(f"K10 n={n} groups={int(got[1])} cap={cap}: {ms:.4f} ms (plain "
-        f"{plain:.4f}, unique_consecutive {lib:.4f}, bound {b:.4f} by {by})")
+    log(f"K10 n={n} groups={int(want[1])} cap={cap}: word entry "
+        f"{ms_w:.4f} ms (plain {plain_w:.4f}, bound {b_w:.4f} by {by_w}); "
+        f"gather entry {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} by "
+        f"{by}); unique_consecutive {lib:.4f}; factorize (K9 + K8 + K10) "
+        f"{fact:.4f} ms")
 
     # K11: 2,097,152 sorted build codes, 8,388,608 probes (unique mode)
     nb = 2_097_152
@@ -2381,7 +2510,10 @@ def distinct_sql_phase(s):
     s.vars.pop("tidb_tpu_max_slab_rows", None)
     launches = ck.launches()
     walls["distinct_phase"] = time.perf_counter() - t_phase
-    for k in DISTINCT_KERNELS + ("radix_sort", "sort_encode", "group_ids"):
+    # the pair codes carry their bound, so their sort is one word: K10's
+    # word entry
+    for k in DISTINCT_KERNELS + ("radix_sort", "sort_encode",
+                                 "group_ids_words"):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was never launched by the "
                                  f"DISTINCT/ROLLUP path")

@@ -13,7 +13,12 @@ plain version; K23 hash_partition (1-64 destinations, the tile edge, an
 overflowing cap, two key passes, three scatter launches) against its;
 K24 rank_exchange, K25 rank_gather and K26 hash_dest (1-64 ranks, the
 key, code and dest modes, unaligned pieces, limb columns) against
-theirs.
+theirs. The sort formulation: K8 radix_sort (n = 1, the tile edges,
+1,000,003; 1 to 64 bits; full-range, all-equal, sorted and reversed
+words; given and generated row ids), K9 sort_encode, K10 group_ids (its
+word entry over K8's sorted word and its gather entry for two-word
+sorts: NaN, ±0.0, ±inf, NULLs, dead rows, cap overflow) and K11
+sorted_search against their plain versions.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -539,3 +544,182 @@ def test_k26_matches_plain(cuda, n_shards):
         assert torch.equal(P.hash_dest(None, n_shards,
                                        code=code.to(cuda)).cpu(),
                            P.hash_dest_plain(None, n_shards, code=code))
+
+
+# ---------------------------------------------------------------------------
+# K8-K11: the sort formulation
+# ---------------------------------------------------------------------------
+
+
+def _k8_words(kind, n, bits, rng):
+    mask = -1 if bits == 64 else (1 << bits) - 1
+    full = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64) & mask
+    if kind == "full":
+        return full
+    if kind == "equal":
+        return np.full(n, 12345 & mask, dtype=np.int64)
+    if kind == "sorted":
+        return np.sort(full)
+    return np.sort(full)[::-1].copy()                       # "reversed"
+
+
+@pytest.mark.parametrize("bits", [1, 8, 24, 40, 64])
+@pytest.mark.parametrize("kind", ["full", "equal", "sorted", "reversed"])
+def test_k8_matches_plain(cuda, kind, bits):
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import factorize as F
+    tile = ck.library("radix_sort").tt_radix_tile()
+    rng = np.random.default_rng(bits * 7 + len(kind))
+    for n in (1, tile - 1, tile, tile + 1, 3 * tile - 1, 3 * tile,
+              3 * tile + 1, 1_000_003):
+        w = torch.from_numpy(_k8_words(kind, n, bits, rng)).to(cuda)
+        perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+        for vals in (None, perm):
+            got = F.radix_sort(w, vals, bits)
+            want = F.radix_sort_plain(w, vals, bits)
+            assert torch.equal(got[0], want[0]), (kind, bits, n)
+            assert torch.equal(got[1], want[1]), (kind, bits, n)
+
+
+@pytest.mark.parametrize("kind", ["f64", "i32", "i64", "bool"])
+@pytest.mark.parametrize("desc", [False, True])
+def test_k9_matches_plain(cuda, kind, desc):
+    from tidb_tpu_torch.ops import factorize as F
+    rng = np.random.default_rng(len(kind) + int(desc))
+    n = 1_000_003
+    if kind == "f64":
+        raw = rng.choice(np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5,
+                                   -2.25, 1e300]), n)
+    elif kind == "i32":
+        raw = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    elif kind == "i64":
+        raw = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    else:
+        raw = rng.random(n) > 0.5
+    v, code = F._k9_operand(torch.from_numpy(raw).to(cuda))
+    m = torch.from_numpy(rng.random(n) > 0.15).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    st = torch.tensor([-1, 0], dtype=torch.int64, device=cuda)
+    F.sort_encode(v, code, None, m, desc, 0, 0, stats=st)
+    _, (lo, hi) = F.sort_encode_plain(v, code, None, m, desc, 0, 0)
+    assert [x & ((1 << 64) - 1) for x in st.tolist()] == [lo, hi]
+    base = torch.full((n,), 3, dtype=torch.int64, device=cuda)
+    got = F.sort_encode(v, code, perm, m, desc, lo, 2, base.clone(),
+                        accumulate=True)
+    want, _ = F.sort_encode_plain(v, code, perm, m, desc, lo, 2, base,
+                                  accumulate=True)
+    assert torch.equal(got, want)
+
+
+def _k10_case(case, n, rng):
+    """→ (key values, NULL mask or None, live, radix words of its sort)."""
+    live = rng.random(n) > 0.2
+    m = rng.random(n) > 0.15
+    if case == "nan":
+        v = rng.choice(np.array([2.0, 3.5, 4.0, 1e300, np.inf, np.nan]), n)
+        return v, None, live, 1
+    if case == "signed_zero":
+        return rng.choice(np.array([-0.0, 0.0, 0.5, 3.0]), n), None, live, 1
+    if case == "neg_inf":
+        v = rng.choice(np.array([-np.inf, -1e300, -2.0, -3.5]), n)
+        return v, None, live, 1
+    if case == "all_nan":
+        return np.full(n, np.nan), None, live, 1
+    if case == "nulls":
+        return rng.integers(-40, 40, n).astype(np.int64), m, live, 1
+    if case == "groups":                      # ~10^5 groups
+        return rng.integers(0, 100_000, n).astype(np.int64), None, live, 1
+    if case == "dead_equal":       # the last live key is a dead row's too
+        v = rng.integers(0, 9, n).astype(np.int64)
+        k = min(n, 5)
+        v[:k] = 9
+        live[:k] = [True, False, True, False, False][:k]
+        return v, None, live, 1
+    if case == "all_dead":
+        return rng.integers(0, 30, n).astype(np.int32), m, \
+            np.zeros(n, dtype=bool), 1
+    if case == "nan_two_words":
+        v = rng.choice(np.array([0.0, -0.0, -np.inf, np.inf, 1.5, np.nan]),
+                       n)
+        return v, m, live, 2
+    v = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)  # two_words
+    v[:n // 3] = rng.integers(-3, 3, n // 3)
+    return v, m, live, 2
+
+
+@pytest.mark.parametrize("case", ["nan", "signed_zero", "neg_inf", "all_nan",
+                                  "nulls", "groups", "dead_equal",
+                                  "all_dead", "nan_two_words", "two_words"])
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+def test_k10_matches_plain(cuda, case, n):
+    """Both K10 entries against their plain versions on the same sort, the
+    route's results against the plain route on CPU copies, and the entry
+    the word count picks (each with its own counter)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import factorize as F
+    rng = np.random.default_rng(n + len(case))
+    v, m, live, n_words = _k10_case(case, n, rng)
+    hv, hl = torch.from_numpy(v), torch.from_numpy(live)
+    hm = None if m is None else torch.from_numpy(m)
+    dv, dl = hv.to(cuda), hl.to(cuda)
+    dm = None if hm is None else hm.to(cuda)
+    ops = F._key_operands([(dv, dm)], dl)
+    sidx, words = F._lexsort_kernel(ops)
+    if n > 1:                 # one row: every operand takes no bits
+        assert words.count == n_words
+    n_words = words.count
+    for cap in (0, 3, n + 1):
+        want = F.group_ids_plain(sidx, dv, dm, dl, cap)
+        want = want if isinstance(want, tuple) else (want,)
+        got = F.group_ids(sidx, dv, dm, dl, cap)              # gather
+        for a, b in zip(got if cap else (got,), want):
+            assert torch.equal(a, b), (case, n, cap)
+        if n_words == 1:
+            key = F._word_key(words)
+            got = F.group_ids_words(words.last, sidx, *key, cap)
+            for a, b in zip(got if cap else (got,), want):
+                assert torch.equal(a, b), (case, n, cap)
+            plain = F.group_ids_words_plain(words.last, sidx, *key, cap)
+            for a, b in zip(plain if cap else (plain,), want):
+                assert torch.equal(a, b), (case, n, cap)
+        before = ck.launches()
+        got = F._sort_groups_kernel(ops, dv, dm, dl, cap)
+        after = ck.launches()
+        entry = "group_ids_words" if n_words == 1 else "group_ids"
+        other = "group_ids" if n_words == 1 else "group_ids_words"
+        assert after[entry] == before[entry] + 1
+        assert after[other] == before[other]
+        host = F._sort_groups(F._key_operands([(hv, hm)], hl), hv, hm, hl,
+                              cap)
+        host = host if isinstance(host, tuple) else (host,)
+        for a, b in zip(got if cap else (got,), host):
+            assert torch.equal(a.cpu(), b.to(a.dtype)), (case, n, cap)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("nb,P", [(1, 50), (1, 0), (5000, 0),
+                                  (200_000, 1_000_003)])
+def test_k11_matches_plain(cuda, nb, P, dup):
+    from tidb_tpu_torch.ops import join as J
+    rng = np.random.default_rng(nb + P + int(dup))
+    pool = np.sort(rng.choice(1 << 40, max(nb, 2), replace=False))
+    bc = pool[rng.integers(0, max(nb // 3, 1), nb)] if dup else pool[:nb]
+    codes = torch.from_numpy(rng.permutation(bc)).to(cuda)
+    ok_b = torch.from_numpy(rng.random(nb) > 0.1).to(cuda)
+    probe = torch.from_numpy(np.where(
+        rng.random(P) < 0.7, pool[rng.integers(0, len(pool), P)],
+        rng.integers(0, 1 << 40, P))).to(cuda)
+    ok_p = torch.from_numpy(rng.random(P) > 0.1).to(cuda)
+    sc, order = J.sorted_build(codes, ok_b)
+    hs, ho = J.sorted_build(codes.cpu(), ok_b.cpu())
+    assert torch.equal(sc.cpu(), hs) and torch.equal(order.cpu(), ho)
+    for a, b in zip(J.sorted_search_unique(sc, order, probe, ok_p),
+                    J.sorted_search_unique_plain(sc, order, probe, ok_p)):
+        assert torch.equal(a, b)
+    for a, b in zip(J.sorted_search_multi(sc, probe, ok_p),
+                    J.sorted_search_multi_plain(sc, probe, ok_p)):
+        assert torch.equal(a, b)
+    table = torch.from_numpy(pool).to(cuda)
+    for right in (False, True):
+        assert torch.equal(J.searchsorted(table, probe, right),
+                           torch.searchsorted(table, probe, right=right))

@@ -137,7 +137,7 @@ def test_every_kernel_source_is_built_and_counted():
     from tidb_tpu_torch.ops import cuda_kernels as ck
     srcs = {f[:-3] for f in os.listdir(ck.CSRC) if f.endswith(".cu")}
     assert srcs == set(ck.SOURCES)
-    assert len(ck.COUNTERS) == 26 and len(set(ck.COUNTERS)) == 26
+    assert len(ck.COUNTERS) == 27 and len(set(ck.COUNTERS)) == 27
     for name in ("distinct_pairs", "rollup_tile", "gather_columns",
                  "delta_merge", "civil_date", "dict_lut", "member_compact",
                  "hash_partition", "rank_gather"):
@@ -145,12 +145,16 @@ def test_every_kernel_source_is_built_and_counted():
     # hash_partition.cu also holds K24 and K26
     for name in ("rank_exchange", "hash_dest"):
         assert name in ck.COUNTERS
+    # sorted_groups.cu's K10 has two entries, each with its counter
+    for name in ("group_ids", "group_ids_words"):
+        assert name in ck.COUNTERS
     for fn in ("tt_pair_code", "tt_first_mask", "tt_rollup_tile",
                "tt_rollup_levels", "tt_gather_columns", "tt_delta_perm",
                "tt_delta_repack", "tt_civil_part", "tt_date_add_months",
                "tt_dict_lut", "tt_dict_lut_smem_bytes", "tt_member_count",
                "tt_member_scatter", "tt_hash_partition", "tt_rank_exchange",
-               "tt_rank_gather", "tt_hash_dest"):
+               "tt_rank_gather", "tt_hash_dest", "tt_radix_scratch_words",
+               "tt_group_ids_words", "tt_group_words_scratch"):
         assert fn in ck._SIGNATURES
 
 

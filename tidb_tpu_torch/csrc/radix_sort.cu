@@ -20,26 +20,41 @@
 // bits vary.
 //
 // K8 is a stable LSD radix sort of (uint64 word, int32 row id) pairs over
-// bits [0, end_bit) in 8-bit digits. Each pass runs (1) a per-tile digit
-// histogram, (2) an exclusive scan of every digit's row of tile counts
-// (digit-major [digit][tile] layout, one block per digit), and (3) a
-// scatter in which each tile ranks its keys stably in index order: each
-// warp owns a contiguous run of the tile and walks it in rounds of 32
-// keys, ranking a round with __match_any_sync and carrying per-warp
-// digit positions in shared memory. The digit's global start is the scan
-// of the digit totals plus the tile's scanned count. Words of several
+// bits [0, end_bit) in 8-bit digits, with the one-kernel-per-pass
+// ("onesweep") structure of Adinets and Merrill (2022):
+//   1. one histogram launch reads the words once and counts every pass's
+//      256 digits (shared counters per block, one global add per bin);
+//   2. one launch per pass. Each block takes its tile id from an atomic
+//      counter (so tile order is index order and the look-back below
+//      cannot wait on a tile that has not started), loads its 4,096 keys
+//      coalesced, ranks them stably by digit (each warp owns a contiguous
+//      run and walks it in rounds of 32 with __match_any_sync), publishes
+//      its per-digit counts as an "aggregate", and one thread per digit
+//      looks back over the earlier tiles' status words (decoupled
+//      look-back) to its exclusive prefix, which it publishes as an
+//      "inclusive prefix". The tile then scatters through shared memory:
+//      keys, and then row ids, are reordered by digit inside the tile, so
+//      consecutive threads write consecutive addresses of each digit's
+//      run in the output.
+// A status word is 64 bits: the count (< 2^31) in the low 32, the flag
+// in bits 32-33 and the pass number + 1 in bits 40-47, so the words of
+// one buffer serve every pass, and the scratch (tile counters,
+// histograms, status) is zeroed by one memset per call. Words of several
 // 64-bit words sort from the least significant word to the most (the
 // caller re-encodes the next word through the permutation). The result
 // equals torch.sort(stable=True) element for element.
 //
-// What bounds them on an H100: bytes. A pass reads the keys twice (the
-// histogram and the scatter) and the row ids once, and writes both: about
-// 32 B per key per 8-bit digit, so a 24-bit key costs three passes. The
+// What bounds them on an H100: bytes. A pass reads the keys and the row
+// ids once and writes both: 24 B per key per 8-bit digit (20 B on the
+// first pass, whose row ids are the index), plus one 8 B read of every
+// key for all the histograms; the status words add 2 KB per tile. The
 // design keeps the pass count at the bits that vary (the caller packs
-// narrow operands into one word and subtracts the minimum) and the
-// histogram free of atomic pile-ups (one shared atomic per distinct digit
-// of a warp's round). The scatter's writes land in 256 buckets per tile,
-// not coalesced: the price of a simple kernel, left for a later change.
+// narrow operands into one word and subtracts the minimum), reads each
+// key once a pass, and turns the scatter's stores into runs of ~16
+// consecutive keys (4,096 keys over 256 digits a tile) instead of one
+// lone 8 B and 4 B store per key. The histogram takes a warp whose 32
+// keys share a digit with one shared atomic (all-equal and sorted words),
+// every other key with one.
 //
 // C interface, bound with ctypes; every entry returns cudaGetLastError().
 
@@ -58,7 +73,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 16;                // keys per thread in a tile
 constexpr int TILE = THREADS * ITEMS;    // 4096 keys
 constexpr int RADIX = 256;               // 8-bit digits
-constexpr int SCAN_T = 1024;
 static_assert(RADIX == THREADS, "one digit per thread");
 
 enum { DT_BOOL = 0, DT_I32 = 1, DT_I64 = 2, DT_F64 = 3 };
@@ -147,121 +161,221 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---- K8 ------------------------------------------------------------------
 
+constexpr int MAX_PASSES = 8;
+constexpr int HIST_ITEMS = 8;            // keys per thread per round
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned long long AGGREGATE = 1ull << 32;
+constexpr unsigned long long PREFIX = 2ull << 32;
+constexpr int TAG_SHIFT = 40;
+constexpr int LOOK = 16;                 // status words a look-back step
+// scratch, in 64-bit words: MAX_PASSES uint32 tile counters (padded to
+// 64 B), MAX_PASSES x 256 uint32 digit counts, then 256 status words a
+// tile
+constexpr int HEADER_WORDS = 8 + MAX_PASSES * RADIX / 2;
+
+__device__ __forceinline__ void store_relaxed(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ u64 load_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ u64 digit_mask(int shift, int end_bit) {
+  const int bits = end_bit - shift < 8 ? end_bit - shift : 8;
+  return (1ull << bits) - 1ull;
+}
+
+// every pass's digit counts in one read of the words
 __global__ void __launch_bounds__(THREADS)
-    digit_hist(const u64* __restrict__ keys, long long n, int shift,
-               u64 dmask, int n_tiles, int* __restrict__ counts) {
-  __shared__ int hist[RADIX];
-  hist[threadIdx.x] = 0;
+    pass_histograms(const u64* __restrict__ keys, long long n, int end_bit,
+                    int passes, unsigned* __restrict__ hist) {
+  __shared__ unsigned h[MAX_PASSES][RADIX];
+  for (int p = 0; p < passes; ++p) h[p][threadIdx.x] = 0u;
   __syncthreads();
-  const long long base = static_cast<long long>(blockIdx.x) * TILE;
   const int lane = threadIdx.x & 31;
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + static_cast<long long>(j) * THREADS +
-                        threadIdx.x;
-    const int d = i < n ? static_cast<int>((keys[i] >> shift) & dmask)
-                        : RADIX;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    if (d < RADIX && lane == __ffs(peers) - 1)
-      atomicAdd(&hist[d], __popc(peers));
+  const long long step = static_cast<long long>(gridDim.x) * THREADS *
+                         HIST_ITEMS;
+  for (long long base = static_cast<long long>(blockIdx.x) * THREADS *
+                        HIST_ITEMS;
+       base < n; base += step) {
+    u64 k[HIST_ITEMS];
+    bool ok[HIST_ITEMS];
+#pragma unroll
+    for (int j = 0; j < HIST_ITEMS; ++j) {
+      const long long i = base + j * THREADS + threadIdx.x;
+      ok[j] = i < n;
+      k[j] = ok[j] ? keys[i] : 0ull;
+    }
+#pragma unroll
+    for (int j = 0; j < HIST_ITEMS; ++j) {
+      for (int p = 0; p < passes; ++p) {
+        const int d = static_cast<int>((k[j] >> (8 * p)) &
+                                       digit_mask(8 * p, end_bit));
+        const int d0 = __shfl_sync(FULL, d, 0);
+        if (__all_sync(FULL, ok[j] && d == d0)) {
+          if (lane == 0) atomicAdd(&h[p][d0], 32u);
+        } else if (ok[j]) {
+          atomicAdd(&h[p][d], 1u);
+        }
+      }
+    }
   }
   __syncthreads();
-  counts[static_cast<long long>(threadIdx.x) * n_tiles + blockIdx.x] =
-      hist[threadIdx.x];
-}
-
-// one block per digit: its row of tile counts → exclusive prefix in
-// place; the row total → digit_total
-__global__ void __launch_bounds__(SCAN_T)
-    scan_digit_rows(int* __restrict__ counts, int n_tiles,
-                    int* __restrict__ digit_total) {
-  typedef cub::BlockScan<int, SCAN_T> Scan;
-  __shared__ typename Scan::TempStorage tmp;
-  int* row = counts + static_cast<long long>(blockIdx.x) * n_tiles;
-  int carry = 0;
-  for (int b = 0; b < n_tiles; b += SCAN_T) {
-    const int i = b + threadIdx.x;
-    const int v = i < n_tiles ? row[i] : 0;
-    int ex, agg;
-    Scan(tmp).ExclusiveSum(v, ex, agg);
-    if (i < n_tiles) row[i] = carry + ex;
-    carry += agg;
-    __syncthreads();
+  for (int p = 0; p < passes; ++p) {
+    const unsigned c = h[p][threadIdx.x];
+    if (c) atomicAdd(&hist[p * RADIX + threadIdx.x], c);
   }
-  if (threadIdx.x == 0) digit_total[blockIdx.x] = carry;
 }
 
-__global__ void __launch_bounds__(THREADS)
-    digit_scatter(const u64* __restrict__ keys_in,
+// one pass: rank, look back, scatter through shared memory
+__global__ void __launch_bounds__(THREADS, 2)
+    onesweep_pass(const u64* __restrict__ keys_in,
                   const int* __restrict__ vals_in, long long n, int shift,
-                  u64 dmask, int n_tiles, const int* __restrict__ counts,
-                  const int* __restrict__ digit_total,
+                  int end_bit, int pass, const unsigned* __restrict__ hist,
+                  unsigned* __restrict__ tile_counter, u64* status,
                   u64* __restrict__ keys_out, int* __restrict__ vals_out) {
   typedef cub::BlockScan<int, THREADS> Scan;
   __shared__ typename Scan::TempStorage scan_tmp;
-  __shared__ int warp_pos[WARPS][RADIX];
+  __shared__ union {
+    u64 k[TILE];
+    int v[TILE];
+  } buf;
+  __shared__ int warp_cnt[WARPS][RADIX];
+  __shared__ int tile_start[RADIX];   // digit d's first slot in the tile
+  __shared__ int out_base[RADIX];     // output slot of tile slot 0, digit d
+  __shared__ int s_tile;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // where this tile's keys of digit `tid` start in the output
-  int dstart;
-  Scan(scan_tmp).ExclusiveSum(digit_total[tid], dstart);
-  dstart += counts[static_cast<long long>(tid) * n_tiles + blockIdx.x];
-  for (int w = 0; w < WARPS; ++w) warp_pos[w][tid] = 0;
+  if (tid == 0) s_tile = static_cast<int>(atomicAdd(tile_counter, 1u));
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) warp_cnt[w][tid] = 0;
+  // digit tid's start in this pass's output
+  int gstart;
+  Scan(scan_tmp).ExclusiveSum(static_cast<int>(hist[tid]), gstart);
   __syncthreads();
+  const int tile = s_tile;
+  const long long tbase = static_cast<long long>(tile) * TILE;
+  const u64 dmask = digit_mask(shift, end_bit);
 
   // warp `warp` owns keys [wbase, wbase + 32 * ITEMS) of the tile, walked
   // in rounds of 32: index order is (warp, round, lane)
-  const long long wbase = static_cast<long long>(blockIdx.x) * TILE +
-                          static_cast<long long>(warp) * (32 * ITEMS);
+  const long long wbase = tbase + static_cast<long long>(warp) * (32 * ITEMS);
   u64 k[ITEMS];
   int v[ITEMS];
-  int d[ITEMS];
+  int pos[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    k[j] = i < n ? keys_in[i] : 0ull;
+  }
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    v[j] = i < n ? (vals_in ? vals_in[i] : static_cast<int>(i)) : 0;
+  }
+  // rank within the warp: the digit's count in earlier rounds plus the
+  // lanes of this round before this one
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    const int d = i < n ? static_cast<int>((k[j] >> shift) & dmask) : RADIX;
+    const unsigned peers = __match_any_sync(FULL, d);
+    const int before = d < RADIX ? warp_cnt[warp][d] : 0;
+    __syncwarp();
+    if (d < RADIX && lane == __ffs(peers) - 1)
+      warp_cnt[warp][d] = before + __popc(peers);
+    __syncwarp();
+    pos[j] = before + __popc(peers & lt);
+  }
+  __syncthreads();
+  // digit tid: exclusive prefix over the warps, and the tile's count,
+  // published at once for the tiles after this one
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int c = warp_cnt[w][tid];
+    warp_cnt[w][tid] = total;
+    total += c;
+  }
+  const u64 tag = static_cast<u64>(pass + 1) << TAG_SHIFT;
+  u64* mine = status + static_cast<long long>(tile) * RADIX + tid;
+  store_relaxed(mine, tag | (tile == 0 ? PREFIX : AGGREGATE) |
+                          static_cast<u64>(total));
+  int tstart;
+  Scan(scan_tmp).ExclusiveSum(total, tstart);
+  tile_start[tid] = tstart;
+  __syncthreads();
+  // keys to their slot in the tile's digit order (this frees their
+  // registers for the look-back)
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     const long long i = wbase + j * 32 + lane;
     if (i < n) {
-      k[j] = keys_in[i];
-      v[j] = vals_in ? vals_in[i] : static_cast<int>(i);
-      d[j] = static_cast<int>((k[j] >> shift) & dmask);
-    } else {
-      k[j] = 0ull;
-      v[j] = 0;
-      d[j] = RADIX;
+      const int d = static_cast<int>((k[j] >> shift) & dmask);
+      pos[j] += tile_start[d] + warp_cnt[warp][d];
+      buf.k[pos[j]] = k[j];
     }
   }
-  // per-warp digit counts (one leader per digit and round writes)
+  // decoupled look-back over the earlier tiles' counts of digit tid: LOOK
+  // status words in flight a step (tile t, t-1, ...; before tile 0 reads
+  // as an inclusive prefix of 0), taken in order up to the first not yet
+  // published for this pass, or to an inclusive prefix
+  int excl = 0;
+  for (long long t = tile - 1; t >= 0;) {
+    u64 w[LOOK];
+#pragma unroll
+    for (int q = 0; q < LOOK; ++q)
+      w[q] = t - q >= 0 ? load_relaxed(status + (t - q) * RADIX + tid)
+                        : (tag | PREFIX);
+    int q = 0;
+    bool found = false;
+    for (; q < LOOK; ++q) {
+      if ((w[q] >> TAG_SHIFT) != static_cast<u64>(pass + 1)) break;
+      excl += static_cast<int>(w[q] & 0xffffffffull);
+      if (w[q] & PREFIX) {
+        found = true;
+        break;
+      }
+    }
+    if (found) break;
+    t -= q;
+  }
+  if (tile > 0)
+    store_relaxed(mine, tag | PREFIX | static_cast<u64>(excl + total));
+  out_base[tid] = gstart + excl - tstart;
+  __syncthreads();
+  const int tn = static_cast<int>(n - tbase < TILE ? n - tbase : TILE);
+  int ds[ITEMS];
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    const unsigned peers = __match_any_sync(0xffffffffu, d[j]);
-    if (d[j] < RADIX && lane == __ffs(peers) - 1)
-      warp_pos[warp][d[j]] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  // warp-exclusive prefix per digit, from the digit's start in the output
-  {
-    int run = dstart;
-    for (int w = 0; w < WARPS; ++w) {
-      const int c = warp_pos[w][tid];
-      warp_pos[w][tid] = run;
-      run += c;
+    const int s = j * THREADS + tid;
+    ds[j] = 0;
+    if (s < tn) {
+      const u64 key = buf.k[s];
+      ds[j] = static_cast<int>((key >> shift) & dmask);
+      keys_out[out_base[ds[j]] + s] = key;
     }
   }
   __syncthreads();
-  const unsigned lt = (1u << lane) - 1u;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    const unsigned peers = __match_any_sync(0xffffffffu, d[j]);
-    const bool ok = d[j] < RADIX;
-    const int pos = ok ? warp_pos[warp][d[j]] + __popc(peers & lt) : 0;
-    __syncwarp();
-    if (ok && lane == __ffs(peers) - 1)
-      warp_pos[warp][d[j]] += __popc(peers);
-    __syncwarp();
-    if (ok) {
-      keys_out[pos] = k[j];
-      vals_out[pos] = v[j];
-    }
+    const long long i = wbase + j * 32 + lane;
+    if (i < n) buf.v[pos[j]] = v[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int s = j * THREADS + tid;
+    if (s < tn) vals_out[out_base[ds[j]] + s] = buf.v[s];
   }
 }
 
@@ -275,8 +389,13 @@ int blocks_for(long long n) {
 
 extern "C" {
 
-// keys per K8 tile: the caller sizes `counts` as 256 * ceil(n / tile)
+// keys per K8 tile
 int tt_radix_tile() { return TILE; }
+
+// K8's scratch for n keys, in 64-bit words
+int tt_radix_scratch_words(long long n) {
+  return HEADER_WORDS + static_cast<int>((n + TILE - 1) / TILE) * RADIX;
+}
 
 // K9. src: n values of `dtype` (0 bool, 1 int32, 2 int64, 3 float64);
 // perm: int32 (n) or null (identity); mask: bool (length of src) or null,
@@ -303,33 +422,37 @@ int tt_sort_encode(const void* src, int dtype, long long n, const void* perm,
 // K8. keys: uint64 (n); vals: int32 (n) or null (row ids 0..n-1); sorts
 // by bits [0, end_bit) in ceil(end_bit / 8) passes. Pass p writes
 // (keys_a, vals_a) when p is even, (keys_b, vals_b) when odd, and reads
-// the input (p = 0) or the other pair. Scratch: counts int32 (256 *
-// ceil(n / tt_radix_tile())), digit_total int32 (256).
+// the input (p = 0) or the other pair. Scratch: int64
+// (tt_radix_scratch_words(n)), zeroed here.
 int tt_radix_sort(const void* keys, const void* vals, long long n,
                   int end_bit, void* keys_a, void* vals_a, void* keys_b,
-                  void* vals_b, void* counts, void* digit_total,
-                  void* stream) {
+                  void* vals_b, void* scratch, void* stream) {
   if (n < 0 || n >= (1LL << 31) || end_bit < 0 || end_bit > 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
   if (n == 0 || end_bit == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = static_cast<int>((n + TILE - 1) / TILE);
-  int* cnt = static_cast<int*>(counts);
-  int* tot = static_cast<int*>(digit_total);
+  const long long n_tiles = (n + TILE - 1) / TILE;
+  const int passes = (end_bit + 7) / 8;
+  u64* words = static_cast<u64*>(scratch);
+  unsigned* counters = reinterpret_cast<unsigned*>(words);
+  unsigned* hist = reinterpret_cast<unsigned*>(words + 8);
+  u64* status = words + HEADER_WORDS;
+  cudaMemsetAsync(scratch, 0,
+                  static_cast<size_t>(HEADER_WORDS + n_tiles * RADIX) * 8,
+                  st);
+  long long hb = (n + THREADS * HIST_ITEMS - 1) / (THREADS * HIST_ITEMS);
+  if (hb > 132 * 8) hb = 132 * 8;
   const u64* kin = static_cast<const u64*>(keys);
   const int* vin = static_cast<const int*>(vals);
-  for (int shift = 0, p = 0; shift < end_bit; shift += 8, ++p) {
-    const int bits = end_bit - shift < 8 ? end_bit - shift : 8;
-    const u64 dmask = (1ull << bits) - 1ull;
+  pass_histograms<<<static_cast<unsigned>(hb), THREADS, 0, st>>>(
+      kin, n, end_bit, passes, hist);
+  for (int p = 0; p < passes; ++p) {
     u64* kout = static_cast<u64*>(p % 2 == 0 ? keys_a : keys_b);
     int* vout = static_cast<int*>(p % 2 == 0 ? vals_a : vals_b);
-    digit_hist<<<n_tiles, THREADS, 0, st>>>(kin, n, shift, dmask, n_tiles,
-                                             cnt);
-    scan_digit_rows<<<RADIX, SCAN_T, 0, st>>>(cnt, n_tiles, tot);
-    digit_scatter<<<n_tiles, THREADS, 0, st>>>(kin, vin, n, shift, dmask,
-                                                n_tiles, cnt, tot, kout,
-                                                vout);
+    onesweep_pass<<<static_cast<unsigned>(n_tiles), THREADS, 0, st>>>(
+        kin, vin, n, 8 * p, end_bit, p, hist + p * RADIX, counters + p,
+        status, kout, vout);
     kin = kout;
     vin = vout;
   }

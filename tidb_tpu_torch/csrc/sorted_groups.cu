@@ -11,7 +11,22 @@
 // Since the sort is stable, that is the row at the group's boundary; the
 // slot cap - 1 takes the minimum over every group clamped into it
 // (atomicMin) when n_groups > cap; the caller fills empty slots with
-// n - 1 first.
+// n - 1 first. It has two entries:
+//   * words (tt_group_ids_words), for a sort whose operands fit one 64-bit
+//     radix word: K8 has just written that word in sorted order, with the
+//     dead flag, the NULL flag and the value code side by side. A
+//     boundary is a change of any bit under `cmp_mask` (every field but
+//     the dead flag: the JAX function compares the key components only)
+//     or a NaN (K9 gives every NaN one code; the JAX `!=` makes each its
+//     own group); the live flag is the dead bit, read from the same word.
+//     One launch: each block takes its tile id from an atomic counter,
+//     ranks its flags with warp ballots and finds its prefix by decoupled
+//     look-back over the earlier tiles' status words (a 64-bit word per
+//     tile: the count and a flag; zeroed by one memset per call).
+//   * gather (tt_group_ids), for sorts of two or more words: the key and
+//     its masks gathered through the permutation at each sorted position
+//     and its neighbour, in a three-launch scan (block totals, one block
+//     scanning them, a re-read that applies the carry).
 //
 // K11 replaces the searchsorted of tidb_tpu/ops/join.py
 // sorted_probe_unique / sorted_probe_multi and of the device IN list
@@ -21,11 +36,14 @@
 // id. Unique mode also flags equal non-sentinel neighbours in the sorted
 // codes (one write per block that finds any).
 //
-// What bounds them on an H100: bytes. K10 reads the permutation, the
-// key at each sorted position and at its neighbour (both gathers through
-// the permutation; the neighbour's is usually in L1/L2 already) and the
-// live mask, and writes the gids, in a three-pass scan (as K2/K6: block
-// totals, one block scanning them, a re-read that applies the carry).
+// What bounds them on an H100: bytes. K10's word entry reads the sorted
+// words and the permutation contiguously (12 B a row; each word's
+// neighbour is the previous lane's load, in L1) and makes one scattered
+// 4 B gids write a row (the 4 B/row gids array fits the 50 MB L2, which
+// merges the scattered stores). Its gather entry reads the permutation,
+// the key at each sorted position and at its neighbour through it (random
+// 8 B and 1 B reads; the neighbour's is usually in L1/L2 already) and the
+// live mask, twice (the totals and the apply launch), and writes the gids.
 // K11 reads each probe key and mask and writes its outputs; its ~21
 // probes per row land in a sorted table that, at 2,097,152 int64 build
 // codes (16 MB), stays in the 50 MB L2.
@@ -42,7 +60,13 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int SCAN_T = 1024;
+constexpr int WARPS = THREADS / 32;
+constexpr int WORD_ITEMS = 8;                      // rows per thread
+constexpr int WORD_TILE = THREADS * WORD_ITEMS;    // 2048 rows a tile
 constexpr long long SENTINEL = 0x7fffffffffffffffLL;
+constexpr unsigned long long AGGREGATE = 1ull << 32;
+constexpr unsigned long long PREFIX = 2ull << 32;
+typedef unsigned long long u64;
 
 enum { DT_BOOL = 0, DT_I32 = 1, DT_I64 = 2, DT_F64 = 3 };
 
@@ -140,6 +164,173 @@ __global__ void __launch_bounds__(SCAN_T)
   }
 }
 
+__device__ __forceinline__ void store_relaxed(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ u64 load_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+struct WordKey {
+  u64 cmp_mask;       // the bits that tell groups apart
+  u64 nan_mask;       // the value field (0: a constant one)
+  u64 nan_val;        // the NaN code in it
+  int has_nan;
+  int dead_shift;     // the dead flag's bit, read when cap > 0
+};
+
+// the exclusive prefix of tile `tile` by decoupled look-back, one warp
+// reading 32 earlier tiles' status words at a time (lane l: tile - 1 - l)
+__device__ __forceinline__ int look_back(const u64* status, int tile,
+                                         int lane) {
+  int excl = 0;
+  for (long long t = static_cast<long long>(tile) - 1; t >= 0; t -= 32) {
+    const long long idx = t - lane;
+    u64 s = idx >= 0 ? load_relaxed(status + idx) : PREFIX;
+    while (!__all_sync(0xffffffffu, (s & (AGGREGATE | PREFIX)) != 0ull)) {
+      if (!(s & (AGGREGATE | PREFIX))) s = load_relaxed(status + idx);
+    }
+    const unsigned pre = __ballot_sync(0xffffffffu, (s & PREFIX) != 0ull);
+    int c = static_cast<int>(s & 0xffffffffull);
+    if (pre) {
+      // the newest tile with an inclusive prefix and the aggregates after it
+      if (lane > __ffs(pre) - 1) c = 0;
+      excl += static_cast<int>(__reduce_add_sync(0xffffffffu,
+                                                 static_cast<unsigned>(c)));
+      break;
+    }
+    excl += static_cast<int>(__reduce_add_sync(0xffffffffu,
+                                               static_cast<unsigned>(c)));
+  }
+  return excl;
+}
+
+// before gid_words: the scratch (tile counter, status words) zeroed and
+// rep (cap > 0) filled with `value`
+__global__ void __launch_bounds__(THREADS)
+    words_prep(u64* __restrict__ scratch, long long words,
+               int* __restrict__ rep, int cap, int value) {
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  const long long first = static_cast<long long>(blockIdx.x) * THREADS +
+                          threadIdx.x;
+  for (long long i = first; i < words; i += step) scratch[i] = 0ull;
+  for (long long i = first; i < cap; i += step) rep[i] = value;
+}
+
+// one launch: flags, warp-ballot ranks, look-back, scatter
+__global__ void __launch_bounds__(THREADS)
+    gid_words(const u64* __restrict__ w, const int* __restrict__ sidx,
+              long long n, WordKey key, int cap,
+              unsigned* __restrict__ tile_counter, u64* status,
+              int* __restrict__ gids, int* __restrict__ rep,
+              int* __restrict__ n_groups) {
+  __shared__ int warp_excl[WARPS];
+  __shared__ int s_tile;
+  __shared__ int s_excl;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) s_tile = static_cast<int>(atomicAdd(tile_counter, 1u));
+  __syncthreads();
+  const int tile = s_tile;
+  // warp `warp` owns rows [wbase, wbase + 32 * WORD_ITEMS), walked in
+  // rounds of 32: index order is (warp, round, lane). The words and row
+  // ids stream through once (evict-first), so the scattered gids stay in
+  // L2 until their sectors fill.
+  const long long wbase = static_cast<long long>(tile) * WORD_TILE +
+                          static_cast<long long>(warp) * (32 * WORD_ITEMS);
+  u64 cur[WORD_ITEMS];
+  int row[WORD_ITEMS];
+#pragma unroll
+  for (int j = 0; j < WORD_ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    cur[j] = i < n ? __ldcs(w + i) : 0ull;
+    row[j] = i < n ? __ldcs(sidx + i) : 0;
+  }
+  // the word before the warp's run (lane 0 of round 0)
+  const u64 before = (lane == 0 && wbase > 0 && wbase - 1 < n)
+                         ? w[wbase - 1] : 0ull;
+  const unsigned le = (2u << lane) - 1u;
+  unsigned flags = 0u;
+  int rank[WORD_ITEMS];
+  int run = 0;
+#pragma unroll
+  for (int j = 0; j < WORD_ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    // the previous row's word: the lane before, or the last lane of the
+    // round before
+    u64 prev = __shfl_up_sync(0xffffffffu, cur[j], 1);
+    if (j > 0) {
+      const u64 last = __shfl_sync(0xffffffffu, cur[j - 1], 31);
+      if (lane == 0) prev = last;
+    } else if (lane == 0) {
+      prev = before;
+    }
+    bool b = i < n &&
+             (i == 0 || ((cur[j] ^ prev) & key.cmp_mask) != 0ull ||
+              (key.has_nan && (cur[j] & key.nan_mask) == key.nan_val));
+    if (cap > 0 && ((cur[j] >> key.dead_shift) & 1ull)) b = false;
+    const unsigned bal = __ballot_sync(0xffffffffu, b);
+    rank[j] = run + __popc(bal & le);      // inclusive
+    run += __popc(bal);
+    flags |= (b ? 1u : 0u) << j;
+  }
+  if (lane == 0) warp_excl[warp] = run;
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane < WARPS ? warp_excl[lane] : 0;
+    int incl = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += x;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane < WARPS) warp_excl[lane] = incl - c;
+    u64* mine = status + tile;
+    int excl = 0;
+    if (tile == 0) {
+      if (lane == 0) store_relaxed(mine, PREFIX | static_cast<u64>(total));
+    } else {
+      if (lane == 0) store_relaxed(mine, AGGREGATE | static_cast<u64>(total));
+      excl = look_back(status, tile, lane);
+      if (lane == 0)
+        store_relaxed(mine, PREFIX | static_cast<u64>(excl + total));
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      if (cap > 0 && tile == (n - 1) / WORD_TILE) *n_groups = excl + total;
+    }
+  }
+  __syncthreads();
+  const int base = s_excl + warp_excl[warp] - 1;
+#pragma unroll
+  for (int j = 0; j < WORD_ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    if (i >= n) continue;
+    const int gid_s = base + rank[j];
+    const int r = row[j];
+    if (cap <= 0) {             // _dense1: unclamped dense codes
+      gids[r] = gid_s;
+      continue;
+    }
+    gids[r] = gid_s < 0 ? 0 : (gid_s >= cap ? cap - 1 : gid_s);
+    if ((flags >> j) & 1u) {
+      if (gid_s < cap - 1)
+        rep[gid_s] = r;         // a group's first sorted row is its least
+      else
+        atomicMin(&rep[cap - 1], r);
+    }
+  }
+}
+
 // ---- K11 -----------------------------------------------------------------
 
 __device__ __forceinline__ long long lower_bound(const long long* a,
@@ -231,7 +422,7 @@ int blocks_for(long long n) {
 
 extern "C" {
 
-// K10. sidx: int32 (n), the stable sort permutation; v: n values of
+// K10, gather. sidx: int32 (n), the stable sort permutation; v: n values of
 // `dtype` (0 bool, 1 int32, 2 int64, 3 float64) in row order; m: bool (n)
 // or null; live: bool (n) or null. cap > 0 (factorize): gids int32 (n)
 // clamped to [0, cap), rep int32 (cap) pre-filled by the caller with
@@ -260,6 +451,49 @@ int tt_group_ids(const void* sidx, const void* v, int dtype, const void* m,
   gid_apply<<<static_cast<unsigned>(nblocks), SCAN_T, 0, st>>>(
       in, n, blk, cap, static_cast<int*>(gids), static_cast<int*>(rep));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K10, words: w uint64 (n), the sort's one radix word in sorted order
+// (K8's output); sidx int32 (n), its row ids. A boundary is i == 0, a
+// change of (w[i] ^ w[i-1]) & cmp_mask, or (has_nan) w[i] & nan_mask ==
+// nan_val; cap > 0 masks it by the live flag, bit dead_shift of w clear.
+// Outputs as tt_group_ids, but rep (cap > 0) is filled here with
+// max(n - 1, 0) first. Scratch: int64 (tt_group_words_scratch(n)), zeroed
+// here (one launch does both).
+int tt_group_ids_words(const void* w, const void* sidx, long long n,
+                       unsigned long long cmp_mask, int has_nan,
+                       unsigned long long nan_mask,
+                       unsigned long long nan_val, int dead_shift, int cap,
+                       void* gids, void* rep, void* n_groups, void* scratch,
+                       void* stream) {
+  if (n < 0 || n >= (1LL << 31) || cap < 0 || dead_shift < 0 ||
+      dead_shift > 63)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* ng = static_cast<int*>(n_groups);
+  const long long n_tiles = (n + WORD_TILE - 1) / WORD_TILE;
+  u64* words = static_cast<u64*>(scratch);
+  const long long most = (1 + n_tiles) > cap ? 1 + n_tiles : cap;
+  const long long pb = (most + THREADS - 1) / THREADS;
+  words_prep<<<static_cast<unsigned>(pb < 264 ? pb : 264), THREADS, 0, st>>>(
+      words, 1 + n_tiles, static_cast<int*>(rep), cap,
+      n > 0 ? static_cast<int>(n - 1) : 0);
+  if (n == 0) {
+    if (ng && cap > 0) cudaMemsetAsync(ng, 0, sizeof(int), st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  WordKey key{cmp_mask, nan_mask, nan_val, has_nan, dead_shift};
+  gid_words<<<static_cast<unsigned>(n_tiles), THREADS, 0, st>>>(
+      static_cast<const u64*>(w), static_cast<const int*>(sidx), n, key, cap,
+      reinterpret_cast<unsigned*>(words), words + 1,
+      static_cast<int*>(gids), static_cast<int*>(rep), ng);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10 words' scratch for n rows, in 64-bit words
+int tt_group_words_scratch(long long n) {
+  return 1 + static_cast<int>((n + WORD_TILE - 1) / WORD_TILE);
 }
 
 // K11, positions: out int64 (P) = the left (right = 0) or right insertion

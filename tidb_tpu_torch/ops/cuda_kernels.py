@@ -36,16 +36,17 @@ SOURCES = ("segment_reduce", "unpack_decode", "perfect_groups", "lut_join",
            "hash_partition", "rank_gather")
 #: launch counters, one per kernel (lut_join.cu holds K4 and K5,
 #: join_expand.cu K6 and K7, radix_sort.cu K8 and K9, sorted_groups.cu K10
-#: and K11, window_scan.cu K12 and K13, window_frame.cu K14 and K15;
+#: (its word entry `group_ids_words` and its gather entry `group_ids`) and
+#: K11, window_scan.cu K12 and K13, window_frame.cu K14 and K15;
 #: distinct_pairs.cu is K16, rollup_tile.cu K17, gather_columns.cu K18,
 #: delta_merge.cu K19, civil_date.cu K20, dict_lut.cu K21,
 #: member_compact.cu K22, hash_partition.cu K23, K24 and K26,
 #: rank_gather.cu K25)
 COUNTERS = ("segment_reduce", "unpack_decode", "perfect_groups",
             "lut_build", "lut_probe", "lut_order", "join_expand",
-            "radix_sort", "sort_encode", "group_ids", "sorted_search",
-            "window_bounds", "window_scan", "frame_bounds", "frame_eval",
-            "distinct_pairs", "rollup_tile", "gather_columns",
+            "radix_sort", "sort_encode", "group_ids", "group_ids_words",
+            "sorted_search", "window_bounds", "window_scan", "frame_bounds",
+            "frame_eval", "distinct_pairs", "rollup_tile", "gather_columns",
             "delta_merge", "civil_date", "dict_lut", "member_compact",
             "hash_partition", "rank_exchange", "rank_gather", "hash_dest")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,8 +76,12 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     "tt_radix_tile": [],
     "tt_sort_encode": [_P, _I, _L, _P, _P, _I, _U, _I, _P, _I, _P, _P],
-    "tt_radix_sort": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P],
+    "tt_radix_scratch_words": [_L],
+    "tt_radix_sort": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P],
     "tt_group_ids": [_P, _P, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P],
+    "tt_group_ids_words": [_P, _P, _L, _U, _I, _U, _U, _I, _I, _P, _P, _P,
+                           _P, _P],
+    "tt_group_words_scratch": [_L],
     "tt_sorted_search": [_P, _L, _P, _L, _I, _P, _P],
     "tt_sorted_probe_unique": [_P, _P, _L, _P, _P, _L, _P, _P, _P, _P],
     "tt_sorted_probe_multi": [_P, _L, _P, _P, _L, _P, _P, _P],

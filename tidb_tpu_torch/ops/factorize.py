@@ -29,14 +29,19 @@ kernel path for CUDA tensors (csrc/radix_sort.cu, csrc/sorted_groups.cu):
               `radix_sort` sorts each word stably, least significant word
               first.
   `group_ids` the back half of factorize / _dense1 over the sorted order
-              (boundaries, scan, gids, n_groups, rep). Kernel: K10.
+              (boundaries, scan, gids, n_groups, rep). Kernel: K10. When
+              the sort took one word, its word entry reads K8's sorted
+              word (`SortWords`), whose bits hold the dead flag, the NULL
+              flag and the value code side by side; a sort of two or more
+              words takes its gather entry, which reads the key through
+              the permutation. The word count, known on the host, picks.
 
 The kernel path needs each operand's bit width: a dense rank or packed
 code carries its bound (`SortOp.hi`, known on the host), a raw key costs
-one K9 min/max reduction read back to the host (one sync per raw operand
-of a sort). Permutations come back as int64 (torch's index type) from
-`sort_perm`, `topn` and `partition_perm`; the kernels carry int32 row ids
-inside.
+one K9 min/max reduction; a sort reads all its raw operands' min/max back
+to the host at once (one sync per sort). Permutations come back as int64
+(torch's index type) from `sort_perm`, `topn` and `partition_perm`; the
+kernels carry int32 row ids inside.
 
 All group counts are explicit (`cap`): callers get `n_groups` back and
 retry with a bigger cap when `n_groups > cap`.
@@ -58,6 +63,26 @@ class SortOp(NamedTuple):
     m: Optional[torch.Tensor] = None
     desc: bool = False
     hi: Optional[int] = None
+
+
+class Field(NamedTuple):
+    """An operand's bit field in a radix word: codes minus `base`, shifted
+    left by `shift`, over `width` bits; `nan` when the codes reach K9's
+    NaN code (~0), which then marks every NaN."""
+    shift: int
+    width: int
+    base: int
+    nan: bool = False
+
+
+class SortWords(NamedTuple):
+    """What the kernel sort leaves beside its permutation: the number of
+    64-bit radix words it took, the last (most significant) word in sorted
+    order, and each operand's `Field` in that word (None for an operand
+    packed into an earlier word)."""
+    count: int
+    last: Optional[torch.Tensor]
+    fields: Tuple[Optional[Field], ...]
 
 
 # ---------------------------------------------------------------------------
@@ -104,22 +129,16 @@ def _boundaries(sorted_ops: Sequence[torch.Tensor], n: int, device):
     return diff
 
 
-def group_ids_plain(sidx, v, m, live, cap: int):
-    """Plain torch version of K10 over the stable order `sidx` of one key
-    (v, m). cap == 0 (_dense1): dense codes in sorted order, boundaries
-    unmasked → gids (n,) int32. cap > 0 (factorize): boundaries masked by
-    the sorted rows' liveness → (gids clamped to [0, cap), n_groups, rep
-    (cap,) int32 — a group's smallest row, max(n - 1, 0) where empty)."""
+def _groups_from_boundaries(sidx, diff, live_s, cap: int):
+    """The tail of K10's plain versions: boundaries `diff` in sorted order
+    (masked by `live_s` when cap > 0) → gids, or (gids, n_groups, rep)."""
     n = sidx.shape[0]
     dev = sidx.device
-    ops = [v] if m is None else [m, torch.where(m, v, torch.zeros_like(v))]
-    diff = _boundaries([op[sidx] for op in ops], n, dev)
     gids = torch.zeros(n, dtype=torch.int32, device=dev)
     if cap == 0:
         gids[sidx] = torch.cumsum(diff.to(torch.int32), 0,
                                   dtype=torch.int32) - 1
         return gids
-    live_s = live[sidx]
     boundary = diff & live_s
     gid_s = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
     n_groups = boundary.sum().to(torch.int32)
@@ -131,6 +150,41 @@ def group_ids_plain(sidx, v, m, live, cap: int):
     rep = segment_reduce("min", rows, gid_s, cap)
     rep = torch.minimum(rep, torch.full_like(rep, max(n - 1, 0)))
     return gids, n_groups, rep.to(torch.int32)
+
+
+def group_ids_plain(sidx, v, m, live, cap: int):
+    """Plain torch version of K10's gather entry over the stable order
+    `sidx` of one key (v, m). cap == 0 (_dense1): dense codes in sorted
+    order, boundaries unmasked → gids (n,) int32. cap > 0 (factorize):
+    boundaries masked by the sorted rows' liveness → (gids clamped to
+    [0, cap), n_groups, rep (cap,) int32 — a group's smallest row,
+    max(n - 1, 0) where empty)."""
+    n = sidx.shape[0]
+    ops = [v] if m is None else [m, torch.where(m, v, torch.zeros_like(v))]
+    diff = _boundaries([op[sidx] for op in ops], n, sidx.device)
+    return _groups_from_boundaries(sidx, diff,
+                                   live[sidx] if cap > 0 else None, cap)
+
+
+def group_ids_words_plain(w, sidx, cmp_mask: int, nan, dead_shift: int,
+                          cap: int):
+    """Plain torch version of K10's word entry over `w`, a sort's one radix
+    word in sorted order (uint64 bits in an int64 tensor), and its row ids
+    `sidx`: a boundary where a bit under `cmp_mask` changes, or where
+    `nan` = (mask, code) is given and w & mask == code (each NaN its own
+    group); cap > 0 masks it by the live flag (bit `dead_shift` of w
+    clear). Outputs as `group_ids_plain`."""
+    n = w.shape[0]
+    diff = torch.zeros(n, dtype=torch.bool, device=w.device)
+    if n:
+        diff[0] = True
+        diff[1:] = ((w[1:] ^ w[:-1]) & _signed(cmp_mask)) != 0
+    if nan is not None:
+        diff |= (w & _signed(nan[0])) == _signed(nan[1])
+    live_s = None
+    if cap > 0:
+        live_s = torch.bitwise_right_shift(w, dead_shift) & 1 == 0
+    return _groups_from_boundaries(sidx, diff, live_s, cap)
 
 
 # K9's operand types: 0 bool, 1 int32, 2 int64, 3 float64
@@ -306,77 +360,96 @@ def radix_sort(keys, vals, end_bit: int):
         return keys, (vals if vals is not None else torch.arange(
             n, dtype=torch.int32, device=dev))
     lib = ck.library("radix_sort")
-    n_tiles = -(-n // lib.tt_radix_tile())
     ka = torch.empty(n, dtype=torch.int64, device=dev)
     kb = torch.empty(n, dtype=torch.int64, device=dev)
     va = torch.empty(n, dtype=torch.int32, device=dev)
     vb = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty(256 * n_tiles, dtype=torch.int32, device=dev)
-    totals = torch.empty(256, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.tt_radix_scratch_words(n), dtype=torch.int64,
+                          device=dev)
     rc = lib.tt_radix_sort(
         keys.data_ptr(), None if vals is None else vals.data_ptr(), n,
         end_bit, ka.data_ptr(), va.data_ptr(), kb.data_ptr(), vb.data_ptr(),
-        counts.data_ptr(), totals.data_ptr(), ck.stream_ptr(dev))
+        scratch.data_ptr(), ck.stream_ptr(dev))
     ck.count("radix_sort")
     ck.check(rc, "radix_sort")
     return (ka, va) if passes % 2 == 1 else (kb, vb)
 
 
-def _field(op: SortOp, v, code: int, n: int) -> Tuple[int, int]:
-    """→ (base, width): the operand's smallest code and the bits its codes
-    span above it. Raw keys read K9's min/max back (one sync)."""
-    if code == 0:
-        return 0, 1
-    if op.hi is not None and code in (1, 2):
-        lo = _ZERO_CODE[code]
-        hi = lo + max(int(op.hi), 1) - 1
-        if op.desc:
-            lo, hi = _flip_code(hi, code), _flip_code(lo, code)
-        return lo, (hi - lo).bit_length()
-    if n == 0:
-        return 0, 0
-    stats = torch.tensor([-1, 0], dtype=torch.int64, device=v.device)
-    sort_encode(v, code, None, op.m, op.desc, 0, 0, stats=stats)
-    lo, hi = (x & _M64 for x in stats.tolist())
-    return lo, (hi - lo).bit_length()
+def _fields(ops: Sequence[SortOp], n: int) -> List[Tuple]:
+    """→ [(values as K9 reads them, type code, base, width, nan)] per
+    operand: the smallest code, the bits the codes span above it, and
+    whether they reach the NaN code. Dense ranks and packed codes take
+    their bound; every raw key's K9 min/max lands in one (k, 2) tensor,
+    read back to the host once."""
+    enc = [_k9_operand(op.v) for op in ops]
+    raw = [j for j, (op, (_v, code)) in enumerate(zip(ops, enc))
+           if code != 0 and not (op.hi is not None and code in (1, 2))]
+    stats = {}
+    if raw and n:
+        st = torch.tensor([[-1, 0]] * len(raw), dtype=torch.int64,
+                          device=ops[0].v.device)
+        for row, j in enumerate(raw):
+            v, code = enc[j]
+            sort_encode(v, code, None, ops[j].m, ops[j].desc, 0, 0,
+                        stats=st[row])
+        stats = dict(zip(raw, st.tolist()))
+    out = []
+    for j, (op, (v, code)) in enumerate(zip(ops, enc)):
+        if code == 0:
+            out.append((v, code, 0, 1, False))
+        elif j not in raw:
+            lo = _ZERO_CODE[code]
+            hi = lo + max(int(op.hi), 1) - 1
+            if op.desc:
+                lo, hi = _flip_code(hi, code), _flip_code(lo, code)
+            out.append((v, code, lo, (hi - lo).bit_length(), False))
+        elif j not in stats:                       # n == 0
+            out.append((v, code, 0, 0, False))
+        else:
+            lo, hi = (x & _M64 for x in stats[j])
+            out.append((v, code, lo, (hi - lo).bit_length(),
+                        code == 3 and hi == _M64))
+    return out
 
 
-def _lexsort_kernel(ops: Sequence[SortOp]) -> torch.Tensor:
+def _lexsort_kernel(ops: Sequence[SortOp]):
     """K9 + K8: operands packed into 64-bit words from the least
     significant operand up (an operand whose codes do not vary takes no
     bits), each word encoded through the permutation so far and sorted
-    stably over its bits → int32 permutation."""
+    stably over its bits → (int32 permutation, `SortWords`)."""
     n = ops[0].v.shape[0]
     dev = ops[0].v.device
-    fields = []
-    for op in ops:
-        v, code = _k9_operand(op.v)
-        base, width = _field(op, v, code, n)
-        fields.append((op, v, code, base, width))
+    fields = _fields(ops, n)
     words: List = []
     cur: List = []
     used = 0
-    for f in reversed(fields):
-        width = f[4]
+    for j in reversed(range(len(ops))):
+        width = fields[j][3]
         if width == 0:
             continue
         if used + width > 64:
             words.append((cur, used))
             cur, used = [], 0
-        cur.append((f, used))
+        cur.append((j, used))
         used += width
     if cur:
         words.append((cur, used))
-    perm = None
+    perm = w = None
     for spec, bits in words:
         word = torch.empty(n, dtype=torch.int64, device=dev)
-        for j, ((op, v, code, base, _w), shift) in enumerate(spec):
-            sort_encode(v, code, perm, op.m, op.desc, base, shift, word,
-                        accumulate=j > 0)
-        _, perm = radix_sort(word, perm, bits)
+        for k, (j, shift) in enumerate(spec):
+            v, code, base, _width, _nan = fields[j]
+            sort_encode(v, code, perm, ops[j].m, ops[j].desc, base, shift,
+                        word, accumulate=k > 0)
+        w, perm = radix_sort(word, perm, bits)
     if perm is None:
         perm = torch.arange(n, dtype=torch.int32, device=dev)
-    return perm
+    shifts = dict(words[-1][0]) if words else {}
+    layout = tuple(
+        Field(shifts.get(j, 0), f[3], f[2], f[4])
+        if j in shifts or f[3] == 0 else None
+        for j, f in enumerate(fields))
+    return perm, SortWords(len(words), w, layout)
 
 
 def lexsort(ops: Sequence[SortOp]) -> torch.Tensor:
@@ -384,12 +457,38 @@ def lexsort(ops: Sequence[SortOp]) -> torch.Tensor:
     `lexsort_plain` (int64) for CPU tensors, K9 + K8 (int32) for CUDA."""
     if ops[0].v.device.type == "cpu":
         return lexsort_plain(ops)
-    return _lexsort_kernel(ops)
+    return _lexsort_kernel(ops)[0]
 
 
-def group_ids(sidx, v, m, live, cap: int):
+def _word_key(words: SortWords):
+    """K10's word-entry parameters for a one-word sort of
+    `_key_operands([(v, m)], live)` → (cmp_mask, nan, dead_shift): every
+    key field but the dead flag (the JAX function compares the key
+    components only), the value field's NaN code when its codes reach it,
+    and the dead flag's bit."""
+    dead, *key = words.fields
+    cmp_mask = 0
+    for f in key:
+        cmp_mask |= ((1 << f.width) - 1) << f.shift
+    val = key[-1]
+    nan = None
+    if val.nan:
+        nan = (((1 << val.width) - 1) << val.shift,
+               ((_M64 - val.base) << val.shift) & _M64)
+    return cmp_mask, nan, dead.shift
+
+
+def group_ids(sidx, v, m, live, cap: int,
+              words: Optional[SortWords] = None):
     """K10 wrapper, as `group_ids_plain` (`live` is read only when
-    cap > 0)."""
+    cap > 0). `words`, from the kernel sort of `_key_operands([(v, m)],
+    live)` that made `sidx`, picks the entry: one word takes the word
+    entry (`group_ids_words`) over K8's sorted word; otherwise the gather
+    entry runs (its plain version for CPU tensors)."""
+    if words is not None and words.count == 1:
+        cmp_mask, nan, dead_shift = _word_key(words)
+        return group_ids_words(words.last, sidx, cmp_mask, nan, dead_shift,
+                               cap)
     if sidx.device.type == "cpu":
         return group_ids_plain(sidx, v, m, live, cap)
     from tidb_tpu_torch.ops import cuda_kernels as ck
@@ -424,6 +523,61 @@ def group_ids(sidx, v, m, live, cap: int):
     return gids if cap == 0 else (gids, ng, rep)
 
 
+def group_ids_words(w, sidx, cmp_mask: int, nan, dead_shift: int,
+                    cap: int):
+    """K10 word-entry wrapper, as `group_ids_words_plain` (CPU tensors take
+    it)."""
+    if w.device.type == "cpu":
+        return group_ids_words_plain(w, sidx, cmp_mask, nan, dead_shift,
+                                     cap)
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    ck.require_cuda(w, sidx, what="group_ids_words")
+    n = w.shape[0]
+    if w.dtype != torch.int64 or sidx.dtype != torch.int32 or \
+            w.shape != (n,) or sidx.shape != (n,) or n >= 2 ** 31 or \
+            cap < 0 or not 0 <= dead_shift < 64:
+        raise ck.KernelError("group_ids_words: int64 words, int32 row ids "
+                             "of one length, cap >= 0 and a dead bit in "
+                             "0..63 expected")
+    dev = w.device
+    gids = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = ck.library("sorted_groups")
+    # one allocation: the kernel's scratch, then rep (which the kernel
+    # fills with max(n - 1, 0)) and n_groups as int32
+    words = lib.tt_group_words_scratch(n)
+    buf = torch.empty(words + cap // 2 + 1, dtype=torch.int64, device=dev)
+    scratch = buf[:words]
+    rep = ng = None
+    if cap > 0:
+        tail = buf[words:].view(torch.int32)
+        rep, ng = tail[:cap], tail[cap]
+    nan_mask, nan_val = nan if nan is not None else (0, 0)
+    rc = lib.tt_group_ids_words(
+        w.data_ptr(), sidx.data_ptr(), n, int(cmp_mask) & _M64,
+        int(nan is not None), int(nan_mask) & _M64, int(nan_val) & _M64,
+        int(dead_shift), int(cap), gids.data_ptr(),
+        None if rep is None else rep.data_ptr(),
+        None if ng is None else ng.data_ptr(), scratch.data_ptr(),
+        ck.stream_ptr(dev))
+    if n > 0:
+        ck.count("group_ids_words")
+    ck.check(rc, "group_ids_words")
+    return gids if cap == 0 else (gids, ng, rep)
+
+
+def _sort_groups_kernel(ops: Sequence[SortOp], v, m, live, cap: int):
+    """The kernel route of _dense1 / factorize: K9 + K8 over `ops` (the
+    key's `_key_operands`), then K10's entry for the sort's word count."""
+    sidx, words = _lexsort_kernel(ops)
+    return group_ids(sidx, v, m, live, cap, words)
+
+
+def _sort_groups(ops: Sequence[SortOp], v, m, live, cap: int):
+    if live.device.type == "cpu":
+        return group_ids_plain(lexsort_plain(ops), v, m, live, cap)
+    return _sort_groups_kernel(ops, v, m, live, cap)
+
+
 # ---------------------------------------------------------------------------
 # The JAX package's functions (tidb_tpu/ops/factorize.py)
 # ---------------------------------------------------------------------------
@@ -447,8 +601,7 @@ def _key_operands(keys: Sequence[Tuple], live, hi: Optional[int] = None
 def _dense1(v, m, live, hi: Optional[int] = None):
     """Dense codes of ONE key column — sort + boundary scan. Dead rows get
     arbitrary (larger) codes; callers mask them."""
-    sidx = lexsort(_key_operands([(v, m)], live, hi))
-    return group_ids(sidx, v, m, live, 0)
+    return _sort_groups(_key_operands([(v, m)], live, hi), v, m, live, 0)
 
 
 def pack_codes(keys: Sequence[Tuple], live):
@@ -492,8 +645,7 @@ def factorize(keys: Sequence[Tuple], live, cap: int,
         keys = [(pack_codes(keys, live), None)]
         hi = (n + 1) ** 2
     (v, m), = keys
-    sidx = lexsort(_key_operands(keys, live, hi))
-    return group_ids(sidx, v, m, live, cap)
+    return _sort_groups(_key_operands(keys, live, hi), v, m, live, cap)
 
 
 def _order_operands(keys: Sequence[Tuple], descs: Sequence[bool], live

@@ -61,7 +61,8 @@ which must pass:
      full-range int64 keys and over the sparse join's 10,485,760 keys
      (each beside torch.sort(stable=True)), K9 over 8,388,608 float64 and
      int64 values, K10's word and gather entries at 8,388,608 rows and
-     ~10^5 groups (beside unique_consecutive), K11 with 2,097,152 build
+     ~10^5 groups (the word entry beside unique_consecutive; no PyTorch
+     call computes the gather entry's function), K11 with 2,097,152 build
      codes and 8,388,608 probes;
  11. window functions on the card, over lineitem and phase 7's tables:
      W1 a chain window root over a filtered scan (every rank function, a
@@ -79,8 +80,8 @@ which must pass:
      W6 itself);
  12. window kernel timing at phase 11's shapes (8,388,608 rows): K12
      over W1's and W2's layouts, K13's int64 prefix (beside torch.cumsum)
-     and segmented max, K14 over W3's RANGE key, K15's bounded MIN and
-     prefix-difference SUM;
+     and segmented max (its time in K13's record as `seg_ms`), K14 over
+     W3's RANGE key, K15's bounded MIN and prefix-difference SUM;
  13. DISTINCT and ROLLUP aggregates on the card, over lineitem and
      phase 7's tables: D1 three DISTINCT aggregates (one of two columns)
      and an AVG by (returnflag, linestatus), D2 = D1 over 2,097,152-row
@@ -1891,13 +1892,15 @@ def sort_timing_phase(dev, sparse):
                 "max_abs_err": 0, "ms": ms_w, "plain_ms": plain_w,
                 "bound_ms": b_w, "bound_by": by_w, "library_ms": lib})
     # gather: the permutation, the key and the live mask read, the gids
-    # written, rep
+    # written, rep. No one PyTorch call computes it (unique_consecutive
+    # numbers one sorted key in sorted order; the gather entry gathers
+    # its words through the permutation and numbers rows in row order)
     b, by = bound_ms(n * (4 + 8 + 1 + 4) + cap * 4, n * 4)
     out.append({"name": "group_ids", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/sorted_groups.cu",
                 "replaces": "tidb_tpu/ops/factorize.py:96",
                 "max_abs_err": 0, "ms": ms, "plain_ms": plain,
-                "bound_ms": b, "bound_by": by, "library_ms": lib})
+                "bound_ms": b, "bound_by": by, "library_ms": None})
     log(f"K10 n={n} groups={int(want[1])} cap={cap}: word entry "
         f"{ms_w:.4f} ms (plain {plain_w:.4f}, bound {b_w:.4f} by {by_w}); "
         f"gather entry {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} by "
@@ -2248,7 +2251,8 @@ def window_timing_phase(dev, n: int, f64_err: float):
                 "source": "tidb_tpu_torch/csrc/window_scan.cu",
                 "replaces": "tidb_tpu/ops/window.py:93",
                 "max_abs_err": f64_err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b, "bound_by": by, "library_ms": lib})
+                "bound_ms": b, "bound_by": by, "library_ms": lib,
+                "seg_ms": seg_ms})
     log(f"K13 int64 prefix n={cap}: {ms:.4f} ms (plain {plain:.4f}, "
         f"torch.cumsum {lib:.4f}, bound {b:.4f} by {by}); segmented max over "
         f"W2's 6 partitions: {seg_ms:.4f} ms (plain Hillis-Steele "

@@ -317,3 +317,177 @@ def test_k25_argument_checks(monkeypatch):
                         ([torch.zeros(1, 2, 3)] * 2, "1-D or 2-D")]:
         with pytest.raises(ck.KernelError, match=msg):
             RG._check_pieces(pieces)
+
+
+def _replay(plan, columns):
+    """What rg_copy does with `plan`, over byte buffers: each launch's
+    chunks numbered from 0, a chunk's segment found by bisection over
+    the segments' first chunks, its row and part by division; every
+    output byte must be written exactly once. → the gathered columns."""
+    import bisect
+    ch = RG.CHUNK
+    srcs = [np.ascontiguousarray(p).reshape(-1).view(np.uint8)
+            for pieces in columns for p in pieces]
+    outs, hits = [], []
+    for pieces, total in zip(columns, plan.totals):
+        shape = pieces[0].shape[:-1] + (total,)
+        outs.append(np.zeros(shape, dtype=pieces[0].dtype))
+        hits.append(np.zeros(outs[-1].nbytes, dtype=np.int64))
+    segs = plan.segments
+    for i0 in range(0, len(segs), RG.MAX_SEGS):
+        launch = segs[i0:i0 + RG.MAX_SEGS]
+        assert launch[0].start == 0
+        starts = [s.start for s in launch]
+        n_chunks = launch[-1].start + launch[-1].rows * launch[-1].row_chunks
+        for c in range(n_chunks):
+            k = bisect.bisect_right(starts, c) - 1
+            s = launch[k]
+            row, part = divmod(c - s.start, s.row_chunks)
+            nb = min(ch, s.row_bytes - part * ch)
+            assert nb > 0
+            src = srcs[plan.pieces[i0 + k]]
+            a = row * s.row_bytes + part * ch
+            b = s.dst_off + row * s.pitch + part * ch
+            outs[s.col].reshape(-1).view(np.uint8)[b:b + nb] = src[a:a + nb]
+            hits[s.col][b:b + nb] += 1
+    for h in hits:
+        assert (h == 1).all()
+    return outs
+
+
+def _plan_of(columns):
+    """gather_plan of numpy pieces: (torch dtype, leading shape, lengths)
+    a column, as rank_gather builds it."""
+    return RG.gather_plan(tuple(
+        (torch.from_numpy(p[0][:0]).dtype, p[0].shape[:-1],
+         tuple(q.shape[-1] for q in p)) for p in columns))
+
+
+_DTYPES = (np.bool_, np.int8, np.int16, np.int32, np.int64, np.float32,
+           np.float64)
+
+
+@pytest.mark.parametrize("case", ["even", "ragged", "empty_rank",
+                                  "limbs", "launch_split", "big_rows"])
+def test_gather_plan_replay_matches_plain(case):
+    """K25's descriptor builder, replayed chunk by chunk over byte buffers
+    as the kernel walks it, equals rank_gather_plain: 1-D columns of
+    every item size at odd lengths (unaligned pieces), ragged and empty
+    ranks, 2-D limb columns, more segments than one launch takes, and
+    rows of several chunks."""
+    rng = np.random.default_rng(len(case))
+    ranks = {"launch_split": 24, "big_rows": 2}.get(case, 4)
+
+    def length(r):
+        if case == "empty_rank" and r == 1:
+            return 0
+        if case == "big_rows":
+            return 3 * RG.CHUNK + 7
+        return 5 if case == "even" else 3 + 2 * r + (r % 2)
+
+    columns = []
+    for dt in _DTYPES:
+        columns.append([rng.integers(0, 100, length(r)).astype(dt)
+                        for r in range(ranks)])
+    for rows in ((1, 5) if case in ("limbs", "launch_split") else (3,)):
+        columns.append([rng.integers(0, 1 << 40, (rows, length(r)))
+                        for r in range(ranks)])
+    plan = _plan_of(columns)
+    if case == "launch_split":
+        assert len(plan.segments) > 2 * RG.MAX_SEGS
+    got = _replay(plan, columns)
+    want = RG.rank_gather_plain([[torch.from_numpy(p) for p in pieces]
+                                 for pieces in columns])
+    for g, w in zip(got, want):
+        assert g.dtype == w.numpy().dtype and np.array_equal(g, w.numpy())
+    recs = [RG._REC.unpack_from(plan.table, i * RG._REC.size)
+            for i in range(len(plan.segments))]
+    for s, rec in zip(plan.segments, recs):
+        assert rec[:7] == (s.dst_off, s.row_bytes, s.pitch, s.start, s.col,
+                           s.rows, s.row_chunks)
+    # the outputs: one buffer a group of columns sharing dtype, leading
+    # shape and total; every column once, of its gathered shape and dtype
+    outs = RG._allocate(plan, [torch.from_numpy(p[0]) for p in columns])
+    assert sorted(j for _d, _s, cols in plan.groups for j in cols) == \
+        list(range(len(columns)))
+    for o, w in zip(outs, want):
+        assert o.shape == w.shape and o.dtype == w.dtype
+    for _d, _s, cols in plan.groups:
+        base = outs[cols[0]].untyped_storage().data_ptr()
+        assert all(outs[j].untyped_storage().data_ptr() == base
+                   for j in cols)
+
+
+@pytest.mark.parametrize("nd", [2, 4])
+def test_gather_plan_replay_matches_jax_all_gather(eight_devices, nd):
+    """The replayed plan over broadcast_build's and gather_partials'
+    columns (rank shards of a build side and of partial states, 1-D of
+    every item size) equals the JAX package's tiled all_gather."""
+    rng = np.random.default_rng(70 + nd)
+    n = nd * 33
+    cols = _columns(rng, n) + [rng.integers(0, 9, n).astype(np.int8)]
+    live = rng.random(n) < 0.7
+
+    def step(lv, *arrays):
+        out, out_live = JC.broadcast_build(list(arrays), lv)
+        return (*out, out_live)
+
+    mesh = j_make_mesh(nd)
+    fn = jax.jit(shard_map(step, mesh=mesh, in_specs=(PS("shard"),) *
+                           (1 + len(cols)),
+                           out_specs=(PS(),) * (len(cols) + 1),
+                           check_rep=False))
+    want = [np.asarray(o) for o in fn(*j_shard_rows(mesh, [live] + cols))]
+    columns = [[t.numpy() for t in _ranks(c, nd)] for c in cols + [live]]
+    got = _replay(_plan_of(columns), columns)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_k25_launch_tables_drive_a_host_copy(monkeypatch):
+    """The wrapper's packed call on CPU tensors, with the library replaced
+    by a host model of tt_rank_gather's contract (records of the cached
+    plan, each segment's piece pointer, the outputs' pointers; row l of a
+    segment copied from src + l·row_bytes to out[col] + dst_off +
+    l·pitch): the outputs equal rank_gather_plain, every launch's
+    records start at chunk 0, and one count is taken."""
+    import ctypes
+
+    calls = []
+
+    class Lib:
+        def tt_rank_gather(self, n_segs, table, src, out, stream):
+            recs = [RG._REC.unpack_from(table, i * RG._REC.size)
+                    for i in range(n_segs)]
+            srcs = struct_unpack(f"<{n_segs}Q", src)
+            outs = struct_unpack(f"<{len(out) // 8}Q", out)
+            calls.append([r[3] for r in recs[::RG.MAX_SEGS]])
+            for (dst_off, row_bytes, pitch, _s, col, rows, _c, _p), s in \
+                    zip(recs, srcs):
+                for row in range(rows):
+                    ctypes.memmove(outs[col] + dst_off + row * pitch,
+                                   s + row * row_bytes, row_bytes)
+            return 0
+
+    from struct import unpack as struct_unpack
+    monkeypatch.setattr(ck, "library", lambda name: Lib())
+    monkeypatch.setattr(ck, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(ck, "require_cuda", lambda *t, what: None)
+    rng = np.random.default_rng(9)
+    columns = []
+    for dt in _DTYPES:
+        columns.append([torch.from_numpy(rng.integers(0, 100, 3 + r)
+                                         .astype(dt)) for r in range(30)])
+    columns.append([torch.from_numpy(rng.integers(0, 1 << 40, (5, r)))
+                    for r in range(30)])                 # rank 0 is empty
+    columns.append([torch.arange(40).reshape(4, 10)[:, ::3]] * 3)
+    before = ck.launches()["rank_gather"]
+    dev = torch.device("cpu")
+    plan, src, keep = RG._describe(columns, dev)
+    outs = RG._allocate(plan, [pieces[0] for pieces in keep])
+    RG._launch(plan, src, outs, dev)
+    launches = -(-len(plan.segments) // RG.MAX_SEGS)
+    assert launches > 2 and calls == [[0] * launches]
+    for got, want in zip(outs, RG.rank_gather_plain(columns)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert ck.launches()["rank_gather"] == before + 1

@@ -18,7 +18,9 @@ theirs. The sort formulation: K8 radix_sort (n = 1, the tile edges,
 words; given and generated row ids), K9 sort_encode, K10 group_ids (its
 word entry over K8's sorted word and its gather entry for two-word
 sorts: NaN, ±0.0, ±inf, NULLs, dead rows, cap overflow) and K11
-sorted_search against their plain versions.
+sorted_search against their plain versions. K12's positions and K13's
+prefix and segmented scans at the single-pass scan's tile edges, and
+one scan scratch reused over back-to-back calls.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -499,30 +501,51 @@ def test_k24_matches_plain(cuda, n_shards):
 @pytest.mark.parametrize("n_ranks", [1, 4, 64])
 def test_k25_matches_plain(cuda, n_ranks):
     """K25 rank_gather: every gathered column exactly equal to
-    torch.cat of the pieces, over 1-, 2-, 4- and 8-byte items, odd
-    lengths (unaligned pieces), an empty piece, a 2-D limb column and
-    more pieces than one launch takes."""
-    from tidb_tpu_torch.ops.rank_gather import rank_gather, \
-        rank_gather_plain
+    torch.cat of the pieces, over 1-, 2-, 4- and 8-byte items (every
+    dtype at odd lengths: unaligned pieces), ragged ranks, an empty
+    rank, 2-D limb columns of 1, 3 and 5 rows, a strided piece, and more
+    pieces than one launch takes (64 ranks x 7 columns). The wrapper's
+    chunk and launch sizes are the library's."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops.rank_gather import (CHUNK, MAX_SEGS,
+                                                gather_plan, rank_gather,
+                                                rank_gather_plain)
+    lib = ck.library("rank_gather")
+    assert (CHUNK, MAX_SEGS) == (lib.tt_rank_gather_chunk(),
+                                 lib.tt_rank_gather_max_segs())
     g = torch.Generator().manual_seed(25 + n_ranks)
+    dtypes = (torch.bool, torch.int8, torch.uint8, torch.int16,
+              torch.int32, torch.float32, torch.int64, torch.float64)
     for n in (0, 1, 1025, 1 << 19):
         if n_ranks == 64 and n > 1025:
             continue
-        cols = []
-        for dt in (torch.bool, torch.int16, torch.int32, torch.int64,
-                   torch.float64, torch.uint8):
-            pieces = []
-            for r in range(n_ranks):
-                m = n + (r % 3)
-                pieces.append(torch.randint(0, 100, (m,), generator=g)
-                              .to(dt))
-            cols.append(pieces)
-        cols.append([torch.randint(0, 1 << 30, (3, n + r), generator=g)
-                     for r in range(n_ranks)])
-        got = rank_gather([[p.to(cuda) for p in ps] for ps in cols])
-        want = rank_gather_plain(cols)
-        for x, y in zip(got, want):
-            assert x.dtype == y.dtype and torch.equal(x.cpu(), y), n
+        for empty in (None, min(1, n_ranks - 1)):
+            cols = []
+            for dt in dtypes:
+                pieces = []
+                for r in range(n_ranks):
+                    m = 0 if r == empty else n + (r % 3)
+                    pieces.append(torch.randint(0, 100, (m,), generator=g)
+                                  .to(dt))
+                cols.append(pieces)
+            for rows in (1, 3, 5):
+                cols.append([torch.randint(
+                    0, 1 << 30, (rows, 0 if r == empty else n + r),
+                    generator=g) for r in range(n_ranks)])
+            got = rank_gather([[p.to(cuda) for p in ps] for ps in cols])
+            want = rank_gather_plain(cols)
+            for x, y in zip(got, want):
+                assert x.dtype == y.dtype and torch.equal(x.cpu(), y), n
+        key = tuple((p[0].dtype, tuple(p[0].shape[:-1]),
+                     tuple(q.shape[-1] for q in p)) for p in cols)
+        if n_ranks == 64 and n:
+            assert len(gather_plan(key).segments) > MAX_SEGS
+    # a strided (non-contiguous) piece is copied as its values
+    base = torch.arange(40, dtype=torch.int64).reshape(2, 20)
+    on_card = base.to(cuda)
+    got = rank_gather([[on_card[:, ::2], on_card[:, 1::3]]])
+    want = rank_gather_plain([[base[:, ::2], base[:, 1::3]]])
+    assert torch.equal(got[0].cpu(), want[0])
 
 
 @pytest.mark.parametrize("n_shards", [1, 4, 64, 1000])
@@ -723,3 +746,145 @@ def test_k11_matches_plain(cuda, nb, P, dup):
     for right in (False, True):
         assert torch.equal(J.searchsorted(table, probe, right),
                            torch.searchsorted(table, probe, right=right))
+
+
+# ---------------------------------------------------------------------------
+# K12/K13: the single-pass look-back scan at its tile edges
+# ---------------------------------------------------------------------------
+
+_SCAN_SIZES = ["0", "1", "tile-1", "tile", "tile+1", "8388611"]
+
+
+def _scan_n(size):
+    """A size of _SCAN_SIZES in rows, the tile read from the library."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    tile = ck.library("window_scan").tt_window_tile()
+    return {"tile-1": tile - 1, "tile": tile,
+            "tile+1": tile + 1}.get(size) or int(size)
+
+
+def _f64_prefix_close(got, want, z):
+    """Within the reordered sum's bound: 2·(i+1)·eps·Σ|x| at row i."""
+    bound = 2 * torch.arange(1, z.shape[0] + 1, device=z.device,
+                             dtype=torch.float64) * \
+        np.finfo(np.float64).eps * torch.cumsum(z.abs(), 0)
+    return bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("size", _SCAN_SIZES)
+def test_k13_matches_plain(cuda, size):
+    """K13's prefix (int32, int64 and float64 values, with and without
+    `valid`, count only; int64 sums that wrap past ±2^63) and its
+    segmented min/max (forward and reverse, with NaN, ±inf and the
+    identity among the values) against their plain versions on the
+    same tensors, at the tile edges: int results exactly, the f64
+    prefix within 2·(i+1)·eps·Σ|x|."""
+    from tidb_tpu_torch.ops import window as W
+    n = _scan_n(size)
+    rng = np.random.default_rng(13 + n)
+    valid = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    vals = {
+        torch.int32: torch.from_numpy(rng.integers(
+            -(1 << 31), (1 << 31) - 1, n, dtype=np.int32)).to(cuda),
+        torch.int64: torch.from_numpy(rng.integers(
+            (1 << 63) - (1 << 40), (1 << 63) - 1, n, dtype=np.int64)
+            * rng.choice(np.array([-1, 1], dtype=np.int64), n)).to(cuda),
+        torch.float64: torch.from_numpy(rng.normal(0.0, 1e6, n)).to(cuda)}
+    for dt, v in vals.items():
+        for ok in (valid, None):
+            got = W.window_prefix(v, ok)
+            want = W.window_prefix_plain(v, ok)
+            assert torch.equal(got[1], want[1]), (dt, ok is None)
+            assert got[0].dtype == want[0].dtype
+            if dt == torch.float64:
+                z = v if ok is None else torch.where(ok, v,
+                                                     torch.zeros_like(v))
+                assert _f64_prefix_close(got[0], want[0], z)
+            else:
+                assert torch.equal(got[0], want[0]), (dt, ok is None)
+    got = W.window_prefix(None, valid)                  # count only
+    assert got[0] is None and torch.equal(
+        got[1], W.window_prefix_plain(None, valid)[1])
+    pstart = torch.from_numpy(rng.random(n) < 0.001).to(cuda)
+    if n:
+        pstart[0] = True
+    f = vals[torch.float64].clone()
+    if n:
+        idx = torch.from_numpy(rng.integers(0, n, max(n // 500, 1))).to(cuda)
+        f[idx] = float("nan")
+        f[idx[: len(idx) // 2]] = float("inf")
+        f[idx[len(idx) // 2:][:3]] = -float("inf")
+    for dt, v in ((torch.int32, vals[torch.int32]),
+                  (torch.int64, torch.from_numpy(rng.integers(
+                      -1000, 1000, n)).to(cuda)),
+                  (torch.float64, f)):
+        for is_max in (False, True):
+            w = v.clone()
+            w[: min(n, 7)] = W._ident(is_max, dt)     # the identity as a value
+            for reverse in (False, True):
+                for ok in (valid, None):
+                    got = W.window_segscan(w, ok, pstart, is_max, reverse)
+                    want = W.window_segscan_plain(w, ok, pstart, is_max,
+                                                  reverse)
+                    assert got.dtype == want.dtype
+                    same = got == want
+                    if dt == torch.float64:
+                        same |= got.isnan() & want.isnan()
+                    assert bool(same.all()), (dt, is_max, reverse)
+
+
+@pytest.mark.parametrize("size", _SCAN_SIZES)
+def test_k12_positions_match_plain(cuda, size):
+    """K12's positions (its forward and backward scans) against the plain
+    version, exactly, at the tile edges: sparse partitions with dense
+    peer groups, every row its own partition, and one partition."""
+    from tidb_tpu_torch.ops import window as W
+    n = _scan_n(size)
+    rng = np.random.default_rng(12 + n)
+    for p_part, p_peer in ((0.0005, 0.3), (1.0, 1.0), (0.0, 0.0)):
+        ps = rng.random(n) < p_part
+        qs = ps | (rng.random(n) < p_peer)
+        if n:
+            ps[0] = qs[0] = True
+        pstart = torch.from_numpy(ps).to(cuda)
+        peerstart = torch.from_numpy(qs).to(cuda)
+        got = W.window_positions(pstart, peerstart)
+        want = W.window_positions_plain(pstart, peerstart)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (p_part, n)
+
+
+def test_scan_scratch_reused_back_to_back(cuda, monkeypatch):
+    """One scratch buffer, filled with garbage once, serves 20
+    back-to-back calls of each scan entry: each call zeroes its own
+    status, and every result is identical every time. The scratch the
+    wrappers size equals the library's own count."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import window as W
+    lib = ck.library("window_scan")
+    tile = lib.tt_window_tile()
+    for n in (0, 1, tile - 1, tile, tile + 1, 8_388_611):
+        for scans in (1, 2):
+            assert W.scan_scratch_bytes(n, tile, scans) == \
+                lib.tt_window_scratch_bytes(n, scans), (n, scans)
+    n = 3 * tile * 1000 + 5
+    rng = np.random.default_rng(20)
+    v = torch.from_numpy(rng.integers(-1 << 40, 1 << 40, n)).to(cuda)
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    ps = torch.from_numpy(rng.random(n) < 0.01).to(cuda)
+    ps[0] = True
+    qs = ps | torch.from_numpy(rng.random(n) < 0.2).to(cuda)
+    scratch = torch.full((W.scan_scratch_bytes(n, tile, 2),), 0xFF,
+                         dtype=torch.uint8, device=cuda)
+    monkeypatch.setattr(W, "_scan_scratch",
+                        lambda *a, **k: scratch.data_ptr())
+    calls = (lambda: W.window_prefix(v, valid),
+             lambda: (W.window_segscan(v, valid, ps, True, True),),
+             lambda: tuple(W.window_positions(ps, qs)))
+    for call in calls:
+        first = [t.clone() for t in call()]
+        for _ in range(20):
+            for a, b in zip(call(), first):
+                assert torch.equal(a, b)
+    want = W.window_prefix_plain(v, valid)
+    assert all(torch.equal(a, b) for a, b in zip(calls[0](), want))

@@ -342,6 +342,24 @@ def test_flags_plain_matches_a_row_loop():
         assert bool(ps[i]) == want_p and bool(qs[i]) == want_q, i
 
 
+@pytest.mark.parametrize("tile", [1024, 4096])
+def test_scan_scratch_bytes_at_tile_edges(tile):
+    """K12/K13's scan scratch: per scan a 16-byte tile counter and a
+    4-byte flag a tile (rounded up to 16 bytes, the part one memset
+    zeroes), then two 32-byte payload slots a tile; at least one tile,
+    so n = 0 still gets a valid buffer."""
+    for n, nb in ((0, 1), (1, 1), (tile - 1, 1), (tile, 1), (tile + 1, 2),
+                  (2 * tile, 2), (8_388_611, -(-8_388_611 // tile))):
+        zeroed = 16 + -(-4 * nb // 16) * 16
+        one = TW.scan_scratch_bytes(n, tile)
+        assert one == zeroed + 64 * nb, (n, tile)
+        assert TW.scan_scratch_bytes(n, tile, 2) == 2 * one
+        assert zeroed % 16 == 0 and one % 16 == 0
+    assert TW.scan_scratch_bytes(4096, 4096) == 96
+    assert TW.scan_scratch_bytes(4097, 4096) == 160
+    assert TW.scan_scratch_bytes(8_388_611, 4096) == 139_360
+
+
 def test_wrappers_never_take_the_plain_version_off_the_cpu():
     """A non-CPU tensor goes to a kernel or raises — here, with no CUDA
     device, a meta tensor must raise rather than fall back."""

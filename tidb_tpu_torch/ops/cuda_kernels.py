@@ -86,6 +86,7 @@ _SIGNATURES = {
     "tt_sorted_probe_unique": [_P, _P, _L, _P, _P, _L, _P, _P, _P, _P],
     "tt_sorted_probe_multi": [_P, _L, _P, _P, _L, _P, _P, _P],
     "tt_window_tile": [],
+    "tt_window_scratch_bytes": [_L, _I],
     "tt_window_flags": [_P, _I, _P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P],
     "tt_window_positions": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _P],
     "tt_window_prefix": [_P, _I, _P, _L, _P, _P, _P, _P],
@@ -117,6 +118,8 @@ _SIGNATURES = {
                          _P, _P, _P, _P],
     "tt_hash_dest": [_I, _P, _P, _P, _P, _L, _I, _P, _P, _P],
     "tt_rank_gather": [_I, _P, _P, _P, _P],
+    "tt_rank_gather_chunk": [],
+    "tt_rank_gather_max_segs": [],
 }
 
 _LOCK = threading.Lock()
@@ -205,8 +208,12 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of the device's current stream (torch's own
+    accessor: a few µs cheaper a launch than current_stream())."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def count(name: str) -> None:

@@ -34,10 +34,13 @@ the sort permutation.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from tidb_tpu_torch.ops import cuda_kernels as _cuda_kernels
 
 
 def _iota(xp, n):
@@ -616,8 +619,7 @@ _F64 = torch.float64
 
 
 def _ck():
-    from tidb_tpu_torch.ops import cuda_kernels as ck
-    return ck
+    return _cuda_kernels
 
 
 def _on_cpu(t) -> bool:
@@ -644,10 +646,42 @@ def _check(what: str, n: int, *tensors, dtype=None):
         raise ck.KernelError(f"{what}: {n} rows (< 2^31 taken)")
 
 
-def _scan_scratch(n: int, device) -> torch.Tensor:
-    tile = _ck().library("window_scan").tt_window_tile()
-    return torch.empty(max(1, -(-n // tile)) * 32, dtype=torch.uint8,
-                       device=device)
+#: a payload slot of a scan's look-back status (csrc/window_scan.cu)
+_SCAN_STATE_BYTES = 32
+
+
+def scan_scratch_bytes(n: int, tile: int, scans: int = 1) -> int:
+    """Bytes of scratch K12/K13's single-pass scan takes for `scans` scans
+    over n rows in tiles of `tile` rows (csrc/window_scan.cu's layout):
+    every scan's zeroed part (a 16-byte tile counter and a 4-byte flag a
+    tile, rounded up to 16 bytes), then every scan's two payload slots a
+    tile (the tile's aggregate and its inclusive prefix)."""
+    nb = max(1, -(-n // tile))
+    zeroed = 16 + -(-4 * nb // 16) * 16
+    return scans * (zeroed + 2 * _SCAN_STATE_BYTES * nb)
+
+
+#: (device index, stream) → the scan scratch of that stream, grown to fit:
+#: every call zeroes the status it uses, and calls on one stream run in
+#: order, so one buffer a stream serves them all
+_SCRATCH: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_tile() -> int:
+    return _ck().library("window_scan").tt_window_tile()
+
+
+def _scan_scratch(n: int, device, stream: int, scans: int = 1) -> int:
+    """→ the data pointer of the scan scratch of `stream` (its raw
+    handle on `device`), grown to fit n rows and `scans` scans."""
+    need = scan_scratch_bytes(n, _scan_tile(), scans)
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.empty(need, dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+    return buf.data_ptr()
 
 
 def _wide(v: torch.Tensor) -> torch.Tensor:
@@ -772,11 +806,12 @@ def window_positions(pstart, peerstart) -> Positions:
     out = [torch.empty(n, dtype=_I64, device=pstart.device)
            for _ in range(5)]
     ppos, plast, peer_lo, peer_hi, dense = out
+    stream = ck.stream_ptr(pstart.device)
     rc = ck.library("window_scan").tt_window_positions(
         pstart.data_ptr(), peerstart.data_ptr(), n, ppos.data_ptr(),
         plast.data_ptr(), peer_lo.data_ptr(), peer_hi.data_ptr(),
-        dense.data_ptr(), _scan_scratch(n, pstart.device).data_ptr(),
-        ck.stream_ptr(pstart.device))
+        dense.data_ptr(), _scan_scratch(n, pstart.device, stream, 2),
+        stream)
     if n > 0:
         ck.count("window_bounds")
     ck.check(rc, "window_positions")
@@ -817,12 +852,17 @@ def window_prefix(vals, valid):
         vals = _wide(vals).contiguous()
         _check("window_prefix", n, vals)
         vdt = _KDT[vals.dtype]
-        cum = torch.empty(n, dtype=_F64 if vdt == 3 else _I64,
-                          device=lead.device)
-    ccnt = torch.empty(n, dtype=_I64, device=lead.device)
+    if vdt == 3:
+        cum = lead.new_empty(n, dtype=_F64)
+        ccnt = lead.new_empty(n, dtype=_I64)
+    elif vdt:
+        cum, ccnt = lead.new_empty((2, n), dtype=_I64).unbind(0)
+    else:
+        ccnt = lead.new_empty(n, dtype=_I64)
+    stream = ck.stream_ptr(lead.device)
     rc = ck.library("window_scan").tt_window_prefix(
         _ptr(vals), vdt, _ptr(valid), n, _ptr(cum), ccnt.data_ptr(),
-        _scan_scratch(n, lead.device).data_ptr(), ck.stream_ptr(lead.device))
+        _scan_scratch(n, lead.device, stream), stream)
     if n > 0:
         ck.count("window_scan")
     ck.check(rc, "window_prefix")
@@ -870,12 +910,12 @@ def window_segscan(vals, valid, pstart, is_max: bool, reverse: bool = False):
     _check("window_segscan", n, valid, pstart, dtype=torch.bool)
     ident = _ident(is_max, vals.dtype)
     out = torch.empty_like(vals)
+    stream = ck.stream_ptr(vals.device)
     rc = ck.library("window_scan").tt_window_segscan(
         vals.data_ptr(), _KDT[vals.dtype], _ptr(valid), pstart.data_ptr(),
         n, int(is_max), int(reverse),
         0 if vals.dtype == _F64 else int(ident), float(ident),
-        out.data_ptr(), _scan_scratch(n, vals.device).data_ptr(),
-        ck.stream_ptr(vals.device))
+        out.data_ptr(), _scan_scratch(n, vals.device, stream), stream)
     if n > 0:
         ck.count("window_scan")
     ck.check(rc, "window_segscan")

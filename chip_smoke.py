@@ -42,7 +42,8 @@ which must pass:
      launch counters are zeroed before the phase and all seven kernels
      must move in it;
   8. join kernel timing at those shapes: K4 over the orders build, K5 over
-     one lineitem slab, K6 and K7 at the expand statement's build and
+     one lineitem slab (its call profiled once after phase 26: host time
+     against the card's), K6 and K7 at the expand statement's build and
      probe;
   9. the sort formulation on the card, over phase 7's tables and two
      sparse-key copies (`orders_sk`, `lineitem_sk`: the same rows keyed by
@@ -173,7 +174,8 @@ which must pass:
      fetch, decode and d2h bytes are logged;
  22. K22 at B = 16, cap = 8,388,608 over M1's own live mask and over a
      half-live one, each held exactly to its plain version there and
-     timed beside it and beside torch.nonzero;
+     timed beside it and beside torch.nonzero, each call profiled once
+     after phase 26 (host time against the card's);
  23. distributed SQL with tidb_tpu_dist_devices = 4 (four ranks, all on
      the one card) over lineitem as phases 15-22 left it and phase 7's
      orders: X1 = Q1 on the staged agg path (rank partials, host merge),
@@ -208,12 +210,13 @@ which must pass:
      routing pass also beside K23 + torch.cat of the bucket slices, and
      K25's call profiled once (host time against the card's).
 
-Phase 3 also holds K4 lut_build, K5 lut_probe, K6 lut_order and K7
-join_expand, and K8 radix_sort, K9 sort_encode, K10 group_ids (both
-entries: the word entry over K8's sorted word and the gather entry for
-two-word sorts, with NaN, ±0.0, ±inf, NULLs, dead rows, a dead row keyed
-like the last live one, cap overflow) and K11 sorted_search against
-their plain versions, exactly; the sort functions
+Phase 3 also holds K4 lut_build, K5 lut_probe (also at n = 4k ± 1
+over key, mask and live views off their vector boundaries), K6
+lut_order and K7 join_expand, and K8 radix_sort, K9 sort_encode, K10
+group_ids (both entries: the word entry over K8's sorted word and the
+gather entry for two-word sorts, with NaN, ±0.0, ±inf, NULLs, dead rows,
+a dead row keyed like the last live one, cap overflow) and K11
+sorted_search against their plain versions, exactly; the sort functions
 built on K8-K10 (factorize, sort_perm, topn, pack_codes) equal the same
 functions over CPU copies of the inputs; and K12 window_bounds, K13
 window_scan, K14 frame_bounds and K15 frame_eval against theirs, every
@@ -231,7 +234,9 @@ dict_lut against its plain version exactly (bool/int32/int64 tables from
 empty to 1,500,303 entries, across the shared-memory edge, int32/int64
 codes out of range, n up to a full slab, clip and fill); and K22
 member_compact against its plain version exactly (B = 1, 3, 16; cap =
-1, 1,000, 8,388,608; no, all and random live rows); and K23
+1, 1,000, 8,388,608; no, all and random live rows; cap at the 128 KB
+tile ± 1 over mask views 0-15 bytes off, one live row in the last
+member); and K23
 hash_partition against its plain version exactly (1, 4, 64
 destinations; n = 1, 1,025, 2,097,152; int64, int32 + bool and float
 keys; an overflowing cap); and K24 rank_exchange, K25 rank_gather and
@@ -906,10 +911,46 @@ def check_join_kernels(dev):
                 raise AssertionError(f"K7 P={P} out_cap={out_cap} "
                                      f"outer={outer}: kernel != plain")
             cases += 1
+    # K5's vector steps at their edges: n at multiples of 4 ± 1, key views
+    # 1-3 elements and mask / live views 1-15 bytes off their boundaries,
+    # int32 and int64 keys, all-dead and all-live probes, both modes
+    t_edges = time.perf_counter()
+    ebounds = [(0, 999), (-5, 4)]
+    edom = 10_000
+    ebkeys = _join_keys(rng, 7_000, ebounds, 0.05, 0, dev)
+    ecnt, elut, _, ecodes = J.lut_build(ebkeys, ebounds, edom,
+                                        want_codes=True)
+    estarts, _ = J.lut_order(ecodes, ecnt)
+    for n in (1, 3, 4, 5, 1023, 1025, 1_048_577):
+        for off in (0, 1, 3, 15):
+            keys = []
+            for q, (v, m) in enumerate(_join_keys(rng, n + 16, ebounds, 0.1,
+                                                  3, dev)):
+                dt = torch.int32 if (q + off) % 2 else torch.int64
+                keys.append((v.to(dt)[off % 4:off % 4 + n], m[off:off + n]))
+            for kind in ("random", "dead", "live"):
+                lv = torch.from_numpy(rng.random(n + 16) > 0.1).to(dev) \
+                    if kind == "random" else \
+                    torch.full((n + 16,), kind == "live", device=dev)
+                live = lv[15 - off:15 - off + n]
+                for table, uq in ((elut, True), (estarts, False)):
+                    a = J.lut_probe(keys, ebounds, ecnt, table, live, 7_000,
+                                    uq)
+                    b = J.lut_probe_plain(keys, ebounds, ecnt, table, live,
+                                          7_000, uq)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(a[0], b[0]) and
+                            torch.equal(a[1], b[1])):
+                        raise AssertionError(f"K5 n={n} off={off} {kind} "
+                                             f"unique={uq}: kernel != plain")
+                    cases += 1
     log(f"K4-K7 lut_build/lut_probe/lut_order/join_expand: {cases} cases "
         f"exactly equal to the plain versions (1-3 key columns, NULL and "
         f"out-of-domain keys, n_live, unique/duplicated/skewed builds, "
-        f"outer/inner, out_cap < total, P=0, nb=1)")
+        f"outer/inner, out_cap < total, P=0, nb=1; K5 at n = 4k ± 1 over "
+        f"key, mask and live views off their boundaries, int32 and int64 "
+        f"keys, all-dead and all-live probes, both modes, in "
+        f"{time.perf_counter() - t_edges:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -1109,7 +1150,9 @@ def join_timing_phase(dev, n: int, orders, customer):
     err = max_err("K5 at the lineitem slab", list(zip(
         J.lut_probe(pkeys, bounds, cnt, lut, plive, nb, True),
         J.lut_probe_plain(pkeys, bounds, cnt, lut, plive, nb, True))))
-    b, by = bound_ms(P * (8 + 1 + 1) + (domain + 1) * 8 + P * (4 + 1),
+    # the probe keys, mask and live read once, the lut (one entry a code)
+    # read once, match_idx and matched written once
+    b, by = bound_ms(P * (8 + 1 + 1) + (domain + 1) * 4 + P * (4 + 1),
                      P * 8)
     out.append({"name": "lut_probe", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/lut_join.cu",
@@ -1118,6 +1161,10 @@ def join_timing_phase(dev, n: int, orders, customer):
                 "bound_ms": b, "bound_by": by, "library_ms": lib})
     log(f"K5 lineitem slab P={P} into D={domain}: {ms:.4f} ms (plain "
         f"{plain:.4f}, take {lib:.4f}, bound {b:.4f} by {by})")
+    DEFERRED_PROFILES.append((
+        "K5 at the lineitem slab",
+        lambda: J.lut_probe(pkeys, bounds, cnt, lut, plive, nb, True),
+        ("lut_probe",)))
 
     # K6: the expand statement's build — orders filtered on o_orderdate,
     # keyed on o_custkey
@@ -3753,10 +3800,25 @@ def dict_lut_timing_phase(dev):
 def check_member_compact_kernels(dev):
     """K22 member_compact against its plain version on the card: B in
     {1, 3, 16}, cap in {1, 1,000, 8,388,608}, with no live rows, every
-    row live and a random mask; counts, offsets and ids exactly equal."""
+    row live and a random mask; then at the 128 KB tiles' edges (cap at
+    multiples of the tile ± 1, and past its first 16 KB round) over mask
+    views 1-15 bytes off their 16-byte boundary whose neighbouring bytes
+    hold the opposite value: all-dead, all-live, one live row at the last
+    member's first or last row, random; counts, offsets and ids exactly
+    equal."""
     import torch
     from tidb_tpu_torch.ops import compact as MC
     g = torch.Generator(device=dev).manual_seed(22)
+    t0 = time.perf_counter()
+
+    def same(live, what):
+        got = MC.member_compact(live)
+        want = MC.member_compact_plain(live)
+        for name, x, y in zip(("counts", "offsets", "ids"), got, want):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"K22 {name} differs from its plain "
+                                     f"version at {what}")
+
     for b in (1, 3, 16):
         for cap in (1, 1000, FULL_SLAB):
             for kind in ("none", "all", "random"):
@@ -3765,19 +3827,40 @@ def check_member_compact_kernels(dev):
                 else:
                     live = torch.full((b, cap), kind == "all",
                                       dtype=torch.bool, device=dev)
-                got = MC.member_compact(live)
-                want = MC.member_compact_plain(live)
-                for name, x, y in zip(("counts", "offsets", "ids"), got,
-                                      want):
-                    if x.dtype != y.dtype or not torch.equal(x, y):
-                        raise AssertionError(f"K22 {name} differs from its "
-                                             f"plain version at B={b}, "
-                                             f"cap={cap}, {kind}")
-                del live, got, want
+                same(live, f"B={b}, cap={cap}, {kind}")
+                del live
+    edges = 0
+    for b in (1, 3, 16):
+        for cap in (MC.TILE // MC.ROUNDS + 1, MC.TILE - 1, MC.TILE,
+                    MC.TILE + 1, 2 * MC.TILE + 1):
+            n = b * cap
+            for off in (0, 1, 7, 15):
+                for kind in ("dead", "live", "last row", "first of last",
+                             "random"):
+                    flat = torch.full((n + 32,), kind == "dead",
+                                      dtype=torch.bool, device=dev)
+                    inside = flat[off:off + n]
+                    if kind == "live":
+                        inside.fill_(True)
+                    elif kind == "dead":
+                        inside.fill_(False)
+                    elif kind == "last row":
+                        inside[n - 1] = True
+                    elif kind == "first of last":
+                        inside[n - cap] = True
+                    else:
+                        inside.copy_(torch.rand(n, device=dev,
+                                                generator=g) < 0.3)
+                    same(inside.view(b, cap),
+                         f"B={b}, cap={cap}, offset {off}, {kind}")
+                    edges += 1
     torch.cuda.synchronize()
-    log("K22 member_compact: exactly equal to its plain version at B in "
-        "{1, 3, 16} x cap in {1, 1000, 8388608} x {no, all, random} live "
-        "rows")
+    log(f"K22 member_compact: exactly equal to its plain version at B in "
+        f"{{1, 3, 16}} x cap in {{1, 1000, 8388608}} x {{no, all, random}} "
+        f"live rows, and in {edges} cases at the tiles' edges (cap = "
+        f"{MC.TILE // MC.ROUNDS + 1}, {MC.TILE} ± 1, {2 * MC.TILE + 1}; "
+        f"views 0-15 bytes off; dead, live, one row in the last member, "
+        f"random), {time.perf_counter() - t0:.1f} s in all")
 
 
 MB_MAX = 16
@@ -3997,6 +4080,9 @@ def member_compact_timing_phase(dev, m1_live):
         log(f"K22 over {name} (B={b}, cap={cap}, {total} live rows): "
             f"{k_ms:.4f} ms (plain {p_ms:.4f}, torch.nonzero {l_ms:.4f}, "
             f"bound {bb:.4f} by {by})")
+        DEFERRED_PROFILES.append((
+            f"K22 over {name}", lambda live=live: MC.member_compact(live),
+            ("mc_count", "mc_scatter", "Memset")))
     log(f"K22 over its two timed masks: {ms:.4f} ms (plain {plain:.4f}, "
         f"torch.nonzero {lib:.4f}, bound {bound:.4f} by bytes)")
     return [{"name": "member_compact", "route": "cuda",
@@ -4632,6 +4718,50 @@ def rank_timing_phase(dev, capture):
     return out
 
 
+#: (what, call, kernel names) of the calls whose host and device time
+#: main splits after phase 26's K25 profile (the run's first profiler
+#: session, so phase 26 reads its kernel as before)
+DEFERRED_PROFILES: list = []
+
+
+def profile_split(what, fn, kernels, reps: int = 20):
+    """One look at where a wrapper's call goes: its host time (the mean
+    over `reps` calls on the host clock; the card is not waited for
+    unless the wrapper itself waits, as K22's read-back of its total
+    does) and the card's time a call in the kernels (and memsets) whose
+    names contain one of `kernels`, from torch.profiler over 5 calls."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    parts = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0)
+            if t and e.device_type.name == "CUDA" and \
+                    any(k in e.key for k in kernels):
+                parts[e.key[:40]] = t / 1e3 / 5
+        how = "torch.profiler"
+    except Exception as e:              # the profiler is a measurement aid
+        how = f"no profile ({type(e).__name__}: {e})"
+    dev_ms = sum(parts.values()) if parts else None
+    log(f"{what} profile: host time of a call {host_ms:.4f} ms, the card's "
+        f"time a call "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
+        f"({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; {how})")
+
+
 def profile_rank_gather(cols):
     """One look at where K25's time goes at X2B's broadcast: the host
     time of a call (the wrapper's pointer tables, its checks and the
@@ -4829,6 +4959,9 @@ def main() -> int:
         k["launches"] = mono_launches[k["name"]]
     kernels += rank_kernels
     walls.update(mono_walls)
+    for what, fn, names_ in DEFERRED_PROFILES:
+        profile_split(what, fn, names_)
+    DEFERRED_PROFILES.clear()
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))

@@ -8,8 +8,9 @@ width, dict, raw and wide columns) against delta_merge_plain, and a
 cached table extended on the card by writes against the host engine;
 K20 civil_date and K21 dict_lut (both modes, every table width, codes
 out of range, tables in and above shared memory) against theirs; K22
-member_compact (B = 1, 3, 16; empty, full and random masks) against its
-plain version; K23 hash_partition (1-64 destinations, the tile edge, an
+member_compact (B = 1, 3, 16; empty, full and random masks; cap at the
+128 KB tile ± 1 over mask views 0-15 bytes off, one live row in the last
+member) against its plain version; K23 hash_partition (1-64 destinations, the tile edge, an
 overflowing cap, two key passes, three scatter launches) against its;
 K24 rank_exchange, K25 rank_gather and K26 hash_dest (1-64 ranks, the
 key, code and dest modes, unaligned pieces, limb columns) against
@@ -374,9 +375,19 @@ def test_k21_matches_plain(cuda, dtype, code_dtype):
 def test_k22_matches_plain(cuda, b):
     """K22 member_compact: counts, offsets and ids exactly equal to the
     plain version (and to per-member nonzero), with no live rows, every
-    row live and random masks, across the tile edge."""
-    from tidb_tpu_torch.ops.compact import member_compact, \
-        member_compact_plain
+    row live and random masks, across the tile edge; at the 128 KB tiles'
+    edges (cap at multiples of the tile ± 1, and past its first 16 KB
+    round), over mask views 1-15 bytes off their 16-byte boundary whose
+    neighbouring bytes hold the opposite value, all-dead, all-live, one
+    live row at the last member's first or last row; the scratch the
+    wrapper sizes equals the library's."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops.compact import ROUNDS, TILE, member_compact, \
+        member_compact_plain, scratch_bytes
+    lib = ck.library("member_compact")
+    assert lib.tt_member_tile() == TILE
+    for cap in (0, 1, TILE - 15, TILE - 14, TILE, TILE + 1, 8_388_611):
+        assert lib.tt_member_scratch_bytes(b, cap) == scratch_bytes(b, cap)
     rng = np.random.default_rng(22 + b)
     for cap in (0, 1, 1000, 1024, 1025, 1 << 20):
         for p in (0.0, 1.0, 0.5, 1e-3):
@@ -389,6 +400,31 @@ def test_k22_matches_plain(cuda, b):
                 lo, hi = int(want[1][k]), int(want[1][k + 1])
                 assert torch.equal(want[2][lo:hi].long(),
                                    torch.nonzero(live[k]).reshape(-1))
+    for cap in (TILE // ROUNDS + 1, TILE - 1, TILE, TILE + 1, 2 * TILE - 1,
+                2 * TILE + 1):
+        n = b * cap
+        for off in (0, 1, 7, 15):
+            for kind in ("dead", "live", "last row", "first of last",
+                         "random"):
+                inside = np.zeros(n, bool)
+                if kind == "live":
+                    inside[:] = True
+                elif kind == "last row":
+                    inside[-1] = True
+                elif kind == "first of last":
+                    inside[n - cap] = True
+                elif kind == "random":
+                    inside = rng.random(n) < 0.3
+                flat = np.ones(n + 32, bool) if kind == "dead" else \
+                    np.zeros(n + 32, bool)
+                flat[off:off + n] = inside
+                live = torch.from_numpy(flat).to(cuda)[off:off + n]
+                live = live.view(b, cap)
+                got = member_compact(live)
+                want = member_compact_plain(live.cpu())
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g.cpu(), w), \
+                        (cap, off, kind)
 
 
 def _k23_case(rng, n, key_kinds, n_cols):

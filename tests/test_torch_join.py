@@ -208,6 +208,99 @@ def test_lut_join_raw_keys_match_jax(jx, k, unique):
     assert np.array_equal(np.asarray(jo), _np(to))
 
 
+def _probe_from_table(keys, bounds, table, live, nb, unique):
+    """K5's arithmetic as the kernel runs it: one table read a row — K4's
+    lut alone in unique mode, starts[code + 1] - starts[code] in multi."""
+    codes, ok = TJ.pack_bounded_codes(keys, bounds)
+    ok = ok & live
+    dom = int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+    pc = codes.clamp(0, dom - 1)
+    t = table[pc]
+    if unique:
+        matched = ok & (t >= 0)
+        return torch.where(matched, t, torch.zeros_like(t)).clamp(0, nb - 1), \
+            matched
+    return t, torch.where(ok, table[pc + 1] - t, torch.zeros_like(t))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("unique", [True, False])
+@pytest.mark.parametrize("n_live", [None, 0, 7, 19])
+def test_k5_reads_one_table_entry_a_row(jx, k, unique, n_live):
+    """K4's lut holds a row (>= 0) for exactly the codes cnt counts, over
+    duplicate codes, NULL keys, dead rows, out-of-domain keys and an
+    n_live prefix; so K5's unique probe from the lut alone equals
+    lut_probe_plain and the JAX lut_probe_unique, and its multi probe
+    from K6's starts alone equals lut_probe_plain."""
+    JJ, jnp = jx
+    nb = 20 if k > 1 else 30
+    bounds, bkeys, pkeys, blive, plive = _raw_join_case(
+        100 + 10 * k + unique, k, nb, 400, unique)
+    rng = np.random.default_rng(k + 7 * unique)
+    v0, m0 = bkeys[0]
+    hi0 = bounds[0][1]
+    bkeys[0] = (np.where(rng.random(nb) < 0.15, hi0 + 3, v0), m0)
+    dom = int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+    tb = [(_t(v), _t(m)) for v, m in bkeys]
+    tp = [(_t(v), _t(m)) for v, m in pkeys]
+    cnt, lut, _, codes = TJ.lut_build_plain(tb, bounds, dom, live=_t(blive),
+                                            n_live=n_live, want_codes=True)
+    assert torch.equal(lut[:dom] >= 0, cnt[:dom] > 0)
+    got = _probe_from_table(tp, bounds, lut, _t(plive), nb, True)
+    want = TJ.lut_probe_plain(tp, bounds, cnt, lut, _t(plive), nb, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    bc, bok = _jax_pack(JJ, jnp, bkeys, bounds)
+    pc, pok = _jax_pack(JJ, jnp, pkeys, bounds)
+    rows_live = blive & (np.arange(nb) < (nb if n_live is None else n_live))
+    jidx, jm, _ = JJ.lut_probe_unique(bc, bok & jnp.asarray(rows_live), dom,
+                                      pc, pok & jnp.asarray(plive))
+    assert np.array_equal(np.asarray(jm), _np(got[1]))
+    single = _np(got[1]) & (_np(cnt)[np.asarray(pc)] == 1)
+    assert np.array_equal(np.asarray(jidx)[single], _np(got[0])[single])
+    starts, _ = TJ.lut_order_plain(codes, cnt)
+    assert starts.shape == (dom + 1,)
+    got = _probe_from_table(tp, bounds, starts, _t(plive), nb, False)
+    want = TJ.lut_probe_plain(tp, bounds, cnt, starts, _t(plive), nb, False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_k5_probe_plan_is_pure_and_cached(k):
+    """K5's argument block: a pure function of the key signature, cached,
+    with the C struct's layout (12 pointers, 14 int64, 8 int32)."""
+    import ctypes
+    bounds = tuple((-q, 3 * q + 2) for q in range(k))
+    is64 = tuple(q % 2 == 0 for q in range(k))
+    plan = TJ.probe_plan(is64, bounds, 17, True)
+    assert plan is TJ.probe_plan(is64, bounds, 17, True)
+    assert ctypes.sizeof(TJ._ProbeArgs) == len(plan) == 240
+    a = TJ._ProbeArgs.from_buffer_copy(plan)
+    assert a.k == k and a.nb == 17 and a.unique_mode == 1 and a.n == 0
+    assert list(a.is64) == [int(w) for w in is64] + [0] * (4 - k)
+    assert list(a.lo) == [lo for lo, _ in bounds] + [0] * (4 - k)
+    assert list(a.hi) == [hi for _, hi in bounds] + [0] * (4 - k)
+    assert list(a.stride) == TJ._strides(bounds) + [0] * (4 - k)
+    assert a.domain == int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+    assert all(not p for p in list(a.vals) + list(a.masks)) and \
+        a.live is None and a.table is None
+    multi = TJ._ProbeArgs.from_buffer_copy(TJ.probe_plan(is64, bounds, 17,
+                                                         False))
+    assert multi.unique_mode == 0 and multi.domain == a.domain
+    # a call's copy leaves the cached block untouched
+    a.vals[0] = 1234
+    a.n = 99
+    assert TJ._ProbeArgs.from_buffer_copy(plan).n == 0
+
+
+def test_k5_domain_checks_raise_as_before():
+    from tidb_tpu_torch.ops.cuda_kernels import KernelError
+    TJ._check_domain(70, [(0, 9), (-2, 4)], "lut_probe")
+    with pytest.raises(KernelError, match="empty bounds"):
+        TJ._check_domain(1, [(3, 2)], "lut_probe")
+    with pytest.raises(KernelError, match="does not match"):
+        TJ._check_domain(71, [(0, 9), (-2, 4)], "lut_probe")
+
+
 # ---------------------------------------------------------------------------
 # Sort formulation: combine_keys, sorted_probe_unique/multi
 # ---------------------------------------------------------------------------
@@ -342,6 +435,26 @@ def test_k4_k5_match_plain(cuda, k, unique, n_live):
         # both read the kernel's own table, so even a duplicated code's
         # slot gathers identically
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # K5's vector steps at their edges: n at multiples of 4 ± 1, key views
+    # 1-3 elements and mask / live views 1-15 bytes off their boundaries,
+    # int32 and int64 keys, all-dead and all-live probes, both modes
+    rng = np.random.default_rng(40 + k + 3 * unique)
+    for n in (1, 3, 4, 5, 1023, 1025, 4099):
+        for off in (0, 1, 2, 3, 5, 15):
+            keys = []
+            for q, (v, m) in enumerate(_keys(rng, n + 16, bounds)):
+                dt = torch.int32 if (q + off) % 2 else torch.int64
+                keys.append((_t(v).to(dt).to(cuda)[off % 4:off % 4 + n],
+                             _t(m).to(cuda)[off:off + n]))
+            for lv in (rng.random(n + 16) > 0.1, np.zeros(n + 16, bool),
+                       np.ones(n + 16, bool)):
+                live = _t(lv).to(cuda)[15 - off:15 - off + n]
+                for table, uq in ((lut, True), (starts, False)):
+                    a = TJ.lut_probe(keys, bounds, cnt, table, live, nb, uq)
+                    b = TJ.lut_probe_plain(keys, bounds, cnt, table, live,
+                                           nb, uq)
+                    assert torch.equal(a[0], b[0]) and \
+                        torch.equal(a[1], b[1]), (n, off, uq)
 
 
 @pytest.mark.cuda

@@ -34,7 +34,8 @@ from tidb_tpu_torch.errors import TiDBTPUError
 from tidb_tpu_torch.executor import fragment
 from tidb_tpu_torch.executor import microbatch as mb
 from tidb_tpu_torch.executor.scheduler import SCHEDULER
-from tidb_tpu_torch.ops.compact import member_compact_plain
+from tidb_tpu_torch.ops.compact import TILE, member_compact_plain, \
+    scratch_bytes
 from tidb_tpu_torch.session import Engine
 from tidb_tpu_torch.util import failpoint, timeline
 from tidb_tpu_torch.util.observability import REGISTRY
@@ -572,3 +573,39 @@ def test_member_compact_plain_matches_nonzero(b, cap):
             [len(w) for w in want]).tolist()
         assert ids.tolist() == np.concatenate(
             want + [np.zeros(0, np.int64)]).tolist()
+
+
+@pytest.mark.parametrize("b", [2, 5, 16])
+def test_member_compact_plain_uneven_members(b):
+    """Members of unequal fill (empty, full, dense, sparse, one live row
+    at the last member's last row) against np.nonzero of each."""
+    rng = np.random.default_rng(500 + b)
+    cap = 1027 + b
+    fills = [0.0, 1.0, 0.5, 0.002, 0.9, 0.0, 0.03]
+    live = np.stack([rng.random(cap) < fills[k % len(fills)]
+                     for k in range(b)])
+    live[-1] = False
+    live[-1, cap - 1] = True
+    counts, offsets, ids = member_compact_plain(torch.from_numpy(live))
+    want = [np.nonzero(live[k])[0] for k in range(b)]
+    assert counts.tolist() == [len(w) for w in want]
+    assert offsets.tolist() == [0] + np.cumsum([len(w) for w in want]).tolist()
+    assert ids.tolist() == np.concatenate(want).tolist()
+    assert ids[-1] == cap - 1
+
+
+def test_member_compact_scratch_bytes():
+    """K22's scratch: a 16-byte counter and a 4-byte flag a tile (rounded
+    to 16 bytes), then three int64 slots a tile and two a round, for
+    ceil((cap + 15) / TILE) tiles a member (at least one tile)."""
+    assert TILE == 131_072
+    for b in (1, 3, 16):
+        for cap in (0, 1, TILE - 16, TILE - 15, TILE, TILE + 1,
+                    8_388_608, 8_388_609):
+            tiles = max(1, b * -(-(cap + 15) // TILE))
+            assert scratch_bytes(b, cap) == \
+                16 + -(-4 * tiles // 16) * 16 + 152 * tiles, (b, cap)
+    assert scratch_bytes(1, 0) == 184
+    assert scratch_bytes(1, TILE - 15) == 184
+    assert scratch_bytes(1, TILE - 14) == 336
+    assert scratch_bytes(16, 8_388_608) == 162_256

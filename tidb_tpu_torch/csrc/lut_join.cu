@@ -16,22 +16,40 @@
 // real code: the build side is unique iff it is <= 1. On request it also
 // writes each row's code (int32, the sentinel for dead rows) for K6.
 //
-// K5 packs each probe row the same way and gathers. Unique mode writes
+// K5 packs each probe row the same way and gathers one table entry a
+// row. Unique mode takes K4's lut, -1 filled by the wrapper and written
+// by K4 for every counted row, so for a code below `domain`
+// lut[code] >= 0 exactly when cnt[code] > 0: it writes
 // match_idx = lut[code] clamped to [0, nb) (0 when unmatched) and
-// matched = ok && cnt[code] > 0; multi mode writes start = starts[code]
-// (the exclusive scan of cnt, from K6) and count = ok ? cnt[code] : 0.
+// matched = ok && lut[code] >= 0, and never reads cnt. Multi mode takes
+// K6's starts, the exclusive scan of cnt over domain + 1 slots, and
+// writes start = starts[code] and count = ok ? starts[code + 1] -
+// starts[code] : 0 (two adjacent words, usually one sector).
 //
 // What bounds them on an H100: bytes. K4 reads the build keys and masks
 // once and scatters 4-8 B a row into cnt/lut; K5 reads the probe keys and
 // masks once and writes 5-8 B a row. The tables of a dimension build
-// (1.5M codes, 12 MB for cnt + lut) sit in the 50 MB L2, so the scattered
-// and gathered table traffic mostly never reaches HBM.
+// (1.5M codes, 6 MB a table) sit in the 50 MB L2, so the scattered and
+// gathered table traffic mostly never reaches HBM.
 //
-// Design: one row per thread in a grid-stride loop. The sentinel count
-// and the largest count are aggregated per warp (ballot, __reduce_max_sync)
-// and per block in shared memory before one global atomic per block: a
-// filtered build sends most of its rows to the single sentinel slot, and
-// one atomic per row there would serialize the kernel.
+// Design. K4: one row per thread in a grid-stride loop. The sentinel
+// count and the largest count are aggregated per warp (ballot,
+// __reduce_max_sync) and per block in shared memory before one global
+// atomic per block: a filtered build sends most of its rows to the
+// single sentinel slot, and one atomic per row there would serialize the
+// kernel. K5: four rows a thread a step over a grid sized from the SM
+// count and the kernel's occupancy: a 16-byte load of four int32 keys
+// (two of four int64 keys), one 4-byte word of each mask and of live,
+// the four independent table reads, then a 16-byte store of out_a and a
+// 4-byte (unique) or 16-byte (multi) store of out_b. (Eight rows a step,
+// and evict-first hints on the row streams, measured no faster: the
+// random table reads bound it, as they bound torch.take.) A torch view
+// may start anywhere: a key column off its 16-byte boundary is read
+// with scalar loads, a mask or live off its 4-byte boundary as the two
+// aligned words around its four bytes (funnel shift); the outputs, which
+// the wrapper allocates, are aligned (the entry refuses them otherwise).
+// The last n % 4 rows take one scalar step each. K5's arguments come as
+// one struct (ProbeArgs) that the wrapper caches per key signature.
 //
 // C interface, bound with ctypes; every entry returns cudaGetLastError().
 
@@ -120,30 +138,183 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    lut_probe_kernel(Keys K, const unsigned char* __restrict__ live,
-                     long long n, long long domain,
-                     const int* __restrict__ cnt,
-                     const int* __restrict__ table, int unique_mode, int nb,
-                     int* __restrict__ out_a, void* __restrict__ out_b) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += step) {
-    long long code;
-    const bool ok = pack_row(K, i, &code) && (live == nullptr || live[i]);
-    code = code < 0 ? 0 : (code >= domain ? domain - 1 : code);
-    if (unique_mode) {
-      const bool m = ok && cnt[code] > 0;
-      int idx = m ? table[code] : 0;
-      idx = idx < 0 ? 0 : (idx >= nb ? nb - 1 : idx);
-      out_a[i] = idx;
-      static_cast<unsigned char*>(out_b)[i] = m ? 1 : 0;
+// K5's arguments (ops/join.py _ProbeArgs mirrors the layout)
+struct ProbeArgs {
+  const void* vals[MAX_KEYS];
+  const void* masks[MAX_KEYS];
+  const void* live;            // may be null
+  const void* table;           // lut (unique) or starts (multi)
+  void* out_a;                 // int32 match_idx / start
+  void* out_b;                 // bool matched / int32 count
+  long long lo[MAX_KEYS];
+  long long hi[MAX_KEYS];
+  long long stride[MAX_KEYS];
+  long long n;
+  long long domain;
+  int is64[MAX_KEYS];
+  int k;
+  int unique_mode;
+  int nb;
+  int reserved;
+};
+
+constexpr int VEC = 4;    // probe rows a group
+
+// keys of rows 4g .. 4g + 3
+__device__ __forceinline__ void load_keys4(const void* p, int is64,
+                                           long long g, long long v[VEC]) {
+  if (is64) {
+    const long long* q = static_cast<const long long*>(p) + VEC * g;
+    if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+      const longlong2* q2 = reinterpret_cast<const longlong2*>(q);
+      const longlong2 a = __ldg(q2);
+      const longlong2 b = __ldg(q2 + 1);
+      v[0] = a.x;
+      v[1] = a.y;
+      v[2] = b.x;
+      v[3] = b.y;
     } else {
-      out_a[i] = table[code];
-      static_cast<int*>(out_b)[i] = ok ? cnt[code] : 0;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = __ldg(q + j);
+    }
+  } else {
+    const int* q = static_cast<const int*>(p) + VEC * g;
+    if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(q));
+      v[0] = a.x;
+      v[1] = a.y;
+      v[2] = a.z;
+      v[3] = a.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = __ldg(q + j);
     }
   }
+}
+
+// the bytes of rows 4g .. 4g + 3 of a bool column as one word (byte j is
+// row 4g + j); off its 4-byte boundary, from the two aligned words that
+// hold them (both hold a byte of the column)
+__device__ __forceinline__ unsigned load_bytes4(const unsigned char* p,
+                                                long long g) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p + VEC * g);
+  const unsigned s = static_cast<unsigned>(a & 3);
+  const unsigned* w = reinterpret_cast<const unsigned*>(a - s);
+  const unsigned lo = __ldg(w);
+  if (s == 0) return lo;
+  return __funnelshift_r(lo, __ldg(w + 1), 8 * s);
+}
+
+// one probe row's outputs from its packed code and flag
+__device__ __forceinline__ void probe_out(const ProbeArgs& A, long long code,
+                                          bool ok, int* a, int* b) {
+  const int* table = static_cast<const int*>(A.table);
+  code = code < 0 ? 0 : (code >= A.domain ? A.domain - 1 : code);
+  if (A.unique_mode) {
+    const int t = __ldg(table + code);
+    const bool m = ok && t >= 0;
+    *a = m ? (t >= A.nb ? A.nb - 1 : t) : 0;
+    *b = m ? 1 : 0;
+  } else {
+    const int s = __ldg(table + code);
+    *a = s;
+    *b = ok ? __ldg(table + code + 1) - s : 0;
+  }
+}
+
+// K5's rows 4g .. 4g + 3: their packed codes and, byte j of the word,
+// whether row 4g + j is live, non-NULL and inside every key's bounds
+__device__ __forceinline__ unsigned pack_group(const ProbeArgs& A,
+                                               long long g,
+                                               long long code[VEC]) {
+  const unsigned char* live = static_cast<const unsigned char*>(A.live);
+  unsigned ok = live ? load_bytes4(live, g) : 0x01010101u;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) code[j] = 0;
+#pragma unroll
+  for (int q = 0; q < MAX_KEYS; ++q) {
+    if (q >= A.k) break;
+    long long v[VEC];
+    load_keys4(A.vals[q], A.is64[q], g, v);
+    const unsigned m =
+        load_bytes4(static_cast<const unsigned char*>(A.masks[q]), g);
+    const long long lo = A.lo[q], hi = A.hi[q];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if (!((m >> (8 * j)) & 0xffu) || v[j] < lo || v[j] > hi)
+        ok &= ~(0xffu << (8 * j));
+      const long long c = v[j] < lo ? lo : (v[j] > hi ? hi : v[j]);
+      code[j] += (c - lo) * A.stride[q];
+    }
+  }
+  return ok;
+}
+
+__global__ void __launch_bounds__(THREADS) lut_probe_kernel(ProbeArgs A) {
+  const long long groups = A.n / VEC;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g < groups; g += step) {
+    long long code[VEC];
+    const unsigned ok = pack_group(A, g, code);
+    int a[VEC], b[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      probe_out(A, code[j], ((ok >> (8 * j)) & 0xffu) != 0u, &a[j], &b[j]);
+    reinterpret_cast<int4*>(A.out_a)[g] = make_int4(a[0], a[1], a[2], a[3]);
+    if (A.unique_mode)
+      reinterpret_cast<unsigned*>(A.out_b)[g] =
+          static_cast<unsigned>(b[0]) | (static_cast<unsigned>(b[1]) << 8) |
+          (static_cast<unsigned>(b[2]) << 16) |
+          (static_cast<unsigned>(b[3]) << 24);
+    else
+      reinterpret_cast<int4*>(A.out_b)[g] = make_int4(b[0], b[1], b[2], b[3]);
+  }
+  const unsigned char* live = static_cast<const unsigned char*>(A.live);
+  // the last n % 4 rows, one a thread of block 0
+  const long long i = groups * VEC + threadIdx.x;
+  if (blockIdx.x == 0 && i < A.n) {
+    bool ok = live == nullptr || live[i] != 0;
+    long long code = 0;
+    for (int q = 0; q < A.k; ++q) {
+      const long long v =
+          A.is64[q] ? static_cast<const long long*>(A.vals[q])[i]
+                    : static_cast<long long>(
+                          static_cast<const int*>(A.vals[q])[i]);
+      const long long lo = A.lo[q], hi = A.hi[q];
+      ok = ok && static_cast<const unsigned char*>(A.masks[q])[i] != 0 &&
+           v >= lo && v <= hi;
+      const long long c = v < lo ? lo : (v > hi ? hi : v);
+      code += (c - lo) * A.stride[q];
+    }
+    int a, b;
+    probe_out(A, code, ok, &a, &b);
+    static_cast<int*>(A.out_a)[i] = a;
+    if (A.unique_mode)
+      static_cast<unsigned char*>(A.out_b)[i] = static_cast<unsigned char>(b);
+    else
+      static_cast<int*>(A.out_b)[i] = b;
+  }
+}
+
+// blocks of K5: as many as the card holds at once, fewer for a short probe
+int probe_grid(long long groups) {
+  static int resident[64];             // per device ordinal, 0 = not asked
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int r = dev < 64 ? resident[dev] : 0;
+  if (r == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lut_probe_kernel,
+                                                  THREADS, 0);
+    r = sms * per_sm;
+    if (r < 1) r = 1;
+    if (dev < 64) resident[dev] = r;
+  }
+  const long long want = (groups + THREADS - 1) / THREADS;
+  return want < 1 ? 1 : (want < r ? static_cast<int>(want) : r);
 }
 
 int grid_for(long long n) {
@@ -199,27 +370,24 @@ int tt_lut_build(int k, const void* const* vals, const void* const* masks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5. Keys as for K4; live (bool, may be null); n probe rows. cnt and
-// table (lut in unique mode, starts in multi mode) hold domain (+1) int32.
-// Unique mode: out_a int32 match_idx (clamped to [0, nb)), out_b bool
-// matched. Multi mode: out_a int32 start, out_b int32 count.
-int tt_lut_probe(int k, const void* const* vals, const void* const* masks,
-                 const int* is64, const long long* lo, const long long* hi,
-                 const long long* stride, const void* live, long long n,
-                 long long domain, const void* cnt, const void* table,
-                 int unique_mode, int nb, void* out_a, void* out_b,
-                 void* stream) {
-  Keys K;
-  if (!load_keys(&K, k, vals, masks, is64, lo, hi, stride) || domain < 1 ||
-      nb < 1 || n < 0)
+// K5. args: one ProbeArgs (keys as for K4; live may be null; table of
+// domain int32 in unique mode, K4's lut, -1 where no row counted; of
+// domain + 1 int32 in multi mode, K6's starts). Unique mode: out_a int32
+// match_idx (clamped to [0, nb)), out_b bool matched, 16- and 4-byte
+// aligned. Multi mode: out_a int32 start, out_b int32 count, both
+// 16-byte aligned.
+int tt_lut_probe(const void* args, void* stream) {
+  const ProbeArgs A = *static_cast<const ProbeArgs*>(args);
+  if (A.k < 1 || A.k > MAX_KEYS || A.domain < 1 || A.nb < 1 || A.n < 0 ||
+      A.table == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(A.out_a) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(A.out_b) & (A.unique_mode ? 3 : 15)) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaGetLastError();
-  if (n > 0)
-    lut_probe_kernel<<<grid_for(n), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        K, static_cast<const unsigned char*>(live), n, domain,
-        static_cast<const int*>(cnt), static_cast<const int*>(table),
-        unique_mode, nb, static_cast<int*>(out_a), out_b);
+  if (A.n > 0)
+    lut_probe_kernel<<<probe_grid(A.n / VEC), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 

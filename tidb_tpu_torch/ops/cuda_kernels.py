@@ -9,9 +9,10 @@ stream are passed as `c_void_p`, and every C entry returns
 
 Every wrapper that launches a kernel calls `count(name)` exactly where it
 launches, so a run can show which kernels its main path went through
-(`launches()` / `reset_launches()`). Nothing here is imported or built
-until a CUDA tensor reaches a wrapper: CPU tensors take the wrappers'
-plain torch versions and never touch nvcc.
+(`launches()` / `reset_launches()`). Importing this module loads and
+builds nothing; nothing is built until a CUDA tensor reaches a wrapper:
+CPU tensors take the wrappers' plain torch versions and never touch
+nvcc.
 """
 
 from __future__ import annotations
@@ -69,8 +70,7 @@ _SIGNATURES = {
     "tt_remap_group_ids": [_P, _P, _L, _I, _P, _P],
     "tt_lut_build": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P,
                      _P, _P],
-    "tt_lut_probe": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _I, _I,
-                     _P, _P, _P],
+    "tt_lut_probe": [_P, _P],
     "tt_lut_order": [_P, _P, _L, _L, _I, _P, _P, _P, _P, _P, _P],
     "tt_join_expand": [_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P],
@@ -110,7 +110,9 @@ _SIGNATURES = {
     "tt_date_add_months": [_P, _I, _P, _L, _L, _P, _L, _P],
     "tt_dict_lut": [_P, _I, _P, _I, _L, _I, _L, _P, _L, _P],
     "tt_dict_lut_smem_bytes": [],
-    "tt_member_count": [_P, _I, _L, _P, _P, _P, _P],
+    "tt_member_tile": [],
+    "tt_member_scratch_bytes": [_I, _L],
+    "tt_member_count": [_P, _I, _L, _P, _P, _P, _P, _P],
     "tt_member_scatter": [_P, _I, _L, _P, _P, _P],
     "tt_hash_partition": [_I, _P, _P, _P, _P, _L, _I, _L, _I, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P, _P],
@@ -121,6 +123,9 @@ _SIGNATURES = {
     "tt_rank_gather_chunk": [],
     "tt_rank_gather_max_segs": [],
 }
+#: entries that return other than an int error code
+_RESTYPES = {"tt_error_string": ctypes.c_char_p,
+             "tt_member_scratch_bytes": ctypes.c_longlong}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -194,8 +199,7 @@ def library(name: str) -> ctypes.CDLL:
                 if f is None:
                     continue
                 f.argtypes = args
-                f.restype = ctypes.c_char_p if fn == "tt_error_string" \
-                    else ctypes.c_int
+                f.restype = _RESTYPES.get(fn, ctypes.c_int)
             _LIBS[name] = lib
     return lib
 
@@ -235,7 +239,7 @@ def reset_launches() -> None:
 def require_cuda(*tensors, what: str) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor."""
     for t in tensors:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise KernelError(f"{what}: expected a CUDA tensor, got "
                               f"{t.device}")
         if not t.is_contiguous():

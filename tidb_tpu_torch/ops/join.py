@@ -50,10 +50,13 @@ searches them:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from tidb_tpu_torch.ops import cuda_kernels as ck
 
 #: key columns K4 and K5 pack at most
 MAX_JOIN_KEYS = 4
@@ -127,7 +130,9 @@ def lut_build_plain(keys, bounds, domain: int, live=None,
 def lut_probe_plain(keys, bounds, cnt, table, live, nb: int, unique: bool):
     """Plain torch version of K5. Unique → (match_idx (P,) int32 clamped to
     [0, nb), 0 when unmatched; matched (P,) bool) with `table` = lut;
-    multi → (start (P,) int32, count (P,) int32) with `table` = starts."""
+    multi → (start (P,) int32, count (P,) int32) with `table` = starts.
+    Reads cnt[code] where the kernel reads the table alone (the
+    invariants of `lut_probe`)."""
     codes, ok = pack_bounded_codes(keys, bounds)
     ok = _row_ok(ok, live, None)
     domain = cnt.shape[0] - 1
@@ -188,10 +193,9 @@ def expand_plain(start, count, order, out_cap: int, outer: bool,
 # ---------------------------------------------------------------------------
 
 
-def _key_args(keys, bounds, what: str):
-    """Validate K4/K5 key columns → ctypes arrays (vals, masks, is64, lo,
-    hi, stride) and the columns as the kernel reads them."""
-    from tidb_tpu_torch.ops import cuda_kernels as ck
+def _key_cols(keys, bounds, what: str):
+    """Validate K4/K5 key columns → (the columns as the kernel reads them:
+    int32 or int64 values with bool masks, their row count)."""
     k = len(keys)
     if not 1 <= k <= MAX_JOIN_KEYS or len(bounds) != k:
         raise ck.KernelError(f"{what}: {k} key columns "
@@ -210,6 +214,14 @@ def _key_args(keys, bounds, what: str):
             raise ck.KernelError(f"{what}: key columns of unequal shapes")
         ck.require_cuda(v, m, what=what)
         cols.append((v, m))
+    return cols, n
+
+
+def _key_args(keys, bounds, what: str):
+    """Validate K4 key columns → ctypes arrays (vals, masks, is64, lo, hi,
+    stride) and the columns as the kernel reads them."""
+    cols, n = _key_cols(keys, bounds, what)
+    k = len(cols)
     P = ctypes.c_void_p * k
     L = ctypes.c_longlong * k
     args = (P(*[v.data_ptr() for v, _ in cols]),
@@ -222,16 +234,29 @@ def _key_args(keys, bounds, what: str):
     return args, cols, n
 
 
-def _check_domain(domain: int, bounds, what: str) -> None:
-    from tidb_tpu_torch.ops import cuda_kernels as ck
+@functools.lru_cache(maxsize=256)
+def _bounds_domain(bounds: Tuple[Tuple[int, int], ...]) -> int:
+    """The code count of these per-key bounds, or -1 when one is empty."""
     want = 1
     for lo, hi in bounds:
         if hi < lo:
-            raise ck.KernelError(f"{what}: empty bounds ({lo}, {hi})")
+            return -1
         want *= hi - lo + 1
+    return want
+
+
+def _check_domain(domain: int, bounds, what: str):
+    """Raise unless the bounds' code count is `domain` (and fits int32);
+    → the bounds as a tuple of int pairs."""
+    bounds = tuple((int(lo), int(hi)) for lo, hi in bounds)
+    want = _bounds_domain(bounds)
+    if want < 0:
+        lo, hi = next((lo, hi) for lo, hi in bounds if hi < lo)
+        raise ck.KernelError(f"{what}: empty bounds ({lo}, {hi})")
     if want != domain or not 1 <= domain < 2 ** 31 - 1:
         raise ck.KernelError(f"{what}: domain {domain} does not match the "
                              f"bounds ({want}) or exceeds int32")
+    return bounds
 
 
 def lut_build(keys, bounds, domain: int, live=None,
@@ -242,7 +267,6 @@ def lut_build(keys, bounds, domain: int, live=None,
     if keys[0][0].device.type == "cpu":
         return lut_build_plain(keys, bounds, domain, live, n_live, want_lut,
                                want_codes)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     _check_domain(domain, bounds, "lut_build")
     args, cols, nb = _key_args(keys, bounds, "lut_build")
     dev = cols[0][0].device
@@ -269,18 +293,64 @@ def lut_build(keys, bounds, domain: int, live=None,
     return cnt, lut, maxcnt, codes
 
 
+class _ProbeArgs(ctypes.Structure):
+    """K5's argument block (csrc/lut_join.cu `ProbeArgs`)."""
+    _fields_ = [("vals", ctypes.c_void_p * MAX_JOIN_KEYS),
+                ("masks", ctypes.c_void_p * MAX_JOIN_KEYS),
+                ("live", ctypes.c_void_p),
+                ("table", ctypes.c_void_p),
+                ("out_a", ctypes.c_void_p),
+                ("out_b", ctypes.c_void_p),
+                ("lo", ctypes.c_longlong * MAX_JOIN_KEYS),
+                ("hi", ctypes.c_longlong * MAX_JOIN_KEYS),
+                ("stride", ctypes.c_longlong * MAX_JOIN_KEYS),
+                ("n", ctypes.c_longlong),
+                ("domain", ctypes.c_longlong),
+                ("is64", ctypes.c_int * MAX_JOIN_KEYS),
+                ("k", ctypes.c_int),
+                ("unique_mode", ctypes.c_int),
+                ("nb", ctypes.c_int),
+                ("reserved", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=256)
+def probe_plan(is64: Tuple[bool, ...], bounds: Tuple[Tuple[int, int], ...],
+               nb: int, unique: bool) -> bytes:
+    """K5's argument block for one key signature, a pure function: the
+    key count, each key's width (`is64`), bounds and stride, the domain,
+    nb and the mode filled in; every pointer and n zero. → its bytes: a
+    call copies them into a `_ProbeArgs` and fills in its pointers and
+    n."""
+    a = _ProbeArgs()
+    a.k = len(bounds)
+    a.is64[:a.k] = [int(w) for w in is64]
+    a.lo[:a.k] = [lo for lo, _ in bounds]
+    a.hi[:a.k] = [hi for _, hi in bounds]
+    a.stride[:a.k] = _strides(bounds)
+    a.domain = math.prod(hi - lo + 1 for lo, hi in bounds)
+    a.unique_mode = int(unique)
+    a.nb = nb
+    return bytes(a)
+
+
 def lut_probe(keys, bounds, cnt, table, live, nb: int, unique: bool):
-    """K5 wrapper, as `lut_probe_plain`."""
+    """K5 wrapper, as `lut_probe_plain`. On the card the kernel reads the
+    table alone, which holds for the tables the LUT join passes:
+      * unique: `table` is K4's lut (`lut_build` fills it with -1 and
+        writes a row id for every counted row), so for a code below the
+        domain lut[code] >= 0 exactly when cnt[code] > 0; matched is
+        lut[code] >= 0;
+      * multi: `table` is K6's starts over domain + 1 slots, the
+        exclusive scan of cnt; count is starts[code + 1] - starts[code].
+    `cnt` gives the domain (its length - 1) and is checked, not read."""
     if keys[0][0].device.type == "cpu":
         return lut_probe_plain(keys, bounds, cnt, table, live, nb, unique)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     domain = cnt.shape[0] - 1
-    _check_domain(domain, bounds, "lut_probe")
-    args, cols, n = _key_args(keys, bounds, "lut_probe")
-    dev = cols[0][0].device
+    bounds = _check_domain(domain, bounds, "lut_probe")
+    cols, n = _key_cols(keys, bounds, "lut_probe")
     ck.require_cuda(cnt, table, what="lut_probe")
     if cnt.dtype != torch.int32 or table.dtype != torch.int32 or \
-            table.shape[0] < domain:
+            table.shape[0] < domain + (not unique):
         raise ck.KernelError("lut_probe: cnt/table must be int32 of the "
                              "domain's length")
     if live is not None:
@@ -290,13 +360,23 @@ def lut_probe(keys, bounds, cnt, table, live, nb: int, unique: bool):
                                  "probe's length")
     if not 1 <= nb < 2 ** 31:
         raise ck.KernelError(f"lut_probe: build rows {nb} out of range")
+    dev = cols[0][0].device
+    a = _ProbeArgs.from_buffer_copy(probe_plan(
+        tuple(v.dtype == torch.int64 for v, _ in cols), bounds, nb,
+        bool(unique)))
+    for q, (v, m) in enumerate(cols):
+        a.vals[q] = v.data_ptr()
+        a.masks[q] = m.data_ptr()
     out_a = torch.empty(n, dtype=torch.int32, device=dev)
     out_b = torch.empty(n, dtype=torch.bool if unique else torch.int32,
                         device=dev)
-    rc = ck.library("lut_join").tt_lut_probe(
-        len(cols), *args, None if live is None else live.data_ptr(), n,
-        domain, cnt.data_ptr(), table.data_ptr(), int(unique), nb,
-        out_a.data_ptr(), out_b.data_ptr(), ck.stream_ptr(dev))
+    a.live = None if live is None else live.data_ptr()
+    a.table = table.data_ptr()
+    a.out_a = out_a.data_ptr()
+    a.out_b = out_b.data_ptr()
+    a.n = n
+    rc = ck.library("lut_join").tt_lut_probe(ctypes.addressof(a),
+                                             ck.stream_ptr(dev))
     if n > 0:                       # the entry launches nothing for n == 0
         ck.count("lut_probe")
     ck.check(rc, "lut_probe")
@@ -314,7 +394,6 @@ def lut_order(codes, cnt):
     code in [0, domain] per build row (K4's `want_codes` output)."""
     if codes.device.type == "cpu":
         return lut_order_plain(codes, cnt)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     ck.require_cuda(codes, cnt, what="lut_order")
     if codes.dtype != torch.int32 or cnt.dtype != torch.int32 or \
             codes.dim() != 1 or cnt.dim() != 1:
@@ -349,7 +428,6 @@ def expand(start, count, order, out_cap: int, outer: bool, probe_live):
     live slot and in `total`; dead slots carry in-range indices."""
     if count.device.type == "cpu":
         return expand_plain(start, count, order, out_cap, outer, probe_live)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     ck.require_cuda(start, count, order, probe_live, what="join_expand")
     P = count.shape[0]
     nb = order.shape[0]
@@ -506,7 +584,6 @@ def sorted_search_multi_plain(sorted_codes, probe_codes, ok_p):
 
 
 def _search_args(sorted_codes, probe_codes, ok_p):
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     ck.require_cuda(sorted_codes, probe_codes, ok_p, what="sorted_search")
     nb, P = sorted_codes.shape[0], probe_codes.shape[0]
     if sorted_codes.dtype != torch.int64 or \
@@ -524,7 +601,6 @@ def sorted_search_unique(sorted_codes, order, probe_codes, ok_p):
     if sorted_codes.device.type == "cpu":
         return sorted_search_unique_plain(sorted_codes, order, probe_codes,
                                           ok_p)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     nb, P = _search_args(sorted_codes, probe_codes, ok_p)
     ck.require_cuda(order, what="sorted_search")
     if order.dtype != torch.int32 or order.shape != (nb,):
@@ -546,7 +622,6 @@ def sorted_search_multi(sorted_codes, probe_codes, ok_p):
     """K11 wrapper (multi mode), as `sorted_search_multi_plain`."""
     if sorted_codes.device.type == "cpu":
         return sorted_search_multi_plain(sorted_codes, probe_codes, ok_p)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     nb, P = _search_args(sorted_codes, probe_codes, ok_p)
     dev = sorted_codes.device
     start = torch.empty(P, dtype=torch.int32, device=dev)
@@ -590,7 +665,6 @@ def searchsorted(sorted_seq, v, right: bool = False):
     if sorted_seq.device.type == "cpu":
         return torch.searchsorted(sorted_seq.contiguous(), v.contiguous(),
                                   right=right)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     sorted_seq, v = sorted_seq.contiguous(), v.contiguous()
     ck.require_cuda(sorted_seq, v, what="sorted_search")
     if sorted_seq.dtype != torch.int64 or v.dtype != torch.int64 or \

@@ -1,13 +1,16 @@
-"""Time the window scans and the rank gather of one checkout on the card,
-for comparing two checkouts in one machine's run.
+"""Time the window scans, the rank gather, the LUT probe and the member
+compaction of one checkout on the card, for comparing two checkouts in
+one machine's run.
 
     python tidb_tpu_torch/tools/scan_timing.py --tree DIR [--out FILE]
-        [--kernels scan,gather] [--profile] [--ptxas] [--host-steps]
+        [--kernels scan,gather,probe,compact] [--profile] [--ptxas]
+        [--host-steps]
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
 its own kernels into DIR/build/) and prints one JSON line of median
 milliseconds (CUDA events) at chip_smoke's shapes (phase 12's lineitem
-layouts in one 8,388,608-row slab, phase 26's X2B broadcast):
+layouts in one 8,388,608-row slab, phase 26's X2B broadcast, phase 8's
+join, phase 22's masks):
 
   * scan: K13's int64 prefix + count of W1's running SUM (masked
     l_extendedprice in W1's sorted order) beside torch.cumsum of the
@@ -15,7 +18,13 @@ layouts in one 8,388,608-row slab, phase 26's X2B broadcast):
     partitions), and K12 (flags + positions) over W1's layout;
   * gather: K25 at an X2B-shaped broadcast (7 columns: int64, int32 x 2
     and 4 bool masks, x 4 ranks of 524,288 rows) beside torch.cat per
-    column.
+    column;
+  * probe: K5 in unique mode, one lineitem slab (8,388,608 rows, 6,001,215
+    live) of l_orderkey into K4's lut of the orders build (D =
+    1,500,303), beside torch.take of the clamped codes;
+  * compact: K22 at B = 16, cap = 8,388,608 over an M1-shaped mask (each
+    member the rows of one l_orderkey, M1's keys) and a random half-live
+    mask (seed 21), each beside torch.nonzero.
 
 Each kernel is held to its plain version first (exactly; the f64
 prefix is not timed). Run two checkouts in turns (A, B, B, A), one
@@ -23,16 +32,18 @@ process each, within one run of the machine: cards and power limits
 differ between runs. `--profile` adds each CUDA kernel's mean device
 time over one call of each timed entry (torch.profiler), under
 "kernels_<entry>"; `--ptxas` adds what `nvcc -Xptxas -v` reports for the
-scan and gather kernels (registers, shared memory, spills);
-`--host-steps` adds K25's host time split step by step (checks and
-contiguity, pointers, tables, allocation, the ctypes call and launch)
-and K13 prefix's, the card not waited for, under "k25_host_steps" and
-"k13_host_steps".
+chosen kernels' sources (registers, shared memory, spills);
+`--host-steps` adds each chosen wrapper's host time split step by step
+(under "<kernel>_host_steps"): K25's (checks and contiguity, pointers,
+tables, allocation, the ctypes call and launch), K13 prefix's and K5's
+with the card not waited for, and K22's, whose read-back of the total
+waits for its count pass.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -44,6 +55,8 @@ import time
 N_ROWS = 6_001_215          # lineitem at SF=1
 CAP = 1 << 23               # one slab
 X2B_RANK_ROWS = 524_288     # one rank's piece of X2B's filtered orders
+N_ORDERS = N_ROWS // 4      # orders at SF=1 (chip_smoke's generator)
+M1_KEYS = [1_000 + 93_751 * i for i in range(16)]   # chip_smoke's M1
 
 
 def _lineitem_columns(dev):
@@ -359,14 +372,236 @@ def run_gather(reps: int, prof: bool, steps: bool, dev) -> dict:
     return out
 
 
-def _ptxas(tree: str) -> dict:
-    """{kernel: {registers, smem, stack, spill_stores}} of the scan and gather
-    kernels, from `nvcc -Xptxas -v` with the build's flags (mangled
-    names, cut to 90 characters)."""
+def _ticker(steps: dict):
+    def tick(name, t0):
+        t1 = time.perf_counter()
+        steps[name] = steps.get(name, 0.0) + (t1 - t0)
+        return t1
+    return tick
+
+
+def _mean_us(steps: dict, reps: int) -> dict:
+    out = {k: v * 1e6 / reps for k, v in steps.items()}
+    out["sum of steps"] = sum(steps.values()) * 1e6 / reps
+    return out
+
+
+def _probe_inputs(dev):
+    """Phase 8's K5 call: the orders build (o_orderkey = 0..D-1 in a
+    2,097,152-row buffer) through K4, and one lineitem slab of
+    l_orderkey (the generator chip_smoke and bench.py share)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    nb = 1 << 21
+    bkey = torch.zeros(nb, dtype=torch.int64)
+    bkey[:N_ORDERS] = torch.arange(N_ORDERS)
+    blive = torch.arange(nb) < N_ORDERS
+    bkeys = [(bkey.to(dev), blive.to(dev))]
+    bounds = [(0, N_ORDERS - 1)]
+    cnt, lut, _, _ = J.lut_build(bkeys, bounds, N_ORDERS,
+                                 live=blive.to(dev))
+    okey = np.random.default_rng(7).integers(0, N_ORDERS, N_ROWS)
+    pkey = torch.zeros(CAP, dtype=torch.int64)
+    pkey[:N_ROWS] = torch.from_numpy(okey)
+    plive = (torch.arange(CAP) < N_ROWS).to(dev)
+    return [(pkey.to(dev), plive)], bounds, cnt, lut, plive, nb
+
+
+def _probe_host_steps(args, reps: int = 50) -> dict:
+    """K5's host time a call, step by step (mean µs, the card not waited
+    for), over the checkout's own wrapper: the argument block cached per
+    key signature (`probe_plan`) or the ctypes arrays of every call."""
+    import ctypes
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import join as J
+    keys, bounds, cnt, table, live, nb = args
+    lib = ck.library("lut_join")
+    steps = {}
+    tick = _ticker(steps)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        t = time.perf_counter()
+        domain = cnt.shape[0] - 1
+        bt = J._check_domain(domain, bounds, "lut_probe")
+        if hasattr(J, "probe_plan"):
+            cols, n = J._key_cols(keys, bt, "lut_probe")
+            ck.require_cuda(cnt, table, live, what="lut_probe")
+            t = tick("checks", t)
+            a = J._ProbeArgs.from_buffer_copy(J.probe_plan(
+                tuple(v.dtype == torch.int64 for v, _ in cols), bt, nb,
+                True))
+            for q, (v, m) in enumerate(cols):
+                a.vals[q] = v.data_ptr()
+                a.masks[q] = m.data_ptr()
+            t = tick("cached plan and key pointers", t)
+            out_a = torch.empty(n, dtype=torch.int32, device=live.device)
+            out_b = torch.empty(n, dtype=torch.bool, device=live.device)
+            t = tick("allocation", t)
+            a.live = live.data_ptr()
+            a.table = table.data_ptr()
+            a.out_a = out_a.data_ptr()
+            a.out_b = out_b.data_ptr()
+            a.n = n
+            stream = ck.stream_ptr(live.device)
+            t = tick("other pointers and stream", t)
+            rc = lib.tt_lut_probe(ctypes.addressof(a), stream)
+        else:
+            args_c, cols, n = J._key_args(keys, bounds, "lut_probe")
+            ck.require_cuda(cnt, table, live, what="lut_probe")
+            t = tick("checks and ctypes arrays", t)
+            out_a = torch.empty(n, dtype=torch.int32, device=live.device)
+            out_b = torch.empty(n, dtype=torch.bool, device=live.device)
+            t = tick("allocation", t)
+            stream = ck.stream_ptr(live.device)
+            t = tick("other pointers and stream", t)
+            rc = lib.tt_lut_probe(len(cols), *args_c, live.data_ptr(), n,
+                                  domain, cnt.data_ptr(), table.data_ptr(),
+                                  1, nb, out_a.data_ptr(), out_b.data_ptr(),
+                                  stream)
+        ck.check(rc, "lut_probe")
+        tick("ctypes call and launch", t)
+    torch.cuda.synchronize()
+    out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        J.lut_probe(keys, bounds, cnt, table, live, nb, True)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_probe(reps: int, prof: bool, steps: bool, dev) -> dict:
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    args = _probe_inputs(dev)
+    keys, bounds, cnt, lut, plive, nb = args
+    _same("K5 phase 8", J.lut_probe(keys, bounds, cnt, lut, plive, nb, True),
+          J.lut_probe_plain(keys, bounds, cnt, lut, plive, nb, True))
+    pc = keys[0][0].clamp(0, N_ORDERS - 1)
+    out = {"k5_ms": _median_ms(
+        lambda: J.lut_probe(keys, bounds, cnt, lut, plive, nb, True), reps),
+        "k5_take_ms": _median_ms(lambda: torch.take(lut, pc), reps)}
+    if prof:
+        out["kernels_k5"] = _profile(
+            [lambda: J.lut_probe(keys, bounds, cnt, lut, plive, nb, True)])
+        out["kernels_take"] = _profile([lambda: torch.take(lut, pc)])
+    if steps:
+        out["k5_host_steps"] = _probe_host_steps(args)
+    return out
+
+
+def _compact_masks(dev):
+    """Phase 22's two [16, 8,388,608] masks: M1's shape (member k live
+    where l_orderkey is M1's k-th key, about 4 rows a member) and a
+    random half-live mask (seed 21, as chip_smoke)."""
+    import numpy as np
+    import torch
+    okey = np.random.default_rng(7).integers(0, N_ORDERS, N_ROWS)
+    m1 = torch.zeros((len(M1_KEYS), CAP), dtype=torch.bool)
+    for k, key in enumerate(M1_KEYS):
+        m1[k, :N_ROWS] = torch.from_numpy(okey == key)
+    g = torch.Generator(device=dev).manual_seed(21)
+    half = torch.rand((len(M1_KEYS), CAP), device=dev, generator=g) < 0.5
+    return {"m1": m1.to(dev), "half": half}
+
+
+def _compact_host_steps(live, reps: int = 20) -> dict:
+    """K22's host time a call, step by step (mean µs): checks, the
+    outputs, the scratch (the per-stream scratch, or the parent's tile
+    counts), the count pass's call with the read-back of the total (which
+    waits for the count pass: inside the entry, or the parent's
+    int(offsets[B])), ids and the scatter's call."""
+    import torch
+    from tidb_tpu_torch.ops import compact as MC
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    lib = ck.library("member_compact")
+    dev = live.device
+    steps = {}
+    tick = _ticker(steps)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        t = time.perf_counter()
+        ck.require_cuda(live, what="member_compact")
+        b, cap = live.shape
+        t = tick("checks", t)
+        stream = ck.stream_ptr(dev)
+        if hasattr(MC, "scratch_bytes"):
+            offsets = torch.empty(b + 1, dtype=torch.int64, device=dev)
+            counts = torch.empty(b, dtype=torch.int64, device=dev)
+            t = tick("offsets and counts", t)
+            ent = MC._stream_scratch(dev, stream)
+            if ent.buf is None or ent.buf.numel() < MC.scratch_bytes(b, cap):
+                ent.buf = torch.empty(MC.scratch_bytes(b, cap),
+                                      dtype=torch.uint8, device=dev)
+            scratch = ent.buf.data_ptr()
+            tot = ctypes.c_longlong()
+            t = tick("stream and scratch", t)
+            rc = lib.tt_member_count(live.data_ptr(), b, cap, scratch,
+                                     offsets.data_ptr(), counts.data_ptr(),
+                                     ctypes.addressof(tot), stream)
+            ck.check(rc, "member_compact")
+            total = tot.value
+            t = tick("count call, launch and read-back of the total "
+                     "(waits for the count pass)", t)
+        else:
+            ntiles = -(-cap // MC.TILE)
+            tiles = torch.empty(max(b * ntiles, 1), dtype=torch.int64,
+                                device=dev)
+            scratch = tiles.data_ptr()
+            offsets = torch.empty(b + 1, dtype=torch.int64, device=dev)
+            counts = torch.empty(b, dtype=torch.int64, device=dev)
+            t = tick("offsets and counts", t)
+            t = tick("stream and scratch", t)
+            rc = lib.tt_member_count(live.data_ptr(), b, cap, scratch,
+                                     offsets.data_ptr(), counts.data_ptr(),
+                                     stream)
+            ck.check(rc, "member_compact")
+            total = int(offsets[b])
+            t = tick("count call, launch and read-back of the total "
+                     "(waits for the count pass)", t)
+        ids = torch.empty(total, dtype=torch.int32, device=dev)
+        t = tick("ids", t)
+        if total:
+            rc = lib.tt_member_scatter(live.data_ptr(), b, cap, scratch,
+                                       ids.data_ptr(), stream)
+            ck.check(rc, "member_compact")
+        tick("scatter call and launch", t)
+        torch.cuda.synchronize()
+    return _mean_us(steps, reps)
+
+
+def run_compact(reps: int, prof: bool, steps: bool, dev) -> dict:
+    import torch
+    from tidb_tpu_torch.ops import compact as MC
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    out = {}
+    for name, live in _compact_masks(dev).items():
+        _same(f"K22 {name}", MC.member_compact(live),
+              MC.member_compact_plain(live))
+        out[f"k22_{name}_ms"] = _median_ms(lambda: MC.member_compact(live),
+                                           reps)
+        out[f"k22_{name}_nonzero_ms"] = _median_ms(
+            lambda: torch.nonzero(live), reps)
+        out[f"k22_{name}_live_rows"] = int(live.sum())
+        if prof:
+            out[f"kernels_k22_{name}"] = _profile(
+                [lambda: MC.member_compact(live)])
+        if steps:
+            out[f"k22_{name}_host_steps"] = _compact_host_steps(live)
+    return out
+
+
+def _ptxas(tree: str, sources) -> dict:
+    """{kernel: {registers, smem, stack, spill_stores}} of the kernels of
+    `sources` (csrc file names), from `nvcc -Xptxas -v` with the build's
+    flags (mangled names, cut to 90 characters)."""
     from tidb_tpu_torch.ops import cuda_kernels as ck
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("window_scan", "rank_gather"):
+        for src in sources:
             res = subprocess.run(
                 [ck.nvcc(), *ck.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                  os.path.join(tmp, src + ".so"),
@@ -385,11 +620,12 @@ def _ptxas(tree: str) -> dict:
                 if m:
                     out.setdefault(name, {}).update(
                         stack=int(m.group(1)), spill_stores=int(m.group(2)))
-                m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
-                              line)
+                m = re.search(r"Used (\d+) registers", line)
                 if m:
+                    smem = re.search(r"(\d+) bytes smem", line)
                     out.setdefault(name, {}).update(
-                        registers=int(m.group(1)), smem=int(m.group(2)))
+                        registers=int(m.group(1)),
+                        smem=int(smem.group(1)) if smem else 0)
     return out
 
 
@@ -398,17 +634,18 @@ def main() -> int:
     ap.add_argument("--tree", required=True,
                     help="root of the checkout whose kernels to time")
     ap.add_argument("--kernels", default="scan,gather",
-                    help="comma-separated: scan (K12, K13), gather (K25)")
+                    help="comma-separated: scan (K12, K13), gather (K25), "
+                         "probe (K5), compact (K22)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="append the JSON line to this file too")
     ap.add_argument("--profile", action="store_true",
                     help="add each kernel's device time (torch.profiler)")
     ap.add_argument("--ptxas", action="store_true",
-                    help="add the scan and gather kernels' registers, "
-                         "shared memory and spills (nvcc -Xptxas -v)")
+                    help="add the chosen kernels' registers, shared "
+                         "memory and spills (nvcc -Xptxas -v)")
     ap.add_argument("--host-steps", action="store_true",
-                    help="add K25's and K13's host time split step by "
-                         "step")
+                    help="add the chosen wrappers' host time split step "
+                         "by step")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -417,7 +654,9 @@ def main() -> int:
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     kernels = set(args.kernels.split(","))
-    if not kernels <= {"scan", "gather"}:
+    sources = {"scan": "window_scan", "gather": "rank_gather",
+               "probe": "lut_join", "compact": "member_compact"}
+    if not kernels <= set(sources):
         print(f"scan_timing: unknown kernels {args.kernels}",
               file=sys.stderr)
         return 2
@@ -431,8 +670,13 @@ def main() -> int:
     if "gather" in kernels:
         line.update(run_gather(args.reps, args.profile, args.host_steps,
                                dev))
+    if "probe" in kernels:
+        line.update(run_probe(args.reps, args.profile, args.host_steps, dev))
+    if "compact" in kernels:
+        line.update(run_compact(args.reps, args.profile, args.host_steps,
+                                dev))
     if args.ptxas:
-        line["ptxas"] = _ptxas(tree)
+        line["ptxas"] = _ptxas(tree, [sources[k] for k in sorted(kernels)])
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:

@@ -64,7 +64,9 @@ which must pass:
      int64 values, K10's word and gather entries at 8,388,608 rows and
      ~10^5 groups (the word entry beside unique_consecutive; no PyTorch
      call computes the gather entry's function), K11 with 2,097,152 build
-     codes and 8,388,608 probes;
+     codes and 8,388,608 probes, and on a skewed table (2,097,151 codes in
+     [0, 2^21) and one at 2^62) under the same probes, each beside
+     torch.searchsorted (K11's call profiled once after phase 26);
  11. window functions on the card, over lineitem and phase 7's tables:
      W1 a chain window root over a filtered scan (every rank function, a
      running SUM with ties, LAG, FIRST_VALUE, NTILE, CUME_DIST over ~1.5M
@@ -73,7 +75,7 @@ which must pass:
      ROWS MAX under an outer aggregate, W4 RANK over customer ⋈ orders
      filtered to rank 1, W5 = W2 over 2,097,152-row slabs (one program
      over the concatenated slabs), W6 RANK over a device aggregate's rows
-     (WindowExec's device path), each cold and twice warm under
+     (WindowExec's device path), each cold and warm once under
      tidb_tpu_strict=1, held against the host engine column by column as
      numpy arrays (float columns within 2·n·eps·|x|); EXPLAIN shows
      W1-W5's windows inside a TpuFragment and W6's outside. Counters are
@@ -90,8 +92,8 @@ which must pass:
      host; its "pairs" rungs are logged), D3 two DISTINCT counts over
      lineitem ⋈ orders, D4 scalar DISTINCT counts (one of two columns),
      R1 Q1's keys WITH ROLLUP, R2 a ROLLUP over lineitem ⋈ orders ⋈
-     customer, R3 = R1 over 2,097,152-row slabs; each cold and twice
-     warm under tidb_tpu_strict=1, exactly equal to the host engine
+     customer, R3 = R1 over 2,097,152-row slabs; each cold and warm
+     once under tidb_tpu_strict=1, exactly equal to the host engine
      (rows sorted where the statement has no ORDER BY), EXPLAIN showing
      its HashAgg inside a TpuFragment. Counters are zeroed before the
      phase; K16-K18 and K8-K10 must move (K16 in every D run, K17 and
@@ -101,7 +103,8 @@ which must pass:
      n = 8,388,608 (beside `gids*(n+1)+vid` and `rep[pg] == arange`),
      K17 tiling R1's read columns to 3 x 8,388,608 rows and writing the
      levels of its two key masks (beside torch.cat, repeat_interleave
-     and &), K18 through D2's pair cap (beside per-column index_select);
+     and &), K18 through D2's pair cap (beside per-column index_select;
+     its call profiled once after phase 26);
  15. the delta write path on the lineitem entry phase 13 left resident
      (R3's 2,097,152-row slabs, 3 base slabs), tidb_tpu_compaction off:
      a 2-row INSERT its base layouts cannot carry (l_shipdate going back
@@ -147,7 +150,7 @@ which must pass:
      TPC-H Q13's NOT LIKE '%special%requests%' with SUM(LENGTH), S4
      LOCATE/INSTR/CHAR_LENGTH over the comments, S5 FIND_IN_SET and LIKE
      over lineitem_str ⋈ orders_str, S6 UPPER/SUBSTR under IS NOT NULL,
-     S7 a string equi-join (KeyRemap); each cold and twice warm under
+     S7 a string equi-join (KeyRemap); each cold and warm once under
      tidb_tpu_strict=1, exactly equal to the host engine, EXPLAIN showing
      its aggregate inside a TpuFragment, the host preparation and upload
      of its dictionary tables (collect_preps) timed with their bytes.
@@ -216,7 +219,9 @@ lut_order and K7 join_expand, and K8 radix_sort, K9 sort_encode, K10
 group_ids (both entries: the word entry over K8's sorted word and the
 gather entry for two-word sorts, with NaN, ±0.0, ±inf, NULLs, dead rows,
 a dead row keyed like the last live one, cap overflow) and K11
-sorted_search against their plain versions, exactly; the sort functions
+sorted_search (every entry, also on negative, full-range, sentinel-only,
+equal-run and skewed tables with INT64_MAX and INT64_MIN probes)
+against their plain versions, exactly; the sort functions
 built on K8-K10 (factorize, sort_perm, topn, pack_codes) equal the same
 functions over CPU copies of the inputs; and K12 window_bounds, K13
 window_scan, K14 frame_bounds and K15 frame_eval against theirs, every
@@ -224,7 +229,8 @@ entry, exactly except K13's float64 prefixes (within 2·i·eps·Σ|x|);
 and K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
 theirs exactly (random gids with dead rows, value ranks with ties,
 1/2/4/8-byte columns and a 2-D limb plane, n_valid below and at the
-cap), with the pair factorize on K8-K10 + K16 equal to its CPU run;
+cap; K18 also at 1-65 columns over odd-offset views and out-of-range
+indices), with the pair factorize on K8-K10 + K16 equal to its CPU run;
 and K19 delta_merge against delta_merge_plain exactly (its partition,
 every packed width, dict, raw and wide columns through K18, four
 tombstone sets); and K20 civil_date against its plain version exactly
@@ -1456,6 +1462,7 @@ def check_sort_kernels(dev):
                  J.searchsorted(table, probe, right),
                  torch.searchsorted(table, probe, right=right))
         cases += 5
+    cases += check_k11_edges(dev, rng, same)
     torch.cuda.synchronize()
     log(f"K8-K11 radix_sort/sort_encode/group_ids(_words)/sorted_search: "
         f"{cases} cases exactly equal to the plain versions (n = 1, 1000, "
@@ -1465,7 +1472,88 @@ def check_sort_kernels(dev):
         f"gather entry on one- and two-word sorts ({', '.join(K10_CASES)}); "
         f"1-3 key columns through factorize/sort_perm/topn/pack_codes; cap "
         f"below n_groups; K11 with duplicates, missing keys, sentinels, "
-        f"nb = 1, P = 0)")
+        f"nb = 1, P = 0, and its three entries on negative, full-range, "
+        f"sentinel-only, equal-run and skewed tables with probes equal to "
+        f"INT64_MAX and INT64_MIN)")
+
+
+I64_MAX = (1 << 63) - 1
+I64_MIN = -(1 << 63)
+
+
+def _k11_table(rng, kind, nb):
+    """(build codes, ok_b, the values probes draw from) of one edge table:
+    negative codes; the full int64 range INT64_MIN .. INT64_MAX - 1; dead
+    rows only (a table of sentinels); runs of five equal codes (spaced
+    3 apart, so runs cross the directory's bucket edges); the skewed table
+    (nb - 1 codes in [0, nb) and one at 2^62)."""
+    import numpy as np
+    ok = np.ones(nb, dtype=bool)
+    if kind == "negative":
+        pool = np.sort(rng.integers(-(1 << 40), -5, nb))
+    elif kind == "full-range":
+        pool = np.sort(np.concatenate([
+            rng.integers(I64_MIN, I64_MAX, max(nb - 2, 0), dtype=np.int64),
+            [I64_MIN, I64_MAX - 1]]))[:nb]
+    elif kind == "sentinels":
+        pool = rng.integers(0, 1 << 40, nb)
+        ok[:] = False
+    elif kind == "runs":
+        pool = np.repeat(np.arange(0, nb, 3, dtype=np.int64), 5)[:nb]
+    else:
+        pool = np.concatenate([np.arange(nb - 1, dtype=np.int64),
+                               [1 << 62]])
+    return rng.permutation(pool), ok, pool
+
+
+def _k11_probes(rng, pool, P):
+    """Probes: pool values, their neighbours, INT64_MAX, INT64_MIN and
+    the whole int64 range."""
+    import numpy as np
+    base = pool[rng.integers(0, len(pool), P)]
+    pick = rng.random(P)
+    with np.errstate(over="ignore"):
+        near = base + rng.integers(-1, 2, P)
+    return np.where(pick < 0.6, base, np.where(
+        pick < 0.75, near, np.where(pick < 0.8, I64_MAX, np.where(
+            pick < 0.85, I64_MIN,
+            rng.integers(I64_MIN, I64_MAX, P, dtype=np.int64)))))
+
+
+def check_k11_edges(dev, rng, same) -> int:
+    """K11's three entries (unique, multi, searchsorted left and right)
+    exactly against their plain versions on the directory's edge tables,
+    with probes equal to INT64_MAX and INT64_MIN, and on a probe view off
+    its 16-byte alignment."""
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    cases = 0
+    for kind, nb, P in (("negative", 70_001, 300_001),
+                        ("full-range", 70_001, 300_001),
+                        ("full-range", 1, 1_000),
+                        ("sentinels", 4_097, 100_003),
+                        ("sentinels", 1, 1_000),
+                        ("runs", 300_000, 1_000_001),
+                        ("skewed", 2_097_152, 1_000_000)):
+        bc, okb, pool = _k11_table(rng, kind, nb)
+        codes = torch.from_numpy(bc).to(dev)
+        ok_b = torch.from_numpy(okb).to(dev)
+        probe = torch.from_numpy(_k11_probes(rng, pool, P)).to(dev)
+        ok_p = torch.from_numpy(rng.random(P) > 0.1).to(dev)
+        sc, order = J.sorted_build(codes, ok_b)
+        for pv, okv in ((probe, ok_p), (probe[1:], ok_p[1:])):
+            same(f"K11 unique {kind} nb={nb}",
+                 J.sorted_search_unique(sc, order, pv, okv),
+                 J.sorted_search_unique_plain(sc, order, pv, okv))
+            same(f"K11 multi {kind} nb={nb}",
+                 J.sorted_search_multi(sc, pv, okv),
+                 J.sorted_search_multi_plain(sc, pv, okv))
+            for right in (False, True):
+                same(f"K11 search {kind} nb={nb} right={right}",
+                     J.searchsorted(sc, pv, right),
+                     torch.searchsorted(sc, pv, right=right))
+            cases += 4
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1971,7 +2059,9 @@ def sort_timing_phase(dev, sparse):
     lib = time_cuda(lambda: torch.searchsorted(sc, probe), reps=10)
     exact("K11", zip(J.sorted_search_unique(sc, order, probe, ok),
                      J.sorted_search_unique_plain(sc, order, probe, ok)))
-    b, by = bound_ms(n * (8 + 1) + n * (4 + 1), n * 2 * 21)
+    # inputs read once (the codes, the build order, each probe key and
+    # mask), outputs written once; a bucket's few compares a row
+    b, by = bound_ms(nb * (8 + 4) + n * (8 + 1) + n * (4 + 1), n * 8)
     out.append({"name": "sorted_search", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/sorted_groups.cu",
                 "replaces": "tidb_tpu/ops/join.py:139",
@@ -1979,6 +2069,24 @@ def sort_timing_phase(dev, sparse):
                 "bound_ms": b, "bound_by": by, "library_ms": lib})
     log(f"K11 nb={nb} P={n} unique: {ms:.4f} ms (plain {plain:.4f}, "
         f"searchsorted {lib:.4f}, bound {b:.4f} by {by})")
+    DEFERRED_PROFILES.append((
+        "K11 at phase 10's shape",
+        lambda: J.sorted_search_unique(sc, order, probe, ok),
+        ("dir_build", "dir_probe")))
+    # the skewed table: 2,097,151 codes in [0, 2^21) and one at 2^62,
+    # which would put nearly every code into one bucket of an untrimmed
+    # range; the same probes
+    sk = torch.cat([torch.arange(nb - 1, dtype=torch.int64, device=dev),
+                    torch.full((1,), 1 << 62, dtype=torch.int64,
+                               device=dev)])
+    exact("K11 skewed", zip(J.sorted_search_unique(sk, order, probe, ok),
+                            J.sorted_search_unique_plain(sk, order, probe,
+                                                         ok)))
+    ms_sk = time_cuda(lambda: J.sorted_search_unique(sk, order, probe, ok),
+                      reps=10)
+    lib_sk = time_cuda(lambda: torch.searchsorted(sk, probe), reps=10)
+    log(f"K11 skewed table nb={nb} P={n} unique: {ms_sk:.4f} ms "
+        f"(searchsorted {lib_sk:.4f}, bound {b:.4f} by {by})")
     return out
 
 
@@ -2159,7 +2267,7 @@ def window_sql_phase(s):
             f"{wall:.3f} s")
     runs = []
     for name in ("w1", "w2", "w3", "w4", "w5", "w6"):
-        for k in ("cold", "warm1", "warm2"):
+        for k in ("cold", "warm1"):
             runs.append((f"{name}_{k}", name))
     t_phase = time.perf_counter()
     ck.reset_launches()
@@ -2446,9 +2554,71 @@ def check_distinct_kernels(dev):
                         G.gather_columns_plain(gcols, idx, n_valid)):
                     same(f"K18 values n={n}", a, b)
                     same(f"K18 masks n={n}", am, bm)
+    cases += check_k18_edges(dev, rng)
     torch.cuda.synchronize()
     log(f"K16/K17/K18 exactly equal to their plain versions ({cases} "
-        f"cases); the pair factorize on K8-K10 + K16 equal to its CPU run")
+        f"cases; K18 also at 1, 3, 64 and 65 columns over views at odd "
+        f"byte offsets, out-of-range int32/int64 indices, an index off "
+        f"its 16-byte alignment, n_valid 0 and m, m = 1-5 and 40,001-"
+        f"40,003); the pair factorize on K8-K10 + K16 equal to its CPU "
+        f"run")
+
+
+def check_k18_edges(dev, rng) -> int:
+    """K18 at the edges of its design, exactly against its plain version
+    (through clamped indices, then zero values and false masks where an
+    index lies outside [0, n_src)): 1, 3, 64 and 65 columns (65: two
+    launches) of 1/2/4/8-byte dtypes, every third column and its mask a
+    view one element into its buffer (odd byte offsets), int32 and int64
+    indices with out-of-range ones, an index view off its 16-byte
+    alignment, n_valid 0, below m and m, and m not a multiple of the four
+    slots a thread takes."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import gather as G
+    dts = [np.bool_, np.int16, np.int32, np.float64, np.uint8, np.int64,
+           np.float32]
+    cases = 0
+    for ncols in (1, 3, 64, 65):
+        n = 90_000 if ncols < 64 else 5_000
+        cols = []
+        for c in range(ncols):
+            dt = dts[c % len(dts)]
+            off = 1 if c % 3 == 2 else 0
+            if dt == np.bool_:
+                a = rng.random(n + off) < 0.5
+            elif dt in (np.float64, np.float32):
+                a = rng.normal(size=n + off).astype(dt)
+            else:
+                a = rng.integers(-100, 100, n + off).astype(dt)
+            v = torch.from_numpy(a).to(dev)[off:]
+            m = None
+            if c % 2 == 0:
+                m = torch.from_numpy(rng.random(n + off) < 0.7).to(dev)[off:]
+            cols.append((v, m))
+        for idx_dt in (np.int32, np.int64):
+            for m_out in (1, 3, 4, 5, 40_001, 40_002, 40_003):
+                full = torch.from_numpy(rng.integers(
+                    -3, n + 3, m_out + 1).astype(idx_dt)).to(dev)
+                for off in (0, 1):
+                    ix = full[off:off + m_out]
+                    inside = (ix >= 0) & (ix < n)
+                    for nv in (0, m_out // 3, m_out):
+                        n_valid = torch.tensor(nv, dtype=torch.int32,
+                                               device=dev)
+                        got = G.gather_columns(cols, ix, n_valid)
+                        want = G.gather_columns_plain(
+                            cols, ix.clamp(0, n - 1), n_valid)
+                        for (a, am), (b, bm) in zip(got, want):
+                            b = torch.where(inside, b, torch.zeros_like(b))
+                            if not (torch.equal(a, b) and
+                                    torch.equal(am, bm & inside)):
+                                raise AssertionError(
+                                    f"K18 at {ncols} columns, m = {m_out}, "
+                                    f"n_valid = {nv}, index offset {off} "
+                                    f"differs from its plain version")
+                        cases += 1
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -2505,7 +2675,7 @@ def agg_in_fragment(s, sql) -> bool:
 
 
 def distinct_sql_phase(s):
-    """D1-D4 and R1-R3 cold and twice warm under tidb_tpu_strict=1, each
+    """D1-D4 and R1-R3 cold and warm once under tidb_tpu_strict=1, each
     exactly equal to the host engine (rows sorted where the statement
     has no ORDER BY) → (launches, walls)."""
     from tidb_tpu_torch.ops import cuda_kernels as ck
@@ -2533,7 +2703,7 @@ def distinct_sql_phase(s):
     esc_all = {}
     for name, (sql, slab) in stmts.items():
         ref = {"d2": "d1", "r3": "r1"}.get(name, name)
-        for k in ("cold", "warm1", "warm2"):
+        for k in ("cold", "warm1"):
             run = f"{name}_{k}"
             before = ck.launches()
             rows, wall, phases, esc = run_sql(s, sql, device=True,
@@ -2744,6 +2914,9 @@ def distinct_timing_phase(dev, n: int):
     log(f"K18 3 columns through rep[:{pc}] ({int(s_pairs)} pairs) of a "
         f"{sc}-row slab: {ms:.4f} ms (plain {plain:.4f}, index_select "
         f"{lib:.4f}, bound {b:.4f} by {by})")
+    DEFERRED_PROFILES.append((
+        "K18 at phase 14's shape",
+        lambda: G.gather_columns(gcols, idx, s_pairs), ("gather_kernel",)))
     return out
 
 
@@ -3210,7 +3383,7 @@ def delta_sql_phase(s, n: int, host_q1, host_q3):
     keep[:n_cur0] = True
     keep[:min(n_cur0, n)] &= li["l_shipdate"][:min(n_cur0, n)] >= DAY_A
     return launches, walls, {"snap": snap, "after": after, "keep": keep,
-                             "cap": cap}
+                             "cap": cap}, {"q1": q1, "q3": q3}
 
 
 # ---------------------------------------------------------------------------
@@ -3632,7 +3805,7 @@ def _prep_meter():
 
 def string_sql_phase(s, n: int):
     """S1-S7 over lineitem_str, orders_str and shipmode, made here: each
-    cold and twice warm under tidb_tpu_strict=1, rows exactly equal to
+    cold and warm once under tidb_tpu_strict=1, rows exactly equal to
     the host engine (sorted where the statement has no ORDER BY),
     EXPLAIN showing the aggregate inside a TpuFragment, K21 launched in
     every run; the host preparation and upload of the dictionary tables
@@ -3683,7 +3856,7 @@ def string_sql_phase(s, n: int):
     meter, restore = _prep_meter()
     try:
         for name, sql in STRING_STMTS.items():
-            for k in ("cold", "warm1", "warm2"):
+            for k in ("cold", "warm1"):
                 run = f"{name}_{k}"
                 before = ck.launches()
                 s0, b0 = meter["s"], meter["bytes"]
@@ -4173,20 +4346,28 @@ DIST_STMTS = {"X1": Q1, "X2": X2, "X2B": Q3, "X3": X3}
 DIST_RUNS = ("X1", "X2", "X2B", "X3")
 
 
-def dist_sql_phase(s):
+def dist_sql_phase(s, known):
     """X1-X3 (and X2B) with tidb_tpu_dist_devices = 4 over lineitem as
     the earlier phases left it and phase 7's orders: 4 ranks, all on the
     one card. Each statement equals the host engine exactly (rows sorted:
     none has an ORDER BY the ranks keep), EXPLAIN shows shards:4 and, for
     the joins and the DISTINCT, the Exchange (its kind logged), K23 moves
     on X2 and X3. Every dist statement encodes its columns on the host
-    (the reference's _dist_exec), so every run is cold. → (launches of
-    the phase, walls, X2's first K23 call's inputs, the host rows)."""
+    (the reference's _dist_exec), so every run is cold. `known` holds the
+    host rows phase 15 already made on the same rows (X1 is Q1 and X2B
+    bench.py's Q3, over lineitem as the writes left it; nothing writes
+    lineitem or orders after phase 15), so only X2 and X3 run on the
+    host here. → (launches of the phase, walls, X2's first K23 call's
+    inputs, the host rows)."""
     from tidb_tpu_torch.ops import cuda_kernels as ck
     from tidb_tpu_torch.ops import partition as P
     host, walls = {}, {}
     t0 = time.perf_counter()
     for name, sql in DIST_STMTS.items():
+        if name in known:
+            host[name] = sorted(known[name], key=str)
+            log(f"host {name}: {len(host[name])} rows from phase 15")
+            continue
         rows, wall, _, _ = run_sql(s, sql, device=False)
         host[name] = sorted(rows, key=str)
         walls[f"host_{name}"] = wall
@@ -4864,6 +5045,10 @@ def main() -> int:
         f"{sys.version.split()[0]} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[{time.perf_counter() - t0:.1f} s] {what} done")
+
     built = ck.build_all()
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(ck.NVCC_FLAGS)})")
@@ -4883,6 +5068,7 @@ def main() -> int:
     check_member_compact_kernels(dev)
     check_hash_partition_kernels(dev)
     check_rank_kernels(dev)
+    mark("phase 3 (every kernel against its plain version)")
 
     eng, s, host, launches, walls, q1_slab = sql_phase(dev, args.sf)
     kernels = timing_phase(dev, q1_slab, k1_err)
@@ -4892,6 +5078,7 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[names[k["name"]]]
     wire_phase(eng, host["q1"])
+    mark("phases 4-6")
     n = int(round(SF1_ROWS * args.sf))
     join_launches, join_walls, orders, customer, join_host = \
         join_sql_phase(s, n)
@@ -4900,6 +5087,7 @@ def main() -> int:
         k["launches"] = join_launches[k["name"]]
     kernels += join_kernels
     walls.update(join_walls)
+    mark("phases 7-8")
     sort_launches, sort_walls, sparse = sort_sql_phase(s, n, orders,
                                                       join_host["q3"])
     sort_kernels = sort_timing_phase(dev, sparse)
@@ -4907,37 +5095,43 @@ def main() -> int:
         k["launches"] = sort_launches[k["name"]]
     kernels += sort_kernels
     walls.update(sort_walls)
+    mark("phases 9-10")
     window_launches, window_walls = window_sql_phase(s)
     window_kernels = window_timing_phase(dev, n, f64_err)
     for k in window_kernels:
         k["launches"] = window_launches[k["name"]]
     kernels += window_kernels
     walls.update(window_walls)
+    mark("phases 11-12")
     distinct_launches, distinct_walls = distinct_sql_phase(s)
     distinct_kernels = distinct_timing_phase(dev, n)
     for k in distinct_kernels:
         k["launches"] = distinct_launches[k["name"]]
     kernels += distinct_kernels
     walls.update(distinct_walls)
-    delta_launches, delta_walls, delta_inputs = delta_sql_phase(
-        s, n, host["q1"], join_host["q3"])
+    mark("phases 13-14")
+    delta_launches, delta_walls, delta_inputs, written_host = \
+        delta_sql_phase(s, n, host["q1"], join_host["q3"])
     delta_kernels = delta_timing_phase(dev, delta_inputs)
     for k in delta_kernels:
         k["launches"] = delta_launches[k["name"]]
     kernels += delta_kernels
     walls.update(delta_walls)
+    mark("phases 15-16")
     expr_launches, expr_walls = expression_sql_phase(s)
     calendar_kernels = calendar_timing_phase(dev)
     for k in calendar_kernels:
         k["launches"] = expr_launches[k["name"]]
     kernels += calendar_kernels
     walls.update(expr_walls)
+    mark("phases 17-18")
     string_launches, string_walls = string_sql_phase(s, n)
     lut_kernels = dict_lut_timing_phase(dev)
     for k in lut_kernels:
         k["launches"] = string_launches[k["name"]]
     kernels += lut_kernels
     walls.update(string_walls)
+    mark("phases 19-20")
     mb_launches, mb_walls, m1_live = microbatch_sql_phase(eng, s)
     mb_kernels = member_compact_timing_phase(dev, m1_live)
     del m1_live
@@ -4945,13 +5139,16 @@ def main() -> int:
         k["launches"] = mb_launches[k["name"]]
     kernels += mb_kernels
     walls.update(mb_walls)
-    dist_launches, dist_walls, x2_part, dist_host = dist_sql_phase(s)
+    mark("phases 21-22")
+    dist_launches, dist_walls, x2_part, dist_host = dist_sql_phase(
+        s, {"X1": written_host["q1"], "X2B": written_host["q3"]})
     part_kernels = hash_partition_timing_phase(dev, x2_part)
     del x2_part
     for k in part_kernels:
         k["launches"] = dist_launches[k["name"]]
     kernels += part_kernels
     walls.update(dist_walls)
+    mark("phases 23-24")
     mono_launches, mono_walls, mono_capture = mono_sql_phase(s, dist_host)
     rank_kernels = rank_timing_phase(dev, mono_capture)
     del mono_capture
@@ -4959,9 +5156,11 @@ def main() -> int:
         k["launches"] = mono_launches[k["name"]]
     kernels += rank_kernels
     walls.update(mono_walls)
+    mark("phases 25-26")
     for what, fn, names_ in DEFERRED_PROFILES:
         profile_split(what, fn, names_)
     DEFERRED_PROFILES.clear()
+    mark("the deferred profiles")
     log("walls: " + json.dumps({k: round(v, 4) for k, v in walls.items()}))
     log("join-path launches of the first slice's kernels: " + json.dumps(
         {k: join_launches[k] for k in Q1_KERNELS}))

@@ -19,14 +19,20 @@ theirs. The sort formulation: K8 radix_sort (n = 1, the tile edges,
 words; given and generated row ids), K9 sort_encode, K10 group_ids (its
 word entry over K8's sorted word and its gather entry for two-word
 sorts: NaN, ±0.0, ±inf, NULLs, dead rows, cap overflow) and K11
-sorted_search against their plain versions. K12's positions and K13's
-prefix and segmented scans at the single-pass scan's tile edges, and
-one scan scratch reused over back-to-back calls.
+sorted_search (every entry, on negative, full-range, sentinel-only,
+skewed and equal-run tables, probes equal to INT64_MAX) against their
+plain versions; K18 at 1-65 columns over views at odd byte offsets. K12's
+positions and K13's prefix and segmented scans at the single-pass scan's
+tile edges, one scan scratch reused over back-to-back calls, and two
+threads scanning on one stream through the locked scratch.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
 Integer, bool and decode results must be exactly equal; f64 sums within
 (n-1)·eps·sum|x| per slot (the kernel adds in another order)."""
+
+import contextlib
+import sys
 
 import numpy as np
 import pytest
@@ -202,26 +208,74 @@ def test_k17_matches_plain(cuda, reps):
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
+def _k18_columns(g, n, ncols):
+    """ncols columns of n rows cycling through 1/2/4/8-byte dtypes, masks
+    on every other one; every third column a view 1 element into a longer
+    buffer (an odd byte offset for 1-byte values and every mask)."""
+    dts = [torch.bool, torch.int16, torch.int32, torch.float64, torch.uint8,
+           torch.int64, torch.float32]
+    cols = []
+    for c in range(ncols):
+        dt = dts[c % len(dts)]
+        off = 1 if c % 3 == 2 else 0
+        if dt == torch.bool:
+            v = torch.rand(n + off, generator=g) < 0.5
+        elif dt.is_floating_point:
+            v = torch.randn(n + off, generator=g).to(dt)
+        else:
+            v = torch.randint(-100, 100, (n + off,), generator=g).to(dt)
+        m = (torch.rand(n + off, generator=g) < 0.7) if c % 2 == 0 else None
+        cols.append((v[off:], None if m is None else m[off:]))
+    return cols
+
+
+@pytest.mark.parametrize("ncols", [1, 3, 64, 65])
 @pytest.mark.parametrize("idx_dt", [torch.int32, torch.int64])
-def test_k18_matches_plain(cuda, idx_dt):
+def test_k18_matches_plain(cuda, idx_dt, ncols):
+    """K18 at 1, 3, 64 and 65 columns (65: two launches), sources that are
+    views at odd byte offsets, int32/int64 indices with out-of-range ones,
+    an index vector off its 16-byte alignment, n_valid 0, below m and m,
+    and m not a multiple of the four slots a thread takes."""
+    import ctypes
+    from tidb_tpu_torch.ops import cuda_kernels as ck
     from tidb_tpu_torch.ops import gather as G
-    n, m = 90_000, 40_000
-    g = torch.Generator().manual_seed(3)
-    cols = [(torch.rand(n, generator=g) < 0.5, torch.rand(n, generator=g)
-             < 0.7),
-            (torch.randint(0, 7, (n,), generator=g, dtype=torch.int32),
-             None),
-            (torch.randn(n, generator=g, dtype=torch.float64),
-             torch.rand(n, generator=g) < 0.7)]
-    idx = torch.randint(0, n, (m,), generator=g).to(idx_dt)
-    for nv in (m // 3, m):
-        n_valid = torch.tensor(nv, dtype=torch.int32)
-        got = G.gather_columns(
-            [(v.to(cuda), None if mk is None else mk.to(cuda))
-             for v, mk in cols], idx.to(cuda), n_valid.to(cuda))
-        want = G.gather_columns_plain(cols, idx, n_valid)
-        for (a, am), (b, bm) in zip(got, want):
-            assert torch.equal(a.cpu(), b) and torch.equal(am.cpu(), bm)
+    assert ck.library("gather_columns").tt_gather_args_bytes() == \
+        ctypes.sizeof(G._GatherArgs)
+    n = 90_000 if ncols < 64 else 5_000
+    g = torch.Generator().manual_seed(3 + ncols)
+    cols = _k18_columns(g, n, ncols)
+    dcols = [(v.to(cuda), None if mk is None else mk.to(cuda))
+             for v, mk in cols]
+    dcols = [(_odd_view(v, cuda) if c % 3 == 2 else v,
+              None if mk is None else
+              (_odd_view(mk, cuda) if c % 3 == 2 else mk))
+             for c, (v, mk) in enumerate(dcols)]
+    for m in (1, 3, 4, 5, 40_001, 40_002, 40_003):
+        idx = torch.randint(-3, n + 3, (m + 1,), generator=g).to(idx_dt)
+        for off in (0, 1):
+            ix = idx[off:off + m]
+            for nv in (0, m // 3, m):
+                n_valid = torch.tensor(nv, dtype=torch.int32)
+                got = G.gather_columns(dcols, ix.to(cuda) if off == 0 else
+                                       idx.to(cuda)[off:off + m],
+                                       n_valid.to(cuda))
+                want = G.gather_columns_plain(
+                    cols, ix.clamp(0, n - 1), n_valid)
+                ok = (ix >= 0) & (ix < n)
+                assert len(got) == ncols
+                for (a, am), (b, bm), (v, _mk) in zip(got, want, cols):
+                    b = torch.where(ok, b, torch.zeros_like(b))
+                    assert a.dtype == v.dtype and a.shape == (m,)
+                    assert torch.equal(a.cpu(), b), (ncols, m, off, nv)
+                    assert torch.equal(am.cpu(), bm & ok), (ncols, m, nv)
+
+
+def _odd_view(t, cuda):
+    """t's values in a CUDA buffer one element longer, as the view from
+    element 1 (for 1-byte elements an odd byte offset)."""
+    buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=cuda)
+    buf[1:] = t
+    return buf[1:]
 
 
 def _k19_slab(kind, width, cap, n_cur, rng):
@@ -755,19 +809,90 @@ def test_k10_matches_plain(cuda, case, n):
             assert torch.equal(a.cpu(), b.to(a.dtype)), (case, n, cap)
 
 
-@pytest.mark.parametrize("dup", [False, True])
-@pytest.mark.parametrize("nb,P", [(1, 50), (1, 0), (5000, 0),
-                                  (200_000, 1_000_003)])
-def test_k11_matches_plain(cuda, nb, P, dup):
+_I64_MAX = (1 << 63) - 1
+_I64_MIN = -(1 << 63)
+
+
+def _k11_build(kind, nb, dup, rng):
+    """(build codes, ok_b, the pool probes draw from) of one table kind:
+    random codes in [0, 2^40) (pool), negative codes, the full int64 range
+    from INT64_MIN to INT64_MAX - 1, dead rows only (a table of sentinels),
+    runs of equal codes across bucket edges, and the skewed table (nb - 1
+    codes in [0, nb) and one at 2^62)."""
+    if kind == "pool":
+        pool = np.sort(rng.choice(1 << 40, max(nb, 2), replace=False))
+        bc = pool[rng.integers(0, max(nb // 3, 1), nb)] if dup else pool[:nb]
+    elif kind == "negative":
+        pool = np.sort(rng.integers(-(1 << 40), -5, nb))
+        bc = pool
+    elif kind == "full-range":
+        pool = np.sort(np.concatenate([
+            rng.integers(_I64_MIN, _I64_MAX, max(nb - 2, 0), dtype=np.int64),
+            [_I64_MIN, _I64_MAX - 1]]))[:nb]
+        bc = pool
+    elif kind == "sentinels":
+        pool = rng.integers(0, 1 << 40, nb)
+        bc = pool
+    elif kind == "runs":
+        pool = np.repeat(np.arange(0, nb, 3, dtype=np.int64), 5)[:nb]
+        bc = pool
+    else:                           # skewed
+        pool = np.concatenate([np.arange(nb - 1, dtype=np.int64), [1 << 62]])
+        bc = pool
+    ok_b = rng.random(nb) > 0.1
+    if kind == "sentinels":
+        ok_b[:] = False
+    elif kind != "pool":
+        ok_b[:] = True
+    return rng.permutation(bc), ok_b[:nb], pool
+
+
+def _k11_probes(rng, pool, P):
+    """Probes from the pool, its neighbours, INT64_MAX, INT64_MIN and the
+    whole int64 range."""
+    base = pool[rng.integers(0, len(pool), P)]
+    pick = rng.random(P)
+    with np.errstate(over="ignore"):
+        near = base + rng.integers(-1, 2, P)
+    return np.where(pick < 0.6, base, np.where(
+        pick < 0.75, near, np.where(
+            pick < 0.8, _I64_MAX, np.where(
+                pick < 0.85, _I64_MIN,
+                rng.integers(_I64_MIN, _I64_MAX, P, dtype=np.int64)))))
+
+
+@pytest.mark.parametrize("nb,P,dup,kind", [
+    (1, 50, False, "pool"), (1, 0, False, "pool"), (5000, 0, False, "pool"),
+    (200_000, 1_000_003, False, "pool"), (1, 50, True, "pool"),
+    (1, 0, True, "pool"), (5000, 0, True, "pool"),
+    (200_000, 1_000_003, True, "pool"),
+    (70_001, 300_001, False, "negative"),
+    (70_001, 300_001, False, "full-range"),
+    (4_097, 100_003, False, "sentinels"), (1, 1_000, False, "sentinels"),
+    (1, 1_000, False, "full-range"),
+    (300_000, 1_000_001, False, "runs"),
+    (2_097_152, 1_000_000, False, "skewed")])
+def test_k11_matches_plain(cuda, nb, P, dup, kind):
+    """Every K11 entry exactly equal to its plain version: duplicated and
+    unique builds, missing probe keys, sentinel rows, nb = 1, P = 0, and
+    the edge tables (negative, full-range, sentinels only, runs of equal
+    codes across bucket edges, the skewed table) with probes equal to
+    INT64_MAX and INT64_MIN."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
     from tidb_tpu_torch.ops import join as J
+    k, scratch = J._dir_scratch(nb, cuda)
+    assert ck.library("sorted_groups").tt_sorted_dir_bytes(k) == \
+        scratch.numel()
     rng = np.random.default_rng(nb + P + int(dup))
-    pool = np.sort(rng.choice(1 << 40, max(nb, 2), replace=False))
-    bc = pool[rng.integers(0, max(nb // 3, 1), nb)] if dup else pool[:nb]
-    codes = torch.from_numpy(rng.permutation(bc)).to(cuda)
-    ok_b = torch.from_numpy(rng.random(nb) > 0.1).to(cuda)
-    probe = torch.from_numpy(np.where(
-        rng.random(P) < 0.7, pool[rng.integers(0, len(pool), P)],
-        rng.integers(0, 1 << 40, P))).to(cuda)
+    bc, okb, pool = _k11_build(kind, nb, dup, rng)
+    codes = torch.from_numpy(bc).to(cuda)
+    ok_b = torch.from_numpy(okb).to(cuda)
+    if kind == "pool":
+        probe = torch.from_numpy(np.where(
+            rng.random(P) < 0.7, pool[rng.integers(0, len(pool), P)],
+            rng.integers(0, 1 << 40, P))).to(cuda)
+    else:
+        probe = torch.from_numpy(_k11_probes(rng, pool, P)).to(cuda)
     ok_p = torch.from_numpy(rng.random(P) > 0.1).to(cuda)
     sc, order = J.sorted_build(codes, ok_b)
     hs, ho = J.sorted_build(codes.cpu(), ok_b.cpu())
@@ -778,10 +903,21 @@ def test_k11_matches_plain(cuda, nb, P, dup):
     for a, b in zip(J.sorted_search_multi(sc, probe, ok_p),
                     J.sorted_search_multi_plain(sc, probe, ok_p)):
         assert torch.equal(a, b)
-    table = torch.from_numpy(pool).to(cuda)
-    for right in (False, True):
-        assert torch.equal(J.searchsorted(table, probe, right),
-                           torch.searchsorted(table, probe, right=right))
+    tables = [torch.from_numpy(np.sort(pool)).to(cuda), sc]
+    for table in tables:
+        for right in (False, True):
+            assert torch.equal(J.searchsorted(table, probe, right),
+                               torch.searchsorted(table, probe,
+                                                  right=right))
+    # a probe view off its 16-byte alignment (the scalar key loads)
+    if P > 1:
+        pv, okv = probe[1:], ok_p[1:]
+        for a, b in zip(J.sorted_search_multi(sc, pv, okv),
+                        J.sorted_search_multi_plain(sc, pv, okv)):
+            assert torch.equal(a, b)
+        for a, b in zip(J.sorted_search_unique(sc, order, pv, okv),
+                        J.sorted_search_unique_plain(sc, order, pv, okv)):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +1049,8 @@ def test_scan_scratch_reused_back_to_back(cuda, monkeypatch):
     scratch = torch.full((W.scan_scratch_bytes(n, tile, 2),), 0xFF,
                          dtype=torch.uint8, device=cuda)
     monkeypatch.setattr(W, "_scan_scratch",
-                        lambda *a, **k: scratch.data_ptr())
+                        lambda *a, **k: contextlib.nullcontext(
+                            scratch.data_ptr()))
     calls = (lambda: W.window_prefix(v, valid),
              lambda: (W.window_segscan(v, valid, ps, True, True),),
              lambda: tuple(W.window_positions(ps, qs)))
@@ -924,3 +1061,57 @@ def test_scan_scratch_reused_back_to_back(cuda, monkeypatch):
                 assert torch.equal(a, b)
     want = W.window_prefix_plain(v, valid)
     assert all(torch.equal(a, b) for a, b in zip(calls[0](), want))
+
+
+def test_scan_scratch_locked_across_threads(cuda):
+    """Two threads scanning on one stream (the default one of the device)
+    through the one per-stream scratch, many times over: every K13 prefix
+    and every K12 positions result equals its plain version. Without the
+    per-stream lock the two threads' status memsets and launches can
+    interleave, and a scan starts from a tile counter the other
+    advanced."""
+    import threading
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import window as W
+    tile = ck.library("window_scan").tt_window_tile()
+    n = 3 * tile * 20 + 5
+    rng = np.random.default_rng(31)
+    v = torch.from_numpy(rng.integers(-1 << 40, 1 << 40, n)).to(cuda)
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    ps = torch.from_numpy(rng.random(n) < 0.01).to(cuda)
+    ps[0] = True
+    qs = ps | torch.from_numpy(rng.random(n) < 0.2).to(cuda)
+    want_prefix = W.window_prefix_plain(v, valid)
+    want_pos = W.window_positions_plain(ps, qs)
+    errors = []
+    done = []
+    start = threading.Barrier(2)
+
+    def run(which):
+        try:
+            start.wait()
+            for it in range(150):
+                if which == 0:
+                    got, want = W.window_prefix(v, valid), want_prefix
+                else:
+                    got, want = W.window_positions(ps, qs), want_pos
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    errors.append((which, it))
+                    return
+            done.append(which)
+        except Exception as e:          # surfaced below
+            errors.append((which, repr(e)))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(w,)) for w in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert sorted(done) == [0, 1]

@@ -30,11 +30,28 @@
 //
 // K11 replaces the searchsorted of tidb_tpu/ops/join.py
 // sorted_probe_unique / sorted_probe_multi and of the device IN list
-// (tidb_tpu/expression/__init__.py:1333): one thread per probe row runs a
-// lower-bound (and for multi an upper-bound) binary search into the
-// sorted build codes, then the hit test and the gather of the build row
-// id. Unique mode also flags equal non-sentinel neighbours in the sorted
-// codes (one write per block that finds any).
+// (tidb_tpu/expression/__init__.py:1333): per probe row the lower (and for
+// multi the upper) bound of its code in the ascending build codes, then
+// the hit test and the gather of the build row id; unique mode also flags
+// equal non-sentinel neighbours in the sorted codes. A binary search over
+// 2,097,152 codes takes ~21 dependent loads a row, of which ~11 leave L1
+// as their own L2 sectors. K11 instead builds a bucket directory once a
+// call and reads only the probe's bucket:
+//   * the codes below INT64_MAX (the sentinel tail is answered without a
+//     search), TRIM in from each end so a few outliers widen no bucket,
+//     span [lo, hi]; a code's bucket is (x - lo) >> shift (0 at or below
+//     lo, the last at or above hi) with the least shift that leaves
+//     (hi - lo) >> shift below 2^k, 2^k about nb / 2 rounded up to a power
+//     of two (ops/join.directory_log2);
+//   * launch 1 (dir_build) finds n_real, the range and the shift on the
+//     device and writes dir[b] = (T[b], T[b + 1]), T[b] the codes in
+//     buckets below b: one full search per thread, then a doubling search
+//     from each bucket's bound to the next;
+//   * launch 2 (dir_probe) reads the row's pair (one 8-byte load) and a
+//     bucket of at most SCAN_MAX codes whole, in 16-byte pairs with no
+//     dependent loads (the lower bound, the upper bound and the hit from
+//     one pass); a larger bucket is searched by halving, never more steps
+//     than the whole table's search. Four rows a thread, in lockstep.
 //
 // What bounds them on an H100: bytes. K10's word entry reads the sorted
 // words and the permutation contiguously (12 B a row; each word's
@@ -44,9 +61,11 @@
 // the key at each sorted position and at its neighbour through it (random
 // 8 B and 1 B reads; the neighbour's is usually in L1/L2 already) and the
 // live mask, twice (the totals and the apply launch), and writes the gids.
-// K11 reads each probe key and mask and writes its outputs; its ~21
-// probes per row land in a sorted table that, at 2,097,152 int64 build
-// codes (16 MB), stays in the 50 MB L2.
+// K11 reads each probe key and mask and writes its outputs; its directory
+// (8 MB at 2,097,152 codes), the 16 MB of codes and the build row ids stay
+// in the 50 MB L2. What limits it is the random loads a row makes (about
+// 100 G random loads a second on the card): the directory pair, the
+// bucket's one or two 16-byte pairs and, on a hit, the build row id.
 //
 // C interface, bound with ctypes; every entry returns cudaGetLastError().
 
@@ -333,12 +352,93 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---- K11 -----------------------------------------------------------------
 
-__device__ __forceinline__ long long lower_bound(const long long* a,
-                                                 long long n, long long x) {
-  long long lo = 0, hi = n;
+constexpr int PROBES = 4;              // probe rows a thread takes
+constexpr int DIR_MAX_LOG2 = 22;       // at most 2^22 buckets
+constexpr int DIR_PARAM_BYTES = 64;    // SearchParams, ahead of the dir
+constexpr int TRIM = 32;               // codes left out of the range at each end
+constexpr int SCAN_MAX = 6;            // buckets this small are read whole
+enum { MODE_UNIQUE = 0, MODE_MULTI = 1, MODE_LEFT = 2, MODE_RIGHT = 3 };
+
+// what the directory launch finds and the probe launch reads (the first
+// 64 bytes of the call's directory allocation)
+struct SearchParams {
+  long long amin;             // the smallest code below INT64_MAX
+  long long amax;             // the largest code below INT64_MAX
+  long long lo;               // the directory's range: TRIM codes in from
+  long long hi;               // each end (all of them for a short table)
+  unsigned long long last;    // the last bucket, (hi - lo) >> shift
+  int n_real;                 // the codes below INT64_MAX (the rest are it)
+  int shift;
+  unsigned dup;               // unique mode: equal non-sentinel neighbours
+  unsigned blocks_done;       // unique mode: probe blocks finished
+};
+static_assert(sizeof(SearchParams) <= DIR_PARAM_BYTES, "params");
+
+// a code's bucket: 0 at or below lo, the last at or above hi, else
+// (x - lo) >> shift in 64-bit unsigned arithmetic (the difference of two
+// int64 codes in [lo, hi] fits); a shift of 64, which C leaves undefined,
+// puts every code in bucket 0
+__device__ __forceinline__ unsigned bucket_of(long long x,
+                                              const SearchParams& p) {
+  if (x <= p.lo) return 0u;
+  if (x >= p.hi) return static_cast<unsigned>(p.last);
+  const u64 d = static_cast<u64>(x) - static_cast<u64>(p.lo);
+  return p.shift >= 64 ? 0u : static_cast<unsigned>(d >> p.shift);
+}
+
+// the codes below INT64_MAX in the ascending a[0, nb), by one warp (32
+// probes a round; the same value on every lane)
+__device__ long long warp_count_below_max(const long long* __restrict__ a,
+                                          long long nb, int lane) {
+  if (nb == 0) return 0;
+  if (__ldg(a + nb - 1) != SENTINEL) return nb;
+  long long lo = 0, hi = nb - 1;    // a[0, lo) below; a[hi] == INT64_MAX
+  while (hi - lo > 32) {
+    const long long p = lo + (hi - lo) * (lane + 1) / 33;
+    const unsigned below = __ballot_sync(0xffffffffu,
+                                         __ldg(a + p) != SENTINEL);
+    const int c = __popc(below);    // lanes 0 .. c - 1 lie below
+    const long long new_lo = __shfl_sync(0xffffffffu, p, c > 0 ? c - 1 : 0);
+    const long long new_hi = __shfl_sync(0xffffffffu, p, c < 32 ? c : 31);
+    if (c > 0) lo = new_lo + 1;
+    if (c < 32) hi = new_hi;
+  }
+  const long long i = lo + lane;
+  const unsigned below = __ballot_sync(
+      0xffffffffu, i < hi && __ldg(a + i) != SENTINEL);
+  return lo + __popc(below);
+}
+
+// the first index of a[0, n) whose code is >= t (branchless halving)
+__device__ __forceinline__ int lower_full(const long long* __restrict__ a,
+                                          int n, long long t) {
+  if (n == 0) return 0;
+  int base = 0;
+  for (int len = n; len > 1;) {
+    const int half = len >> 1;
+    if (__ldg(a + base + half) < t) base += half;
+    len -= half;
+  }
+  return base + (__ldg(a + base) < t ? 1 : 0);
+}
+
+// the first index of a[from, n) whose code is >= t, given a[from - 1] < t:
+// doubling steps from `from`, then halving inside the last step
+__device__ __forceinline__ int gallop(const long long* __restrict__ a,
+                                      int from, int n, long long t) {
+  int lo = from, hi = n;            // a[0, lo) < t; the answer <= hi
+  for (int step = 1;; step <<= 1) {
+    const long long i = static_cast<long long>(lo) + step - 1;
+    if (i >= n) break;
+    if (__ldg(a + i) >= t) {
+      hi = static_cast<int>(i);
+      break;
+    }
+    lo = static_cast<int>(i) + 1;
+  }
   while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (a[mid] < x)
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(a + mid) < t)
       lo = mid + 1;
     else
       hi = mid;
@@ -346,76 +446,376 @@ __device__ __forceinline__ long long lower_bound(const long long* a,
   return lo;
 }
 
-__device__ __forceinline__ long long upper_bound(const long long* a,
-                                                 long long n, long long x) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (a[mid] <= x)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
+// The directory: T[b] (b in [0, 2^k]) = the codes below INT64_MAX whose
+// bucket is below b, so bucket b's codes are a[T[b], T[b + 1]); stored as
+// the pairs dir[b] = (T[b], T[b + 1]), one 8-byte load a probe row. T[b]
+// for 1 <= b <= last is the lower bound of the bucket's first value
+// lo + (b << shift). One thread fills four consecutive pairs: a full
+// search for its first bound, then a doubling search from each bound to
+// the next (about log2 of the codes between them). Every block first
+// finds n_real, the range and the shift with one warp; block 0 writes
+// them to `prm` and zeroes the probe launch's unique-mode words.
 __global__ void __launch_bounds__(THREADS)
-    search_pos(const long long* __restrict__ sorted, long long nb,
-               const long long* __restrict__ probe, long long P, int right,
-               long long* __restrict__ out) {
+    dir_build(const long long* __restrict__ a, long long nb, int k,
+              int2* __restrict__ dir, SearchParams* __restrict__ prm) {
+  __shared__ SearchParams sp;
+  if (threadIdx.x < 32) {
+    const long long n_real = warp_count_below_max(a, nb, threadIdx.x);
+    if (threadIdx.x == 0) {
+      SearchParams p;
+      const long long trim = n_real > 2 * TRIM + 1 ? TRIM : 0;
+      p.n_real = static_cast<int>(n_real);
+      p.amin = n_real ? __ldg(a) : 0;
+      p.amax = n_real ? __ldg(a + n_real - 1) : 0;
+      p.lo = n_real ? __ldg(a + trim) : 0;
+      p.hi = n_real ? __ldg(a + n_real - 1 - trim) : 0;
+      const u64 span = static_cast<u64>(p.hi) - static_cast<u64>(p.lo);
+      const int bits = span ? 64 - __clzll(static_cast<long long>(span)) : 0;
+      p.shift = bits > k ? bits - k : 0;
+      p.last = p.shift >= 64 ? 0ull : span >> p.shift;
+      p.dup = 0u;
+      p.blocks_done = 0u;
+      sp = p;
+      if (blockIdx.x == 0) *prm = p;
+    }
+  }
+  __syncthreads();
+  const SearchParams p = sp;
+  const long long nbk = 1LL << k;
   const long long step = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long i = static_cast<long long>(blockIdx.x) * THREADS +
+  for (long long t = static_cast<long long>(blockIdx.x) * THREADS +
                      threadIdx.x;
-       i < P; i += step)
-    out[i] = right ? upper_bound(sorted, nb, probe[i])
-                   : lower_bound(sorted, nb, probe[i]);
-}
-
-// one thread per index of max(P, nb): probe rows and build neighbours
-__global__ void __launch_bounds__(THREADS)
-    probe_unique(const long long* __restrict__ sorted,
-                 const int* __restrict__ order, long long nb,
-                 const long long* __restrict__ probe,
-                 const unsigned char* __restrict__ ok, long long P,
-                 int* __restrict__ match_idx,
-                 unsigned char* __restrict__ matched,
-                 unsigned char* __restrict__ unique) {
-  const long long i = static_cast<long long>(blockIdx.x) * THREADS +
-                      threadIdx.x;
-  if (i < P) {
-    const long long x = probe[i];
-    long long pos = lower_bound(sorted, nb, x);
-    pos = pos < nb ? pos : nb - 1;
-    const bool hit = ok[i] && sorted[pos] == x;
-    matched[i] = hit ? 1 : 0;
-    match_idx[i] = hit ? order[pos] : 0;
+       t * 4 < nbk; t += step) {
+    const long long b0 = t * 4;
+    int T[5];
+    int prev = 0;
+    bool searched = false;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const u64 b = static_cast<u64>(b0 + j);
+      int v;
+      if (b == 0) {
+        v = 0;
+      } else if (b > p.last) {
+        v = p.n_real;
+      } else {
+        const long long tg = static_cast<long long>(
+            static_cast<u64>(p.lo) + (b << p.shift));
+        v = searched ? gallop(a, prev, p.n_real, tg)
+                     : lower_full(a, p.n_real, tg);
+        searched = true;
+      }
+      T[j] = v;
+      prev = v;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (b0 + j < nbk) dir[b0 + j] = make_int2(T[j], T[j + 1]);
   }
-  const bool dup = i >= 1 && i < nb && sorted[i] == sorted[i - 1] &&
-                   sorted[i] != SENTINEL;
-  if (__syncthreads_or(dup) && threadIdx.x == 0) *unique = 0;
 }
 
+// the lower (UPPER = false) or upper bound of x[j] in a[s[j], s[j] + n[j])
+// for PROBES searches in lockstep (branchless halving; n[j] = 0 gives
+// s[j]); `on[j]` false skips a row and leaves out[j]
+template <bool UPPER>
+__device__ __forceinline__ void bounds(const long long* __restrict__ a,
+                                       const long long* x, const int* s,
+                                       const int* n_in, const bool* on,
+                                       int* out) {
+  int base[PROBES], n[PROBES];
+  bool more = false;
+#pragma unroll
+  for (int j = 0; j < PROBES; ++j) {
+    base[j] = s[j];
+    n[j] = on[j] ? n_in[j] : 0;
+    more |= n[j] > 1;
+  }
+  while (more) {
+    more = false;
+#pragma unroll
+    for (int j = 0; j < PROBES; ++j) {
+      if (n[j] > 1) {
+        const int half = n[j] >> 1;
+        const long long v = __ldg(a + base[j] + half);
+        if (UPPER ? v <= x[j] : v < x[j]) base[j] += half;
+        n[j] -= half;
+        more |= n[j] > 1;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PROBES; ++j) {
+    if (!on[j]) continue;
+    if (n[j] == 0) {
+      out[j] = s[j];
+    } else {
+      const long long v = __ldg(a + base[j]);
+      out[j] = base[j] + ((UPPER ? v <= x[j] : v < x[j]) ? 1 : 0);
+    }
+  }
+}
+
+// One launch for every probe row: each thread takes PROBES consecutive
+// rows (16-byte key loads where aligned). A row below the smallest code,
+// above the largest or equal to INT64_MAX is answered at once; the others
+// read their bucket's pair from the directory. A bucket of at most
+// SCAN_MAX codes is read whole in 16-byte pairs (no dependent loads): the
+// codes below x give the lower bound, those at or below it the upper
+// bound, an equal one the hit. A larger bucket is searched by halving,
+// the rows' searches in lockstep. Unique mode also flags equal
+// non-sentinel neighbours over the build (coalesced, grid-stride) and its
+// last block writes the unique flag.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-    probe_multi(const long long* __restrict__ sorted, long long nb,
-                const long long* __restrict__ probe,
-                const unsigned char* __restrict__ ok, long long P,
-                int* __restrict__ start, int* __restrict__ count) {
+    dir_probe(const long long* __restrict__ a, const int* __restrict__ order,
+              long long nb, const int2* __restrict__ dir,
+              SearchParams* __restrict__ prm,
+              const long long* __restrict__ probe,
+              const unsigned char* __restrict__ ok, long long P, int vec,
+              void* __restrict__ out_a, void* __restrict__ out_b,
+              unsigned char* __restrict__ unique) {
+  const SearchParams p = *prm;
+  const bool avec = (vec & 4) != 0;
   const long long step = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long i = static_cast<long long>(blockIdx.x) * THREADS +
-                     threadIdx.x;
-       i < P; i += step) {
-    const long long x = probe[i];
-    const long long lo = lower_bound(sorted, nb, x);
-    const long long hi = upper_bound(sorted, nb, x);
-    start[i] = static_cast<int>(lo);
-    count[i] = ok[i] ? static_cast<int>(hi - lo) : 0;
+  const long long first = static_cast<long long>(blockIdx.x) * THREADS +
+                          threadIdx.x;
+  const long long quads = (P + PROBES - 1) / PROBES;
+  for (long long q = first; q < quads; q += step) {
+    const long long s0 = q * PROBES;
+    const bool full = s0 + PROBES <= P;
+    long long x[PROBES];
+    bool okj[PROBES];
+    if (full && (vec & 1)) {
+      const longlong2* pp = reinterpret_cast<const longlong2*>(probe + s0);
+      const longlong2 u = __ldcs(pp), w = __ldcs(pp + 1);
+      x[0] = u.x; x[1] = u.y; x[2] = w.x; x[3] = w.y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < PROBES; ++j)
+        x[j] = s0 + j < P ? __ldcs(probe + s0 + j) : 0;
+    }
+    if (MODE == MODE_UNIQUE || MODE == MODE_MULTI) {
+      if (full && (vec & 2)) {
+        const unsigned w =
+            __ldcs(reinterpret_cast<const unsigned*>(ok + s0));
+#pragma unroll
+        for (int j = 0; j < PROBES; ++j) okj[j] = (w >> (8 * j)) & 0xffu;
+      } else {
+#pragma unroll
+        for (int j = 0; j < PROBES; ++j)
+          okj[j] = s0 + j < P && ok[s0 + j] != 0;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < PROBES; ++j) okj[j] = s0 + j < P;
+    }
+    // each row's answer without a search, or its bucket's range
+    int lower[PROBES], upper[PROBES], s[PROBES], e[PROBES];
+    bool found[PROBES], scan[PROBES], big[PROBES];
+    bool any_big = false;
+#pragma unroll
+    for (int j = 0; j < PROBES; ++j) {
+      const long long xv = x[j];
+      found[j] = scan[j] = big[j] = false;
+      s[j] = e[j] = 0;
+      if (s0 + j >= P) {
+        lower[j] = upper[j] = 0;
+      } else if (xv == SENTINEL) {
+        lower[j] = p.n_real;
+        upper[j] = static_cast<int>(nb);
+        found[j] = p.n_real < nb;
+      } else if (p.n_real == 0 || xv < p.amin) {
+        lower[j] = upper[j] = 0;
+      } else if (xv > p.amax) {
+        lower[j] = upper[j] = p.n_real;
+      } else {
+        const int2 se = __ldg(dir + bucket_of(xv, p));
+        s[j] = se.x;
+        e[j] = se.y;
+        lower[j] = upper[j] = se.x;
+        big[j] = se.y - se.x > SCAN_MAX;
+        scan[j] = !big[j];
+        any_big |= big[j];
+      }
+    }
+    // small buckets: every code read, two to a 16-byte load
+#pragma unroll
+    for (int j = 0; j < PROBES; ++j) {
+      if (!scan[j] || e[j] == s[j]) continue;
+      const int c0 = s[j] >> 1, c1 = (e[j] - 1) >> 1;
+      int less = 0, leq = 0;
+      bool eq = false;
+#pragma unroll
+      for (int c = 0; c < SCAN_MAX / 2 + 1; ++c) {
+        const int cc = c0 + c;
+        if (cc > c1) break;
+        const long long i0 = 2LL * cc;
+        long long v0, v1 = 0;
+        if (avec && i0 + 1 < nb) {
+          const longlong2 w =
+              __ldg(reinterpret_cast<const longlong2*>(a) + cc);
+          v0 = w.x;
+          v1 = w.y;
+        } else {
+          v0 = __ldg(a + i0);
+          if (i0 + 1 < nb) v1 = __ldg(a + i0 + 1);
+        }
+        const bool in0 = i0 >= s[j] && i0 < e[j];
+        const bool in1 = i0 + 1 >= s[j] && i0 + 1 < e[j];
+        less += (in0 && v0 < x[j] ? 1 : 0) + (in1 && v1 < x[j] ? 1 : 0);
+        leq += (in0 && v0 <= x[j] ? 1 : 0) + (in1 && v1 <= x[j] ? 1 : 0);
+        eq |= (in0 && v0 == x[j]) || (in1 && v1 == x[j]);
+      }
+      lower[j] = s[j] + less;
+      upper[j] = s[j] + leq;
+      found[j] = eq;
+    }
+    // large buckets: halving, in lockstep
+    if (any_big) {
+      int len[PROBES];
+#pragma unroll
+      for (int j = 0; j < PROBES; ++j) len[j] = e[j] - s[j];
+      if (MODE == MODE_RIGHT) {
+        bounds<true>(a, x, s, len, big, upper);
+      } else {
+        bounds<false>(a, x, s, len, big, lower);
+        if (MODE == MODE_UNIQUE) {
+#pragma unroll
+          for (int j = 0; j < PROBES; ++j)
+            if (big[j])
+              found[j] = lower[j] < e[j] && __ldg(a + lower[j]) == x[j];
+        }
+        if (MODE == MODE_MULTI) {
+          // every code equal to x shares its bucket: the upper bound lies
+          // in [lower, e); a row not ok needs none
+          bool on[PROBES];
+          int rest[PROBES];
+#pragma unroll
+          for (int j = 0; j < PROBES; ++j) {
+            on[j] = big[j] && okj[j];
+            rest[j] = e[j] - lower[j];
+          }
+          bounds<true>(a, x, lower, rest, on, upper);
+        }
+      }
+    }
+    if (MODE == MODE_UNIQUE) {
+      int idx[PROBES];
+      unsigned hitw = 0u;
+#pragma unroll
+      for (int j = 0; j < PROBES; ++j) {
+        const bool hit = okj[j] && found[j];
+        idx[j] = hit ? __ldg(order + lower[j]) : 0;
+        hitw |= (hit ? 1u : 0u) << (8 * j);
+      }
+      int* mi = static_cast<int*>(out_a);
+      unsigned char* mt = static_cast<unsigned char*>(out_b);
+      if (full) {
+        __stcs(reinterpret_cast<int4*>(mi + s0),
+               make_int4(idx[0], idx[1], idx[2], idx[3]));
+        __stcs(reinterpret_cast<unsigned*>(mt + s0), hitw);
+      } else {
+        for (int j = 0; j < PROBES && s0 + j < P; ++j) {
+          mi[s0 + j] = idx[j];
+          mt[s0 + j] = static_cast<unsigned char>((hitw >> (8 * j)) & 1u);
+        }
+      }
+    } else if (MODE == MODE_MULTI) {
+      int ct[PROBES];
+#pragma unroll
+      for (int j = 0; j < PROBES; ++j)
+        ct[j] = okj[j] ? upper[j] - lower[j] : 0;
+      int* sp = static_cast<int*>(out_a);
+      int* cp = static_cast<int*>(out_b);
+      if (full) {
+        __stcs(reinterpret_cast<int4*>(sp + s0),
+               make_int4(lower[0], lower[1], lower[2], lower[3]));
+        __stcs(reinterpret_cast<int4*>(cp + s0),
+               make_int4(ct[0], ct[1], ct[2], ct[3]));
+      } else {
+        for (int j = 0; j < PROBES && s0 + j < P; ++j) {
+          sp[s0 + j] = lower[j];
+          cp[s0 + j] = ct[j];
+        }
+      }
+    } else {
+      const int* r = MODE == MODE_RIGHT ? upper : lower;
+      long long* op = static_cast<long long*>(out_a);
+      if (full) {
+        longlong2* pp = reinterpret_cast<longlong2*>(op + s0);
+        __stcs(pp, make_longlong2(r[0], r[1]));
+        __stcs(pp + 1, make_longlong2(r[2], r[3]));
+      } else {
+        for (int j = 0; j < PROBES && s0 + j < P; ++j) op[s0 + j] = r[j];
+      }
+    }
+  }
+  if (MODE == MODE_UNIQUE) {
+    bool dup = false;
+    for (long long i = first + 1; i < nb; i += step) {
+      const long long v = __ldg(a + i);
+      dup |= v == __ldg(a + i - 1) && v != SENTINEL;
+    }
+    if (__syncthreads_or(dup) && threadIdx.x == 0) atomicOr(&prm->dup, 1u);
+    if (threadIdx.x == 0) {
+      __threadfence();
+      const unsigned done = atomicAdd(&prm->blocks_done, 1u);
+      if (done == gridDim.x - 1) {
+        __threadfence();
+        *unique = atomicOr(&prm->dup, 0u) == 0u ? 1 : 0;
+      }
+    }
   }
 }
 
-int blocks_for(long long n) {
-  long long b = (n + THREADS - 1) / THREADS;
-  if (b > 132 * 16) b = 132 * 16;
-  return b < 1 ? 1 : static_cast<int>(b);
+// SMs x resident blocks of a kernel, found once per kernel
+template <typename K>
+int full_grid(K kernel, int* cache) {
+  if (*cache == 0) {
+    int dev = 0, sms = 132, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, THREADS, 0);
+    *cache = sms * (per > 0 ? per : 1);
+  }
+  return *cache;
+}
+
+int grid_of(long long threads, int most) {
+  const long long b = (threads + THREADS - 1) / THREADS;
+  return b < 1 ? 1 : (b > most ? most : static_cast<int>(b));
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
+}
+
+// the directory launch, then the probe launch in `MODE`
+template <int MODE>
+int run_search(const void* sorted, const void* order, long long nb,
+               const void* probe, const void* ok, long long P, int k,
+               void* scratch, void* out_a, void* out_b, void* unique,
+               cudaStream_t st) {
+  static int most_dir = 0, most_probe = 0;
+  const long long* a = static_cast<const long long*>(sorted);
+  SearchParams* prm = static_cast<SearchParams*>(scratch);
+  int2* dir = reinterpret_cast<int2*>(static_cast<char*>(scratch) +
+                                      DIR_PARAM_BYTES);
+  const long long nbk = 1LL << k;
+  dir_build<<<grid_of((nbk + 3) / 4, full_grid(dir_build, &most_dir)),
+              THREADS, 0, st>>>(a, nb, k, dir, prm);
+  const long long quads = (P + PROBES - 1) / PROBES;
+  const long long work = MODE == MODE_UNIQUE && nb > quads ? nb : quads;
+  const int vec = (aligned16(probe) ? 1 : 0) |
+                  ((reinterpret_cast<uintptr_t>(ok) & 3u) == 0u ? 2 : 0) |
+                  (aligned16(sorted) ? 4 : 0);
+  dir_probe<MODE><<<grid_of(work, full_grid(dir_probe<MODE>, &most_probe)),
+                    THREADS, 0, st>>>(
+      a, static_cast<const int*>(order), nb, dir, prm,
+      static_cast<const long long*>(probe),
+      static_cast<const unsigned char*>(ok), P, vec, out_a, out_b,
+      static_cast<unsigned char*>(unique));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -496,57 +896,68 @@ int tt_group_words_scratch(long long n) {
   return 1 + static_cast<int>((n + WORD_TILE - 1) / WORD_TILE);
 }
 
+// K11's directory scratch for 2^k buckets, in bytes: the search's
+// parameters, then 2^k pairs of int32 bucket bounds
+long long tt_sorted_dir_bytes(int k) {
+  return DIR_PARAM_BYTES + 8LL * (1LL << k);
+}
+
 // K11, positions: out int64 (P) = the left (right = 0) or right insertion
 // point of each probe value in the ascending int64 table `sorted` (nb).
+// k: the directory's log2 bucket count (ops/join.directory_log2);
+// scratch: tt_sorted_dir_bytes(k) bytes, 16-byte aligned, overwritten.
 int tt_sorted_search(const void* sorted, long long nb, const void* probe,
-                     long long P, int right, void* out, void* stream) {
-  if (nb < 0 || P < 0) return static_cast<int>(cudaErrorInvalidValue);
+                     long long P, int right, int k, void* scratch, void* out,
+                     void* stream) {
+  if (nb < 0 || nb >= (1LL << 31) || P < 0 || k < 0 ||
+      k > DIR_MAX_LOG2 || !aligned16(scratch) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
   if (P == 0) return 0;
-  search_pos<<<blocks_for(P), THREADS, 0, static_cast<cudaStream_t>(
-      stream)>>>(static_cast<const long long*>(sorted), nb,
-                 static_cast<const long long*>(probe), P, right,
-                 static_cast<long long*>(out));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return right ? run_search<MODE_RIGHT>(sorted, nullptr, nb, probe, nullptr,
+                                        P, k, scratch, out, nullptr, nullptr,
+                                        st)
+               : run_search<MODE_LEFT>(sorted, nullptr, nb, probe, nullptr,
+                                       P, k, scratch, out, nullptr, nullptr,
+                                       st);
 }
 
 // K11, unique join: sorted int64 build codes (nb >= 1, dead/NULL rows hold
 // INT64_MAX) and their build row ids `order` int32 (nb); probe codes
 // int64 (P) with ok bool (P). Outputs: match_idx int32 (P), matched bool
-// (P), unique one bool pre-set to 1 by the caller.
+// (P), unique one bool (written here). k, scratch: as tt_sorted_search.
 int tt_sorted_probe_unique(const void* sorted, const void* order,
                            long long nb, const void* probe, const void* ok,
-                           long long P, void* match_idx, void* matched,
-                           void* unique, void* stream) {
-  if (nb < 1 || nb >= (1LL << 31) || P < 0)
+                           long long P, int k, void* scratch,
+                           void* match_idx, void* matched, void* unique,
+                           void* stream) {
+  if (nb < 1 || nb >= (1LL << 31) || P < 0 || k < 0 ||
+      k > DIR_MAX_LOG2 || !aligned16(scratch) || !aligned16(match_idx) ||
+      (reinterpret_cast<uintptr_t>(matched) & 3u) != 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
-  const long long n = P > nb ? P : nb;
-  probe_unique<<<static_cast<unsigned>((n + THREADS - 1) / THREADS),
-                 THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(sorted), static_cast<const int*>(order),
-      nb, static_cast<const long long*>(probe),
-      static_cast<const unsigned char*>(ok), P,
-      static_cast<int*>(match_idx), static_cast<unsigned char*>(matched),
-      static_cast<unsigned char*>(unique));
-  return static_cast<int>(cudaGetLastError());
+  return run_search<MODE_UNIQUE>(sorted, order, nb, probe, ok, P, k, scratch,
+                                 match_idx, matched, unique,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // K11, multi join: per probe row start = the left insertion point (int32)
-// and count = right - left where ok, else 0.
+// and count = right - left where ok, else 0. k, scratch: as
+// tt_sorted_search.
 int tt_sorted_probe_multi(const void* sorted, long long nb,
                           const void* probe, const void* ok, long long P,
-                          void* start, void* count, void* stream) {
-  if (nb < 0 || nb >= (1LL << 31) || P < 0)
+                          int k, void* scratch, void* start, void* count,
+                          void* stream) {
+  if (nb < 0 || nb >= (1LL << 31) || P < 0 || k < 0 ||
+      k > DIR_MAX_LOG2 || !aligned16(scratch) || !aligned16(start) ||
+      !aligned16(count))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
   if (P == 0) return 0;
-  probe_multi<<<blocks_for(P), THREADS, 0, static_cast<cudaStream_t>(
-      stream)>>>(static_cast<const long long*>(sorted), nb,
-                 static_cast<const long long*>(probe),
-                 static_cast<const unsigned char*>(ok), P,
-                 static_cast<int*>(start), static_cast<int*>(count));
-  return static_cast<int>(cudaGetLastError());
+  return run_search<MODE_MULTI>(sorted, nullptr, nb, probe, ok, P, k,
+                                scratch, start, count, nullptr,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -82,9 +82,11 @@ _SIGNATURES = {
     "tt_group_ids_words": [_P, _P, _L, _U, _I, _U, _U, _I, _I, _P, _P, _P,
                            _P, _P],
     "tt_group_words_scratch": [_L],
-    "tt_sorted_search": [_P, _L, _P, _L, _I, _P, _P],
-    "tt_sorted_probe_unique": [_P, _P, _L, _P, _P, _L, _P, _P, _P, _P],
-    "tt_sorted_probe_multi": [_P, _L, _P, _P, _L, _P, _P, _P],
+    "tt_sorted_search": [_P, _L, _P, _L, _I, _I, _P, _P, _P],
+    "tt_sorted_probe_unique": [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P,
+                               _P],
+    "tt_sorted_probe_multi": [_P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
+    "tt_sorted_dir_bytes": [_I],
     "tt_window_tile": [],
     "tt_window_scratch_bytes": [_L, _I],
     "tt_window_flags": [_P, _I, _P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P],
@@ -103,7 +105,8 @@ _SIGNATURES = {
     "tt_first_mask": [_P, _P, _L, _I, _P, _P],
     "tt_rollup_tile": [_I, _P, _P, _P, _P, _L, _I, _P],
     "tt_rollup_levels": [_I, _P, _P, _L, _P, _P],
-    "tt_gather_columns": [_I, _P, _P, _P, _L, _P, _I, _L, _P, _P, _P, _P],
+    "tt_gather_columns": [_P, _P],
+    "tt_gather_args_bytes": [],
     "tt_delta_perm": [_P, _L, _P, _P, _P],
     "tt_delta_repack": [_P, _L, _I, _P, _L, _L, _P, _L, _P],
     "tt_civil_part": [_P, _I, _I, _P, _L, _P],
@@ -125,7 +128,8 @@ _SIGNATURES = {
 }
 #: entries that return other than an int error code
 _RESTYPES = {"tt_error_string": ctypes.c_char_p,
-             "tt_member_scratch_bytes": ctypes.c_longlong}
+             "tt_member_scratch_bytes": ctypes.c_longlong,
+             "tt_sorted_dir_bytes": ctypes.c_longlong}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -10,19 +10,47 @@ masks stays on the device (no host sync).
 
 `gather_columns` takes its plain version for CPU tensors and launches
 csrc/gather_columns.cu for CUDA tensors (or raises on anything the kernel
-does not take).
+does not take). Its host side is built for one call in a few µs:
+  * `gather_plan(widths, idx64, n_src)`, a pure function cached by the
+    call's signature, packs the argument block of each launch (at
+    most MAX_COLS columns) with only the pointers and the slot count
+    left to fill in;
+  * `out_layout(widths, m)`, also pure and cached, places every output
+    value and mask in one allocation at 16-byte aligned offsets (the
+    kernel's vector stores need them);
+  * the checks (one device, contiguity, dtypes, lengths) run once per
+    distinct signature; a call builds the signature and looks it up.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 #: columns per launch (csrc/gather_columns.cu MAX_COLS)
 MAX_COLS = 64
+#: byte alignment of every output view (the kernel's 16-byte stores)
+ALIGN = 16
 
 Column = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+class _GatherArgs(ctypes.Structure):
+    """K18's argument block (csrc/gather_columns.cu `GatherArgs`)."""
+    _fields_ = [("src", ctypes.c_void_p * MAX_COLS),
+                ("msrc", ctypes.c_void_p * MAX_COLS),
+                ("dst", ctypes.c_void_p * MAX_COLS),
+                ("mdst", ctypes.c_void_p * MAX_COLS),
+                ("idx", ctypes.c_void_p),
+                ("n_valid", ctypes.c_void_p),
+                ("m", ctypes.c_longlong),
+                ("n_src", ctypes.c_longlong),
+                ("bytes", ctypes.c_int * MAX_COLS),
+                ("ncols", ctypes.c_int),
+                ("idx64", ctypes.c_int)]
 
 
 def gather_columns_plain(cols: Sequence[Column], idx: torch.Tensor,
@@ -37,57 +65,148 @@ def gather_columns_plain(cols: Sequence[Column], idx: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def gather_plan(widths: Tuple[int, ...], idx64: bool,
+                n_src: int) -> Tuple[bytes, ...]:
+    """K18's argument blocks for one call signature, a pure function: one
+    block per launch of at most MAX_COLS columns, with the column count,
+    each width, the index width and n_src filled in and every pointer and
+    m zero. A call copies each block into a `_GatherArgs` and fills in
+    its pointers (a column without a mask passes a null mask) and m."""
+    blocks = []
+    for lo in range(0, len(widths), MAX_COLS):
+        part = widths[lo:lo + MAX_COLS]
+        a = _GatherArgs()
+        a.ncols = len(part)
+        a.bytes[:len(part)] = list(part)
+        a.idx64 = int(idx64)
+        a.n_src = n_src
+        blocks.append(bytes(a))
+    return tuple(blocks)
+
+
+def _aligned(n: int) -> int:
+    return -(-n // ALIGN) * ALIGN
+
+
+@functools.lru_cache(maxsize=256)
+def out_layout(widths: Tuple[int, ...], m: int
+               ) -> Tuple[Tuple[int, ...], Tuple[int, ...], int]:
+    """Where each output lies in the one allocation of a call, a pure
+    function: → (byte offsets of the values, byte offsets of the masks,
+    total bytes). Values come first in column order, then the masks; every
+    offset is a multiple of ALIGN and each piece holds m elements."""
+    off = 0
+    vals = []
+    for w in widths:
+        vals.append(off)
+        off += _aligned(m * w)
+    masks = []
+    for _w in widths:
+        masks.append(off)
+        off += _aligned(m)
+    return tuple(vals), tuple(masks), off
+
+
+def _signature(cols: Sequence[Column], idx: torch.Tensor,
+               n_valid: torch.Tensor) -> tuple:
+    """Everything the checks read of a call, as one hashable key."""
+    return (tuple((v.dtype, v.shape, v.device, v.is_contiguous(),
+                   None if m is None else
+                   (m.dtype, m.shape, m.device, m.is_contiguous()))
+                  for v, m in cols),
+            idx.dtype, idx.dim(), idx.device, idx.is_contiguous(),
+            n_valid.dtype, n_valid.numel(), n_valid.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _checked_plan(sig: tuple):
+    """Check a call's signature once (the build rule: one CUDA device,
+    contiguous 1-D columns of one length and 1/2/4/8-byte elements, bool
+    masks of that length, a 1-D int32/int64 index, one int32 n_valid)
+    → (the launches' argument blocks, widths, value dtypes)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    colsig, idt, idim, idev, icont, nvdt, nvn, nvdev = sig
+    if idev.type != "cuda":
+        raise ck.KernelError(f"gather_columns: expected a CUDA tensor, got "
+                             f"{idev}")
+    if idt not in (torch.int32, torch.int64) or idim != 1 or not icont:
+        raise ck.KernelError("gather_columns: a contiguous 1-D int32/int64 "
+                             "index expected")
+    if nvdev != idev or nvdt != torch.int32 or nvn != 1:
+        raise ck.KernelError("gather_columns: n_valid must be one int32 on "
+                             "the index's device")
+    n_src = colsig[0][1][0] if len(colsig[0][1]) == 1 else -1
+    widths, dtypes = [], []
+    for vdt, vshape, vdev, vcont, msig in colsig:
+        if vdev != idev:
+            raise ck.KernelError(f"gather_columns: a column on {vdev}, the "
+                                 f"index on {idev}")
+        if not vcont or msig is not None and not msig[3]:
+            raise ck.KernelError("gather_columns: expected a contiguous "
+                                 "tensor")
+        width = vdt.itemsize
+        if len(vshape) != 1 or vshape[0] != n_src or \
+                width not in (1, 2, 4, 8):
+            raise ck.KernelError("gather_columns: 1-D columns of one length "
+                                 "and 1/2/4/8-byte elements expected")
+        if msig is not None and (msig[2] != idev or msig[0] != torch.bool or
+                                 tuple(msig[1]) != (n_src,)):
+            raise ck.KernelError("gather_columns: masks must be bool of "
+                                 "the values' length")
+        widths.append(width)
+        dtypes.append(vdt)
+    widths = tuple(widths)
+    return (gather_plan(widths, idt == torch.int64, n_src), widths,
+            tuple(dtypes))
+
+
+def _views(buf: torch.Tensor, widths, dtypes, m: int):
+    """The outputs of a call as views of its one bool buffer `buf`:
+    → [(values, mask)], at `out_layout`'s 16-byte aligned offsets (basic
+    slices and `view(dtype)`, the cheapest views to make)."""
+    vals, masks, _total = out_layout(widths, m)
+    return [(buf[o:o + m * w] if dt == torch.bool else
+             buf[o:o + m * w].view(dt), buf[mo:mo + m])
+            for o, mo, w, dt in zip(vals, masks, widths, dtypes)]
+
+
 def gather_columns(cols: Sequence[Column], idx: torch.Tensor,
                    n_valid: torch.Tensor
                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """K18 wrapper: every (value, mask-or-None) column of one row count
     gathered through `idx` (int32 or int64), each output mask cut to the
-    slots below `n_valid` (a 0-d int32 tensor on the same device)."""
-    if idx.device.type == "cpu":
+    slots below `n_valid` (a 0-d int32 tensor on the same device). On the
+    card the outputs are views of one allocation; the kernel is launched
+    on the allocation's address and the views are made while it runs."""
+    dev = idx.device
+    if dev.type == "cpu":
         return gather_columns_plain(cols, idx, n_valid)
-    import ctypes
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     if not cols:
         return []
-    ck.require_cuda(idx, n_valid, what="gather_columns")
-    if idx.dtype not in (torch.int32, torch.int64) or idx.dim() != 1:
-        raise ck.KernelError("gather_columns: a 1-D int32/int64 index "
-                             "expected")
-    if n_valid.dtype != torch.int32 or n_valid.numel() != 1:
-        raise ck.KernelError("gather_columns: n_valid must be one int32")
-    n_src = cols[0][0].shape[0]
-    for v, m in cols:
-        ck.require_cuda(v, what="gather_columns")
-        if v.dim() != 1 or v.shape[0] != n_src or \
-                v.element_size() not in (1, 2, 4, 8):
-            raise ck.KernelError("gather_columns: 1-D columns of one length "
-                                 "and 1/2/4/8-byte elements expected")
-        if m is not None:
-            ck.require_cuda(m, what="gather_columns")
-            if m.dtype != torch.bool or m.shape != (n_src,):
-                raise ck.KernelError("gather_columns: masks must be bool of "
-                                     "the values' length")
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    blocks, widths, dtypes = _checked_plan(_signature(cols, idx, n_valid))
     n_out = idx.shape[0]
-    dev = idx.device
-    out = [(torch.empty(n_out, dtype=v.dtype, device=dev),
-            torch.empty(n_out, dtype=torch.bool, device=dev))
-           for v, _m in cols]
-    if n_out == 0:
-        return out
-    lib = ck.library("gather_columns")
-    for lo in range(0, len(cols), MAX_COLS):
-        part = list(zip(cols[lo:lo + MAX_COLS], out[lo:lo + MAX_COLS]))
-        k = len(part)
-        P = ctypes.c_void_p * k
-        rc = lib.tt_gather_columns(
-            k, P(*[v.data_ptr() for (v, _m), _o in part]),
-            P(*[None if m is None else m.data_ptr()
-                for (_v, m), _o in part]),
-            (ctypes.c_int * k)(*[v.element_size() for (v, _m), _o in part]),
-            n_src, idx.data_ptr(), int(idx.dtype == torch.int64), n_out,
-            n_valid.data_ptr(), P(*[ov.data_ptr() for _c, (ov, _om) in part]),
-            P(*[om.data_ptr() for _c, (_ov, om) in part]),
-            ck.stream_ptr(dev))
-        ck.count("gather_columns")
-        ck.check(rc, "gather_columns")
-    return out
+    vals, masks, total = out_layout(widths, n_out)
+    buf = torch.empty(total, dtype=torch.bool, device=dev)
+    if n_out:
+        base = buf.data_ptr()
+        lib = ck.library("gather_columns")
+        stream = ck.stream_ptr(dev)
+        for q, block in enumerate(blocks):
+            lo = q * MAX_COLS
+            part = cols[lo:lo + MAX_COLS]
+            k = len(part)
+            a = _GatherArgs.from_buffer_copy(block)
+            a.src[:k] = [v.data_ptr() for v, _m in part]
+            a.msrc[:k] = [None if m is None else m.data_ptr()
+                          for _v, m in part]
+            a.dst[:k] = [base + o for o in vals[lo:lo + k]]
+            a.mdst[:k] = [base + o for o in masks[lo:lo + k]]
+            a.idx = idx.data_ptr()
+            a.n_valid = n_valid.data_ptr()
+            a.m = n_out
+            rc = lib.tt_gather_columns(ctypes.addressof(a), stream)
+            ck.count("gather_columns")
+            ck.check(rc, "gather_columns")
+    return _views(buf, widths, dtypes, n_out)

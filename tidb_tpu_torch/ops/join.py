@@ -42,9 +42,11 @@ sentinel for dead or NULL rows (K9 + K8), and every probe row binary-
 searches them:
 
   K11 `sorted_search`  lower (and upper) bound of each probe code in the
-                       sorted build codes, the hit test and the gather of
-                       the build row id; the same kernel answers
-                       `searchsorted` for the device IN list (ops/xp.py)
+                       sorted build codes through a bucket directory built
+                       once a call (`directory_params`), the hit test and
+                       the gather of the build row id; the same kernel
+                       answers `searchsorted` for the device IN list
+                       (ops/xp.py)
 """
 
 from __future__ import annotations
@@ -583,6 +585,53 @@ def sorted_search_multi_plain(sorted_codes, probe_codes, ok_p):
     return lo.to(torch.int32), count
 
 
+#: K11's directory holds at most 2^DIR_MAX_LOG2 buckets
+#: (csrc/sorted_groups.cu DIR_MAX_LOG2)
+DIR_MAX_LOG2 = 22
+#: the codes K11's directory range leaves out at each end of a table of
+#: more than 2 * DIR_TRIM + 1 codes (csrc/sorted_groups.cu TRIM): a few
+#: outliers then widen no bucket
+DIR_TRIM = 32
+#: the search parameters ahead of the directory in its scratch
+_DIR_PARAM_BYTES = 64
+
+
+def directory_log2(nb: int) -> int:
+    """k: K11's directory over nb sorted codes has 2^k buckets, about
+    nb / 2 rounded up to a power of two (two codes a bucket on spread
+    codes), at least 1 and at most 2^DIR_MAX_LOG2 (the directory is
+    8 * 2^k bytes)."""
+    return min((max(1, -(-nb // 2)) - 1).bit_length(), DIR_MAX_LOG2)
+
+
+def directory_trim(n_real: int) -> int:
+    """The codes K11's directory range leaves out at each end of n_real
+    codes below INT64_MAX: its range is [a[t], a[n_real - 1 - t]]."""
+    return DIR_TRIM if n_real > 2 * DIR_TRIM + 1 else 0
+
+
+def directory_params(nb: int, span: int) -> Tuple[int, int]:
+    """(k, shift) of K11's directory, a pure function (the card computes
+    the shift from the table's own span): of nb sorted codes, those below
+    INT64_MAX and `directory_trim` in from each end span hi - lo = `span`
+    (0 to 2^64 - 2); they fall into 2^k buckets of (x - lo) >> shift
+    (codes at or below lo in bucket 0, at or above hi in the last), shift
+    the least that leaves span >> shift below 2^k. A shift of 64 (span >=
+    2^63 with k = 0) puts every code in bucket 0."""
+    if not 0 <= span <= (1 << 64) - 2:
+        raise ValueError(f"span {span} out of range")
+    k = directory_log2(nb)
+    return k, max(0, span.bit_length() - k)
+
+
+def _dir_scratch(nb: int, dev):
+    """(k, the directory's scratch: the search parameters, then 2^k pairs
+    of int32 bucket bounds; csrc/sorted_groups.cu tt_sorted_dir_bytes)."""
+    k = directory_log2(nb)
+    return k, torch.empty(_DIR_PARAM_BYTES + 8 * (1 << k),
+                          dtype=torch.uint8, device=dev)
+
+
 def _search_args(sorted_codes, probe_codes, ok_p):
     ck.require_cuda(sorted_codes, probe_codes, ok_p, what="sorted_search")
     nb, P = sorted_codes.shape[0], probe_codes.shape[0]
@@ -596,8 +645,15 @@ def _search_args(sorted_codes, probe_codes, ok_p):
     return nb, P
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def sorted_search_unique(sorted_codes, order, probe_codes, ok_p):
-    """K11 wrapper (unique mode), as `sorted_search_unique_plain`."""
+    """K11 wrapper (unique mode), as `sorted_search_unique_plain`: a
+    directory launch, then one probe launch that also writes `unique`.
+    match_idx and matched are views of one allocation, made after the
+    launch; `unique` has its own (callers keep it past the others)."""
     if sorted_codes.device.type == "cpu":
         return sorted_search_unique_plain(sorted_codes, order, probe_codes,
                                           ok_p)
@@ -606,34 +662,39 @@ def sorted_search_unique(sorted_codes, order, probe_codes, ok_p):
     if order.dtype != torch.int32 or order.shape != (nb,):
         raise ck.KernelError("sorted_search: int32 build order expected")
     dev = sorted_codes.device
-    match_idx = torch.empty(P, dtype=torch.int32, device=dev)
-    matched = torch.empty(P, dtype=torch.bool, device=dev)
-    unique = torch.ones((), dtype=torch.bool, device=dev)
+    at_matched = _round16(4 * P)
+    buf = torch.empty(at_matched + P, dtype=torch.bool, device=dev)
+    unique = torch.empty((), dtype=torch.bool, device=dev)
+    base = buf.data_ptr()
+    k, scratch = _dir_scratch(nb, dev)
     rc = ck.library("sorted_groups").tt_sorted_probe_unique(
         sorted_codes.data_ptr(), order.data_ptr(), nb,
-        probe_codes.data_ptr(), ok_p.data_ptr(), P, match_idx.data_ptr(),
-        matched.data_ptr(), unique.data_ptr(), ck.stream_ptr(dev))
+        probe_codes.data_ptr(), ok_p.data_ptr(), P, k, scratch.data_ptr(),
+        base, base + at_matched, unique.data_ptr(), ck.stream_ptr(dev))
     ck.count("sorted_search")
     ck.check(rc, "sorted_search")
-    return match_idx, matched, unique
+    return buf[:4 * P].view(torch.int32), buf[at_matched:], unique
 
 
 def sorted_search_multi(sorted_codes, probe_codes, ok_p):
-    """K11 wrapper (multi mode), as `sorted_search_multi_plain`."""
+    """K11 wrapper (multi mode), as `sorted_search_multi_plain`; start and
+    count are views of one allocation."""
     if sorted_codes.device.type == "cpu":
         return sorted_search_multi_plain(sorted_codes, probe_codes, ok_p)
     nb, P = _search_args(sorted_codes, probe_codes, ok_p)
     dev = sorted_codes.device
-    start = torch.empty(P, dtype=torch.int32, device=dev)
-    count = torch.empty(P, dtype=torch.int32, device=dev)
+    step = _round16(4 * P) // 4
+    buf = torch.empty(2 * step, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    k, scratch = _dir_scratch(nb, dev)
     rc = ck.library("sorted_groups").tt_sorted_probe_multi(
         sorted_codes.data_ptr(), nb, probe_codes.data_ptr(),
-        ok_p.data_ptr(), P, start.data_ptr(), count.data_ptr(),
+        ok_p.data_ptr(), P, k, scratch.data_ptr(), base, base + 4 * step,
         ck.stream_ptr(dev))
     if P > 0:
         ck.count("sorted_search")
     ck.check(rc, "sorted_search")
-    return start, count
+    return buf[:P], buf[step:step + P]
 
 
 def sorted_probe_unique(build_codes, build_valid, build_live, probe_codes,
@@ -672,9 +733,10 @@ def searchsorted(sorted_seq, v, right: bool = False):
         raise ck.KernelError("sorted_search: 1-D int64 table and values "
                              "expected")
     out = torch.empty(v.shape[0], dtype=torch.int64, device=v.device)
+    k, scratch = _dir_scratch(sorted_seq.shape[0], v.device)
     rc = ck.library("sorted_groups").tt_sorted_search(
         sorted_seq.data_ptr(), sorted_seq.shape[0], v.data_ptr(),
-        v.shape[0], int(bool(right)), out.data_ptr(),
+        v.shape[0], int(bool(right)), k, scratch.data_ptr(), out.data_ptr(),
         ck.stream_ptr(v.device))
     if v.shape[0] > 0:
         ck.count("sorted_search")

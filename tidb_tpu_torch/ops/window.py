@@ -33,8 +33,10 @@ the sort permutation.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -661,10 +663,23 @@ def scan_scratch_bytes(n: int, tile: int, scans: int = 1) -> int:
     return scans * (zeroed + 2 * _SCAN_STATE_BYTES * nb)
 
 
-#: (device index, stream) → the scan scratch of that stream, grown to fit:
-#: every call zeroes the status it uses, and calls on one stream run in
-#: order, so one buffer a stream serves them all
+class _StreamScratch:
+    """The scan scratch of one stream, grown to fit, and the lock a call
+    holds from its status memset to its launch: two threads on one stream
+    would otherwise enqueue memset, memset, launch, launch, and the
+    second scan would start from a tile counter the first advanced."""
+    __slots__ = ("buf", "lock")
+
+    def __init__(self):
+        self.buf = None
+        self.lock = threading.Lock()
+
+
+#: (device index, stream) → that stream's _StreamScratch: every call zeroes
+#: the status it uses and calls on one stream run in order, so one buffer
+#: a stream serves them all once each call's enqueue holds the lock
 _SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -672,16 +687,21 @@ def _scan_tile() -> int:
     return _ck().library("window_scan").tt_window_tile()
 
 
-def _scan_scratch(n: int, device, stream: int, scans: int = 1) -> int:
-    """→ the data pointer of the scan scratch of `stream` (its raw
-    handle on `device`), grown to fit n rows and `scans` scans."""
+@contextlib.contextmanager
+def _scan_scratch(n: int, device, stream: int, scans: int = 1):
+    """Hold `stream`'s scan scratch (its raw handle on `device`), grown to
+    fit n rows and `scans` scans (replaced under the lock), for one C
+    call that zeroes it and launches: → its data pointer."""
     need = scan_scratch_bytes(n, _scan_tile(), scans)
     key = (device.index, stream)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < need:
-        buf = torch.empty(need, dtype=torch.uint8, device=device)
-        _SCRATCH[key] = buf
-    return buf.data_ptr()
+    ent = _SCRATCH.get(key)
+    if ent is None:
+        with _SCRATCH_LOCK:
+            ent = _SCRATCH.setdefault(key, _StreamScratch())
+    with ent.lock:
+        if ent.buf is None or ent.buf.numel() < need:
+            ent.buf = torch.empty(need, dtype=torch.uint8, device=device)
+        yield ent.buf.data_ptr()
 
 
 def _wide(v: torch.Tensor) -> torch.Tensor:
@@ -807,11 +827,11 @@ def window_positions(pstart, peerstart) -> Positions:
            for _ in range(5)]
     ppos, plast, peer_lo, peer_hi, dense = out
     stream = ck.stream_ptr(pstart.device)
-    rc = ck.library("window_scan").tt_window_positions(
-        pstart.data_ptr(), peerstart.data_ptr(), n, ppos.data_ptr(),
-        plast.data_ptr(), peer_lo.data_ptr(), peer_hi.data_ptr(),
-        dense.data_ptr(), _scan_scratch(n, pstart.device, stream, 2),
-        stream)
+    with _scan_scratch(n, pstart.device, stream, 2) as scratch:
+        rc = ck.library("window_scan").tt_window_positions(
+            pstart.data_ptr(), peerstart.data_ptr(), n, ppos.data_ptr(),
+            plast.data_ptr(), peer_lo.data_ptr(), peer_hi.data_ptr(),
+            dense.data_ptr(), scratch, stream)
     if n > 0:
         ck.count("window_bounds")
     ck.check(rc, "window_positions")
@@ -860,9 +880,10 @@ def window_prefix(vals, valid):
     else:
         ccnt = lead.new_empty(n, dtype=_I64)
     stream = ck.stream_ptr(lead.device)
-    rc = ck.library("window_scan").tt_window_prefix(
-        _ptr(vals), vdt, _ptr(valid), n, _ptr(cum), ccnt.data_ptr(),
-        _scan_scratch(n, lead.device, stream), stream)
+    with _scan_scratch(n, lead.device, stream) as scratch:
+        rc = ck.library("window_scan").tt_window_prefix(
+            _ptr(vals), vdt, _ptr(valid), n, _ptr(cum), ccnt.data_ptr(),
+            scratch, stream)
     if n > 0:
         ck.count("window_scan")
     ck.check(rc, "window_prefix")
@@ -911,11 +932,12 @@ def window_segscan(vals, valid, pstart, is_max: bool, reverse: bool = False):
     ident = _ident(is_max, vals.dtype)
     out = torch.empty_like(vals)
     stream = ck.stream_ptr(vals.device)
-    rc = ck.library("window_scan").tt_window_segscan(
-        vals.data_ptr(), _KDT[vals.dtype], _ptr(valid), pstart.data_ptr(),
-        n, int(is_max), int(reverse),
-        0 if vals.dtype == _F64 else int(ident), float(ident),
-        out.data_ptr(), _scan_scratch(n, vals.device, stream), stream)
+    with _scan_scratch(n, vals.device, stream) as scratch:
+        rc = ck.library("window_scan").tt_window_segscan(
+            vals.data_ptr(), _KDT[vals.dtype], _ptr(valid),
+            pstart.data_ptr(), n, int(is_max), int(reverse),
+            0 if vals.dtype == _F64 else int(ident), float(ident),
+            out.data_ptr(), scratch, stream)
     if n > 0:
         ck.count("window_scan")
     ck.check(rc, "window_segscan")

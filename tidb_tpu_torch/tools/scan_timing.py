@@ -1,10 +1,10 @@
-"""Time the window scans, the rank gather, the LUT probe and the member
-compaction of one checkout on the card, for comparing two checkouts in
-one machine's run.
+"""Time the window scans, the rank gather, the LUT probe, the member
+compaction, the column gather and the sorted search of one checkout on
+the card, for comparing two checkouts in one machine's run.
 
     python tidb_tpu_torch/tools/scan_timing.py --tree DIR [--out FILE]
-        [--kernels scan,gather,probe,compact] [--profile] [--ptxas]
-        [--host-steps]
+        [--kernels scan,gather,probe,compact,columns,search] [--profile]
+        [--ptxas] [--host-steps]
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
 its own kernels into DIR/build/) and prints one JSON line of median
@@ -24,7 +24,15 @@ join, phase 22's masks):
     1,500,303), beside torch.take of the clamped codes;
   * compact: K22 at B = 16, cap = 8,388,608 over an M1-shaped mask (each
     member the rows of one l_orderkey, M1's keys) and a random half-live
-    mask (seed 21), each beside torch.nonzero.
+    mask (seed 21), each beside torch.nonzero;
+  * columns: K18 at phase 14's shape (D2's pair output: the two key
+    codes with masks and l_orderkey of the 2,097,152-row lineitem slab
+    with the most (group, l_orderkey) pairs, through rep[:pair_cap])
+    beside five index_select;
+  * search: K11 in unique mode at phase 10's shape (2,097,152 distinct
+    sorted codes in [0, 2^40), 8,388,608 probes, 80% of them build codes)
+    and on the skewed table (2,097,151 codes in [0, 2^21) and one at
+    2^62) with the same probes, each beside torch.searchsorted.
 
 Each kernel is held to its plain version first (exactly; the f64
 prefix is not timed). Run two checkouts in turns (A, B, B, A), one
@@ -35,14 +43,15 @@ time over one call of each timed entry (torch.profiler), under
 chosen kernels' sources (registers, shared memory, spills);
 `--host-steps` adds each chosen wrapper's host time split step by step
 (under "<kernel>_host_steps"): K25's (checks and contiguity, pointers,
-tables, allocation, the ctypes call and launch), K13 prefix's and K5's
-with the card not waited for, and K22's, whose read-back of the total
-waits for its count pass.
+tables, allocation, the ctypes call and launch), K13 prefix's, K5's,
+K18's and K11's with the card not waited for, and K22's, whose read-back
+of the total waits for its count pass.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -127,13 +136,17 @@ def _prefix_host_steps(v, valid, reps: int = 50) -> dict:
         cum, ccnt = vals.new_empty((2, n)).unbind(0)
         t = tick("outputs", t)
         stream = ck.stream_ptr(v.device)
-        scratch = W._scan_scratch(n, v.device, stream)
-        t = tick("scratch and stream", t)
-        rc = lib.tt_window_prefix(vals.data_ptr(), 2, valid.data_ptr(), n,
-                                  cum.data_ptr(), ccnt.data_ptr(), scratch,
-                                  stream)
-        ck.check(rc, "window_prefix")
-        tick("ctypes call, memset and launch", t)
+        held = W._scan_scratch(n, v.device, stream)
+        if isinstance(held, int):           # a checkout without the lock
+            held = contextlib.nullcontext(held)
+        with held as scratch:
+            t = tick("scratch, stream and lock", t)
+            rc = lib.tt_window_prefix(vals.data_ptr(), 2, valid.data_ptr(),
+                                      n, cum.data_ptr(), ccnt.data_ptr(),
+                                      scratch, stream)
+            ck.check(rc, "window_prefix")
+            t = tick("ctypes call, memset and launch", t)
+        tick("lock release", t)
         torch.cuda.synchronize()
     out = {k: val * 1e6 / reps for k, val in steps.items()}
     out["sum of steps"] = sum(steps.values()) * 1e6 / reps
@@ -594,6 +607,218 @@ def run_compact(reps: int, prof: bool, steps: bool, dev) -> dict:
     return out
 
 
+def _pair_output(dev):
+    """Phase 14's K18 call: D2's pair output over the 2,097,152-row slab
+    of lineitem with the most (group, l_orderkey) pairs, as chip_smoke
+    builds it (`distinct_pair_factorize` of the checkout) → (columns,
+    idx = rep[:pair_cap], n_pairs)."""
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    li = _lineitem_columns(dev)
+    rows = torch.arange(CAP, device=dev) < N_ROWS
+    ones = torch.ones(CAP, dtype=torch.bool, device=dev)
+    gids = torch.where(rows, li["rflag"] * 2 + li["lstatus"],
+                       torch.full_like(li["rflag"], 6)).contiguous()
+    sc = 1 << 21
+    best = None
+    for lo in range(0, N_ROWS, sc):
+        m = min(N_ROWS - lo, sc)
+        srows = torch.arange(sc, device=dev) < m
+        sg = torch.full((sc,), 6, dtype=torch.int32, device=dev)
+        so = torch.zeros(sc, dtype=torch.int64, device=dev)
+        sg[:m] = gids[lo:lo + m]
+        so[:m] = li["okey"][lo:lo + m]
+        _f, _p, pairs, rep = F.distinct_pair_factorize(
+            sg, so, srows, srows, sc, gid_cap=6)
+        if best is None or int(pairs) > int(best[0]):
+            best = (pairs, rep, lo, so)
+    pairs, rep, lo, so = best
+    k = int(pairs)
+    pc = min(1 << max(16, (k - 1).bit_length()), sc)
+    cols = [(li["rflag"][lo:lo + sc].contiguous(), ones[:sc]),
+            (li["lstatus"][lo:lo + sc].contiguous(), ones[:sc]),
+            (so, None)]
+    return cols, rep[:pc], pairs
+
+
+def _columns_host_steps(cols, idx, n_valid, reps: int = 50) -> dict:
+    """K18's host time a call (mean µs, the card not waited for): the
+    wrapper call, and for a checkout with the cached plan its steps
+    (signature and plan lookup, the one allocation, the argument block's
+    pointers, the ctypes call and launch, the output views made while the
+    kernel runs)."""
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import gather as G
+    steps = {}
+    tick = _ticker(steps)
+    torch.cuda.synchronize()
+    out = {}
+    if hasattr(G, "_views"):
+        lib = ck.library("gather_columns")
+        m = idx.shape[0]
+        for _ in range(reps):
+            t = time.perf_counter()
+            blocks, widths, dtypes = G._checked_plan(
+                G._signature(cols, idx, n_valid))
+            t = tick("signature and cached plan", t)
+            vals, masks, total = G.out_layout(widths, m)
+            buf = torch.empty(total, dtype=torch.bool, device=idx.device)
+            t = tick("one allocation", t)
+            base = buf.data_ptr()
+            k = len(cols)
+            a = G._GatherArgs.from_buffer_copy(blocks[0])
+            a.src[:k] = [v.data_ptr() for v, _m in cols]
+            a.msrc[:k] = [None if mk is None else mk.data_ptr()
+                          for _v, mk in cols]
+            a.dst[:k] = [base + o for o in vals]
+            a.mdst[:k] = [base + o for o in masks]
+            a.idx = idx.data_ptr()
+            a.n_valid = n_valid.data_ptr()
+            a.m = m
+            stream = ck.stream_ptr(idx.device)
+            t = tick("argument block and stream", t)
+            rc = lib.tt_gather_columns(ctypes.addressof(a), stream)
+            ck.check(rc, "gather_columns")
+            t = tick("ctypes call and launch", t)
+            G._views(buf, widths, dtypes, m)
+            tick("output views (the kernel running)", t)
+        torch.cuda.synchronize()
+        out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        G.gather_columns(cols, idx, n_valid)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_columns(reps: int, prof: bool, steps: bool, dev) -> dict:
+    import torch
+    from tidb_tpu_torch.ops import gather as G
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    cols, idx, pairs = _pair_output(dev)
+    got = G.gather_columns(cols, idx, pairs)
+    want = G.gather_columns_plain(cols, idx, pairs)
+    for (a, am), (b, bm) in zip(got, want):
+        _same("K18 phase 14", (a, am), (b, bm))
+    il = idx.long()
+
+    def lib():
+        return [(torch.index_select(v, 0, il),
+                 None if m is None else torch.index_select(m, 0, il))
+                for v, m in cols]
+
+    out = {"k18_slots": idx.shape[0], "k18_pairs": int(pairs),
+           "k18_ms": _median_ms(lambda: G.gather_columns(cols, idx, pairs),
+                                reps),
+           "k18_index_select_ms": _median_ms(lib, reps)}
+    if prof:
+        out["kernels_k18"] = _profile(
+            [lambda: G.gather_columns(cols, idx, pairs)])
+        out["kernels_index_select"] = _profile([lib])
+    if steps:
+        out["k18_host_steps"] = _columns_host_steps(cols, idx, pairs)
+    return out
+
+
+def _search_inputs(dev, skewed: bool):
+    """Phase 10's K11 call (2,097,152 distinct sorted codes in [0, 2^40),
+    a random build order, 8,388,608 probes: 80% build codes, the rest in
+    [0, 2^40), 5% not ok), or the skewed table (2,097,151 codes in
+    [0, 2^21) and one at 2^62) under the same probes."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(29)
+    nb, n = 1 << 21, 1 << 23
+    pool = np.sort(rng.choice(1 << 40, nb, replace=False))
+    probe = np.where(rng.random(n) < 0.8, pool[rng.integers(0, nb, n)],
+                     rng.integers(0, 1 << 40, n))
+    ok = rng.random(n) > 0.05
+    if skewed:
+        pool = np.concatenate([np.arange(nb - 1, dtype=np.int64),
+                               [1 << 62]])
+    order = rng.permutation(nb).astype(np.int32)
+    return (torch.from_numpy(pool).to(dev), torch.from_numpy(order).to(dev),
+            torch.from_numpy(probe).to(dev), torch.from_numpy(ok).to(dev))
+
+
+def _search_host_steps(sc, order, probe, ok, reps: int = 50) -> dict:
+    """K11's host time a call in unique mode (mean µs, the card not
+    waited for): the wrapper call, and for a checkout with the directory
+    its steps (checks, the outputs' allocations, the directory's scratch,
+    the ctypes call and its two launches, the output views)."""
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import join as J
+    out = {}
+    if hasattr(J, "directory_params"):
+        lib = ck.library("sorted_groups")
+        steps = {}
+        tick = _ticker(steps)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            t = time.perf_counter()
+            nb, P = J._search_args(sc, probe, ok)
+            ck.require_cuda(order, what="sorted_search")
+            t = tick("checks", t)
+            dev = sc.device
+            at_m = J._round16(4 * P)
+            buf = torch.empty(at_m + P, dtype=torch.bool, device=dev)
+            un = torch.empty((), dtype=torch.bool, device=dev)
+            t = tick("outputs' allocations", t)
+            k, scratch = J._dir_scratch(nb, dev)
+            stream = ck.stream_ptr(dev)
+            t = tick("directory scratch and stream", t)
+            base = buf.data_ptr()
+            rc = lib.tt_sorted_probe_unique(
+                sc.data_ptr(), order.data_ptr(), nb, probe.data_ptr(),
+                ok.data_ptr(), P, k, scratch.data_ptr(), base, base + at_m,
+                un.data_ptr(), stream)
+            ck.check(rc, "sorted_search")
+            t = tick("ctypes call and two launches", t)
+            (buf[:4 * P].view(torch.int32), buf[at_m:])
+            tick("output views", t)
+        torch.cuda.synchronize()
+        out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        J.sorted_search_unique(sc, order, probe, ok)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_search(reps: int, prof: bool, steps: bool, dev) -> dict:
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    out = {}
+    for name, skewed in (("phase10", False), ("skewed", True)):
+        sc, order, probe, ok = _search_inputs(dev, skewed)
+        _same(f"K11 {name}", J.sorted_search_unique(sc, order, probe, ok),
+              J.sorted_search_unique_plain(sc, order, probe, ok))
+        _same(f"K11 {name} multi", J.sorted_search_multi(sc, probe, ok),
+              J.sorted_search_multi_plain(sc, probe, ok))
+        out[f"k11_{name}_ms"] = _median_ms(
+            lambda: J.sorted_search_unique(sc, order, probe, ok), reps)
+        out[f"k11_{name}_multi_ms"] = _median_ms(
+            lambda: J.sorted_search_multi(sc, probe, ok), reps)
+        out[f"k11_{name}_searchsorted_ms"] = _median_ms(
+            lambda: torch.searchsorted(sc, probe), reps)
+        if prof:
+            out[f"kernels_k11_{name}"] = _profile(
+                [lambda: J.sorted_search_unique(sc, order, probe, ok)])
+            out[f"kernels_searchsorted_{name}"] = _profile(
+                [lambda: torch.searchsorted(sc, probe)])
+        if steps:
+            out[f"k11_{name}_host_steps"] = _search_host_steps(
+                sc, order, probe, ok)
+        del sc, order, probe, ok
+    return out
+
+
+
 def _ptxas(tree: str, sources) -> dict:
     """{kernel: {registers, smem, stack, spill_stores}} of the kernels of
     `sources` (csrc file names), from `nvcc -Xptxas -v` with the build's
@@ -635,7 +860,8 @@ def main() -> int:
                     help="root of the checkout whose kernels to time")
     ap.add_argument("--kernels", default="scan,gather",
                     help="comma-separated: scan (K12, K13), gather (K25), "
-                         "probe (K5), compact (K22)")
+                         "probe (K5), compact (K22), columns (K18), "
+                         "search (K11)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="append the JSON line to this file too")
     ap.add_argument("--profile", action="store_true",
@@ -655,7 +881,8 @@ def main() -> int:
     sys.path.insert(0, tree)
     kernels = set(args.kernels.split(","))
     sources = {"scan": "window_scan", "gather": "rank_gather",
-               "probe": "lut_join", "compact": "member_compact"}
+               "probe": "lut_join", "compact": "member_compact",
+               "columns": "gather_columns", "search": "sorted_groups"}
     if not kernels <= set(sources):
         print(f"scan_timing: unknown kernels {args.kernels}",
               file=sys.stderr)
@@ -675,6 +902,12 @@ def main() -> int:
     if "compact" in kernels:
         line.update(run_compact(args.reps, args.profile, args.host_steps,
                                 dev))
+    if "columns" in kernels:
+        line.update(run_columns(args.reps, args.profile, args.host_steps,
+                                dev))
+    if "search" in kernels:
+        line.update(run_search(args.reps, args.profile, args.host_steps,
+                               dev))
     if args.ptxas:
         line["ptxas"] = _ptxas(tree, [sources[k] for k in sorted(kernels)])
     text = json.dumps(line)

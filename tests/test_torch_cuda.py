@@ -24,7 +24,11 @@ skewed and equal-run tables, probes equal to INT64_MAX) against their
 plain versions; K18 at 1-65 columns over views at odd byte offsets. K12's
 positions and K13's prefix and segmented scans at the single-pass scan's
 tile edges, one scan scratch reused over back-to-back calls, and two
-threads scanning on one stream through the locked scratch.
+threads scanning on one stream through the locked scratch. K1's path
+edges (caps 1-4097), a gid column all in one slot, bool input, its small
+path's f64 sums bit-equal call to call and to a numpy model of its
+order; K12's window_bounds against its plain version and its two halves,
+and one launch counted for each of its C calls; cached delta-merged slabs that own their storage.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -48,7 +52,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("cap", [1, 20, 1024, 65536])
+@pytest.mark.parametrize("cap", [1, 12, 20, 32, 33, 1024, 4096, 4097,
+                                 65536])
 @pytest.mark.parametrize("dt", [torch.int64, torch.int32, torch.float64])
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
 def test_k1_matches_plain(cuda, cap, dt, op):
@@ -69,6 +74,110 @@ def test_k1_matches_plain(cuda, cap, dt, op):
         assert float((got - want).abs().max()) <= float(tol)
     else:
         assert torch.equal(got, want)
+
+
+def _k1_same(op, got, want, data, gids, cap):
+    """K1 against its plain version: exactly, f64 sums within
+    (n-1)·eps·Σ|x| a slot."""
+    assert got.dtype == want.dtype
+    if got.dtype != torch.float64 or op != "sum":
+        assert torch.equal(got, want)
+        return
+    ok = (gids >= 0) & (gids < cap)
+    idx = torch.where(ok, gids.long(), torch.full_like(gids, cap).long())
+    cnt = torch.zeros(cap + 1, dtype=torch.float64, device=data.device) \
+        .index_add_(0, idx, torch.ones_like(data))[:cap]
+    sabs = torch.zeros(cap + 1, dtype=torch.float64, device=data.device) \
+        .index_add_(0, idx, data.abs())[:cap]
+    tol = (cnt - 1).clamp(min=0) * 2.0 ** -52 * sabs
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("cap", [1, 12, 32, 33, 1024, 4096, 4097])
+def test_k1_all_rows_in_one_slot(cuda, cap):
+    """A skewed gid column: every row in the last slot but a few out of
+    range, at each path's edges (the warp-aggregated atomics take one
+    group of 32 lanes) and at a scalar aggregate's 1,024-slot capacity
+    (Q6's calls), over a ragged 2^20 + 3 rows."""
+    from tidb_tpu_torch.ops import segment as seg
+    n = (1 << 20) + 3
+    g = torch.Generator().manual_seed(cap)
+    gids = torch.full((n,), cap - 1, dtype=torch.int32)
+    gids[torch.randint(0, n, (999,), generator=g)] = -1
+    gids[torch.randint(0, n, (999,), generator=g)] = cap
+    gids = gids.to(cuda)
+    for dt in (torch.int64, torch.int32, torch.float64):
+        data = torch.randn(n, generator=g, dtype=torch.float64).to(cuda) \
+            if dt == torch.float64 else torch.randint(
+                -1000, 1000, (n,), generator=g, dtype=dt).to(cuda)
+        for op in ("sum", "min", "max"):
+            _k1_same(op, seg.segment_reduce(op, data, gids, cap),
+                     seg.segment_reduce_plain(op, data, gids, cap), data,
+                     gids, cap)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("cap", [1, 12, 32, 33, 4096, 4097])
+def test_k1_bool_input(cuda, cap, offset):
+    """A bool mask reduces natively (COUNT in int64 or int32, ANY as an
+    int32 max), from aligned tensors and from views one row in (the
+    scalar loads)."""
+    from tidb_tpu_torch.ops import segment as seg
+    from tidb_tpu_torch.ops.xp import TorchXP
+    n = (1 << 20) + 7
+    g = torch.Generator().manual_seed(7 * cap)
+    mask = (torch.rand(n, generator=g) < 0.4).to(cuda)[offset:]
+    gids = torch.randint(-1, cap + 1, (n,), generator=g,
+                         dtype=torch.int32).to(cuda)[offset:]
+    for op, dt in (("sum", torch.int64), ("sum", torch.int32),
+                   ("max", torch.int32), ("min", torch.int64)):
+        got = seg.segment_reduce(op, mask, gids, cap, dt)
+        assert torch.equal(got, seg.segment_reduce_plain(op, mask, gids,
+                                                         cap, dt)), (op, dt)
+    xp = TorchXP(cuda)
+    want = seg.segment_reduce_plain("sum", mask, gids, cap, torch.int64)
+    assert torch.equal(seg.segment_count(xp, mask, gids, cap), want)
+    assert torch.equal(seg.segment_any(xp, mask, gids, cap), want > 0)
+
+
+@pytest.mark.parametrize("cap", [1, 12, 32])
+def test_k1_small_cap_f64_equals_the_model(cuda, cap):
+    """The small path's f64 sums, bit for bit, against the numpy model of
+    its order of operations (tests/test_torch_segment_model.py) at the
+    grid the card plans; and two calls give the same bits."""
+    from test_torch_segment_model import k1_model
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import segment as seg
+    lib = ck.library("segment_reduce")
+    assert (lib.tt_segment_small_cap(), lib.tt_segment_mid_cap()) == \
+        (seg.SMALL_CAP, seg.MID_CAP)        # the model's path edges
+    n = (1 << 18) + 5
+    rng = np.random.default_rng(cap)
+    x = rng.normal(size=n) * 1e3
+    ids = rng.integers(-1, cap + 1, n).astype(np.int32)
+    data = torch.from_numpy(x).to(cuda)
+    gids = torch.from_numpy(ids).to(cuda)
+    _path, grid, _bytes, _block = seg.segment_plan(2, 2, 0, n, cap, 0)
+    got = seg.segment_reduce("sum", data, gids, cap)
+    again = seg.segment_reduce("sum", data, gids, cap)
+    assert got.cpu().numpy().tobytes() == again.cpu().numpy().tobytes()
+    assert got.cpu().numpy().tobytes() == \
+        k1_model("sum", x, ids, cap, grid).tobytes()
+
+
+@pytest.mark.parametrize("cap", [1, 12])
+def test_k1_f64_sums_bit_equal_call_to_call(cuda, cap):
+    """chip_smoke's shape (8,388,608 rows): two f64 small-cap sums of the
+    same rows are bit-equal."""
+    from tidb_tpu_torch.ops import segment as seg
+    n = 1 << 23
+    g = torch.Generator().manual_seed(12)
+    data = torch.randn(n, generator=g, dtype=torch.float64).to(cuda)
+    gids = torch.randint(0, cap + 1, (n,), generator=g,
+                         dtype=torch.int32).to(cuda)
+    a = seg.segment_reduce("sum", data, gids, cap)
+    b = seg.segment_reduce("sum", data, gids, cap)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
 
 
 @pytest.mark.parametrize("kind,width", [("pack", 0), ("pack", 1),
@@ -357,6 +466,42 @@ def test_delta_writes_on_card_equal_host_engine(cuda):
         s.vars["tidb_tpu_engine"] = "on"
         if write.startswith("DELETE FROM t WHERE b %"):
             assert after["delta_merge"] > before["delta_merge"]
+
+
+def test_delta_merged_slabs_own_their_storage(cuda):
+    """After a DELETE on a table with a wide DECIMAL and a raw DOUBLE
+    column, every cached slab tensor owns its storage (its storage's
+    bytes within 16-byte alignment of its own): no view of a K18 buffer
+    holds bytes the device cache does not count."""
+    from tidb_tpu_torch.executor import device_cache as DC
+    from tidb_tpu_torch.session import Engine
+    s = Engine(device="cuda").new_session()
+    s.execute("CREATE TABLE w (a BIGINT, d DECIMAL(30,2), f DOUBLE, "
+              "e BIGINT)")
+    s.execute("INSERT INTO w VALUES " + ",".join(
+        f"({i % 13}, {(i * 7919) * 10 ** 12}.{i % 100:02d}, "
+        f"{(i * 53) % 1000 * 0.5}, {(i * 37) % 3000})" for i in range(3000)))
+    sql = "SELECT a, SUM(d), SUM(f), COUNT(*) FROM w GROUP BY a ORDER BY a"
+    s.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1,
+                   "tidb_tpu_strict": 1, "tidb_tpu_max_slab_rows": 1024,
+                   "tidb_tpu_compaction": "off"})
+    s.query(sql)
+    s.query("DELETE FROM w WHERE e % 7 = 3")
+    rows = s.query(sql).rows
+    ent = next(e for e in DC._CACHE.values() if e.n_cols == 4)
+    assert ent.is_delta
+    s.vars["tidb_tpu_engine"] = "off"
+    assert rows == s.query(sql).rows
+    seen = 0
+    for slabs in ent.dev.values():
+        for slab in slabs:
+            for t in slab:
+                if isinstance(t, torch.Tensor):
+                    have = t.untyped_storage().nbytes()
+                    assert have <= -(-t.nbytes // 16) * 16, \
+                        (t.shape, t.dtype, have, t.nbytes)
+                    seen += 1
+    assert seen
 
 
 def _k20_inputs(cuda):
@@ -1024,6 +1169,59 @@ def test_k12_positions_match_plain(cuda, size):
         want = W.window_positions_plain(pstart, peerstart)
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b), (p_part, n)
+
+
+@pytest.mark.parametrize("perm32", [False, True])
+@pytest.mark.parametrize("n,nkeys,n_part", [
+    (1, 3, 1), (2047, 3, 1), (2048, 4, 2), (2049, 5, 1), (6149, 2, 1),
+    (2049, 9, 3), (700, 9, 0), (2047, 1, 1), (257, 0, 0),
+    (3 * 2048 * 50 + 7, 4, 2), (2049, 17, 10), (2048, 9, 9)])
+def test_k12_bounds_match_plain(cuda, n, nkeys, n_part, perm32):
+    """K12's window_bounds (its own flags launch, then the positions)
+    against its plain version and its two halves, exactly, at the tile
+    edges: NaN, ±0.0, NULLs, dead rows, bool keys, int32 and int64
+    permutations, 9 and 17 keys (the flags launch a chunk of 8 keys at a
+    time, partition keys on both sides of a chunk edge), no `live`, and
+    the count of live rows in place of `live`."""
+    from test_torch_bounds_model import _layout
+    from tidb_tpu_torch.ops import window as W
+    for with_live in (True, False):
+        perm, live, keys = _layout(n, nkeys, n + nkeys, with_live)
+        p = torch.from_numpy(perm.astype(np.int32 if perm32 else np.int64))
+        p = p.to(cuda)
+        lv = None if live is None else torch.from_numpy(live).to(cuda)
+        tk = [(torch.from_numpy(v).to(cuda), torch.from_numpy(m).to(cuda))
+              for v, m in keys]
+        want = W.window_bounds_plain(p, lv, tk, n_part)
+        halves = W.window_flags(p, lv, tk, n_part)
+        halves = halves + (W.window_positions(*halves),)
+        # the layout lists live rows first (as sort_perm does), so the
+        # count of live rows may stand in for `live`
+        n_live = None if lv is None else \
+            lv.sum().to(torch.int32).reshape(())
+        for nl in (None, n_live):
+            got = W.window_bounds(p, lv, tk, n_part, nl)
+            for other in (want, halves):
+                assert torch.equal(got[0], other[0]), (n, with_live, nl)
+                assert torch.equal(got[1], other[1]), (n, with_live, nl)
+                for a, b in zip(got[2], other[2]):
+                    assert a.dtype == b.dtype and torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("nkeys,want", [(3, 2), (9, 3), (17, 4)])
+def test_k12_counts_each_launch(cuda, nkeys, want):
+    """window_bounds counts one launch for each C call: the flags launch
+    (one a chunk of 8 keys), then the positions' scans."""
+    from test_torch_bounds_model import _layout
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import window as W
+    perm, live, keys = _layout(3000, nkeys, 7)
+    tk = [(torch.from_numpy(v).to(cuda), torch.from_numpy(m).to(cuda))
+          for v, m in keys]
+    ck.reset_launches()
+    W.window_bounds(torch.from_numpy(perm).to(cuda),
+                    torch.from_numpy(live).to(cuda), tk, 1)
+    assert ck.launches()["window_bounds"] == want
 
 
 def test_scan_scratch_reused_back_to_back(cuda, monkeypatch):

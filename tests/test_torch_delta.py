@@ -453,6 +453,62 @@ def test_delta_rows_in_phase_accounting():
     tw.read()
 
 
+def test_delta_merged_slabs_own_their_storage():
+    """After a DELETE on a table with a wide DECIMAL and a raw DOUBLE
+    column, every tensor of the cached delta generation owns its storage
+    (its storage's bytes within 16-byte alignment of its own), the rows
+    equal to the host engine's. tests/test_torch_cuda.py holds the card's
+    K18 route (`gather.gather_slab`) to the same."""
+    s = TEngine(device="cpu").new_session()
+    s.execute("CREATE TABLE w (a BIGINT, d DECIMAL(30,2), f DOUBLE, "
+              "e BIGINT)")
+    s.execute("INSERT INTO w VALUES " + ",".join(
+        f"({i % 13}, {(i * 7919) * 10 ** 12}.{i % 100:02d}, "
+        f"{(i * 53) % 1000 * 0.5}, {(i * 37) % 3000})" for i in range(3000)))
+    sql = "SELECT a, SUM(d), SUM(f), COUNT(*) FROM w GROUP BY a ORDER BY a"
+    s.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1,
+                   "tidb_tpu_strict": 1, "tidb_tpu_max_slab_rows": CAP,
+                   "tidb_tpu_compaction": "off"})
+    s.query(sql)
+    s.query("DELETE FROM w WHERE e % 7 = 3")
+    rows = s.query(sql).rows
+    ent = next(e for e in TDC._CACHE.values() if e.n_cols == 4)
+    assert ent.is_delta
+    assert any(t.dim() == 2 for slabs in ent.dev.values()
+               for slab in slabs for t in slab
+               if isinstance(t, torch.Tensor))
+    s.vars["tidb_tpu_engine"] = "off"
+    assert rows == s.query(sql).rows
+    for slabs in ent.dev.values():
+        for slab in slabs:
+            for t in slab:
+                if isinstance(t, torch.Tensor):
+                    assert t.untyped_storage().nbytes() <= \
+                        -(-t.nbytes // 16) * 16, (t.shape, t.dtype)
+
+
+def test_gather_slab_plain_equals_gather_columns():
+    """`gather.gather_slab` on CPU tensors: a wide (limbs, rows) column
+    and a 1-D one gathered as `gather_columns` gathers them, the limbs
+    sharing the first plane's mask, each output its own tensor."""
+    from tidb_tpu_torch.ops import gather as G
+    rng = np.random.default_rng(18)
+    v2 = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, (3, CAP)))
+    v1 = torch.from_numpy(rng.normal(size=CAP))
+    m = torch.from_numpy(rng.random(CAP) < 0.8)
+    idx = torch.from_numpy(rng.permutation(CAP).astype(np.int32))
+    nv = torch.tensor(CAP - 100, dtype=torch.int32)
+    vals, mask = G.gather_slab(v2, m, idx, nv)
+    want = G.gather_columns([(v2[k], m if k == 0 else None)
+                             for k in range(3)], idx, nv)
+    assert torch.equal(vals, torch.stack([w[0] for w in want]))
+    assert torch.equal(mask, want[0][1])
+    vals, mask = G.gather_slab(v1, m, idx, nv)
+    (wv, wm), = G.gather_columns([(v1, m)], idx, nv)
+    assert torch.equal(vals, wv) and torch.equal(mask, wm)
+    assert vals.untyped_storage().nbytes() == vals.nbytes
+
+
 def test_delta_merge_stale_raises_typed_layout_error():
     """The reference turns the fault into a warned CPU rerun; the port
     has no catch-all, so the statement raises the typed LayoutError

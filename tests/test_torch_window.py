@@ -636,13 +636,13 @@ def test_window_exec_declines_object_arguments_before_device_work(
     seen = []
     from tidb_tpu_torch.executor import fragment as FR
     monkeypatch.setattr(FR, "_window_device_ok", lambda plan: True)
-    orig = W.window_flags
+    orig = W.window_bounds
 
     def spy(*a, **k):
         seen.append(1)
         return orig(*a, **k)
 
-    monkeypatch.setattr(W, "window_flags", spy)
+    monkeypatch.setattr(W, "window_bounds", spy)
     ts.vars["tidb_tpu_engine"] = "off"
     want = [tuple(r) for r in ts.query(sql).rows]
     ts.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1})

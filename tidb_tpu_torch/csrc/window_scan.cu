@@ -6,16 +6,42 @@
 // tidb_tpu/ops/window.py: _cummax/_pstart_pos (a lax.associative_scan of
 // max), partition_ids, and _partition_last / _next_peerstart_pos /
 // _partition_rows, which the JAX package computes with segment_max /
-// segment_count over n segments and a gather back. Entry `flags`
-// compares each sorted row with its sorted neighbour (both read through
-// the permutation) key by key in the key's own type, as the reference's
-// `!=` does: -0.0 equals +0.0, a NaN starts a new peer group, NULL slots
-// are neutralized, and a change of `live` starts a partition (the dead
-// tail of a filtered slab is a partition of its own). Entry `positions`
-// is two scans: a forward one of (max start index, max peer start index,
-// count of peer starts) gives ppos, peer_lo and the dense-rank count; a
-// backward one of (min partition end, min peer end) gives plast and
-// peer_hi. Positions are exact integers: they equal the reference's.
+// segment_count over n segments and a gather back. The flags compare
+// each sorted row with its sorted neighbour, key by key in the key's own
+// type, as the reference's `!=` does: -0.0 equals +0.0, a NaN starts a
+// new peer group, NULL slots are neutralized, and a change of `live`
+// starts a partition (the dead tail of a filtered slab is a partition of
+// its own). Entry `positions` is two scans: a forward one of (max start
+// index, max peer start index, count of peer starts) gives ppos, peer_lo
+// and the dense-rank count; a backward one of (min partition end, min
+// peer end) gives plast and peer_hi. Positions are exact integers: they
+// equal the reference's.
+//
+// The flags are bound by the card's rate of random loads (~100 G a
+// second, cached or not): a row gathers `live` and each key it still
+// compares (value and mask) through the permutation, 4-7 random loads
+// over W1's and W2's layouts. Measured on an H100 (tools/scan_timing.py,
+// NVIDIA H100 80GB HBM3 at 700 W): L2 prefetches of the partition keys
+// slowed the flags by 25-35% (more requests); flags computed in the
+// forward scan's tile load (one launch fewer) took 577-587 us over W1
+// against 524-540 for flags and forward scan apart, a tile's gathers
+// then waiting on the look-back chain. So `bounds_flags`, the flags
+// launch of window_bounds, runs alone and issues fewer loads:
+//   * with sort_perm's count of live rows (which it lists first) the
+//     live flag is `i == n_live`: no gather of `live` at all (without
+//     the count, `live` is compared as a first key);
+//   * a warp takes 32 FLAG_ROWS consecutive sorted rows (lane l of load
+//     k: row w0 + 32 k + l); a row gathers a key once and takes its
+//     predecessor's by shuffle (the warp's first row loads its own);
+//   * a key is skipped by the rows already flagged, and gathered only for
+//     the rows still comparing and their predecessors; its type is
+//     dispatched once a warp;
+//   * the flags leave as one FLAG_ROWS-byte store a lane, cut from the
+//     loads' ballots.
+// Two rows a lane measured best (W1 flags 333-336 us, one row 339-342,
+// four 362-367, eight 367). The `window_flags` entry launches the same
+// kernel over more than 8 keys a chunk of 8 at a time, each chunk
+// starting from the flags the earlier ones wrote (`accumulate`).
 //
 // K13 replaces the whole-column cumsums of running_agg, rows_frame_agg and
 // range_frame_agg (masked value and valid count, int64 or float64) and
@@ -47,9 +73,7 @@
 // The flags and the tile counter are zeroed by one cudaMemsetAsync a
 // call (K12's positions: both scans' in one). Positions and counts are
 // 32-bit inside a state (n < 2^31, which the wrappers enforce) and int64
-// outside. K12's flags read the permutation, and each key and mask at the
-// row and at its neighbour through it (gathers; the neighbour's line is
-// usually in L1/L2 already). The prefix keeps the reference's
+// outside. The prefix keeps the reference's
 // prefix-difference formulation: an int64 prefix wraps as numpy's does,
 // so window sums over it stay exact. A float64 prefix adds in scan-tree
 // order, not numpy's sequential order: its last bits differ, within
@@ -313,60 +337,6 @@ struct KeyCols {
   int np;                             // the first np are partition keys
 };
 
-__device__ __forceinline__ bool key_differs(const KeyCols& k, int j,
-                                            long long a, long long b) {
-  bool ma = true, mb = true;
-  if (k.m[j]) {
-    ma = k.m[j][a] != 0;
-    mb = k.m[j][b] != 0;
-    if (ma != mb) return true;
-    if (!ma) return false;    // two NULLs: one group (neutralized slots)
-  }
-  switch (k.dt[j]) {
-    case DT_BOOL:
-      return static_cast<const unsigned char*>(k.v[j])[a] !=
-             static_cast<const unsigned char*>(k.v[j])[b];
-    case DT_I32:
-      return static_cast<const int*>(k.v[j])[a] !=
-             static_cast<const int*>(k.v[j])[b];
-    case DT_I64:
-      return static_cast<const long long*>(k.v[j])[a] !=
-             static_cast<const long long*>(k.v[j])[b];
-    default:
-      return static_cast<const double*>(k.v[j])[a] !=
-             static_cast<const double*>(k.v[j])[b];
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-    window_flags(const void* __restrict__ perm, int perm64,
-                 const unsigned char* __restrict__ live, KeyCols keys,
-                 long long n, int accumulate,
-                 unsigned char* __restrict__ pstart,
-                 unsigned char* __restrict__ peerstart) {
-  const long long i = static_cast<long long>(blockIdx.x) * THREADS +
-                      threadIdx.x;
-  if (i >= n) return;
-  bool ps = i == 0, qs = ps;
-  if (i > 0) {
-    const long long r = perm64 ? static_cast<const long long*>(perm)[i]
-                               : static_cast<const int*>(perm)[i];
-    const long long q = perm64 ? static_cast<const long long*>(perm)[i - 1]
-                               : static_cast<const int*>(perm)[i - 1];
-    if (live && live[r] != live[q]) ps = true;
-    for (int j = 0; j < keys.np && !ps; ++j) ps = key_differs(keys, j, r, q);
-    qs = ps;
-    for (int j = keys.np; j < keys.nk && !qs; ++j)
-      qs = key_differs(keys, j, r, q);
-  }
-  if (accumulate) {
-    ps = ps || pstart[i];
-    qs = qs || peerstart[i];
-  }
-  pstart[i] = ps;
-  peerstart[i] = qs;
-}
-
 struct Pos3 {
   int a, b, c;
   static constexpr int WORDS = 3;
@@ -437,6 +407,231 @@ struct PosBwd {
     peer_hi[i] = t.b;
   }
 };
+
+// ---- K12 flags: a warp a run of sorted rows ---------------------------------
+
+constexpr int FLAG_ROWS = 2;     // rows a lane in bounds_flags (R below)
+
+// pred[k] = the value of the row before row wbase + k * 32: the previous
+// lane's; for lane 0 the previous load's lane 31, and for load 0's lane 0
+// `first` (the warp's first row loads its predecessor itself)
+template <int R, typename V>
+__device__ __forceinline__ void predecessors(const V (&cur)[R], V first,
+                                             int lane, V (&pred)[R]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const V up = __shfl_up_sync(FULL, cur[k], 1);
+    if (k == 0) {
+      pred[k] = lane ? up : first;
+    } else {
+      const V last = __shfl_sync(FULL, cur[k - 1], 31);
+      pred[k] = lane ? up : last;
+    }
+  }
+}
+
+// Bit k of `flag` |= row k's key (stored as S, compared as V; `mask`
+// null: no NULLs) differs from its predecessor's, for the rows whose bit
+// is still clear (`need`: a row reads no key past its first difference).
+// Compared as the reference's `!=`: NULL slots are neutralized to 0
+// (every NULL one group) and a change of the NULL flag is a change; -0.0
+// equals +0.0, a NaN differs from all. A row gathers its value and mask
+// once, through its row id r[k], when it or its successor needs them (the
+// successor takes them from the lane before it); the warp's first row
+// loads its predecessor's itself.
+template <int R, typename S, typename V>
+__device__ __forceinline__ void key_changes(
+    const S* __restrict__ vals, const unsigned char* __restrict__ mask,
+    const int (&r)[R], unsigned inb, int r_first, bool has_first,
+    int lane, unsigned& flag) {
+  const unsigned need = inb & ~flag;
+  if (!__any_sync(FULL, need)) return;
+  unsigned own = need;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const unsigned down = __shfl_down_sync(FULL, (need >> k) & 1u, 1);
+    const unsigned next0 =
+        k + 1 < R ? __shfl_sync(FULL, (need >> (k + 1)) & 1u, 0) : 0u;
+    if (lane < 31 ? down : next0) own |= 1u << k;
+  }
+  V cur[R];
+  int mk[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const bool o = (own >> k) & 1u;
+    cur[k] = o ? static_cast<V>(vals[r[k]]) : V(0);
+    mk[k] = mask == nullptr || (o && mask[r[k]] != 0);
+  }
+  const bool fo = has_first && (need & 1u);
+  V f = fo ? static_cast<V>(vals[r_first]) : V(0);
+  const int fm = mask == nullptr || (fo && mask[r_first] != 0);
+  if (mask) {
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (!mk[k]) cur[k] = V(0);
+    if (!fm) f = V(0);
+  }
+  int pm[R];
+  V pv[R];
+  predecessors<R>(mk, fm, lane, pm);
+  predecessors<R>(cur, f, lane, pv);
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (((need >> k) & 1u) && (pm[k] != mk[k] || cur[k] != pv[k]))
+      flag |= 1u << k;
+}
+
+// R flag bits → R bool bytes (bit b → byte b, little-endian)
+template <int R>
+__device__ __forceinline__ unsigned long long spread(unsigned x) {
+  unsigned long long r = 0;
+#pragma unroll
+  for (int b = 0; b < R; ++b)
+    r |= static_cast<unsigned long long>((x >> b) & 1u) << (8 * b);
+  return r;
+}
+
+// lane l stores the flags of the warp's rows w0 + R l .. w0 + R l + R - 1
+// (bits R l % 32 .. of load R l / 32's ballot) as one R-byte store
+template <int R>
+__device__ __forceinline__ void store_flags(unsigned char* out,
+                                            const unsigned (&bal)[R],
+                                            long long w0, int lane,
+                                            long long n) {
+  constexpr int PER = 32 / R;               // lanes a ballot word feeds
+  unsigned w = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (lane / PER == k) w = bal[k];
+  w >>= R * (lane % PER);
+  const long long r0 = w0 + static_cast<long long>(R) * lane;
+  if (r0 + R <= n) {
+    const unsigned long long b = spread<R>(w);
+    if (R == 8)
+      *reinterpret_cast<unsigned long long*>(out + r0) = b;
+    else if (R == 4)
+      *reinterpret_cast<unsigned*>(out + r0) = static_cast<unsigned>(b);
+    else if (R == 2)
+      *reinterpret_cast<unsigned short*>(out + r0) =
+          static_cast<unsigned short>(b);
+    else
+      out[r0] = static_cast<unsigned char>(b);
+  } else {
+    for (int b = 0; b < R && r0 + b < n; ++b)
+      out[r0 + b] = static_cast<unsigned char>((w >> b) & 1u);
+  }
+}
+
+// the inputs of K12's flags launch
+struct FlagArgs {
+  const void* perm;
+  int perm64;
+  const unsigned char* live;    // null: all live (or n_live given)
+  const int* n_live;            // null, or the count of live rows that
+                                // perm lists first: live is then i < n_live
+  KeyCols keys;
+  int accumulate;               // start from the flags already in the
+                                // outputs (an earlier chunk of keys)
+  unsigned char* pstart;        // 8-byte aligned
+  unsigned char* peerstart;     // 8-byte aligned
+  __device__ int row(long long j) const {
+    return perm64 ? static_cast<int>(static_cast<const long long*>(perm)[j])
+                  : static_cast<const int*>(perm)[j];
+  }
+};
+
+// the key's type is dispatched once a key a warp's rows, not a row
+template <int R>
+__device__ __forceinline__ void key_dispatch(const KeyCols& k, int j,
+                                             const int (&r)[R],
+                                             unsigned inb, int rf, bool hf,
+                                             int lane, unsigned& flag) {
+  switch (k.dt[j]) {
+    case DT_BOOL:
+      key_changes<R, unsigned char, int>(
+          static_cast<const unsigned char*>(k.v[j]), k.m[j], r, inb, rf, hf,
+          lane, flag);
+      break;
+    case DT_I32:
+      key_changes<R, int, int>(static_cast<const int*>(k.v[j]), k.m[j], r,
+                               inb, rf, hf, lane, flag);
+      break;
+    case DT_I64:
+      key_changes<R, long long, long long>(
+          static_cast<const long long*>(k.v[j]), k.m[j], r, inb, rf, hf,
+          lane, flag);
+      break;
+    default:
+      key_changes<R, double, double>(static_cast<const double*>(k.v[j]),
+                                     k.m[j], r, inb, rf, hf, lane, flag);
+  }
+}
+
+// K12's flags, one warp a run of 32 R sorted rows (lane l of load k: row
+// w0 + 32 k + l; bit k of a lane's flag words), no scan coupled to it:
+// with accumulate, the flags already in the outputs first; then `live`
+// (with n_live, the comparison i == n_live, nothing gathered), the
+// partition keys into pstart, then the order keys into peerstart (which
+// starts as pstart), each key skipped by the rows already flagged; the
+// flags leave as packed R-byte stores.
+template <int R>
+__global__ void __launch_bounds__(THREADS)
+    bounds_flags(FlagArgs p, long long n) {
+  const int lane = threadIdx.x & 31;
+  const long long w0 = (static_cast<long long>(blockIdx.x) * WARPS +
+                        (threadIdx.x >> 5)) * (32 * R);
+  if (w0 >= n) return;                      // the whole warp
+  const long long wbase = w0 + lane;
+  int r[R];
+  unsigned inb = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const long long j = wbase + k * 32;
+    const bool in = j < n;
+    inb |= static_cast<unsigned>(in) << k;
+    r[k] = in ? p.row(j) : 0;
+  }
+  const bool hf = lane == 0 && w0 > 0;
+  const int rf = hf ? p.row(w0 - 1) : 0;
+  unsigned ps = 0, qs = 0;
+  if (p.accumulate) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const long long j = wbase + k * 32;
+      if (j < n) {
+        ps |= static_cast<unsigned>(p.pstart[j] != 0) << k;
+        qs |= static_cast<unsigned>(p.peerstart[j] != 0) << k;
+      }
+    }
+  }
+  if (p.n_live) {
+    const long long nl = *p.n_live;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (wbase + k * 32 == nl && nl > 0) ps |= 1u << k;
+    ps &= inb;
+  } else if (p.live) {
+    key_changes<R, unsigned char, int>(p.live, nullptr, r, inb, rf, hf,
+                                       lane, ps);
+  }
+  for (int j = 0; j < p.keys.np; ++j)
+    key_dispatch<R>(p.keys, j, r, inb, rf, hf, lane, ps);
+  qs |= ps;
+  for (int j = p.keys.np; j < p.keys.nk; ++j)
+    key_dispatch<R>(p.keys, j, r, inb, rf, hf, lane, qs);
+  if (wbase == 0) {            // row 0 starts both
+    ps |= 1u;
+    qs |= 1u;
+  }
+  unsigned bp[R], bq[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    bp[k] = __ballot_sync(FULL, (ps >> k) & 1u);
+    bq[k] = __ballot_sync(FULL, (qs >> k) & 1u);
+  }
+  store_flags<R>(p.pstart, bp, w0, lane, n);
+  store_flags<R>(p.peerstart, bq, w0, lane, n);
+}
 
 // ---- K13 -----------------------------------------------------------------
 
@@ -542,6 +737,20 @@ struct SegScan {
   }
 };
 
+// the key columns of one launch; false on a type code out of range
+bool key_cols(const void* const* v, const void* const* m, const int* dt,
+              int nk, int np, KeyCols* keys) {
+  for (int j = 0; j < MAX_KEYS; ++j) {
+    keys->v[j] = j < nk ? v[j] : nullptr;
+    keys->m[j] = j < nk ? static_cast<const unsigned char*>(m[j]) : nullptr;
+    keys->dt[j] = j < nk ? dt[j] : 0;
+    if (j < nk && (dt[j] < DT_BOOL || dt[j] > DT_F64)) return false;
+  }
+  keys->nk = nk;
+  keys->np = np;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -555,37 +764,40 @@ int tt_window_scratch_bytes(long long n, int scans) {
   return static_cast<int>(scratch_bytes(n, scans));
 }
 
-// K12, flags: pstart / peerstart bool (n) over the sorted layout given by
-// `perm` (int32, or int64 with perm64) from the keys' values v[j] (dtype
-// dt[j]: 0 bool, 1 int32, 2 int64, 3 float64) and masks m[j] (null: no
-// NULLs), row-indexed; the first np keys are partition keys. `live`
-// (bool, row-indexed; null: all live) starts a partition where it changes.
-// With accumulate the flags are OR-ed into the outputs (keys beyond
-// MAX_KEYS run as further launches).
-int tt_window_flags(const void* perm, int perm64, const void* live,
-                    const void* const* v, const void* const* m,
-                    const int* dt, int nk, int np, long long n,
-                    int accumulate, void* pstart, void* peerstart,
-                    void* stream) {
-  if (n < 0 || nk < 0 || nk > MAX_KEYS || np < 0 || np > nk)
+// K12, flags: pstart / peerstart bool (n < 2^31; 8-byte aligned) over
+// the sorted layout given by `perm` (int32, or int64 with perm64) from
+// the keys' values v[j] (dtype dt[j]: 0 bool, 1 int32, 2 int64, 3
+// float64) and masks m[j] (null: no NULLs), row-indexed; the first np
+// keys are partition keys. `live` (bool, row-indexed; null: all live)
+// starts a partition where it changes. n_live (a device int32, or null):
+// the count of live rows, when perm lists every live row first; `live`
+// is then not read. With accumulate the flags already in the outputs are
+// kept (keys beyond MAX_KEYS run as further launches). One warp a run of
+// 32 FLAG_ROWS sorted rows. window_bounds runs tt_window_positions over
+// the flags next.
+int tt_window_bounds_flags(const void* perm, int perm64, const void* live,
+                           const void* n_live, const void* const* v,
+                           const void* const* m, const int* dt, int nk,
+                           int np, long long n, int accumulate,
+                           void* pstart, void* peerstart, void* stream) {
+  if (n < 0 || n >= (1LL << 31) || nk < 0 || nk > MAX_KEYS || np < 0 ||
+      np > nk ||
+      ((reinterpret_cast<uintptr_t>(pstart) |
+        reinterpret_cast<uintptr_t>(peerstart)) & 7u) != 0u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  KeyCols keys;
+  if (!key_cols(v, m, dt, nk, np, &keys))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
   if (n == 0) return 0;
-  KeyCols keys;
-  for (int j = 0; j < MAX_KEYS; ++j) {
-    keys.v[j] = j < nk ? v[j] : nullptr;
-    keys.m[j] = j < nk ? static_cast<const unsigned char*>(m[j]) : nullptr;
-    keys.dt[j] = j < nk ? dt[j] : 0;
-    if (j < nk && (dt[j] < DT_BOOL || dt[j] > DT_F64))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  keys.nk = nk;
-  keys.np = np;
-  window_flags<<<static_cast<unsigned>((n + THREADS - 1) / THREADS),
-                 THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      perm, perm64, static_cast<const unsigned char*>(live), keys, n,
-      accumulate, static_cast<unsigned char*>(pstart),
-      static_cast<unsigned char*>(peerstart));
+  FlagArgs f{perm, perm64, static_cast<const unsigned char*>(live),
+             static_cast<const int*>(n_live), keys, accumulate,
+             static_cast<unsigned char*>(pstart),
+             static_cast<unsigned char*>(peerstart)};
+  constexpr long long rows = 32LL * FLAG_ROWS * WARPS;    // a block's
+  bounds_flags<FLAG_ROWS><<<static_cast<unsigned>((n + rows - 1) / rows),
+                            THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      f, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -437,8 +437,8 @@ def _perfect_groups(ctx: EvalContext, live, root, cap: int, key_bounds):
         cards.append(card)
         stride *= card
     gids_raw = perfect_group_ids(keys, live, key_bounds, strides, cap)
-    occupied = seg.segment_reduce("sum", live.to(torch.int32), gids_raw,
-                                  cap) > 0
+    occupied = seg.segment_reduce("sum", live, gids_raw, cap,
+                                  torch.int32) > 0
     # compact occupied slots to the front (a 1-bit sort over cap, not rows)
     from tidb_tpu_torch.ops.factorize import partition_perm
     perm = partition_perm(occupied)
@@ -651,9 +651,11 @@ def emit_window_cols(ctx: EvalContext, live, root, in_cols):
     window spec. Shared by the window-ROOT emit above and the interior
     window of tree_fragment._TreeRun.emit, where the appended columns
     feed the operator above. Per distinct spec: sort_perm (K9 + K8) with
-    `live` as an operand, K12's boundary flags over the sorted keys (a
-    change of `live` starts a partition, so a filtered slab's dead rows
-    never join a live partition) and K12's positions, kept for every
+    `live` as an operand, then K12's `window_bounds`: the boundary
+    flags over the sorted keys (a change of `live` starts a partition, so
+    a filtered slab's dead rows never join a live partition; sort_perm
+    lists the live rows first, so `n_live` marks that change) and the
+    positions, kept for every
     window function of the spec; each value scatters back to row order
     through the permutation (a permutation: no two rows collide)."""
     from tidb_tpu_torch.ops import factorize as F
@@ -667,13 +669,12 @@ def emit_window_cols(ctx: EvalContext, live, root, in_cols):
         if layout is None:
             pkeys = [e.eval(ctx) for e in d.partition]
             okeys = [e.eval(ctx) for e in d.order]
-            perm, _ = F.sort_perm(pkeys + okeys,
-                                  [False] * len(pkeys) + list(d.descs),
-                                  live)
-            pstart, peerstart = W.window_flags(perm, live, pkeys + okeys,
-                                               len(pkeys))
-            layout = (perm, pstart, peerstart,
-                      W.window_positions(pstart, peerstart))
+            perm, n_live = F.sort_perm(pkeys + okeys,
+                                       [False] * len(pkeys) + list(d.descs),
+                                       live)
+            pstart, peerstart, pos = W.window_bounds(
+                perm, live, pkeys + okeys, len(pkeys), n_live)
+            layout = (perm, pstart, peerstart, pos)
             layouts[lkey] = layout
         perm, pstart, peerstart, pos = layout
         v, m = _window_value(ctx, live, d, n, perm, pstart, peerstart, pos)
@@ -852,8 +853,9 @@ def emit_delta_merge(layout, slab, keep, n_new: int, cap: int, perm=None,
     reuse the slab's `perm` (delta_perm(keep), computed here when not
     given) and `n_valid` (n_new as a 0-d int32 tensor on the card):
     packed words and masks repack through K19, raw columns gather
-    through K18, a wide decimal's (n_limbs, cap) limb planes as 1-D
-    columns of one launch."""
+    through K18 (`gather_slab`: a wide decimal's (n_limbs, cap) limb
+    planes as 1-D columns of one launch), into tensors that own their
+    storage, since the result is cached."""
     from tidb_tpu_torch.ops import gather as G
     if slab[1].device.type == "cpu":
         return delta_merge_plain(layout, slab, keep, n_new, cap)
@@ -864,14 +866,7 @@ def emit_delta_merge(layout, slab, keep, n_new: int, cap: int, perm=None,
     if layout is None:
         if n_valid is None:
             n_valid = torch.tensor(n_new, dtype=torch.int32, device=dev)
-        v, m = slab[0], slab[1]
-        if v.dim() == 2:
-            out = G.gather_columns([(v[k], m if k == 0 else None)
-                                    for k in range(v.shape[0])],
-                                   perm, n_valid)
-            return (torch.stack([o[0] for o in out]), out[0][1])
-        (ov, om), = G.gather_columns([(v, m)], perm, n_valid)
-        return (ov, om)
+        return G.gather_slab(slab[0], slab[1], perm, n_valid)
     mwords = delta_repack(slab[1], 1, perm, n_new, cap)
     vwords = slab[0] if layout.width == 0 else \
         delta_repack(slab[0], layout.width, perm, n_new, cap)

@@ -209,7 +209,8 @@ def _device_layout(chunk: Chunk, n: int, d, dev):
     """→ (sidx int64, pstart, peerstart, K12 positions) on `dev` for one
     window spec: the rank codes of _sorted_layout, sorted by
     ops/factorize.lexsort (K9 + K8; each code bounds itself, so no
-    min/max read-back) with K12's flags over them."""
+    min/max read-back) with K12's flags and positions over them (its
+    `window_bounds`)."""
     import torch
     from tidb_tpu_torch.executor.sort import rank_keys
     from tidb_tpu_torch.ops.factorize import SortOp, lexsort
@@ -221,10 +222,8 @@ def _device_layout(chunk: Chunk, n: int, d, dev):
                         zip(keys, pkeys + okeys)]).to(torch.int64)
     else:
         sidx = torch.arange(n, dtype=torch.int64, device=dev)
-    pstart, peerstart = W.window_flags(sidx, None,
-                                       [(t, None) for t in keys],
-                                       len(pkeys))
-    return sidx, pstart, peerstart, W.window_positions(pstart, peerstart)
+    return (sidx,) + W.window_bounds(sidx, None, [(t, None) for t in keys],
+                                     len(pkeys))
 
 
 def _sorted_layout(chunk: Chunk, n: int, d):

@@ -19,8 +19,7 @@ row.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -41,31 +40,6 @@ def scratch_bytes(b: int, cap: int) -> int:
     byte alignment of the mask, ceil((cap + 15) / TILE)."""
     tiles = max(1, b * -(-(cap + 15) // TILE))
     return 16 + -(-4 * tiles // 16) * 16 + 8 * (3 + 2 * ROUNDS) * tiles
-
-
-class _StreamScratch:
-    """The K22 scratch of one stream, grown to fit, and the lock a call
-    holds from its count pass to its scatter (which reads the count
-    pass's tile state after the total's read-back)."""
-    __slots__ = ("buf", "lock")
-
-    def __init__(self):
-        self.buf = None
-        self.lock = threading.Lock()
-
-
-#: (device index, stream) → that stream's _StreamScratch
-_SCRATCH: Dict[Tuple[int, int], _StreamScratch] = {}
-_SCRATCH_LOCK = threading.Lock()
-
-
-def _stream_scratch(device, stream: int) -> _StreamScratch:
-    key = (device.index, stream)
-    ent = _SCRATCH.get(key)
-    if ent is None:
-        with _SCRATCH_LOCK:
-            ent = _SCRATCH.setdefault(key, _StreamScratch())
-    return ent
 
 
 def member_compact_plain(live: torch.Tensor
@@ -110,11 +84,9 @@ def member_compact(live: torch.Tensor
     stream = ck.stream_ptr(dev)
     need = scratch_bytes(b, cap)
     total = ctypes.c_longlong()
-    ent = _stream_scratch(dev, stream)
-    with ent.lock:
-        if ent.buf is None or ent.buf.numel() < need:
-            ent.buf = torch.empty(need, dtype=torch.uint8, device=dev)
-        scratch = ent.buf.data_ptr()
+    ent = ck.stream_scratch("member_compact", dev, stream)
+    with ent.lock:      # from the count pass to the scatter, which reads
+        scratch = ent.ensure(need, dev)     # the count pass's tile state
         rc = lib.tt_member_count(live.data_ptr(), b, cap, scratch,
                                  offsets.data_ptr(), counts.data_ptr(),
                                  ctypes.addressof(total), stream)

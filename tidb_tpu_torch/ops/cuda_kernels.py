@@ -59,8 +59,11 @@ _L = ctypes.c_longlong
 _U = ctypes.c_ulonglong
 _D = ctypes.c_double
 _SIGNATURES = {
-    "tt_segment_reduce": [_I, _I, _P, _P, _L, _I, _P, _P, _I, _P],
+    "tt_segment_plan": [_I, _I, _I, _L, _I, _P],
+    "tt_segment_reduce": [_P, _P, _P, _P, _P, _P],
+    "tt_segment_plan_bytes": [],
     "tt_segment_small_cap": [],
+    "tt_segment_mid_cap": [],
     "tt_error_string": [_I],
     "tt_unpack_decode": [_I, _I, _I, _P, _L, _P, _L, _L, _P, _I, _P, _P,
                          _P, _P, _P],
@@ -89,8 +92,9 @@ _SIGNATURES = {
     "tt_sorted_dir_bytes": [_I],
     "tt_window_tile": [],
     "tt_window_scratch_bytes": [_L, _I],
-    "tt_window_flags": [_P, _I, _P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P],
     "tt_window_positions": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _P],
+    "tt_window_bounds_flags": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _L, _I,
+                               _P, _P, _P],
     "tt_window_prefix": [_P, _I, _P, _L, _P, _P, _P, _P],
     "tt_window_segscan": [_P, _I, _P, _P, _L, _I, _I, _L, _D, _P, _P, _P],
     "tt_frame_direct_width": [],
@@ -222,6 +226,43 @@ def stream_ptr(device) -> int:
     index = device.index
     return torch._C._cuda_getCurrentRawStream(
         torch.cuda.current_device() if index is None else index)
+
+
+class StreamScratch:
+    """One kernel's scratch buffer on one stream, grown to fit, and the
+    lock a call holds from taking the buffer to its last launch on it: a
+    grow would otherwise free the buffer that a call on the same stream
+    is about to launch on, and two threads on one stream could interleave
+    one call's zeroing or count pass with another's launches."""
+    __slots__ = ("buf", "lock")
+
+    def __init__(self):
+        self.buf = None
+        self.lock = threading.Lock()
+
+    def ensure(self, nbytes: int, device, zeroed: bool = False) -> int:
+        """With the lock held: the buffer grown to at least `nbytes`
+        (a new one zero-filled when `zeroed`) → its data pointer."""
+        if self.buf is None or self.buf.numel() < nbytes:
+            import torch
+            make = torch.zeros if zeroed else torch.empty
+            self.buf = make(nbytes, dtype=torch.uint8, device=device)
+        return self.buf.data_ptr()
+
+
+#: (kernel, device index, stream) → that stream's StreamScratch
+_SCRATCH: Dict[tuple, StreamScratch] = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def stream_scratch(kernel: str, device, stream: int) -> StreamScratch:
+    """The scratch of `kernel` on `stream` (its raw handle on `device`)."""
+    key = (kernel, device.index, stream)
+    ent = _SCRATCH.get(key)
+    if ent is None:
+        with _SCRATCH_LOCK:
+            ent = _SCRATCH.setdefault(key, StreamScratch())
+    return ent
 
 
 def count(name: str) -> None:

@@ -184,29 +184,75 @@ def gather_columns(cols: Sequence[Column], idx: torch.Tensor,
         return gather_columns_plain(cols, idx, n_valid)
     if not cols:
         return []
-    from tidb_tpu_torch.ops import cuda_kernels as ck
     blocks, widths, dtypes = _checked_plan(_signature(cols, idx, n_valid))
     n_out = idx.shape[0]
     vals, masks, total = out_layout(widths, n_out)
     buf = torch.empty(total, dtype=torch.bool, device=dev)
-    if n_out:
-        base = buf.data_ptr()
-        lib = ck.library("gather_columns")
-        stream = ck.stream_ptr(dev)
-        for q, block in enumerate(blocks):
-            lo = q * MAX_COLS
-            part = cols[lo:lo + MAX_COLS]
-            k = len(part)
-            a = _GatherArgs.from_buffer_copy(block)
-            a.src[:k] = [v.data_ptr() for v, _m in part]
-            a.msrc[:k] = [None if m is None else m.data_ptr()
-                          for _v, m in part]
-            a.dst[:k] = [base + o for o in vals[lo:lo + k]]
-            a.mdst[:k] = [base + o for o in masks[lo:lo + k]]
-            a.idx = idx.data_ptr()
-            a.n_valid = n_valid.data_ptr()
-            a.m = n_out
-            rc = lib.tt_gather_columns(ctypes.addressof(a), stream)
-            ck.count("gather_columns")
-            ck.check(rc, "gather_columns")
+    base = buf.data_ptr()
+    _launch(blocks, cols, idx, n_valid, [base + o for o in vals],
+            [base + o for o in masks])
     return _views(buf, widths, dtypes, n_out)
+
+
+def _launch(blocks, cols, idx, n_valid, vptrs, mptrs) -> None:
+    """K18's launches of one call: each argument block with its columns'
+    sources and the output addresses `vptrs` / `mptrs` (16-byte
+    aligned) filled in."""
+    n_out = idx.shape[0]
+    if not n_out:
+        return
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    lib = ck.library("gather_columns")
+    stream = ck.stream_ptr(idx.device)
+    for q, block in enumerate(blocks):
+        lo = q * MAX_COLS
+        part = cols[lo:lo + MAX_COLS]
+        k = len(part)
+        a = _GatherArgs.from_buffer_copy(block)
+        a.src[:k] = [v.data_ptr() for v, _m in part]
+        a.msrc[:k] = [None if m is None else m.data_ptr() for _v, m in part]
+        a.dst[:k] = vptrs[lo:lo + k]
+        a.mdst[:k] = mptrs[lo:lo + k]
+        a.idx = idx.data_ptr()
+        a.n_valid = n_valid.data_ptr()
+        a.m = n_out
+        rc = lib.tt_gather_columns(ctypes.addressof(a), stream)
+        ck.count("gather_columns")
+        ck.check(rc, "gather_columns")
+
+
+def gather_slab(v: torch.Tensor, m: torch.Tensor, idx: torch.Tensor,
+                n_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One cached slab column (values `v`, 1-D, or a wide decimal's
+    (limbs, rows) limb planes that share the mask `m`) gathered through
+    `idx` as `gather_columns` does, into outputs that each own their
+    storage: the values one (limbs, m)-shaped allocation the kernel
+    writes row by row, the mask its own (the other limbs' masks go to a
+    scratch buffer). A view of a shared buffer would hold every other
+    output's bytes for as long as the slab is cached, bytes the device
+    cache does not count."""
+    planes = [v] if v.dim() == 1 else list(v.unbind(0))
+    cols = [(p, m if k == 0 else None) for k, p in enumerate(planes)]
+    dev = idx.device
+    if dev.type == "cpu":
+        out = gather_columns_plain(cols, idx, n_valid)
+        vals = out[0][0] if v.dim() == 1 else \
+            torch.stack([o[0] for o in out])
+        return vals, out[0][1]
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    blocks, widths, _dtypes = _checked_plan(_signature(cols, idx, n_valid))
+    n_out = idx.shape[0]
+    row = n_out * v.dtype.itemsize
+    if row % ALIGN:
+        raise ck.KernelError(f"gather_slab: {n_out} slots of "
+                             f"{v.dtype} are not a 16-byte multiple")
+    vals = torch.empty(v.shape[:-1] + (n_out,), dtype=v.dtype, device=dev)
+    mask = torch.empty(n_out, dtype=torch.bool, device=dev)
+    spare = torch.empty((len(planes) - 1) * _aligned(n_out),
+                        dtype=torch.bool, device=dev)
+    sp = spare.data_ptr()
+    _launch(blocks, cols, idx, n_valid,
+            [vals.data_ptr() + k * row for k in range(len(planes))],
+            [mask.data_ptr()] + [sp + k * _aligned(n_out)
+                                 for k in range(len(planes) - 1)])
+    return vals, mask

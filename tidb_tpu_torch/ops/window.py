@@ -10,8 +10,9 @@ function takes its torch branch (below), whose row-scale work runs in
 four hand-written CUDA kernels for CUDA tensors (csrc/window_scan.cu,
 csrc/window_frame.cu) and in their plain torch versions for CPU tensors:
 
-  K12 `window_flags` / `window_positions`  boundary flags over the sorted
-      keys; per-row partition and peer positions, dense-rank counts;
+  K12 `window_bounds` (and its two halves `window_flags` /
+      `window_positions`)  boundary flags over the sorted keys; per-row
+      partition and peer positions, dense-rank counts;
   K13 `window_prefix` / `window_segscan`  whole-column prefix of the
       masked value and the valid count; segmented min/max scans;
   K14 `frame_bounds`  ROWS and RANGE frame [lo, hi] per row;
@@ -36,7 +37,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -663,25 +663,6 @@ def scan_scratch_bytes(n: int, tile: int, scans: int = 1) -> int:
     return scans * (zeroed + 2 * _SCAN_STATE_BYTES * nb)
 
 
-class _StreamScratch:
-    """The scan scratch of one stream, grown to fit, and the lock a call
-    holds from its status memset to its launch: two threads on one stream
-    would otherwise enqueue memset, memset, launch, launch, and the
-    second scan would start from a tile counter the first advanced."""
-    __slots__ = ("buf", "lock")
-
-    def __init__(self):
-        self.buf = None
-        self.lock = threading.Lock()
-
-
-#: (device index, stream) → that stream's _StreamScratch: every call zeroes
-#: the status it uses and calls on one stream run in order, so one buffer
-#: a stream serves them all once each call's enqueue holds the lock
-_SCRATCH: dict = {}
-_SCRATCH_LOCK = threading.Lock()
-
-
 @functools.lru_cache(maxsize=None)
 def _scan_tile() -> int:
     return _ck().library("window_scan").tt_window_tile()
@@ -690,18 +671,13 @@ def _scan_tile() -> int:
 @contextlib.contextmanager
 def _scan_scratch(n: int, device, stream: int, scans: int = 1):
     """Hold `stream`'s scan scratch (its raw handle on `device`), grown to
-    fit n rows and `scans` scans (replaced under the lock), for one C
-    call that zeroes it and launches: → its data pointer."""
-    need = scan_scratch_bytes(n, _scan_tile(), scans)
-    key = (device.index, stream)
-    ent = _SCRATCH.get(key)
-    if ent is None:
-        with _SCRATCH_LOCK:
-            ent = _SCRATCH.setdefault(key, _StreamScratch())
-    with ent.lock:
-        if ent.buf is None or ent.buf.numel() < need:
-            ent.buf = torch.empty(need, dtype=torch.uint8, device=device)
-        yield ent.buf.data_ptr()
+    fit n rows and `scans` scans, for one C call that zeroes its status
+    and launches: → its data pointer. Every call zeroes the status it
+    uses and calls on one stream run in order, so one buffer a stream
+    serves them all once each call's enqueue holds the lock."""
+    ent = _ck().stream_scratch("window_scan", device, stream)
+    with ent.lock:      # from the call's status memset to its launch
+        yield ent.ensure(scan_scratch_bytes(n, _scan_tile(), scans), device)
 
 
 def _wide(v: torch.Tensor) -> torch.Tensor:
@@ -752,23 +728,33 @@ def window_flags_plain(perm, live, keys, n_part: int):
     return pstart, flags(keys[n_part:], pstart)
 
 
+def _flag_cols(what, perm, live, keys, n):
+    """The checks of K12's flag entries → the key columns as the kernel
+    reads them: bool, int32, int64 or float64 (`_wide`), contiguous."""
+    ck = _ck()
+    if perm.dtype not in (torch.int32, _I64):
+        raise ck.KernelError(f"{what}: int32/int64 permutation expected")
+    _check(what, n, perm)
+    _check(what, n, live, dtype=torch.bool)
+    cols = []
+    for v, m in keys:
+        v = (v if v.dtype == torch.bool else _wide(v)).contiguous()
+        _check(what, n, v)
+        _check(what, n, m, dtype=torch.bool)
+        cols.append((v, m))
+    return cols
+
+
 def window_flags(perm, live, keys, n_part: int):
     """K12 flags wrapper → (pstart, peerstart) bool, as
-    `window_flags_plain` (perm int32 or int64)."""
+    `window_flags_plain` (perm int32 or int64): `window_bounds`' flags
+    launch, once a chunk of _FLAG_KEYS keys, each chunk after the first
+    keeping the flags the earlier ones wrote."""
     if _on_cpu(perm):
         return window_flags_plain(perm, live, keys, n_part)
     ck = _ck()
     n = perm.shape[0]
-    if perm.dtype not in (torch.int32, _I64):
-        raise ck.KernelError("window_flags: int32/int64 permutation expected")
-    _check("window_flags", n, perm)
-    _check("window_flags", n, live, dtype=torch.bool)
-    cols = []
-    for v, m in keys:
-        v = v if v.dtype == torch.bool else _wide(v)
-        _check("window_flags", n, v.contiguous())
-        _check("window_flags", n, m, dtype=torch.bool)
-        cols.append((v.contiguous(), m))
+    cols = _flag_cols("window_flags", perm, live, keys, n)
     pstart = torch.empty(n, dtype=torch.bool, device=perm.device)
     peerstart = torch.empty_like(pstart)
     lib = ck.library("window_scan")
@@ -777,8 +763,9 @@ def window_flags(perm, live, keys, n_part: int):
         chunk = cols[c0:c0 + _FLAG_KEYS]
         nk = len(chunk)
         np_c = min(max(n_part - c0, 0), nk)
-        rc = lib.tt_window_flags(
-            perm.data_ptr(), int(perm.dtype == _I64), _ptr(live),
+        rc = lib.tt_window_bounds_flags(
+            perm.data_ptr(), int(perm.dtype == _I64),
+            _ptr(live) if c0 == 0 else None, None,
             P(*[v.data_ptr() for v, _m in chunk]),
             P(*[_ptr(m) for _v, m in chunk]),
             (ctypes.c_int * _FLAG_KEYS)(*[_KDT[v.dtype] for v, _m in chunk]),
@@ -836,6 +823,63 @@ def window_positions(pstart, peerstart) -> Positions:
         ck.count("window_bounds")
     ck.check(rc, "window_positions")
     return Positions(ppos, plast, peer_lo, peer_hi, dense)
+
+
+def window_bounds_plain(perm, live, keys, n_part: int):
+    """Plain torch version of `window_bounds`: `window_flags_plain`,
+    then `window_positions_plain` over its flags."""
+    pstart, peerstart = window_flags_plain(perm, live, keys, n_part)
+    return pstart, peerstart, window_positions_plain(pstart, peerstart)
+
+
+def window_bounds(perm, live, keys, n_part: int, n_live=None):
+    """K12 wrapper, the entry both window layouts call → (pstart,
+    peerstart, Positions), as `window_bounds_plain`: the flags launch
+    (`bounds_flags`: a warp a run of sorted rows, each row's keys read
+    once, the predecessor's by shuffle), then the positions scans, whose
+    outputs and scratch are made while the flags run; each C call counts
+    one launch. More than _FLAG_KEYS keys take the chunked flags entry. `n_live` (a 0-d int32
+    on the card, as sort_perm returns it) says that `perm` lists every
+    live row first: the kernel then reads `live` as `i < n_live` and
+    gathers nothing for it (the plain version reads `live` as always)."""
+    if _on_cpu(perm):
+        return window_bounds_plain(perm, live, keys, n_part)
+    if len(keys) > _FLAG_KEYS:
+        pstart, peerstart = window_flags(perm, live, keys, n_part)
+        return pstart, peerstart, window_positions(pstart, peerstart)
+    ck = _ck()
+    n = perm.shape[0]
+    cols = _flag_cols("window_bounds", perm, live, keys, n)
+    dev = perm.device
+    if n_live is not None and (n_live.device != dev or n_live.numel() != 1
+                               or n_live.dtype != torch.int32):
+        raise ck.KernelError("window_bounds: n_live must be one int32 on "
+                             "the permutation's device")
+    a = -(-n // 16) * 16          # the flags' 8-byte stores need alignment
+    flags = torch.empty(2 * a, dtype=torch.bool, device=dev)
+    pstart, peerstart = flags[:n], flags[a:a + n]
+    P = ctypes.c_void_p * _FLAG_KEYS
+    lib = ck.library("window_scan")
+    stream = ck.stream_ptr(dev)
+    rc = lib.tt_window_bounds_flags(
+        perm.data_ptr(), int(perm.dtype == _I64), _ptr(live), _ptr(n_live),
+        P(*[v.data_ptr() for v, _m in cols]), P(*[_ptr(m) for _v, m in cols]),
+        (ctypes.c_int * _FLAG_KEYS)(*[_KDT[v.dtype] for v, _m in cols]),
+        len(cols), min(n_part, len(cols)), n, 0, pstart.data_ptr(),
+        peerstart.data_ptr(), stream)
+    if n > 0:
+        ck.count("window_bounds")
+    ck.check(rc, "window_bounds")
+    pos = Positions(*torch.empty((5, n), dtype=_I64, device=dev).unbind(0))
+    with _scan_scratch(n, dev, stream, 2) as scratch:
+        rc = lib.tt_window_positions(
+            pstart.data_ptr(), peerstart.data_ptr(), n, pos.ppos.data_ptr(),
+            pos.plast.data_ptr(), pos.peer_lo.data_ptr(),
+            pos.peer_hi.data_ptr(), pos.dense.data_ptr(), scratch, stream)
+    if n > 0:
+        ck.count("window_bounds")
+    ck.check(rc, "window_bounds")
+    return pstart, peerstart, pos
 
 
 # -- K13 window_scan ---------------------------------------------------------

@@ -1,10 +1,11 @@
 """Time the window scans, the rank gather, the LUT probe, the member
-compaction, the column gather and the sorted search of one checkout on
-the card, for comparing two checkouts in one machine's run.
+compaction, the column gather, the sorted search, the segment reduction
+and the window bounds of one checkout on the card, for comparing two
+checkouts in one machine's run.
 
     python tidb_tpu_torch/tools/scan_timing.py --tree DIR [--out FILE]
-        [--kernels scan,gather,probe,compact,columns,search] [--profile]
-        [--ptxas] [--host-steps]
+        [--kernels scan,gather,probe,compact,columns,search,segment,bounds]
+        [--profile] [--ptxas] [--host-steps]
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
 its own kernels into DIR/build/) and prints one JSON line of median
@@ -32,7 +33,13 @@ join, phase 22's masks):
   * search: K11 in unique mode at phase 10's shape (2,097,152 distinct
     sorted codes in [0, 2^40), 8,388,608 probes, 80% of them build codes)
     and on the skewed table (2,097,151 codes in [0, 2^21) and one at
-    2^62) with the same probes, each beside torch.searchsorted.
+    2^62) with the same probes, each beside torch.searchsorted;
+  * segment: K1 at phase 5's shape (int64 SUM, 8,388,608 rows, cap 12)
+    beside index_add_, and at cap 1, as an f64 SUM (with whether two
+    calls give the same bits), a bool COUNT, caps 1,024 and 65,536;
+  * bounds: K12 over phase 12's W1 and W2 layouts (`window_bounds`, or
+    flags then positions in a checkout without it), and its flags
+    entry alone.
 
 Each kernel is held to its plain version first (exactly; the f64
 prefix is not timed). Run two checkouts in turns (A, B, B, A), one
@@ -44,8 +51,8 @@ chosen kernels' sources (registers, shared memory, spills);
 `--host-steps` adds each chosen wrapper's host time split step by step
 (under "<kernel>_host_steps"): K25's (checks and contiguity, pointers,
 tables, allocation, the ctypes call and launch), K13 prefix's, K5's,
-K18's and K11's with the card not waited for, and K22's, whose read-back
-of the total waits for its count pass.
+K18's, K11's, K1's and K12's with the card not waited for, and K22's,
+whose read-back of the total waits for its count pass.
 """
 
 from __future__ import annotations
@@ -819,6 +826,260 @@ def run_search(reps: int, prof: bool, steps: bool, dev) -> dict:
 
 
 
+def _k1_inputs(dev):
+    """chip_smoke phase 5's K1 call (an int64 SUM of a Q1 slab into Q1's
+    cap of 12, gids in [0, 12]: one value in 13 drops) and its f64 and
+    bool variants on the same gids."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(11)
+    data = torch.randint(0, 10 ** 7, (CAP,), generator=g,
+                         dtype=torch.int64).to(dev)
+    gids = torch.randint(0, 13, (CAP,), generator=g,
+                         dtype=torch.int32).to(dev)
+    f64 = torch.randn(CAP, generator=g, dtype=torch.float64).to(dev)
+    mask = (torch.rand(CAP, generator=g) < 0.5).to(dev)
+    return data, gids, f64, mask
+
+
+def _k1_call(seg, op, data, gids, cap, out_dtype=None):
+    """One K1 call through the checkout's wrapper (a checkout without
+    bool input takes its own conversion first, as its callers did)."""
+    import torch
+    if data.dtype == torch.bool and not hasattr(seg, "segment_plan"):
+        return seg.segment_reduce(op, data.to(out_dtype), gids, cap)
+    if out_dtype is None:
+        return seg.segment_reduce(op, data, gids, cap)
+    return seg.segment_reduce(op, data, gids, cap, out_dtype)
+
+
+def _segment_host_steps(data, gids, reps: int = 50) -> dict:
+    """K1's host time a call (mean µs, the card not waited for): the
+    wrapper call, and for a checkout with the cached plan its steps
+    (checks, the plan lookup, the output, the scratch and its lock, the
+    ctypes call and launch, the count)."""
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import segment as seg
+    out = {}
+    cap, n = 12, data.shape[0]
+    if hasattr(seg, "_SegPlan"):
+        lib = ck.library("segment_reduce")
+        steps = {}
+        tick = _ticker(steps)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            t = time.perf_counter()
+            ck.require_cuda(data, gids, what="segment_reduce")
+            dt = seg._out_dtype(data, None)
+            codes = (seg._K1_IN[data.dtype], seg._K1_OUT[dt],
+                     seg._K1_OPS["sum"])
+            t = tick("checks", t)
+            _p, _g, nbytes, block = seg.segment_plan(*codes, n, cap,
+                                                     data.device.index)
+            t = tick("cached plan", t)
+            res = torch.empty(cap, dtype=dt, device=data.device)
+            t = tick("output", t)
+            stream = ck.stream_ptr(data.device)
+            ent = ck.stream_scratch("segment_reduce", data.device, stream)
+            with ent.lock:
+                scratch = ent.ensure(nbytes, data.device, zeroed=True)
+                t = tick("stream, scratch and lock", t)
+                rc = lib.tt_segment_reduce(ctypes.byref(block),
+                                           data.data_ptr(),
+                                           gids.data_ptr(), res.data_ptr(),
+                                           scratch, stream)
+                t = tick("ctypes call and launch", t)
+            ck.count("segment_reduce")
+            ck.check(rc, "segment_reduce")
+            tick("lock release, count and check", t)
+        torch.cuda.synchronize()
+        out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        seg.segment_reduce("sum", data, gids, cap)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_segment(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K1 at chip_smoke's shape (int64 SUM, n = 8,388,608, cap 12) beside
+    index_add_, a cap of 1, an f64 SUM (and whether two calls give the
+    same bits), a bool COUNT, the mid cap (1,024) with uniform gids and
+    as the main path calls it (every row in one slot; ROLLUP's 31 slots)
+    and the large cap (65,536); each held to its plain version first."""
+    import torch
+    from tidb_tpu_torch.ops import segment as seg
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    data, gids, f64, mask = _k1_inputs(dev)
+    wide = torch.randint(0, 1 << 16, (CAP,), device=dev,
+                         dtype=torch.int32)
+    # the main path's mid-cap calls: a scalar aggregate's (Q6, E6, D4, S6:
+    # every live row in slot 0 of the 1,024-slot hash capacity, the dead
+    # rows dropped) and ROLLUP's (R2: 31 of 1,024 slots, one of them a
+    # third of the rows)
+    one_slot = torch.where(gids < 12, 0, -1).to(torch.int32)
+    r = torch.randint(0, 45, (CAP,), device=dev, dtype=torch.int32)
+    rollup = torch.where(r < 15, 0, r - 14).clamp(max=30).to(torch.int32)
+    cases = {"k1": ("sum", data, gids, 12, None),
+             "k1_cap1": ("sum", data, gids.clamp(max=1), 1, None),
+             "k1_f64": ("sum", f64, gids, 12, None),
+             "k1_bool_count": ("sum", mask, gids, 12, torch.int64),
+             "k1_cap1024": ("sum", data, wide % 1025, 1024, None),
+             "k1_cap1024_one_slot": ("sum", data, one_slot, 1024, None),
+             "k1_cap1024_one_slot_bool": ("sum", mask, one_slot, 1024,
+                                          torch.int64),
+             "k1_cap1024_rollup": ("sum", data, rollup, 1024, None),
+             "k1_cap65536": ("sum", data, wide, 65536, None)}
+    out = {}
+    for name, (op, d, g, cap, odt) in cases.items():
+        got = _k1_call(seg, op, d, g, cap, odt)
+        want = seg.segment_reduce_plain(op, d.to(odt) if odt else d, g, cap)
+        if d.dtype == torch.float64:
+            err = float((got - want).abs().max())
+            out[f"{name}_max_abs_err"] = err
+        elif not torch.equal(got, want):
+            raise AssertionError(f"K1 {name}: kernel != plain version")
+        out[f"{name}_ms"] = _median_ms(
+            lambda: _k1_call(seg, op, d, g, cap, odt), reps)
+    a = _k1_call(seg, "sum", f64, gids, 12)
+    b = _k1_call(seg, "sum", f64, gids, 12)
+    out["k1_f64_bit_equal"] = bool(torch.equal(a.view(torch.int64),
+                                               b.view(torch.int64)))
+    idx = gids.to(torch.int64)
+    acc = torch.zeros(13, dtype=torch.int64, device=dev)
+    out["k1_index_add_ms"] = _median_ms(
+        lambda: acc.zero_().index_add_(0, idx, data), reps)
+    out["k1_plain_ms"] = _median_ms(
+        lambda: seg.segment_reduce_plain("sum", data, gids, 12), 5)
+    if hasattr(seg, "segment_plan"):
+        out["k1_plan"] = list(seg.segment_plan(0, 0, 0, CAP, 12,
+                                               dev.index or 0)[:3])
+    if prof:
+        out["kernels_k1"] = _profile(
+            [lambda: seg.segment_reduce("sum", data, gids, 12)])
+        out["kernels_k1_bool_count"] = _profile(
+            [lambda: _k1_call(seg, "sum", mask, gids, 12, torch.int64)])
+        out["kernels_index_add"] = _profile(
+            [lambda: acc.zero_().index_add_(0, idx, data)])
+    if steps:
+        out["k1_host_steps"] = _segment_host_steps(data, gids)
+    return out
+
+
+def _bounds_call(W, perm, live, keys, n_part, n_live=None):
+    """K12 of one checkout as the window emit calls it: `window_bounds`
+    (with sort_perm's n_live), or flags then positions."""
+    if hasattr(W, "window_bounds"):
+        return W.window_bounds(perm, live, keys, n_part, n_live)
+    ps, qs = W.window_flags(perm, live, keys, n_part)
+    return ps, qs, W.window_positions(ps, qs)
+
+
+def _bounds_host_steps(perm, live, keys, n_part, n_live,
+                       reps: int = 50) -> dict:
+    """K12's host time a call (mean µs, the card not waited for): the
+    wrapper call, and for a checkout with window_bounds' flags launch its
+    steps (the checks and key columns, the flags' output, the ctypes
+    arrays and the flags launch, the positions' outputs, the scratch and
+    the ctypes call with its memset and two launches)."""
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import window as W
+    out = {}
+    lib = ck.library("window_scan")
+    if hasattr(lib, "tt_window_bounds_flags"):
+        steps = {}
+        tick = _ticker(steps)
+        n = perm.shape[0]
+        dev = perm.device
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            t = time.perf_counter()
+            cols = W._flag_cols("window_bounds", perm, live, keys, n)
+            t = tick("checks and key columns", t)
+            a = -(-n // 16) * 16
+            flags = torch.empty(2 * a, dtype=torch.bool, device=dev)
+            ps, qs = flags[:n], flags[a:a + n]
+            t = tick("flags' output", t)
+            P = ctypes.c_void_p * W._FLAG_KEYS
+            stream = ck.stream_ptr(dev)
+            rc = lib.tt_window_bounds_flags(
+                perm.data_ptr(), int(perm.dtype == torch.int64),
+                W._ptr(live), W._ptr(n_live),
+                P(*[v.data_ptr() for v, _m in cols]),
+                P(*[W._ptr(m) for _v, m in cols]),
+                (ctypes.c_int * W._FLAG_KEYS)(*[W._KDT[v.dtype]
+                                                for v, _m in cols]),
+                len(cols), min(n_part, len(cols)), n, 0, ps.data_ptr(),
+                qs.data_ptr(), stream)
+            ck.check(rc, "window_bounds")
+            t = tick("ctypes arrays and the flags launch", t)
+            pos = W.Positions(*torch.empty((5, n), dtype=torch.int64,
+                                           device=dev).unbind(0))
+            t = tick("positions' outputs", t)
+            with W._scan_scratch(n, dev, stream, 2) as scratch:
+                t = tick("scratch and lock", t)
+                rc = lib.tt_window_positions(
+                    ps.data_ptr(), qs.data_ptr(), n, pos.ppos.data_ptr(),
+                    pos.plast.data_ptr(), pos.peer_lo.data_ptr(),
+                    pos.peer_hi.data_ptr(), pos.dense.data_ptr(), scratch,
+                    stream)
+                t = tick("ctypes call, memset and two launches", t)
+            ck.check(rc, "window_bounds")
+            tick("lock release and check", t)
+            del pos, flags
+        torch.cuda.synchronize()
+        out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _bounds_call(W, perm, live, keys, n_part, n_live)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_bounds(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K12 over phase 12's W1 layout (l_shipdate >= 1998-08-01 live; one
+    partition key, two order keys, all-true masks) and W2's (two
+    dictionary-code partition keys, two order keys), as the window emit
+    calls it (with sort_perm's n_live), each held to its plain version
+    first."""
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import window as W
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    li = _lineitem_columns(dev)
+    rows = torch.arange(CAP, device=dev) < N_ROWS
+    ones = torch.ones(CAP, dtype=torch.bool, device=dev)
+    live1 = rows & (li["ship"] >= 10439)
+    k1 = [(li["okey"], ones), (li["ship"], ones), (li["price"], ones)]
+    perm1, nl1 = F.sort_perm(k1, [False] * 3, live1)
+    k2 = [(li["rflag"], ones), (li["lstatus"], ones), (li["price"], ones),
+          (li["okey"], ones)]
+    perm2, nl2 = F.sort_perm(k2, [False, False, True, False], rows)
+    out = {}
+    for tag, perm, live, keys, n_part, nl in (
+            ("w1", perm1, live1, k1, 1, nl1), ("w2", perm2, rows, k2, 2, nl2)):
+        got = _bounds_call(W, perm, live, keys, n_part, nl)
+        want = W.window_positions_plain(
+            *W.window_flags_plain(perm, live, keys, n_part))
+        _same(f"K12 {tag} flags", got[:2],
+              W.window_flags_plain(perm, live, keys, n_part))
+        _same(f"K12 {tag} positions", tuple(got[2]), tuple(want))
+        out[f"k12_{tag}_ms"] = _median_ms(
+            lambda: _bounds_call(W, perm, live, keys, n_part, nl), reps)
+        out[f"k12_{tag}_flags_ms"] = _median_ms(
+            lambda: W.window_flags(perm, live, keys, n_part), reps)
+        if prof:
+            out[f"kernels_k12_{tag}"] = _profile(
+                [lambda: _bounds_call(W, perm, live, keys, n_part, nl)])
+        if steps:
+            out[f"k12_{tag}_host_steps"] = _bounds_host_steps(
+                perm, live, keys, n_part, nl)
+    return out
+
+
 def _ptxas(tree: str, sources) -> dict:
     """{kernel: {registers, smem, stack, spill_stores}} of the kernels of
     `sources` (csrc file names), from `nvcc -Xptxas -v` with the build's
@@ -861,7 +1122,7 @@ def main() -> int:
     ap.add_argument("--kernels", default="scan,gather",
                     help="comma-separated: scan (K12, K13), gather (K25), "
                          "probe (K5), compact (K22), columns (K18), "
-                         "search (K11)")
+                         "search (K11), segment (K1), bounds (K12)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="append the JSON line to this file too")
     ap.add_argument("--profile", action="store_true",
@@ -882,7 +1143,8 @@ def main() -> int:
     kernels = set(args.kernels.split(","))
     sources = {"scan": "window_scan", "gather": "rank_gather",
                "probe": "lut_join", "compact": "member_compact",
-               "columns": "gather_columns", "search": "sorted_groups"}
+               "columns": "gather_columns", "search": "sorted_groups",
+               "segment": "segment_reduce", "bounds": "window_scan"}
     if not kernels <= set(sources):
         print(f"scan_timing: unknown kernels {args.kernels}",
               file=sys.stderr)
@@ -907,6 +1169,12 @@ def main() -> int:
                                 dev))
     if "search" in kernels:
         line.update(run_search(args.reps, args.profile, args.host_steps,
+                               dev))
+    if "segment" in kernels:
+        line.update(run_segment(args.reps, args.profile, args.host_steps,
+                                dev))
+    if "bounds" in kernels:
+        line.update(run_bounds(args.reps, args.profile, args.host_steps,
                                dev))
     if args.ptxas:
         line["ptxas"] = _ptxas(tree, [sources[k] for k in sorted(kernels)])

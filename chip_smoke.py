@@ -28,7 +28,8 @@ which must pass:
   5. kernel timing at the main path's shapes (CUDA events, median of
      repeated launches after warm-up), beside the plain version, one
      PyTorch library call where one computes the same function, and the
-     card's bound for the same work;
+     card's bound for the same work (K2 as one call over Q1's seven
+     column slabs, its loop of one call a column logged beside it);
   6. wire protocol — Q1 through the port's MySQL Server on a free
      localhost port and its client, equal to phase 4's rows;
   7. join trees on the card — `orders` (n/4 rows) and `customer` (n/40)
@@ -509,6 +510,7 @@ def check_k2(dev):
     rng = np.random.default_rng(3)
     cases = 0
     for cap, n in ((1 << 20, 1 << 20), (1 << 20, (1 << 20) - 777)):
+        items = []
         for dt in (np.int64, np.int32):
             for kind, widths in (("pack", (0, 1, 2, 4, 8, 16, 32)),
                                  ("dict", (1, 2, 4, 8, 16)),
@@ -525,8 +527,9 @@ def check_k2(dev):
                     torch.cuda.synchronize()
                     if not torch.equal(gm, pm):
                         raise AssertionError(f"K2 mask {kind} w{w}")
-                    if not torch.equal(gv[pm], pv[pm]):
+                    if not torch.equal(gv, pv):     # every slot
                         raise AssertionError(f"K2 values {kind} w{w} {dt}")
+                    items.append((lay, slab))
                     # and byte-equal to the numpy decode on valid slots
                     nv, nm = C.decode_slab(lay, host + ((dv,) if kind ==
                                            "dict" else ()), cap, np)
@@ -534,8 +537,15 @@ def check_k2(dev):
                             np.array_equal(nv[nm], gv.cpu().numpy()[nm])):
                         raise AssertionError(f"K2 vs numpy {kind} w{w}")
                     cases += 1
-    log(f"K2 unpack_decode: {cases} layout/width/dtype cases byte-equal "
-        f"(values on valid slots, mask everywhere)")
+        # the same columns of this cap in one call: several launches
+        for (lay, slab), (gv, gm) in zip(items, C.decode_slabs_torch(items,
+                                                                     cap)):
+            pv, pm = C.decode_slab_plain(lay, slab, cap)
+            if not (torch.equal(gm, pm) and torch.equal(gv, pv)):
+                raise AssertionError(f"K2 one call {lay.sig()} at {n}")
+    log(f"K2 unpack_decode: {cases} layout/width/dtype cases equal to the "
+        f"plain version in every slot, one column a call and all of a "
+        f"cap's columns in one call ({C.K2_MAX_COLS} a launch)")
 
 
 def _layout_case(rng, kind, w, dt, cap, n):
@@ -762,9 +772,12 @@ def timing_phase(dev, q1_slab, k1_err):
     log(f"K1 n={n} cap={cap} int64 sum: {ms:.4f} ms (plain {plain:.4f}, "
         f"index_add_ {lib:.4f}, bound {b:.4f} by {by})")
 
-    # K2: decode every packed column slab the Q1 run cached, as Q1 does
+    # K2: decode every packed column slab the Q1 run cached in one call,
+    # as Q1 does; the loop of one call a column beside it
     slabs = [(lay, t) for lay, t, _d in cols.values() if lay is not None]
-    ms = time_cuda(lambda: [C.decode_slab_torch(l, t, n) for l, t in slabs])
+    ms = time_cuda(lambda: C.decode_slabs_torch(slabs, n))
+    per_column = time_cuda(lambda: [C.decode_slab_torch(l, t, n)
+                                    for l, t in slabs])
     plain = time_cuda(lambda: [C.decode_slab_plain(l, t, n)
                                for l, t in slabs], reps=5)
     nbytes = 0
@@ -772,10 +785,9 @@ def timing_phase(dev, q1_slab, k1_err):
         nbytes += sum(a.nbytes for a in t) + n * (
             lay.np_dtype.itemsize + 1)
     err = 0
-    for lay, t in slabs:
-        gv, gm = C.decode_slab_torch(lay, t, n)
+    for (lay, t), (gv, gm) in zip(slabs, C.decode_slabs_torch(slabs, n)):
         pv, pm = C.decode_slab_plain(lay, t, n)
-        if not torch.equal(gm, pm) or not torch.equal(gv[pm], pv[pm]):
+        if not torch.equal(gm, pm) or not torch.equal(gv, pv):
             raise AssertionError(f"K2 main-path slab {lay.sig()} differs")
     b, by = bound_ms(nbytes, n * len(slabs))
     out.append({"name": "unpack_decode", "route": "cuda",
@@ -784,8 +796,9 @@ def timing_phase(dev, q1_slab, k1_err):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": b, "bound_by": by, "library_ms": None})
     log(f"K2 {len(slabs)} Q1 column slabs of {n} ({rows} live) "
-        f"[{', '.join(l.sig() for l, _ in slabs)}]: {ms:.4f} ms "
-        f"(plain {plain:.4f}, bound {b:.4f} by {by})")
+        f"[{', '.join(l.sig() for l, _ in slabs)}] in one call: {ms:.4f} "
+        f"ms (one call a column {per_column:.4f}, plain {plain:.4f}, bound "
+        f"{b:.4f} by {by})")
 
     # K3: Q1's two group keys (returnflag / linestatus dictionary codes)
     rf = next(c for c in cols.values() if c[2] is not None and

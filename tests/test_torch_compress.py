@@ -84,3 +84,27 @@ def test_numpy_decode_is_the_jax_packages():
     jv, jm = JC.decode_slab(jlay, host, CAP, np)
     np.testing.assert_array_equal(tm, jm)
     np.testing.assert_array_equal(tv[tm], jv[jm])
+
+
+def test_decode_slabs_equals_per_column_and_jax():
+    """One decode_slabs_torch call over mixed layouts (every kind and
+    width, both dtypes: 36 columns, more than one K2 launch holds) on CPU
+    tensors equals decode_slab_torch a column and the JAX decode, in
+    every slot."""
+    items, jitems = [], []
+    for i, ((kind, width), dt) in enumerate(
+            (c, dt) for c in CASES for dt in (np.int64, np.int32)):
+        tlay, jlay, vals, mask, dv = _case(kind, width, dt, CAP - 3, i)
+        host = TC.pack_slab(tlay, vals, mask, dv) + \
+            ((dv,) if kind == "dict" else ())
+        items.append((tlay, tuple(_upload(a, torch.device("cpu"))
+                                  for a in host)))
+        jitems.append((jlay, tuple(jnp.asarray(a) for a in host)))
+    assert len(items) > TC.K2_MAX_COLS
+    got = TC.decode_slabs_torch(items, CAP)
+    for (tlay, slab), (jlay, jslab), (gv, gm) in zip(items, jitems, got):
+        ov, om = TC.decode_slab_torch(tlay, slab, CAP)
+        jv, jm = JC.decode_slab(jlay, jslab, CAP, jnp)
+        assert torch.equal(gv, ov) and torch.equal(gm, om)
+        np.testing.assert_array_equal(gm.numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(jv))

@@ -36,6 +36,7 @@ Integer, bool and decode results must be exactly equal; f64 sums within
 (n-1)·eps·sum|x| per slot (the kernel adds in another order)."""
 
 import contextlib
+import ctypes
 import sys
 
 import numpy as np
@@ -212,7 +213,7 @@ def test_k2_matches_plain(cuda, kind, width, dt):
     gv, gm = C.decode_slab_torch(lay, slab, cap)
     pv, pm = C.decode_slab_plain(lay, slab, cap)
     assert torch.equal(gm, pm)
-    assert torch.equal(gv[pm], pv[pm])
+    assert torch.equal(gv, pv)          # every slot, dead ones too
 
 
 def test_k3_matches_plain(cuda):
@@ -1313,3 +1314,200 @@ def test_scan_scratch_locked_across_threads(cuda):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert sorted(done) == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# K2 many columns a call, K7 one launch a call
+# ---------------------------------------------------------------------------
+
+K2_ALL = ([("pack", w) for w in (0, 1, 2, 4, 8, 16, 32)] +
+          [("dict", w) for w in (1, 2, 4, 8, 16)] +
+          [("delta", w) for w in (1, 2, 4, 8, 16, 32)])
+
+
+def _k2_column(rng, kind, width, dt, cap, n, dev):
+    """One packed slab of `cap` rows (n live; NULLs outside delta) →
+    (layout, device slab)."""
+    from tidb_tpu_torch.chunk import compress as C
+    from tidb_tpu_torch.executor.device_cache import _upload
+    dt = np.dtype(dt)
+    mask = np.zeros(cap, dtype=bool)
+    mask[:n] = True
+    dv = None
+    if kind != "delta":
+        mask[:n] &= rng.random(n) > 0.1
+    if kind == "pack":
+        ref = -(1 << 20) if dt == np.int64 else -7
+        hi = min((1 << width) - 1 if width else 0, np.iinfo(dt).max + ref)
+        vals = (rng.integers(0, hi + 1, cap) + ref).astype(dt)
+        lay = C.ColLayout("pack", width, ref, dt.name)
+    elif kind == "dict":
+        card = min(1 << width, 3000)
+        dv = np.unique(rng.integers(-10 ** 9, 10 ** 9, 2 * card)
+                       .astype(dt))[:card]
+        vals = dv[rng.integers(0, len(dv), cap)]
+        lay = C.ColLayout("dict", width, 0, dt.name, len(dv))
+    else:
+        # int64 sums pass 2^31 over a long slab at the wide widths
+        gap = min((1 << width) - 1, 1 << 12)
+        vals = (np.cumsum(rng.integers(0, gap + 1, cap)) - 99).astype(dt)
+        lay = C.ColLayout("delta", width, 0, dt.name)
+    host = C.pack_slab(lay, vals, mask, dv) + ((dv,) if dv is not None
+                                              else ())
+    return lay, tuple(_upload(a, dev) for a in host)
+
+
+@pytest.mark.parametrize("cap", [1, 31, 33, 4096, 4099 * 3])
+def test_k2_every_layout_in_one_call(cuda, cap):
+    """Every kind x width x dtype, 36 columns in one call (three launches
+    of at most 16), equal to the plain version in every slot."""
+    from tidb_tpu_torch.chunk import compress as C
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.default_rng(cap)
+    items = [_k2_column(rng, kind, w, dt, cap, max(cap - 5, 1), cuda)
+             for kind, w in K2_ALL for dt in (np.int64, np.int32)]
+    before = ck.launches()["unpack_decode"]
+    got = C.decode_slabs_torch(items, cap)
+    assert ck.launches()["unpack_decode"] - before == \
+        -(-len(items) // C.K2_MAX_COLS)
+    for (lay, slab), (gv, gm) in zip(items, got):
+        pv, pm = C.decode_slab_plain(lay, slab, cap)
+        assert gv.dtype == pv.dtype, lay
+        assert torch.equal(gm, pm), lay
+        assert torch.equal(gv, pv), lay
+
+
+def test_k2_long_slab_every_slot(cuda):
+    """cap 2^23 - 777: delta columns over 2,048 tiles (int64 sums past
+    2^31 and their int32 wrap), beside pack, dict and width-0 columns in
+    the same call, every slot equal."""
+    from tidb_tpu_torch.chunk import compress as C
+    cap = (1 << 23) - 777
+    rng = np.random.default_rng(23)
+    items = [_k2_column(rng, kind, w, dt, cap, cap - 1000, cuda)
+             for kind, w, dt in (("delta", 32, np.int64),
+                                 ("delta", 16, np.int64),
+                                 ("delta", 1, np.int32),
+                                 ("pack", 32, np.int64),
+                                 ("pack", 0, np.int32),
+                                 ("dict", 16, np.int32))]
+    got = C.decode_slabs_torch(items, cap)
+    assert int(got[0][0][cap - 1]) > 2 ** 31
+    for (lay, slab), (gv, gm) in zip(items, got):
+        pv, pm = C.decode_slab_plain(lay, slab, cap)
+        assert torch.equal(gm, pm), lay
+        assert torch.equal(gv, pv), lay
+
+
+def test_k2_decoded_slabs_own_their_storage(cuda):
+    """Every output of decode_slabs_torch owns its storage (its storage's
+    bytes within 16-byte alignment of its own), so a cached decode
+    (device_cache._decoded_slabs) pins no other column's bytes."""
+    from tidb_tpu_torch.chunk import compress as C
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.default_rng(5)
+    cap = 5000
+    items = [_k2_column(rng, kind, w, np.int64, cap, cap - 3, cuda)
+             for kind, w in (("pack", 4), ("dict", 8), ("delta", 2))]
+    for vals, mask in C.decode_slabs_torch(items, cap):
+        for t in (vals, mask):
+            assert t.untyped_storage().nbytes() <= -(-t.nbytes // 16) * 16
+    lib = ck.library("unpack_decode")
+    assert lib.tt_unpack_max_cols() == C.K2_MAX_COLS
+    assert lib.tt_unpack_args_bytes() == ctypes.sizeof(C._DecodeArgs)
+
+
+def _k7_case(rng, P, nb, hot=0):
+    """Probe windows over an order of nb rows: counts 0-3 (a tenth dead),
+    and `hot` matches on row P // 3."""
+    count = rng.integers(0, 4, P).astype(np.int32)
+    live = rng.random(P) > 0.1
+    if hot:
+        count[P // 3] = hot
+        live[P // 3] = True
+    start = rng.integers(0, max(nb - 3, 1), P).astype(np.int32)
+    if hot:
+        start[P // 3] = 0
+    order = rng.permutation(nb).astype(np.int32)
+    return start, count, order, live
+
+
+def _k7_check(dev, args, out_cap, outer):
+    from tidb_tpu_torch.ops import join as J
+    start, count, order, live = (torch.from_numpy(a).to(dev) for a in args)
+    got = J.expand(start, count, order, out_cap, outer, live)
+    want = J.expand_plain(start, count, order, out_cap, outer, live)
+    return got, want
+
+
+def _k7_same(got, want, P, nb):
+    gp, gb, gm, gl, gk, gt = got
+    wp, wb, wm, wl, wk, wt = want
+    assert int(gt) == int(wt)
+    assert torch.equal(gl, wl)
+    for a, b in ((gp, wp), (gb, wb), (gm, wm), (gk, wk)):
+        assert torch.equal(a[wl], b[wl])
+    dead = ~wl
+    assert not bool(gm[dead].any())
+    assert bool(((gp >= 0) & (gp < max(P, 1))).all())
+    assert bool(((gb >= 0) & (gb < nb)).all())
+
+
+@pytest.mark.parametrize("outer", [False, True])
+@pytest.mark.parametrize("P", [1, 2047, 2049, 5000, 300_001])
+@pytest.mark.parametrize("where", ["below", "at", "above"])
+def test_k7_one_launch_matches_plain(cuda, outer, P, where):
+    """out_cap below, at and above the total (the total stays true),
+    probe counts not a multiple of the 2,048-row tile; one count a
+    call."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.default_rng(P)
+    nb = 1000
+    args = _k7_case(rng, P, nb)
+    start, count, order, live = args
+    oc = np.where(live, np.maximum(count, 1) if outer else count, 0)
+    total = int(oc.sum())
+    out_cap = {"below": max(total // 3, 1), "at": total,
+               "above": total + 4099}[where]
+    before = ck.launches()["join_expand"]
+    got, want = _k7_check(cuda, args, out_cap, outer)
+    assert ck.launches()["join_expand"] - before == 1
+    _k7_same(got, want, P, nb)
+
+
+def test_k7_skewed_probe(cuda):
+    """P = 2^22 with one probe row of 2^20 matches: spread over slot
+    tiles, equal to the plain version."""
+    rng = np.random.default_rng(22)
+    P, hot = 1 << 22, 1 << 20
+    args = _k7_case(rng, P, hot + 8, hot=hot)
+    oc = np.where(args[3], args[1], 0)
+    out_cap = 1 << int(oc.sum() - 1).bit_length()
+    got, want = _k7_check(cuda, args, out_cap, False)
+    _k7_same(got, want, P, hot + 8)
+
+
+def test_k7_back_to_back_on_one_stream(cuda):
+    """Two calls in a row on one stream, the second over fewer probe
+    tiles than the first: the scratch's counter and flags are reset by
+    each call's memset."""
+    rng = np.random.default_rng(77)
+    a1 = _k7_case(rng, 100_000, 500)
+    a2 = _k7_case(rng, 3_000, 70)
+    g1, w1 = _k7_check(cuda, a1, 1 << 18, True)
+    g2, w2 = _k7_check(cuda, a2, 1 << 12, False)
+    g3, w3 = _k7_check(cuda, a1, 1 << 18, True)
+    torch.cuda.synchronize()
+    _k7_same(g1, w1, 100_000, 500)
+    _k7_same(g2, w2, 3_000, 70)
+    _k7_same(g3, w3, 100_000, 500)
+
+
+def test_k7_scratch_layout_matches(cuda):
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import join as J
+    lib = ck.library("join_expand")
+    for P in (0, 1, 2048, 2049, 1 << 22):
+        for out_cap in (0, 1, 2047, 2048, 2049, 1 << 21):
+            assert lib.tt_join_expand_scratch_bytes(P, out_cap) == \
+                J.expand_scratch_bytes(P, out_cap)

@@ -31,7 +31,7 @@ raw representation never crosses PCIe.
 
 Decode runs on numpy (the host engine) or on torch tensors (the K2
 kernel on a CUDA device, its plain torch version on the CPU; called from
-executor/device_emit.emit_decode) and is byte-exact: packing
+executor/device_emit.emit_decode_many) and is byte-exact: packing
 the PADDED slab preserves the False padding of the mask, and invalid
 slots pack as code 0 — their decoded values are don't-care because
 every consumer masks by validity.
@@ -39,8 +39,10 @@ every consumer masks by validity.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -295,57 +297,165 @@ def decode_slab_plain(layout: ColLayout, slab, cap: int):
     return (codes + layout.ref).to(dt), mask
 
 
-def decode_slab_torch(layout: ColLayout, slab, cap: int):
-    """K2 wrapper: CPU slabs take the plain version; CUDA slabs launch the
-    kernel (or raise on anything it does not take)."""
+#: columns a K2 launch takes (csrc/unpack_decode.cu MAX_COLS)
+K2_MAX_COLS = 16
+#: rows a K2 tile (csrc/unpack_decode.cu TILE)
+K2_TILE = 4096
+
+
+class _DecodeArgs(ctypes.Structure):
+    """K2's argument block (csrc/unpack_decode.cu `DecodeArgs`)."""
+    _fields_ = [("words", ctypes.c_void_p * K2_MAX_COLS),
+                ("mask_words", ctypes.c_void_p * K2_MAX_COLS),
+                ("aux", ctypes.c_void_p * K2_MAX_COLS),
+                ("vals", ctypes.c_void_p * K2_MAX_COLS),
+                ("mask", ctypes.c_void_p * K2_MAX_COLS),
+                ("ref", ctypes.c_longlong * K2_MAX_COLS),
+                ("kind", ctypes.c_int * K2_MAX_COLS),
+                ("width", ctypes.c_int * K2_MAX_COLS),
+                ("dtype", ctypes.c_int * K2_MAX_COLS),
+                ("card", ctypes.c_int * K2_MAX_COLS),
+                ("cap", ctypes.c_longlong),
+                ("n_cols", ctypes.c_int),
+                ("reserved", ctypes.c_int)]
+
+
+def decode_scratch_bytes(n_delta: int, cap: int) -> int:
+    """Bytes of the stream scratch one K2 launch with `n_delta` delta
+    columns takes (csrc/unpack_decode.cu `scratch_bytes`): the zeroed
+    part (a 16-byte tile counter and a 4-byte look-back flag a delta tile,
+    rounded up to 16 bytes), then each delta tile's aggregate and
+    inclusive prefix, 8 bytes each. 0 without a delta column."""
+    if not n_delta:
+        return 0
+    tiles = n_delta * -(-cap // K2_TILE)
+    return 16 + -(-4 * tiles // 16) * 16 + 16 * tiles
+
+
+class _ColPlan(NamedTuple):
+    dtype: object          # torch dtype of the values
+    n_words: int           # packed words the kernel reads
+    n_mask_words: int
+    aux: Optional[str]     # "dict" / "delta": slab[2] is read
+    card: int
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(layouts: Tuple[ColLayout, ...], cap: int):
+    """K2's launches for one tuple of column layouts at one cap, a pure
+    function: the layouts validated, then chunks of at most K2_MAX_COLS
+    columns, each → (its argument block's bytes with kind, width, output
+    type, ref, card, cap and the column count filled in and every pointer
+    zero, its columns' _ColPlan, its scratch bytes)."""
     import torch
-    validate(layout)
-    words, mask_words = slab[0], slab[1]
-    if words.device.type == "cpu":
-        return decode_slab_plain(layout, slab, cap)
     from tidb_tpu_torch.ops import cuda_kernels as ck
-    extra = [slab[2]] if layout.kind in ("dict", "delta") else []
-    ck.require_cuda(words, mask_words, *extra, what="unpack_decode")
-    if words.dtype != torch.int32 or mask_words.dtype != torch.int32:
-        raise ck.KernelError("unpack_decode: words must be int32 tensors")
-    dt = {"int64": torch.int64, "int32": torch.int32}.get(layout.dtype)
-    if dt is None:
-        raise ck.KernelError(f"unpack_decode: unsupported dtype "
-                             f"{layout.dtype}")
-    n_mask_words = -(-cap // WORD_BITS)
-    if mask_words.numel() < n_mask_words:
-        raise ck.KernelError("unpack_decode: mask words shorter than cap")
-    n_words = 0
-    if layout.width:
-        n_words = -(-cap // (WORD_BITS // layout.width))
-        if words.numel() < n_words:
-            raise ck.KernelError("unpack_decode: words shorter than cap")
-    dictvals = base = None
-    if layout.kind == "dict" and layout.width:
-        dictvals = slab[2]
-        if dictvals.dtype != dt or dictvals.numel() < layout.card:
-            raise ck.KernelError("unpack_decode: bad dictionary values")
-    if layout.kind == "delta":
-        base = slab[2]
-        if base.dtype != torch.int64:
-            raise ck.KernelError("unpack_decode: delta base must be int64")
-    dev = words.device
-    vals = torch.empty(cap, dtype=dt, device=dev)
-    mask = torch.empty(cap, dtype=torch.bool, device=dev)
+    for lay in layouts:
+        validate(lay)
+    if not 0 <= cap < 2 ** 31 - K2_TILE:
+        raise ck.KernelError(f"unpack_decode: cap {cap} out of range")
+    chunks = []
+    for c0 in range(0, len(layouts), K2_MAX_COLS):
+        part = layouts[c0:c0 + K2_MAX_COLS]
+        a = _DecodeArgs()
+        a.cap = cap
+        a.n_cols = len(part)
+        cols = []
+        n_delta = 0
+        for q, lay in enumerate(part):
+            dt = {"int64": torch.int64, "int32": torch.int32}.get(lay.dtype)
+            if dt is None:
+                raise ck.KernelError(f"unpack_decode: unsupported dtype "
+                                     f"{lay.dtype}")
+            a.kind[q] = _K2_KINDS[lay.kind]
+            a.width[q] = lay.width
+            a.dtype[q] = 0 if dt == torch.int64 else 1
+            a.ref[q] = lay.ref
+            a.card[q] = lay.card
+            aux = None
+            if lay.width and lay.kind in ("dict", "delta"):
+                aux = lay.kind
+                n_delta += lay.kind == "delta"
+            n_words = -(-cap // (WORD_BITS // lay.width)) if lay.width else 0
+            cols.append(_ColPlan(dt, n_words, -(-cap // WORD_BITS), aux,
+                                 lay.card))
+        chunks.append((bytes(a), tuple(cols),
+                       decode_scratch_bytes(n_delta, cap)))
+    return tuple(chunks)
+
+
+def decode_slabs_torch(items, cap: int):
+    """K2 over many column slabs of one cap: items [(layout, slab)] →
+    [(vals, mask)], each equal to `decode_slab_plain` in every slot. CPU
+    slabs take the plain version; CUDA slabs go to the kernel, one C call
+    and one launch for every K2_MAX_COLS columns (or raise on anything it
+    does not take). Every output tensor owns its storage (one allocation
+    each), so a cached result pins nothing else."""
+    items = list(items)
+    if all(s[0].device.type == "cpu" for _, s in items):
+        for lay, _ in items:
+            validate(lay)
+        return [decode_slab_plain(lay, slab, cap) for lay, slab in items]
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    try:
+        plan = decode_plan(tuple(lay for lay, _ in items), cap)
+    except TypeError:           # an unhashable descriptor
+        for lay, _ in items:
+            validate(lay)
+        raise
+    dev = next(s[0].device for _, s in items if s[0].is_cuda)
     lib = ck.library("unpack_decode")
-    nblk = -(-n_words // lib.tt_unpack_block_words())
-    scratch = torch.empty(2 * nblk if layout.kind == "delta" else 0,
-                          dtype=torch.int64, device=dev)
-    rc = lib.tt_unpack_decode(
-        _K2_KINDS[layout.kind], layout.width, 0 if dt == torch.int64 else 1,
-        words.data_ptr(), n_words, mask_words.data_ptr(), cap, layout.ref,
-        None if dictvals is None else dictvals.data_ptr(),
-        layout.card, None if base is None else base.data_ptr(),
-        vals.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
-        ck.stream_ptr(dev))
-    ck.count("unpack_decode")
-    ck.check(rc, "unpack_decode")
-    return vals, mask
+    stream = ck.stream_ptr(dev)
+    out = []
+    for blob, cols, need in plan:
+        a = _DecodeArgs.from_buffer_copy(blob)
+        for q, cp in enumerate(cols):
+            slab = items[len(out)][1]
+            words, mask_words = slab[0], slab[1]
+            ck.require_cuda(words, mask_words, what="unpack_decode")
+            if words.dtype != torch.int32 or mask_words.dtype != torch.int32:
+                raise ck.KernelError("unpack_decode: words must be int32 "
+                                     "tensors")
+            if mask_words.numel() < cp.n_mask_words:
+                raise ck.KernelError("unpack_decode: mask words shorter "
+                                     "than cap")
+            if words.numel() < cp.n_words:
+                raise ck.KernelError("unpack_decode: words shorter than cap")
+            if cp.aux is not None:
+                aux = slab[2]
+                ck.require_cuda(aux, what="unpack_decode")
+                if cp.aux == "dict" and (aux.dtype != cp.dtype or
+                                         aux.numel() < cp.card):
+                    raise ck.KernelError("unpack_decode: bad dictionary "
+                                         "values")
+                if cp.aux == "delta" and (aux.dtype != torch.int64 or
+                                          aux.numel() < 1):
+                    raise ck.KernelError("unpack_decode: delta base must "
+                                         "be int64")
+                a.aux[q] = aux.data_ptr()
+            vals = torch.empty(cap, dtype=cp.dtype, device=dev)
+            mask = torch.empty(cap, dtype=torch.bool, device=dev)
+            a.words[q] = words.data_ptr()
+            a.mask_words[q] = mask_words.data_ptr()
+            a.vals[q] = vals.data_ptr()
+            a.mask[q] = mask.data_ptr()
+            out.append((vals, mask))
+        if need:
+            ent = ck.stream_scratch("unpack_decode", dev, stream)
+            with ent.lock:      # from the call's scratch memset to its launch
+                rc = lib.tt_unpack_decode(ctypes.addressof(a),
+                                          ent.ensure(need, dev), need,
+                                          stream)
+        else:
+            rc = lib.tt_unpack_decode(ctypes.addressof(a), None, 0, stream)
+        ck.count("unpack_decode")
+        ck.check(rc, "unpack_decode")
+    return out
+
+
+def decode_slab_torch(layout: ColLayout, slab, cap: int):
+    """K2 wrapper for one column: `decode_slabs_torch` with one item."""
+    return decode_slabs_torch([(layout, slab)], cap)[0]
 
 
 def raw_slab_bytes(layout: ColLayout, cap: int) -> int:

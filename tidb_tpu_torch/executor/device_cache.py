@@ -1090,7 +1090,8 @@ def _decoded_slabs(ent: CachedTable, col: int):
     if lay is None:
         return slabs
     from tidb_tpu_torch.chunk import compress
-    return [compress.decode_slab_torch(lay, t, ent.slab_cap) for t in slabs]
+    return compress.decode_slabs_torch([(lay, t) for t in slabs],
+                                       ent.slab_cap)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ the fragment's device: `ctx` is an expression EvalContext whose namespace
 is ops/xp.TorchXP, `live` the row-liveness mask (the sel vector analog).
 They run eagerly; the hot row-scale loops are hand-written CUDA kernels
 (K1 segment_reduce under every aggregate state update, K2 unpack_decode
-in emit_decode, K3 perfect_group_ids in _perfect_groups, the sort
+in emit_decode_many, K3 perfect_group_ids in _perfect_groups, the sort
 kernels K8-K10 under factorize / sort_perm / topn and the LIMIT
 partition, ops/factorize.py, the window kernels K12-K15 under
 emit_window_cols, ops/window.py, K19 delta_merge under
@@ -32,12 +32,12 @@ from tidb_tpu_torch.expression.aggfuncs import AggFunc
 from tidb_tpu_torch.ops.xp import TorchXP
 
 
-def emit_decode(layout, slab, cap: int):
-    """Decode of one compressed column slab on the device:
-    (words, mask_words[, dictvals | delta base]) → (vals, valid) in the
-    logical dtype, through the K2 kernel (chunk/compress.py)."""
+def emit_decode_many(items, cap: int):
+    """Decode of compressed column slabs of one cap on the device, in one
+    K2 call (chunk/compress.py): [(layout, (words, mask_words[, dictvals
+    | delta base]))] → [(vals, valid)] in each logical dtype."""
     from tidb_tpu_torch.chunk import compress
-    return compress.decode_slab_torch(layout, slab, cap)
+    return compress.decode_slabs_torch(items, cap)
 
 
 def emit_sort(keys, descs, live):

@@ -718,11 +718,14 @@ class _FragmentProgram:
         live = torch.arange(self.slab_cap, dtype=torch.int32,
                             device=self.device) < n_rows
         if self.layouts:
+            # every packed column of the slab in one K2 call
             from tidb_tpu_torch.executor import device_emit
-            cols = {i: (device_emit.emit_decode(self.layouts[i], t,
-                                                self.slab_cap)
-                        if self.layouts.get(i) is not None else t)
-                    for i, t in cols.items()}
+            packed = [i for i in cols if self.layouts.get(i) is not None]
+            if packed:
+                cols = dict(cols)
+                cols.update(zip(packed, device_emit.emit_decode_many(
+                    [(self.layouts[i], cols[i]) for i in packed],
+                    self.slab_cap)))
         max_idx = max(cols) if cols else -1
         col_list: List = [cols.get(i) for i in range(max_idx + 1)]
         ctx = EvalContext(self.xp, col_list, prepared=prepared,

@@ -843,15 +843,20 @@ class _TreeRun:
         slab_cap, n_slabs = prog.caps[id(node)]
         lays = dict(prog.scan_layouts[slot]) \
             if slot < len(prog.scan_layouts) else {}
+        # every packed slab of the scan's columns in one K2 call
+        packed = [(lays[i], s) for i in range(len(node.schema))
+                  if lays.get(i) is not None and in_cols.get(i) is not None
+                  for s in in_cols[i]]
+        decoded = iter(device_emit.emit_decode_many(packed, slab_cap)
+                       if packed else ())
         col_list: List = []
         for i in range(len(node.schema)):
             c = in_cols.get(i)
             if c is None:
                 col_list.append(None)
                 continue
-            lay = lays.get(i)
-            if lay is not None:
-                c = [device_emit.emit_decode(lay, s, slab_cap) for s in c]
+            if lays.get(i) is not None:
+                c = [next(decoded) for _s in c]
             if len(c) == 1:
                 col_list.append(c[0])
             else:

@@ -65,9 +65,9 @@ _SIGNATURES = {
     "tt_segment_small_cap": [],
     "tt_segment_mid_cap": [],
     "tt_error_string": [_I],
-    "tt_unpack_decode": [_I, _I, _I, _P, _L, _P, _L, _L, _P, _I, _P, _P,
-                         _P, _P, _P],
-    "tt_unpack_block_words": [],
+    "tt_unpack_decode": [_P, _P, _L, _P],
+    "tt_unpack_max_cols": [],
+    "tt_unpack_args_bytes": [],
     "tt_perfect_group_ids": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P,
                              _P],
     "tt_remap_group_ids": [_P, _P, _L, _I, _P, _P],
@@ -76,7 +76,8 @@ _SIGNATURES = {
     "tt_lut_probe": [_P, _P],
     "tt_lut_order": [_P, _P, _L, _L, _I, _P, _P, _P, _P, _P, _P],
     "tt_join_expand": [_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P],
+                       _P, _P, _L, _P],
+    "tt_join_expand_scratch_bytes": [_L, _L],
     "tt_radix_tile": [],
     "tt_sort_encode": [_P, _I, _L, _P, _P, _I, _U, _I, _P, _I, _P, _P],
     "tt_radix_scratch_words": [_L],
@@ -133,6 +134,7 @@ _SIGNATURES = {
 #: entries that return other than an int error code
 _RESTYPES = {"tt_error_string": ctypes.c_char_p,
              "tt_member_scratch_bytes": ctypes.c_longlong,
+             "tt_join_expand_scratch_bytes": ctypes.c_longlong,
              "tt_sorted_dir_bytes": ctypes.c_longlong}
 
 _LOCK = threading.Lock()
@@ -158,9 +160,14 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library's path, named by the digest of its source and of the
+    shared headers (csrc/*.cuh) it may include."""
+    h = hashlib.sha1()
+    for src in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                       if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build_all() -> Dict[str, float]:

@@ -423,11 +423,36 @@ def lut_order(codes, cnt):
     return starts, order
 
 
+#: probe rows, and output slots, a tile of K7 (csrc/join_expand.cu EX_TILE)
+EXPAND_TILE = 2048
+
+
+def expand_scratch_bytes(P: int, out_cap: int) -> int:
+    """Bytes of the stream scratch K7 takes for P probe rows and out_cap
+    slots (csrc/join_expand.cu `expand_scratch`): the zeroed part (a
+    16-byte tile counter and completion count, a 4-byte look-back flag a
+    probe tile and a 4-byte mark a slot, each rounded up to 16 bytes),
+    then the probe tiles' aggregates and inclusive prefixes (8 bytes
+    each) and each slot tile's first row (12 bytes)."""
+    tiles = max(1, -(-P // EXPAND_TILE))
+    slot_tiles = -(-out_cap // EXPAND_TILE)
+    return (16 + -(-4 * tiles // 16) * 16 + -(-4 * out_cap // 16) * 16 +
+            16 * tiles + 12 * slot_tiles)
+
+
+def expand_layout(out_cap: int) -> int:
+    """K7's one output allocation for out_cap slots, in int32 words: the
+    total (two words), then p_idx, b_idx and k (out_cap each), then
+    matched and out_live as bool rows of out_cap bytes."""
+    return 2 + 3 * out_cap + -(-2 * out_cap // 4)
+
+
 def expand(start, count, order, out_cap: int, outer: bool, probe_live):
     """K7 wrapper: materialize per-probe matches into a static
     (out_cap,)-shaped batch, as tidb_tpu/ops/join.py expand → (p_idx,
     b_idx, matched, out_live, k, total). Equal to `expand_plain` on every
-    live slot and in `total`; dead slots carry in-range indices."""
+    live slot and in `total`; dead slots carry p_idx 0, k 0 and b_idx 0.
+    One launch a call; the six outputs are views of one allocation."""
     if count.device.type == "cpu":
         return expand_plain(start, count, order, out_cap, outer, probe_live)
     ck.require_cuda(start, count, order, probe_live, what="join_expand")
@@ -440,28 +465,31 @@ def expand(start, count, order, out_cap: int, outer: bool, probe_live):
     if start.shape != (P,) or probe_live.shape != (P,) or order.dim() != 1:
         raise ck.KernelError("join_expand: start/count/live of unequal "
                              "shapes")
-    if nb < 1 or not 0 <= out_cap < 2 ** 31:
+    if not 1 <= nb < 2 ** 31 or not 0 <= out_cap < 2 ** 31 or \
+            P >= 2 ** 31:
         raise ck.KernelError(f"join_expand: build rows {nb} / out_cap "
-                             f"{out_cap} out of range")
+                             f"{out_cap} / probe rows {P} out of range")
     dev = count.device
-    cum = torch.empty(P, dtype=torch.int64, device=dev)
-    block = torch.empty(max(1, -(-P // 1024)), dtype=torch.int64,
-                        device=dev)
-    p_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    b_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    k = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    matched = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    out_live = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    rc = ck.library("join_expand").tt_join_expand(
-        start.data_ptr(), count.data_ptr(), order.data_ptr(),
-        probe_live.data_ptr(), P, nb, int(bool(outer)), out_cap,
-        cum.data_ptr(), block.data_ptr(), p_idx.data_ptr(),
-        b_idx.data_ptr(), k.data_ptr(), matched.data_ptr(),
-        out_live.data_ptr(), total.data_ptr(), ck.stream_ptr(dev))
+    buf = torch.empty(expand_layout(out_cap), dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    stream = ck.stream_ptr(dev)
+    need = expand_scratch_bytes(P, out_cap)
+    ent = ck.stream_scratch("join_expand", dev, stream)
+    with ent.lock:      # from the call's scratch memset to its launch
+        rc = ck.library("join_expand").tt_join_expand(
+            start.data_ptr(), count.data_ptr(), order.data_ptr(),
+            probe_live.data_ptr(), P, nb, int(bool(outer)), out_cap,
+            base + 8, base + 8 + 4 * out_cap, base + 8 + 8 * out_cap,
+            base + 8 + 12 * out_cap, base + 8 + 13 * out_cap, base,
+            ent.ensure(need, dev), need, stream)
     ck.count("join_expand")
     ck.check(rc, "join_expand")
-    return p_idx, b_idx, matched, out_live, k, total
+    # the views, made while the kernel runs (the layout of expand_layout)
+    t, p_idx, b_idx, k, flags = buf.split_with_sizes(
+        (2, out_cap, out_cap, out_cap, buf.shape[0] - 2 - 3 * out_cap))
+    flags = flags.view(torch.bool)
+    return (p_idx, b_idx, flags[:out_cap], flags[out_cap:2 * out_cap], k,
+            t.view(torch.int64).view(()))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Time the window scans, the rank gather, the LUT probe, the member
-compaction, the column gather, the sorted search, the segment reduction
-and the window bounds of one checkout on the card, for comparing two
-checkouts in one machine's run.
+compaction, the column gather, the sorted search, the segment reduction,
+the window bounds, the join expansion and the slab decode of one
+checkout on the card, for comparing two checkouts in one machine's run.
 
     python tidb_tpu_torch/tools/scan_timing.py --tree DIR [--out FILE]
-        [--kernels scan,gather,probe,compact,columns,search,segment,bounds]
+        [--kernels scan,gather,probe,compact,columns,search,segment,bounds,
+                   expand,decode]
         [--profile] [--ptxas] [--host-steps]
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
@@ -39,7 +40,15 @@ join, phase 22's masks):
     calls give the same bits), a bool COUNT, caps 1,024 and 65,536;
   * bounds: K12 over phase 12's W1 and W2 layouts (`window_bounds`, or
     flags then positions in a checkout without it), and its flags
-    entry alone.
+    entry alone;
+  * expand: K7 at phase 8's expand probe (262,144 customer rows probing
+    the filtered orders build, out_cap 65,536) and at a skewed shape
+    (2^22 probe rows, one with 2^20 matches), each beside
+    torch.repeat_interleave;
+  * decode: K2 over Q1's seven packed slabs of one 8,388,608-row slab
+    (phase 5's layouts), in one call where the checkout has
+    `decode_slabs_torch` and one call a column, each column alone, and
+    a dict column (3,000 int64 values at width 16).
 
 Each kernel is held to its plain version first (exactly; the f64
 prefix is not timed). Run two checkouts in turns (A, B, B, A), one
@@ -51,8 +60,8 @@ chosen kernels' sources (registers, shared memory, spills);
 `--host-steps` adds each chosen wrapper's host time split step by step
 (under "<kernel>_host_steps"): K25's (checks and contiguity, pointers,
 tables, allocation, the ctypes call and launch), K13 prefix's, K5's,
-K18's, K11's, K1's and K12's with the card not waited for, and K22's,
-whose read-back of the total waits for its count pass.
+K18's, K11's, K1's, K12's, K7's and K2's with the card not waited for,
+and K22's, whose read-back of the total waits for its count pass.
 """
 
 from __future__ import annotations
@@ -1080,6 +1089,346 @@ def run_bounds(reps: int, prof: bool, steps: bool, dev) -> dict:
     return out
 
 
+EXPAND_DAY = 8096          # chip_smoke's expand statement: '1992-03-01'
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _expand_inputs(dev):
+    """Phase 8's K7 call: the orders build keyed on o_custkey and filtered
+    on o_orderdate < EXPAND_DAY (K4, K6), probed by every customer row
+    (K5 in multi mode), with the generator chip_smoke and bench.py share
+    → (start, count, order, out_cap, live)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    rng = np.random.default_rng(7)
+    n_orders, n_cust = N_ROWS // 4, N_ROWS // 40
+    rng.integers(0, n_orders, N_ROWS)                       # l_orderkey
+    odate = rng.integers(8036, 10590, n_orders).astype(np.int32)
+    rng.integers(0, 5, n_orders)                            # priority
+    ocust = rng.integers(0, n_cust, n_orders).astype(np.int64)
+
+    def padded(a, cap, dtype=torch.int64):
+        t = torch.zeros(cap, dtype=dtype)
+        t[:len(a)] = torch.from_numpy(np.asarray(a))
+        return t.to(dev)
+
+    nb = _pow2(n_orders)
+    ekeys = [(padded(ocust, nb), torch.arange(nb, device=dev) < n_orders)]
+    elive = padded(odate < EXPAND_DAY, nb, torch.bool)
+    bounds = [(0, n_cust - 1)]
+    cnt, _, _, codes = J.lut_build(ekeys, bounds, n_cust, live=elive,
+                                   want_lut=False, want_codes=True)
+    starts, order = J.lut_order(codes, cnt)
+    P = _pow2(n_cust)
+    clive = torch.arange(P, device=dev) < n_cust
+    ckeys = [(padded(np.arange(n_cust), P), clive)]
+    start, count = J.lut_probe(ckeys, bounds, cnt, starts, clive, nb, False)
+    return start, count, order, _pow2(int(count.sum())), clive
+
+
+def _skewed_expand_inputs(dev):
+    """P = 2^22 probe rows, one of them (row 1,000) with 2^20 matches and
+    the others 0-2 (a fifth of them live), over an identity order."""
+    import torch
+    g = torch.Generator().manual_seed(17)
+    P, hot = 1 << 22, 1 << 20
+    count = torch.randint(0, 3, (P,), generator=g, dtype=torch.int32)
+    live = torch.rand(P, generator=g) < 0.2
+    count[1000] = hot
+    live[1000] = True
+    nb = hot + 4
+    start = torch.randint(0, 4, (P,), generator=g, dtype=torch.int32)
+    start[1000] = 0
+    order = torch.arange(nb, dtype=torch.int32)
+    total = int(torch.where(live, count, 0).sum())
+    return (start.to(dev), count.to(dev), order.to(dev), _pow2(total),
+            live.to(dev))
+
+
+def _expand_same(J, args):
+    start, count, order, out_cap, live = args
+    got = J.expand(start, count, order, out_cap, False, live)
+    want = J.expand_plain(start, count, order, out_cap, False, live)
+    lv = want[3]
+    _same("K7 total and live", (got[5], got[3]), (want[5], lv))
+    _same("K7 live slots", tuple(a[lv] for a in got[:3] + got[4:5]),
+          tuple(b[lv] for b in want[:3] + want[4:5]))
+
+
+def _expand_host_steps(args, reps: int = 50) -> dict:
+    """K7's host time a call, step by step (mean µs, the card not waited
+    for), over the checkout's own wrapper: one allocation carved into
+    views and one launch (`expand_layout`), or eight allocations and
+    five launches."""
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import join as J
+    start, count, order, out_cap, live = args
+    lib = ck.library("join_expand")
+    dev = count.device
+    steps = {}
+    tick = _ticker(steps)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        t = time.perf_counter()
+        ck.require_cuda(start, count, order, live, what="join_expand")
+        P, nb = count.shape[0], order.shape[0]
+        t = tick("checks", t)
+        if hasattr(J, "expand_layout"):
+            buf = torch.empty(J.expand_layout(out_cap), dtype=torch.int32,
+                              device=dev)
+            t = tick("allocation", t)
+            base = buf.data_ptr()
+            stream = ck.stream_ptr(dev)
+            need = J.expand_scratch_bytes(P, out_cap)
+            ent = ck.stream_scratch("join_expand", dev, stream)
+            with ent.lock:
+                sc = ent.ensure(need, dev)
+                t = tick("stream, scratch and lock", t)
+                rc = lib.tt_join_expand(
+                    start.data_ptr(), count.data_ptr(), order.data_ptr(),
+                    live.data_ptr(), P, nb, 0, out_cap, base + 8,
+                    base + 8 + 4 * out_cap, base + 8 + 8 * out_cap,
+                    base + 8 + 12 * out_cap, base + 8 + 13 * out_cap, base,
+                    sc, need, stream)
+                t = tick("ctypes call, memset and launch", t)
+            # the same ctypes call refused at once (P < 0): its own cost
+            lib.tt_join_expand(
+                start.data_ptr(), count.data_ptr(), order.data_ptr(),
+                live.data_ptr(), -1, nb, 0, out_cap, base + 8,
+                base + 8 + 4 * out_cap, base + 8 + 8 * out_cap,
+                base + 8 + 12 * out_cap, base + 8 + 13 * out_cap, base, sc,
+                need, stream)
+            t = tick("a refused ctypes call (no memset, no launch)", t)
+            tt, p_idx, b_idx, k, flags = buf.split_with_sizes(
+                (2, out_cap, out_cap, out_cap, buf.shape[0] - 2 - 3 * out_cap))
+            flags = flags.view(torch.bool)
+            matched, out_live = flags[:out_cap], flags[out_cap:2 * out_cap]
+            total = tt.view(torch.int64).view(())
+            t = tick("views (while the kernel runs)", t)
+            del total, p_idx, b_idx, k, matched, out_live
+        else:
+            cum = torch.empty(P, dtype=torch.int64, device=dev)
+            block = torch.empty(max(1, -(-P // 1024)), dtype=torch.int64,
+                                device=dev)
+            outs = [torch.empty(out_cap, dtype=dt, device=dev)
+                    for dt in (torch.int32,) * 3 + (torch.bool,) * 2]
+            total = torch.empty((), dtype=torch.int64, device=dev)
+            t = tick("allocation", t)
+            stream = ck.stream_ptr(dev)
+            t = tick("stream", t)
+            rc = lib.tt_join_expand(
+                start.data_ptr(), count.data_ptr(), order.data_ptr(),
+                live.data_ptr(), P, nb, 0, out_cap, cum.data_ptr(),
+                block.data_ptr(), *[o.data_ptr() for o in outs],
+                total.data_ptr(), stream)
+            t = tick("ctypes call and five launches", t)
+        ck.check(rc, "join_expand")
+        tick("check", t)
+    torch.cuda.synchronize()
+    out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        J.expand(start, count, order, out_cap, False, live)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_expand(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K7 at phase 8's expand probe and at the skewed shape, each beside
+    torch.repeat_interleave of the probe rows by their counts, each held
+    to its plain version first (live slots and the total)."""
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    out = {}
+    for tag, args in (("k7", _expand_inputs(dev)),
+                      ("k7_skew", _skewed_expand_inputs(dev))):
+        start, count, order, out_cap, live = args
+        _expand_same(J, args)
+        total = int(torch.where(live, count, 0).sum())
+        rows = torch.arange(count.shape[0], device=dev)
+        cl = torch.where(live, count, torch.zeros_like(count))
+        out[f"{tag}_shape"] = [count.shape[0], total, out_cap]
+        out[f"{tag}_ms"] = _median_ms(
+            lambda: J.expand(start, count, order, out_cap, False, live),
+            reps)
+        out[f"{tag}_repeat_interleave_ms"] = _median_ms(
+            lambda: torch.repeat_interleave(rows, cl, output_size=total),
+            reps)
+        if prof:
+            out[f"kernels_{tag}"] = _profile(
+                [lambda: J.expand(start, count, order, out_cap, False,
+                                  live)])
+        if steps and tag == "k7":
+            out["k7_host_steps"] = _expand_host_steps(args)
+    return out
+
+
+def _q1_slabs(dev):
+    """Q1's seven packed column slabs of one 8,388,608-row slab, as phase
+    5 decodes them: chip_smoke's make_lineitem columns (the same seed and
+    distributions, sorted by l_shipdate) under the layouts the device
+    cache picks for them (l_returnflag and l_linestatus as their
+    dictionary codes), padded with NULLs → [(layout, slab)]; and a dict
+    column (3,000 int64 values at width 16) as the eighth item."""
+    import numpy as np
+    from tidb_tpu_torch.chunk import compress as C
+    from tidb_tpu_torch.executor.device_cache import _upload
+    rng = np.random.default_rng(42)
+    n = N_ROWS
+    cols = [rng.integers(100, 5001, n), rng.integers(90_000, 10_500_001, n),
+            rng.integers(0, 11, n), rng.integers(0, 9, n)]
+    cols = [c.astype(np.int64) for c in cols]
+    cols += [rng.integers(0, 3, n).astype(np.int32),
+             rng.integers(0, 2, n).astype(np.int32)]
+    ship = rng.integers(8036, 10590, n).astype(np.int32)
+    order = np.argsort(ship)
+    cols = [c[order] for c in cols] + [ship[order]]
+    mask = np.zeros(CAP, dtype=bool)
+    mask[:n] = True
+    out = []
+    for c in cols:
+        lay, _ = C.choose_layout(c, mask[:n], allow_dict=False)
+        vals = np.zeros(CAP, dtype=c.dtype)
+        vals[:n] = c
+        out.append((lay, tuple(_upload(a, dev) for a in
+                               C.pack_slab(lay, vals, mask))))
+    dv = np.unique(rng.integers(-10 ** 12, 10 ** 12, 3000))
+    vals = np.zeros(CAP, dtype=np.int64)
+    vals[:n] = dv[rng.integers(0, len(dv), n)]
+    lay = C.ColLayout("dict", 16, 0, "int64", len(dv))
+    out.append((lay, tuple(_upload(a, dev) for a in
+                           C.pack_slab(lay, vals, mask, dv) + (dv,))))
+    return out
+
+
+def _decode_call(C, items):
+    """The checkout's decode of `items` in one call where it has one, else
+    one call a column."""
+    if hasattr(C, "decode_slabs_torch"):
+        return C.decode_slabs_torch(items, CAP)
+    return [C.decode_slab_torch(lay, s, CAP) for lay, s in items]
+
+
+def _decode_host_steps(items, reps: int = 20) -> dict:
+    """K2's host time over Q1's seven slabs, step by step (mean µs, the
+    card not waited for): the cached plan, checks and outputs of every
+    column and one ctypes call (`decode_plan`), or the checks, three
+    allocations and a ctypes call of every column."""
+    import ctypes
+    import torch
+    from tidb_tpu_torch.chunk import compress as C
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    lib = ck.library("unpack_decode")
+    dev = items[0][1][0].device
+    steps = {}
+    tick = _ticker(steps)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        t = time.perf_counter()
+        stream = ck.stream_ptr(dev)
+        if hasattr(C, "decode_plan"):
+            ((blob, cols, need),) = C.decode_plan(
+                tuple(lay for lay, _ in items), CAP)
+            a = C._DecodeArgs.from_buffer_copy(blob)
+            t = tick("cached plan and stream", t)
+            outs = []
+            for q, ((lay, slab), cp) in enumerate(zip(items, cols)):
+                ck.require_cuda(slab[0], slab[1], what="unpack_decode")
+                if cp.aux is not None:
+                    a.aux[q] = slab[2].data_ptr()
+                a.words[q] = slab[0].data_ptr()
+                a.mask_words[q] = slab[1].data_ptr()
+            t = tick("checks and input pointers", t)
+            for q, cp in enumerate(cols):
+                vals = torch.empty(CAP, dtype=cp.dtype, device=dev)
+                mask = torch.empty(CAP, dtype=torch.bool, device=dev)
+                a.vals[q] = vals.data_ptr()
+                a.mask[q] = mask.data_ptr()
+                outs.append((vals, mask))
+            t = tick("allocation and output pointers", t)
+            ent = ck.stream_scratch("unpack_decode", dev, stream)
+            with ent.lock:
+                sc = ent.ensure(need, dev) if need else None
+                t = tick("scratch and lock", t)
+                rc = lib.tt_unpack_decode(ctypes.addressof(a), sc, need,
+                                          stream)
+                t = tick("ctypes call, memset and launch", t)
+            ck.check(rc, "unpack_decode")
+            # the same ctypes call refused at once (too little scratch)
+            lib.tt_unpack_decode(ctypes.addressof(a), sc, -1, stream)
+            tick("a refused ctypes call (no memset, no launch)", t)
+        else:
+            t = tick("stream", t)
+            outs = []
+            for lay, slab in items:
+                C.validate(lay)
+                ck.require_cuda(slab[0], slab[1], what="unpack_decode")
+                dt = torch.int64 if lay.dtype == "int64" else torch.int32
+                n_words = -(-CAP // (32 // lay.width)) if lay.width else 0
+                t = tick("checks", t)
+                vals = torch.empty(CAP, dtype=dt, device=dev)
+                mask = torch.empty(CAP, dtype=torch.bool, device=dev)
+                nblk = -(-n_words // lib.tt_unpack_block_words())
+                scratch = torch.empty(2 * nblk if lay.kind == "delta"
+                                      else 0, dtype=torch.int64, device=dev)
+                t = tick("allocation", t)
+                aux = slab[2] if lay.kind in ("dict", "delta") else None
+                rc = lib.tt_unpack_decode(
+                    C._K2_KINDS[lay.kind], lay.width,
+                    0 if dt == torch.int64 else 1, slab[0].data_ptr(),
+                    n_words, slab[1].data_ptr(), CAP, lay.ref,
+                    aux.data_ptr() if lay.kind == "dict" else None,
+                    lay.card, aux.data_ptr() if lay.kind == "delta"
+                    else None, vals.data_ptr(), mask.data_ptr(),
+                    scratch.data_ptr(), stream)
+                ck.check(rc, "unpack_decode")
+                t = tick("ctypes calls and launches", t)
+                outs.append((vals, mask))
+        del outs
+    torch.cuda.synchronize()
+    out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _decode_call(C, items)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_decode(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K2 over Q1's seven slabs (in one call where the checkout has one,
+    and one call a column), each column alone, and a dict column, each
+    held to its plain version first in every slot."""
+    from tidb_tpu_torch.chunk import compress as C
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    slabs = _q1_slabs(dev)
+    q1, dict_item = slabs[:7], slabs[7:]
+    for (lay, s), got in zip(slabs, _decode_call(C, slabs)):
+        _same(f"K2 {lay.sig()}", got, C.decode_slab_plain(lay, s, CAP))
+    out = {"k2_layouts": [lay.sig() for lay, _ in slabs],
+           "k2_q1_ms": _median_ms(lambda: _decode_call(C, q1), reps),
+           "k2_q1_per_column_ms": _median_ms(
+               lambda: [C.decode_slab_torch(lay, s, CAP) for lay, s in q1],
+               reps),
+           "k2_dict_ms": _median_ms(lambda: _decode_call(C, dict_item),
+                                    reps)}
+    for lay, s in q1:
+        out[f"k2_{lay.kind}_w{lay.width}_{lay.dtype}_ms"] = _median_ms(
+            lambda: C.decode_slab_torch(lay, s, CAP), reps)
+    if prof:
+        out["kernels_k2_q1"] = _profile([lambda: _decode_call(C, q1)])
+    if steps:
+        out["k2_host_steps"] = _decode_host_steps(q1)
+    return out
+
+
 def _ptxas(tree: str, sources) -> dict:
     """{kernel: {registers, smem, stack, spill_stores}} of the kernels of
     `sources` (csrc file names), from `nvcc -Xptxas -v` with the build's
@@ -1122,7 +1471,8 @@ def main() -> int:
     ap.add_argument("--kernels", default="scan,gather",
                     help="comma-separated: scan (K12, K13), gather (K25), "
                          "probe (K5), compact (K22), columns (K18), "
-                         "search (K11), segment (K1), bounds (K12)")
+                         "search (K11), segment (K1), bounds (K12), "
+                         "expand (K7), decode (K2)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="append the JSON line to this file too")
     ap.add_argument("--profile", action="store_true",
@@ -1144,7 +1494,8 @@ def main() -> int:
     sources = {"scan": "window_scan", "gather": "rank_gather",
                "probe": "lut_join", "compact": "member_compact",
                "columns": "gather_columns", "search": "sorted_groups",
-               "segment": "segment_reduce", "bounds": "window_scan"}
+               "segment": "segment_reduce", "bounds": "window_scan",
+               "expand": "join_expand", "decode": "unpack_decode"}
     if not kernels <= set(sources):
         print(f"scan_timing: unknown kernels {args.kernels}",
               file=sys.stderr)
@@ -1175,6 +1526,12 @@ def main() -> int:
                                 dev))
     if "bounds" in kernels:
         line.update(run_bounds(args.reps, args.profile, args.host_steps,
+                               dev))
+    if "expand" in kernels:
+        line.update(run_expand(args.reps, args.profile, args.host_steps,
+                               dev))
+    if "decode" in kernels:
+        line.update(run_decode(args.reps, args.profile, args.host_steps,
                                dev))
     if args.ptxas:
         line["ptxas"] = _ptxas(tree, [sources[k] for k in sorted(kernels)])

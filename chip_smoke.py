@@ -100,8 +100,10 @@ which must pass:
      phase; K16-K18 and K8-K10 must move (K16 in every D run, K17 and
      K18 in every R run);
  14. DISTINCT/ROLLUP kernel timing at phase 13's shapes, each held
-     exactly to its plain version there: K16's two entries at
-     n = 8,388,608 (beside `gids*(n+1)+vid` and `rep[pg] == arange`),
+     exactly to its plain version there: K16's pair word at
+     n = 8,388,608 (beside its torch expression) and the margin K10's
+     first mask adds to its word pass (beside `rep[pg] == arange`), and
+     the pair factorize after the value ranks with its launches,
      K17 tiling R1's read columns to 3 x 8,388,608 rows and writing the
      levels of its two key masks (beside torch.cat, repeat_interleave
      and &), K18 through D2's pair cap (beside per-column index_select;
@@ -155,8 +157,10 @@ which must pass:
      tidb_tpu_strict=1, exactly equal to the host engine, EXPLAIN showing
      its aggregate inside a TpuFragment, the host preparation and upload
      of its dictionary tables (collect_preps) timed with their bytes.
-     Counters are zeroed before the phase; K21 must move in every run.
-     Two refused shapes (UPPER(o_comment) = 'X', LOCATE(l_shipmode,
+     Counters are zeroed before the phase; K21 must move in every run;
+     each run logs its K21 tables (entries, type, codes, and whether K21
+     stages them in shared memory or gathers them through L2). Two
+     refused shapes (UPPER(o_comment) = 'X', LOCATE(l_shipmode,
      'REG AIR')) show no TpuFragment and launch nothing (the host engine
      runs them);
  20. K21 at 8,388,608 rows: 7-entry int64 and bool tables, o_comment's
@@ -232,15 +236,20 @@ and K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
 theirs exactly (random gids with dead rows, value ranks with ties,
 1/2/4/8-byte columns and a 2-D limb plane, n_valid below and at the
 cap; K18 also at 1-65 columns over odd-offset views and out-of-range
-indices), with the pair factorize on K8-K10 + K16 equal to its CPU run;
+indices; K16's word also against the two K9 passes it replaces and
+K10's first mask against rep[pg] == iota on every row, with every pair
+dead, one row, one group, every row its own group and dead rows between
+live ones), with the pair factorize on K8, K10 and K16 equal to its CPU
+run;
 and K19 delta_merge against delta_merge_plain exactly (its partition,
 every packed width, dict, raw and wide columns through K18, four
 tombstone sets); and K20 civil_date against its plain version exactly
 (every part over every day of 0001-9999, the int32 extremes, int64 days
 and µs; DATE_ADD by months for constant and per-row counts); and K21
 dict_lut against its plain version exactly (bool/int32/int64 tables from
-empty to 1,500,303 entries, across the shared-memory edge, int32/int64
-codes out of range, n up to a full slab, clip and fill); and K22
+empty to 1,500,303 entries, at the shared-memory limit and one entry
+above it, int32/int64 codes out of range, codes views 0-3 entries off,
+n = 1-17, 2^23 - 777 and up to a full slab, clip and fill); and K22
 member_compact against its plain version exactly (B = 1, 3, 16; cap =
 1, 1,000, 8,388,608; no, all and random live rows; cap at the 128 KB
 tile ± 1 over mask views 0-15 bytes off, one live row in the last
@@ -2545,8 +2554,10 @@ def window_timing_phase(dev, n: int, f64_err: float):
 
 def check_distinct_kernels(dev):
     """K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
-    their plain versions on the card, exactly; and the pair factorize
-    built on K8-K10 and K16 against the same function over CPU copies."""
+    their plain versions on the card, exactly; K16's word against the K9
+    composition it replaces, K10's first mask against rep[pg] == iota on
+    every row; and the pair factorize built on K8, K10 and K16 against the
+    same function over CPU copies."""
     import numpy as np
     import torch
     from tidb_tpu_torch.executor import device_emit as E
@@ -2565,33 +2576,11 @@ def check_distinct_kernels(dev):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     for n, cap in ((1, 1), (1000, 7), (300_001, 4096)):
-        # K16: random gids with dead rows (= cap), value ranks with ties
         live = rng.random(n) > 0.2
         gids = np.where(live, rng.integers(0, cap, n), cap).astype(np.int32)
-        vid = rng.integers(0, max(n // 3, 1), n).astype(np.int32)
-        same(f"K16 pair_code n={n}", F.pair_code(t(gids), t(vid), cap),
-             F.pair_code_plain(t(gids), t(vid)))
-        rep = rng.integers(0, n, cap).astype(np.int32)
-        pg = rng.integers(0, cap, n).astype(np.int32)
-        rep[pg[: cap // 2]] = np.arange(min(cap // 2, n))
-        same(f"K16 first_mask n={n}", F.first_mask(t(rep), t(pg)),
-             F.first_mask_plain(t(rep), t(pg)))
-        # the pair factorize over K9 + K8 + K10 + K16 vs over CPU copies
         vals = rng.integers(-50, 50, n).astype(np.int64)
         valid = rng.random(n) > 0.1
-        got = F.distinct_pair_factorize(t(gids), t(vals), t(valid), t(live),
-                                        n, gid_cap=cap)
-        want = F.distinct_pair_factorize(*(torch.from_numpy(a) for a in
-                                           (gids, vals, valid, live)), n,
-                                         gid_cap=cap)
-        pl = t(live & valid)
-        same(f"pair factorize first n={n}", got[0][pl],
-             want[0].to(dev)[pl])
-        same(f"pair factorize pg n={n}", got[1][pl], want[1].to(dev)[pl])
-        k = int(want[2])
-        if int(got[2]) != k:
-            raise AssertionError("pair factorize: n_pairs differs")
-        same(f"pair factorize rep n={n}", got[3][:k], want[3].to(dev)[:k])
+        check_k16_pairs(dev, f"n={n}", gids, vals, valid, live, cap, same)
         # K17: 1/2/4/8-byte columns and a 2-D limb plane, reps 2..4
         cols = [t(rng.random(n) > 0.5),
                 t(rng.integers(-9, 9, n).astype(np.int16)),
@@ -2625,13 +2614,95 @@ def check_distinct_kernels(dev):
                     same(f"K18 values n={n}", a, b)
                     same(f"K18 masks n={n}", am, bm)
     cases += check_k18_edges(dev, rng)
+    # K16 and K10's first mask at the edges: every pair dead, one row, one
+    # group, every row its own group, dead rows between live ones
+    n = 5000
+    for name, gids, valid, live in (
+            ("all dead", rng.integers(0, 7, n), np.ones(n, bool),
+             np.zeros(n, bool)),
+            ("one row", np.zeros(1), np.ones(1, bool), np.ones(1, bool)),
+            ("one group", np.full(n, 3), np.ones(n, bool), np.ones(n, bool)),
+            ("own groups", np.arange(n), np.ones(n, bool), np.ones(n, bool)),
+            ("dead between", rng.integers(0, 7, n), rng.random(n) > 0.5,
+             np.arange(n) % 3 != 1)):
+        m = len(live)
+        cap = int(max(np.max(gids), 6))
+        vals = np.arange(m) if name == "own groups" else \
+            rng.integers(-5, 5, m)
+        gids = np.where(live, gids, cap).astype(np.int32)
+        check_k16_pairs(dev, name, gids, vals.astype(np.int64), valid,
+                        live, cap, same)
     torch.cuda.synchronize()
     log(f"K16/K17/K18 exactly equal to their plain versions ({cases} "
-        f"cases; K18 also at 1, 3, 64 and 65 columns over views at odd "
-        f"byte offsets, out-of-range int32/int64 indices, an index off "
-        f"its 16-byte alignment, n_valid 0 and m, m = 1-5 and 40,001-"
-        f"40,003); the pair factorize on K8-K10 + K16 equal to its CPU "
-        f"run")
+        f"cases; K16's word equal to the K9 words it replaces and K10's "
+        f"first mask to rep[pg] == iota on every row, also with every "
+        f"pair dead, one row, one group, every row its own group and dead "
+        f"rows between live ones; K18 also at 1, 3, 64 and 65 columns "
+        f"over views at odd byte offsets, out-of-range int32/int64 "
+        f"indices, an index off its 16-byte alignment, n_valid 0 and m, m "
+        f"= 1-5 and 40,001-40,003); the pair factorize on K8, K10 and K16 "
+        f"equal to its CPU run")
+
+
+def check_k16_pairs(dev, what, gids, vals, valid, live, gid_cap,
+                    same) -> None:
+    """K16's word against its plain version and against the two K9 passes
+    it replaces (the pair code under its bound at shift 0, the dead flag
+    at bit W); K8 over it against the kernel sort of those two operands
+    (words, row ids and fields); K10 over it with the first mask, against
+    K10 without it and against rep[pg] == iota, with and without the ids;
+    the pair factorize against its run over CPU copies (first, pg,
+    n_pairs, rep[:n_pairs], every row). `same` counts each check."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def each(label, got, want):
+        for j, (a, b) in enumerate(zip(got, want)):
+            same(f"{label} {what} [{j}]", a, b)
+
+    n = len(live)
+    pl = t(live & valid)
+    g = t(gids)
+    vid = F._dense1(t(vals), None, pl)
+    width = F.pair_width(gid_cap, n)
+    word = F.pair_word(g, vid, pl, gid_cap)
+    same(f"K16 pair_word {what}", word,
+         F.pair_word_plain(g, vid, pl, gid_cap))
+    code = F.pair_code_plain(g, vid)
+    k9 = torch.empty(n, dtype=torch.int64, device=dev)
+    F.sort_encode(code, 2, None, None, False, 1 << 63, 0, k9)
+    F.sort_encode(pl, 0, None, None, True, 0, width, k9, accumulate=True)
+    same(f"K16 pair_word vs K9 {what}", word, k9)
+    perm, k9w = F._lexsort_kernel([F.SortOp(pl, desc=True),
+                                   F.SortOp(code, hi=(gid_cap + 1) *
+                                            (n + 1))])
+    sidx, words = F.pair_sort(g, vid, pl, gid_cap)
+    if (words.count, words.fields) != (k9w.count, k9w.fields):
+        raise AssertionError(f"K16 {what}: fields {words.fields} != K9's "
+                             f"{k9w.fields}")
+    each("K16 pair sort", (words.last, sidx), (k9w.last, perm))
+    key = F._word_key(words)
+    base = F.group_ids_words(words.last, sidx, *key, n)
+    got = F.group_ids_words(words.last, sidx, *key, n, first=True)
+    each("K10 with first", got[:3], base)
+    same(f"K10 first {what}", got[3], F.first_mask_plain(base[2], base[0]))
+    each("K10 first, no ids", F.group_ids_words(
+        words.last, sidx, *key, n, first=True, want_gids=False)[1:],
+        got[1:])
+    want = F.distinct_pair_factorize(*(torch.from_numpy(np.asarray(a))
+                                       for a in (gids, vals, valid, live)),
+                                     n, gid_cap=gid_cap)
+    res = F.distinct_pair_factorize(g, t(vals), t(valid), t(live), n,
+                                    gid_cap=gid_cap)
+    k = int(want[2])
+    if int(res[2]) != k:
+        raise AssertionError(f"pair factorize {what}: n_pairs differs")
+    each("pair factorize", (res[0], res[1], res[3][:k]),
+         (want[0], want[1], want[3][:k]))
 
 
 def check_k18_edges(dev, rng) -> int:
@@ -2833,6 +2904,7 @@ def distinct_timing_phase(dev, n: int):
     import torch
     from tidb_tpu_torch.executor import device_emit as E
     from tidb_tpu_torch.executor.device_cache import _pow2
+    from tidb_tpu_torch.ops import cuda_kernels as ck
     from tidb_tpu_torch.ops import factorize as F
     from tidb_tpu_torch.ops import gather as G
     li = make_lineitem(n)
@@ -2858,39 +2930,67 @@ def distinct_timing_phase(dev, n: int):
                            codes["l_returnflag"], 6)).contiguous()
     okey = col(li["l_orderkey"], torch.int64, cap)
     vid = F._dense1(okey, None, rows)
-    # K16 pair_code and first_mask at n = 8,388,608
-    ms_code = time_cuda(lambda: F.pair_code(gids, vid, 6), reps=10)
-    plain_code = time_cuda(lambda: F.pair_code_plain(gids, vid), reps=5)
-    exact("K16 pair_code", F.pair_code(gids, vid, 6),
-          F.pair_code_plain(gids, vid))
-    code = F.pair_code(gids, vid, 6)
-    pg, n_pairs, rep = F.factorize([(code, None)], rows, cap,
-                                   hi=7 * (cap + 1))
+    # K16 pair_word at n = 8,388,608, and the margin its first mask adds
+    # to K10's word pass over the sorted word (cap = n), like for like:
+    # both with the ids. The pair factorize itself asks for no ids
+    # (emit_distinct reads none), timed beside them
+    ms_word = time_cuda(lambda: F.pair_word(gids, vid, rows, 6), reps=10)
+    plain_word = time_cuda(lambda: F.pair_word_plain(gids, vid, rows, 6),
+                           reps=5)
+    exact("K16 pair_word", F.pair_word(gids, vid, rows, 6),
+          F.pair_word_plain(gids, vid, rows, 6))
+    width = F.pair_width(6, cap)
+    sidx, words = F.pair_sort(gids, vid, rows, 6)
+    key = F._word_key(words)
+    pg, n_pairs, rep = F.group_ids_words(words.last, sidx, *key, cap)
     k = int(n_pairs)
-    ms_first = time_cuda(lambda: F.first_mask(rep, pg), reps=10)
+    first = F.group_ids_words(words.last, sidx, *key, cap, first=True)[3]
+    exact("K10 first", first, F.first_mask_plain(rep, pg))
+    bare = F.group_ids_words(words.last, sidx, *key, cap, first=True,
+                             want_gids=False)
+    exact("K10 first without ids", bare[2], rep)
+    exact("K10 first mask without ids", bare[3], first)
+    ms_k10 = time_cuda(lambda: F.group_ids_words(words.last, sidx, *key,
+                                                 cap), reps=10)
+    ms_k10_ids_first = time_cuda(lambda: F.group_ids_words(
+        words.last, sidx, *key, cap, first=True), reps=10)
+    ms_k10_first = time_cuda(lambda: F.group_ids_words(
+        words.last, sidx, *key, cap, first=True, want_gids=False), reps=10)
     plain_first = time_cuda(lambda: F.first_mask_plain(rep, pg), reps=5)
     iota = torch.arange(cap, dtype=torch.int32, device=dev)
-    lib_code = time_cuda(lambda: gids.long() * (cap + 1) + vid.long(),
-                         reps=10)
+    lib_word = time_cuda(
+        lambda: (gids.long() * (cap + 1) + vid.long()) |
+        (~rows).long() << width, reps=10)
     lib_first = time_cuda(lambda: rep[pg.long()] == iota, reps=10)
-    exact("K16 first_mask", F.first_mask(rep, pg),
-          F.first_mask_plain(rep, pg))
+    # the whole pair factorize after the value ranks (K16, K8, K10 with
+    # the first mask), as emit_distinct calls it, and its launches
+    ms_pairs = time_cuda(lambda: F.pair_factorize(gids, vid, rows, cap, 6,
+                                                  want_pg=False), reps=10)
+    before = ck.launches()
+    F.pair_factorize(gids, vid, rows, cap, 6, want_pg=False)
+    after = ck.launches()
+    pair_launches = {c: after[c] - before[c] for c in after
+                     if after[c] != before[c]}
     # inputs read once, outputs written once: the gids and ranks (4 B
-    # each) → the code (8 B); pg (4 B) and the k rep entries the pairs
-    # need → one flag byte
-    b, by = bound_ms(cap * 16 + cap * 5 + k * 4, cap * 3)
+    # each) and the flags (1 B) → the word (8 B); the first mask's byte
+    b, by = bound_ms(cap * 17 + cap, 0)
+    margin = ms_k10_ids_first - ms_k10
     out.append({"name": "distinct_pairs", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/distinct_pairs.cu",
                 "replaces": "tidb_tpu/ops/factorize.py:206",
-                "max_abs_err": 0, "ms": ms_code + ms_first,
-                "plain_ms": plain_code + plain_first, "bound_ms": b,
-                "bound_by": by, "library_ms": lib_code + lib_first})
-    log(f"K16 n={cap}, {k} pairs: pair_code {ms_code:.4f} ms (plain "
-        f"{plain_code:.4f}, gids*(n+1)+vid {lib_code:.4f}, bound "
-        f"{bound_ms(cap * 16, 0)[0]:.4f}), first_mask {ms_first:.4f} ms "
-        f"(plain {plain_first:.4f}, rep[pg] == arange {lib_first:.4f}, "
-        f"bound {bound_ms(cap * 5 + k * 4, 0)[0]:.4f}); bound of both "
-        f"{b:.4f} by {by}")
+                "max_abs_err": 0, "ms": ms_word + margin,
+                "plain_ms": plain_word + plain_first, "bound_ms": b,
+                "bound_by": by, "library_ms": lib_word + lib_first})
+    log(f"K16 n={cap}, {k} pairs: pair_word {ms_word:.4f} ms (plain "
+        f"{plain_word:.4f}, the torch expression {lib_word:.4f}, bound "
+        f"{bound_ms(cap * 17, 0)[0]:.4f}); K10's word entry {ms_k10:.4f} "
+        f"ms with the ids, {ms_k10_ids_first:.4f} with the ids and the "
+        f"first mask (margin {margin:.4f}), {ms_k10_first:.4f} with the "
+        f"mask and no ids as the pair factorize calls it (rep[pg] "
+        f"== arange {lib_first:.4f}, plain {plain_first:.4f}); bound of "
+        f"both {b:.4f} by {by}; the pair "
+        f"factorize after the ranks {ms_pairs:.4f} ms in launches "
+        f"{pair_launches}")
 
     # K17: R1's read columns (live, returnflag/linestatus codes and masks,
     # l_quantity, l_extendedprice, l_discount and masks) tiled 3x
@@ -3221,10 +3321,39 @@ def check_dict_lut_kernels(dev):
                                 f"({dtype} table of {n_lut}, {code_dtype} "
                                 f"codes, n={n})")
                         cases += 1
+    # codes views 0-3 entries off their 16-byte boundary (the kernel's
+    # scalar head), lengths 1-17 and 2^23 - 777 (its scalar tail), tables
+    # at the shared-memory limit and one entry above it
+    for dtype in (torch.bool, torch.int32, torch.int64):
+        for size in ("7", "edge", "edge+1", "1500303"):
+            n_lut = _k21_size(size, dtype)
+            raw = torch.randint(-(1 << 40), 1 << 40, (n_lut,), device=dev,
+                                generator=g)
+            table = (raw & 1).bool() if dtype == torch.bool else \
+                raw.to(dtype)
+            for code_dtype in (torch.int32, torch.int64):
+                base = torch.randint(-3, n_lut + 3, ((1 << 23) + 3,),
+                                     device=dev, generator=g,
+                                     dtype=code_dtype)
+                for off in range(4):
+                    for n in list(range(1, 18)) + [(1 << 23) - 777]:
+                        codes = base[off:off + n]
+                        for mode in DL.MODES:
+                            got = DL.dict_lut(table, codes, mode, -1)
+                            want = DL.dict_lut_plain(table, codes, mode, -1)
+                            if got.dtype != want.dtype or \
+                                    not torch.equal(got, want):
+                                raise AssertionError(
+                                    f"K21 {mode} differs from its plain "
+                                    f"version ({dtype} table of {n_lut}, "
+                                    f"{code_dtype} codes {off} entries off, "
+                                    f"n={n})")
+                            cases += 1
     torch.cuda.synchronize()
     log(f"K21 exactly equal to its plain version ({cases} cases: bool, "
         f"int32 and int64 tables of {list(K21_SIZES)} entries, int32/int64 "
-        f"codes, n up to {FULL_SLAB}, clip and fill; shared-memory edge "
+        f"codes, n up to {FULL_SLAB}, clip and fill; codes views 0-3 "
+        f"entries off, n = 1-17 and 2^23 - 777; shared-memory limit "
         f"{smem} bytes)")
 
 
@@ -3873,6 +4002,30 @@ def _prep_meter():
     return meter, restore
 
 
+def _watch_k21_tables():
+    """Record each K21 call's table (entries, type, codes' type, and
+    whether K21 stages it in shared memory or gathers it through L2)
+    while phase 19 runs → (the set, a function that stops it)."""
+    import tidb_tpu_torch.expression as X
+    from tidb_tpu_torch.ops import dict_lut as DL
+    seen = set()
+    real = DL.dict_lut
+
+    def watched(table, codes, *a, **k):
+        seen.add((int(table.shape[0]), str(table.dtype).split(".")[-1],
+                  str(codes.dtype).split(".")[-1],
+                  "shared" if DL.in_shared_memory(table.shape[0],
+                                                  table.element_size())
+                  else "L2"))
+        return real(table, codes, *a, **k)
+
+    DL.dict_lut = X.dict_lut = watched
+
+    def unwatch():
+        DL.dict_lut = X.dict_lut = real
+    return seen, unwatch
+
+
 def string_sql_phase(s, n: int):
     """S1-S7 over lineitem_str, orders_str and shipmode, made here: each
     cold and warm once under tidb_tpu_strict=1, rows exactly equal to
@@ -3924,6 +4077,7 @@ def string_sql_phase(s, n: int):
     t_phase = time.perf_counter()
     ck.reset_launches()
     meter, restore = _prep_meter()
+    tables, unwatch = _watch_k21_tables()
     try:
         for name, sql in STRING_STMTS.items():
             for k in ("cold", "warm1"):
@@ -3946,8 +4100,12 @@ def string_sql_phase(s, n: int):
                 log(f"{run}: {len(rows)} rows, exact match, wall "
                     f"{wall:.4f} s, collect_preps {meter['s'] - s0:.4f} s "
                     f"for {meter['bytes'] - b0} bytes of prepared "
-                    f"tables, launches {moved}, phases {phases}")
+                    f"tables, launches {moved}, phases {phases}; K21 "
+                    f"tables (entries, type, codes, regime): "
+                    f"{sorted(tables)}")
+                tables.clear()
     finally:
+        unwatch()
         restore()
     launches = ck.launches()
     walls["string_phase"] = time.perf_counter() - t_phase

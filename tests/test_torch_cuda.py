@@ -7,7 +7,11 @@ versions on CPU copies; K19 delta_merge (its partition, every packed
 width, dict, raw and wide columns) against delta_merge_plain, and a
 cached table extended on the card by writes against the host engine;
 K20 civil_date and K21 dict_lut (both modes, every table width, codes
-out of range, tables in and above shared memory) against theirs; K22
+out of range, tables in and above shared memory, codes views 1-3
+entries off, lengths 1-17, fill over an empty table, two calls in a row)
+against theirs; K16's pair word against the K9 words it replaces and
+K10's first mask against rep[pg] == iota (every pair dead, one row, one
+group, every row its own group, gid_cap at the limit); K22
 member_compact (B = 1, 3, 16; empty, full and random masks; cap at the
 128 KB tile ± 1 over mask views 0-15 bytes off, one live row in the last
 member) against its plain version; K23 hash_partition (1-64 destinations, the tile edge, an
@@ -266,35 +270,118 @@ def test_q1_on_card_equals_host_engine(cuda):
     assert all(after[k] > before[k] for k in q1), (before, after)
 
 
+def _k16_same(cuda, gids, vals, valid, live, gid_cap):
+    """K16's word against its plain version and the K9 words it replaces;
+    K10 with the first mask against K10 without it and against
+    rep[pg] == iota (with and without the ids; no ids without the mask
+    raises); the pair factorize on the
+    card against its CPU run, every row."""
+    from tidb_tpu_torch.ops import factorize as F
+    n = live.shape[0]
+    bound = F.GID_MAX if gid_cap is None else gid_cap
+    pl = (live & valid).to(cuda)
+    g = gids.to(cuda)
+    vid = F._dense1(vals.to(cuda), None, pl)
+    word = F.pair_word(g, vid, pl, bound)
+    assert torch.equal(word, F.pair_word_plain(g, vid, pl, bound))
+    code = F.pair_code_plain(g, vid)
+    k9 = torch.empty(n, dtype=torch.int64, device=cuda)
+    F.sort_encode(code, 2, None, None, False, 1 << 63, 0, k9)
+    F.sort_encode(pl, 0, None, None, True, 0, F.pair_width(bound, n), k9,
+                  accumulate=True)
+    assert torch.equal(word, k9)
+    sidx, words = F.pair_sort(g, vid, pl, bound)
+    key = F._word_key(words)
+    base = F.group_ids_words(words.last, sidx, *key, n)
+    got = F.group_ids_words(words.last, sidx, *key, n, first=True)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], base))
+    assert torch.equal(got[3], F.first_mask_plain(base[2], base[0]))
+    bare = F.group_ids_words(words.last, sidx, *key, n, first=True,
+                             want_gids=False)
+    assert bare[0] is None
+    assert all(torch.equal(a, b) for a, b in zip(bare[1:], got[1:]))
+    with pytest.raises(ValueError):
+        F.group_ids_words(words.last, sidx, *key, n, want_gids=False)
+    res = F.distinct_pair_factorize(g, vals.to(cuda), valid.to(cuda),
+                                    live.to(cuda), n, gid_cap=gid_cap)
+    want = F.distinct_pair_factorize(gids, vals, valid, live, n,
+                                     gid_cap=gid_cap)
+    k = int(want[2])
+    assert int(res[2]) == k
+    assert torch.equal(res[0].cpu(), want[0])
+    assert torch.equal(res[1].cpu(), want[1])
+    assert torch.equal(res[3].cpu()[:k], want[3][:k])
+
+
 @pytest.mark.parametrize("n,cap", [(1, 1), (5000, 13), (200_003, 4096)])
 def test_k16_matches_plain(cuda, n, cap):
-    from tidb_tpu_torch.ops import factorize as F
     g = torch.Generator().manual_seed(n)
     live = torch.rand(n, generator=g) < 0.8
     gids = torch.where(live, torch.randint(0, cap, (n,), generator=g),
                        torch.full((n,), cap)).to(torch.int32)
-    vid = torch.randint(0, max(n // 3, 1), (n,), generator=g,
-                        dtype=torch.int32)
-    assert torch.equal(F.pair_code(gids.to(cuda), vid.to(cuda), cap).cpu(),
-                       F.pair_code_plain(gids, vid))
-    rep = torch.randint(0, n, (cap,), generator=g, dtype=torch.int32)
-    pg = torch.randint(0, cap, (n,), generator=g, dtype=torch.int32)
-    rep[pg[: cap // 2].long()] = torch.arange(min(cap // 2, n),
-                                              dtype=torch.int32)
-    assert torch.equal(F.first_mask(rep.to(cuda), pg.to(cuda)).cpu(),
-                       F.first_mask_plain(rep, pg))
     vals = torch.randint(-40, 40, (n,), generator=g)
     valid = torch.rand(n, generator=g) < 0.9
-    got = F.distinct_pair_factorize(gids.to(cuda), vals.to(cuda),
-                                    valid.to(cuda), live.to(cuda), n,
-                                    gid_cap=cap)
-    want = F.distinct_pair_factorize(gids, vals, valid, live, n,
-                                     gid_cap=cap)
-    pl = live & valid
-    k = int(want[2])
-    assert int(got[2]) == k
-    assert torch.equal(got[0].cpu()[pl], want[0][pl])
-    assert torch.equal(got[3].cpu()[:k], want[3][:k])
+    _k16_same(cuda, gids, vals, valid, live, cap)
+
+
+@pytest.mark.parametrize("case", ["all dead", "one row", "one group",
+                                  "own groups", "dead between",
+                                  "gid_cap at the limit", "no gid_cap"])
+def test_k16_edges(cuda, case):
+    """K16 and K10's first mask with every pair dead, one row, one group,
+    every row its own group, dead rows between live ones, a gid_cap at
+    the limit of (cap+1)(n+1) < 2^63 (the word's 63 code bits and its dead
+    flag: every bit of the 64) and none given (int32's bound)."""
+    n = 4099
+    g = torch.Generator().manual_seed(16)
+    live = torch.ones(n, dtype=torch.bool)
+    valid = torch.rand(n, generator=g) < 0.9
+    gids = torch.randint(0, 7, (n,), generator=g, dtype=torch.int32)
+    vals = torch.randint(-9, 9, (n,), generator=g)
+    cap = 7
+    if case == "all dead":
+        live[:] = False
+    elif case == "one row":
+        live, valid, gids, vals = live[:1], valid[:1], gids[:1], vals[:1]
+    elif case == "one group":
+        gids[:] = 3
+    elif case == "own groups":
+        gids = torch.arange(n, dtype=torch.int32)
+        vals = torch.arange(n)
+        cap = n
+    elif case == "dead between":
+        live = torch.arange(n) % 3 != 1
+    elif case == "gid_cap at the limit":
+        cap = (1 << 63) // (n + 1) - 1
+        assert (cap + 1) * (n + 1) < 1 << 63 <= (cap + 2) * (n + 1)
+        gids = torch.where(gids > 3, torch.tensor(2 ** 31 - 1), gids).to(
+            torch.int32)
+    gids = torch.where(live, gids, torch.tensor(min(cap, 2 ** 31 - 1))).to(
+        torch.int32)
+    _k16_same(cuda, gids, vals, valid, live,
+              None if case == "no gid_cap" else cap)
+
+
+def test_k10_words_without_first_is_unchanged(cuda):
+    """K10's word entry without the first mask returns what its plain
+    version returns (gids, n_groups, rep; and _dense1's unmasked codes at
+    cap 0), over a one-word sort with NULLs and dead rows."""
+    from tidb_tpu_torch.ops import factorize as F
+    g = torch.Generator().manual_seed(10)
+    n = 300_001
+    v = torch.randint(-50, 50, (n,), generator=g, dtype=torch.int32)
+    m = torch.rand(n, generator=g) < 0.9
+    live = torch.rand(n, generator=g) < 0.8
+    ops = F._key_operands([(v.to(cuda), m.to(cuda))], live.to(cuda))
+    sidx, words = F._lexsort_kernel(ops)
+    assert words.count == 1
+    key = F._word_key(words)
+    for cap in (0, 1000, n):
+        got = F.group_ids_words(words.last, sidx, *key, cap)
+        want = F.group_ids_words_plain(words.last, sidx, *key, cap)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("reps", [2, 4])
@@ -569,6 +656,78 @@ def test_k21_matches_plain(cuda, dtype, code_dtype):
             got = DL.dict_lut(table, codes)
             assert got.dtype == dtype
             assert torch.equal(got, DL.dict_lut_plain(table, codes))
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.int64])
+def test_k21_views_lengths_and_limit(cuda, dtype, code_dtype):
+    """K21 over codes views 1-3 entries off their 16-byte boundary (the
+    scalar head), lengths 1-17 (the scalar tail), tables at the shared-
+    memory limit and one entry above it (L2), both modes, exactly equal
+    to the plain version; the output's row 0 may sit inside its buffer."""
+    from tidb_tpu_torch.ops import dict_lut as DL
+    rng = np.random.default_rng(211)
+    edge = DL.SMEM_BYTES // torch.tensor([], dtype=dtype).element_size()
+    for n_lut in (7, edge, edge + 1):
+        table = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n_lut)) \
+            .to(dtype).to(cuda)
+        base = torch.from_numpy(rng.integers(-3, n_lut + 3, 5003)).to(
+            code_dtype).to(cuda)
+        for off in (0, 1, 2, 3):
+            for n in list(range(1, 18)) + [4999]:
+                codes = base[off:off + n]
+                for mode in DL.MODES:
+                    got = DL.dict_lut(table, codes, mode, -1)
+                    want = DL.dict_lut_plain(table, codes, mode, -1)
+                    assert got.dtype == want.dtype and \
+                        torch.equal(got, want), (n_lut, off, n, mode)
+
+
+def test_k21_staged_table_on_every_device(cuda):
+    """A 128 KB table (16,384 int64 entries, above the default 48 KB of
+    dynamic shared memory) staged on each visible card in turn, both
+    modes: the raised shared-memory limit holds on every device, not only
+    on the first one a process launched on."""
+    from tidb_tpu_torch.ops import dict_lut as DL
+    rng = np.random.default_rng(128)
+    for d in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(dev):
+            table = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40,
+                                                  16384)).to(dev)
+            assert DL.in_shared_memory(16384, 8)
+            codes = torch.from_numpy(rng.integers(-3, 16387, 100_003)).to(
+                torch.int32).to(dev)
+            for mode in DL.MODES:
+                got = DL.dict_lut(table, codes, mode, -1)
+                assert torch.equal(got, DL.dict_lut_plain(table, codes,
+                                                          mode, -1)), (d,
+                                                                       mode)
+
+
+def test_k21_fill_over_an_empty_table_and_calls_in_a_row(cuda):
+    """Fill mode over an empty table writes the fill everywhere (int32
+    and int64 codes, bool/int32/int64 tables); two calls in a row on one
+    stream, the second over the first's output, equal the plain
+    composition."""
+    from tidb_tpu_torch.ops import dict_lut as DL
+    for dtype in (torch.bool, torch.int32, torch.int64):
+        empty = torch.empty(0, dtype=dtype, device=cuda)
+        for code_dtype in (torch.int32, torch.int64):
+            codes = torch.arange(-5, 1000, dtype=code_dtype, device=cuda)
+            got = DL.dict_lut(empty, codes, "fill", -1)
+            assert torch.equal(got, DL.dict_lut_plain(empty, codes, "fill",
+                                                      -1))
+    g = torch.Generator().manual_seed(21)
+    remap = torch.randint(-1, 50, (40,), generator=g,
+                          dtype=torch.int32).to(cuda)
+    names = torch.randint(0, 1 << 40, (50,), generator=g).to(cuda)
+    codes = torch.randint(-2, 45, (1 << 20,), generator=g,
+                          dtype=torch.int32).to(cuda)
+    got = DL.dict_lut(names, DL.dict_lut(remap, codes, "fill", -1))
+    want = DL.dict_lut_plain(names, DL.dict_lut_plain(remap, codes, "fill",
+                                                      -1))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])

@@ -7,8 +7,9 @@ the CPU.
   with NULLs and dead rows, float64 with -0.0 and NaN, dictionary codes,
   group ids with the dead rows' cap — exactly equal: the first mask on
   the pair_live rows, the pair ids, n_pairs and rep[:n_pairs].
-* Plain versions: K16's pair code and first mask against the reference's
-  own expressions (`gids·(n+1)+vid`, `take(rep, pg) == iota`), K17
+* Plain versions: the pair code and first mask the port keeps beside
+  K16 against the reference's own expressions (`gids·(n+1)+vid`,
+  `take(rep, pg) == iota`), K17
   against `_rollup_tile`'s concatenate (a 2-D limb plane among the
   columns) and the ROLLUP branch's level masks, K18 against
   emit_distinct's gathers (the whole pair output of emit_distinct, port
@@ -285,8 +286,10 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     i32 = torch.empty(8, dtype=torch.int32, device="meta")
     b = torch.empty(8, dtype=torch.bool, device="meta")
     n_valid = torch.empty((), dtype=torch.int32, device="meta")
-    for call in (lambda: TF.pair_code(i32, i32, 4),
-                 lambda: TF.first_mask(i32, i32),
+    i64 = torch.empty(8, dtype=torch.int64, device="meta")
+    for call in (lambda: TF.pair_word(i32, i32, b, 4),
+                 lambda: TF.group_ids_words(i64, i32, 7, None, 3, 8,
+                                            first=True),
                  lambda: TE.rollup_tile([i32, b], 3),
                  lambda: TE.rollup_levels([b], 4),
                  lambda: TG.gather_columns([(i32, b)], i32, n_valid)):

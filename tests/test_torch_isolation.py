@@ -148,7 +148,7 @@ def test_every_kernel_source_is_built_and_counted():
     # sorted_groups.cu's K10 has two entries, each with its counter
     for name in ("group_ids", "group_ids_words"):
         assert name in ck.COUNTERS
-    for fn in ("tt_pair_code", "tt_first_mask", "tt_rollup_tile",
+    for fn in ("tt_pair_word", "tt_rollup_tile",
                "tt_rollup_levels", "tt_gather_columns", "tt_delta_perm",
                "tt_delta_repack", "tt_civil_part", "tt_date_add_months",
                "tt_dict_lut", "tt_dict_lut_smem_bytes", "tt_member_count",

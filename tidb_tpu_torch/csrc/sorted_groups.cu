@@ -22,7 +22,12 @@
 //     One launch: each block takes its tile id from an atomic counter,
 //     ranks its flags with warp ballots and finds its prefix by decoupled
 //     look-back over the earlier tiles' status words (a 64-bit word per
-//     tile: the count and a flag; zeroed by one memset per call).
+//     tile: the count and a flag; zeroed by one memset per call). For
+//     the DISTINCT pair factorize (cap >= n, K16's word) the same pass
+//     also writes the first-occurrence mask `rep[gids] == iota` of
+//     tidb_tpu/ops/factorize.py:219 (a byte set at each group's first
+//     sorted row, in row order), and may then leave the ids out: their
+//     scattered 4-byte store is most of the pass.
 //   * gather (tt_group_ids), for sorts of two or more words: the key and
 //     its masks gathered through the permutation at each sorted position
 //     and its neighbour, in a three-launch scan (block totals, one block
@@ -231,25 +236,36 @@ __device__ __forceinline__ int look_back(const u64* status, int tile,
   return excl;
 }
 
-// before gid_words: the scratch (tile counter, status words) zeroed and
-// rep (cap > 0) filled with `value`
+// before gid_words: the scratch (tile counter, status words) zeroed, rep
+// (cap > 0) filled with `value` and, with FIRST, the first mask (n_first
+// bytes from an 8-byte aligned address) zeroed
+template <bool FIRST>
 __global__ void __launch_bounds__(THREADS)
     words_prep(u64* __restrict__ scratch, long long words,
-               int* __restrict__ rep, int cap, int value) {
+               int* __restrict__ rep, int cap, int value,
+               unsigned char* __restrict__ first, long long n_first) {
   const long long step = static_cast<long long>(gridDim.x) * THREADS;
-  const long long first = static_cast<long long>(blockIdx.x) * THREADS +
-                          threadIdx.x;
-  for (long long i = first; i < words; i += step) scratch[i] = 0ull;
-  for (long long i = first; i < cap; i += step) rep[i] = value;
+  const long long lo = static_cast<long long>(blockIdx.x) * THREADS +
+                       threadIdx.x;
+  for (long long i = lo; i < words; i += step) scratch[i] = 0ull;
+  for (long long i = lo; i < cap; i += step) rep[i] = value;
+  if (FIRST) {
+    const long long w8 = n_first >> 3;
+    for (long long i = lo; i < w8; i += step)
+      reinterpret_cast<u64*>(first)[i] = 0ull;
+    if (lo < (n_first & 7)) first[(w8 << 3) + lo] = 0;
+  }
 }
 
-// one launch: flags, warp-ballot ranks, look-back, scatter
+// one launch: flags, warp-ballot ranks, look-back, scatter; with FIRST
+// (cap >= n) also the first mask, and then IDS false leaves the ids out
+template <bool FIRST, bool IDS>
 __global__ void __launch_bounds__(THREADS)
     gid_words(const u64* __restrict__ w, const int* __restrict__ sidx,
               long long n, WordKey key, int cap,
               unsigned* __restrict__ tile_counter, u64* status,
               int* __restrict__ gids, int* __restrict__ rep,
-              int* __restrict__ n_groups) {
+              int* __restrict__ n_groups, unsigned char* __restrict__ first) {
   __shared__ int warp_excl[WARPS];
   __shared__ int s_tile;
   __shared__ int s_excl;
@@ -325,7 +341,12 @@ __global__ void __launch_bounds__(THREADS)
     }
     if (lane == 0) {
       s_excl = excl;
-      if (cap > 0 && tile == (n - 1) / WORD_TILE) *n_groups = excl + total;
+      if (cap > 0 && tile == (n - 1) / WORD_TILE) {
+        *n_groups = excl + total;
+        // no live row: every row's id clamps to slot 0, whose rep is
+        // n - 1, so rep[pg] == iota holds at row n - 1 alone
+        if (FIRST && excl + total == 0) first[n - 1] = 1;
+      }
     }
   }
   __syncthreads();
@@ -340,12 +361,14 @@ __global__ void __launch_bounds__(THREADS)
       gids[r] = gid_s;
       continue;
     }
-    gids[r] = gid_s < 0 ? 0 : (gid_s >= cap ? cap - 1 : gid_s);
+    if (IDS) gids[r] = gid_s < 0 ? 0 : (gid_s >= cap ? cap - 1 : gid_s);
     if ((flags >> j) & 1u) {
       if (gid_s < cap - 1)
         rep[gid_s] = r;         // a group's first sorted row is its least
       else
         atomicMin(&rep[cap - 1], r);
+      // cap >= n: no slot is shared, so rep[pg[r]] == r exactly here
+      if (FIRST) first[r] = 1;
     }
   }
 }
@@ -859,35 +882,52 @@ int tt_group_ids(const void* sidx, const void* v, int dtype, const void* m,
 // nan_val; cap > 0 masks it by the live flag, bit dead_shift of w clear.
 // Outputs as tt_group_ids, but rep (cap > 0) is filled here with
 // max(n - 1, 0) first. Scratch: int64 (tt_group_words_scratch(n)), zeroed
-// here (one launch does both).
+// here (one launch does both). With cap >= n, `first` (null: not asked
+// for; n bool, 8-byte aligned) is the first-occurrence mask
+// rep[gids] == iota of every row, zeroed here and set where a group's
+// first sorted row is (row n - 1 when no row is live); with `first`,
+// gids may be null (not written).
 int tt_group_ids_words(const void* w, const void* sidx, long long n,
                        unsigned long long cmp_mask, int has_nan,
                        unsigned long long nan_mask,
                        unsigned long long nan_val, int dead_shift, int cap,
-                       void* gids, void* rep, void* n_groups, void* scratch,
-                       void* stream) {
+                       void* gids, void* rep, void* n_groups, void* first,
+                       void* scratch, void* stream) {
   if (n < 0 || n >= (1LL << 31) || cap < 0 || dead_shift < 0 ||
-      dead_shift > 63)
+      dead_shift > 63 ||
+      (first && (cap < n || cap == 0 ||
+                 (reinterpret_cast<uintptr_t>(first) & 7))) ||
+      (!gids && !first))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* ng = static_cast<int*>(n_groups);
   const long long n_tiles = (n + WORD_TILE - 1) / WORD_TILE;
   u64* words = static_cast<u64*>(scratch);
-  const long long most = (1 + n_tiles) > cap ? 1 + n_tiles : cap;
+  unsigned char* fm = static_cast<unsigned char*>(first);
+  long long most = (1 + n_tiles) > cap ? 1 + n_tiles : cap;
+  if (fm && (n >> 3) + 8 > most) most = (n >> 3) + 8;
   const long long pb = (most + THREADS - 1) / THREADS;
-  words_prep<<<static_cast<unsigned>(pb < 264 ? pb : 264), THREADS, 0, st>>>(
-      words, 1 + n_tiles, static_cast<int*>(rep), cap,
-      n > 0 ? static_cast<int>(n - 1) : 0);
+  const unsigned prep_blocks = static_cast<unsigned>(pb < 264 ? pb : 264);
+  if (fm)
+    words_prep<true><<<prep_blocks, THREADS, 0, st>>>(
+        words, 1 + n_tiles, static_cast<int*>(rep), cap,
+        n > 0 ? static_cast<int>(n - 1) : 0, fm, n);
+  else
+    words_prep<false><<<prep_blocks, THREADS, 0, st>>>(
+        words, 1 + n_tiles, static_cast<int*>(rep), cap,
+        n > 0 ? static_cast<int>(n - 1) : 0, nullptr, 0);
   if (n == 0) {
     if (ng && cap > 0) cudaMemsetAsync(ng, 0, sizeof(int), st);
     return static_cast<int>(cudaGetLastError());
   }
   WordKey key{cmp_mask, nan_mask, nan_val, has_nan, dead_shift};
-  gid_words<<<static_cast<unsigned>(n_tiles), THREADS, 0, st>>>(
+  auto kernel = !fm ? gid_words<false, true>
+                    : (gids ? gid_words<true, true> : gid_words<true, false>);
+  kernel<<<static_cast<unsigned>(n_tiles), THREADS, 0, st>>>(
       static_cast<const u64*>(w), static_cast<const int*>(sidx), n, key, cap,
-      reinterpret_cast<unsigned*>(words), words + 1,
-      static_cast<int*>(gids), static_cast<int*>(rep), ng);
+      reinterpret_cast<unsigned*>(words), words + 1, static_cast<int*>(gids),
+      static_cast<int*>(rep), ng, fm);
   return static_cast<int>(cudaGetLastError());
 }
 

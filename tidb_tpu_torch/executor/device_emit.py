@@ -75,7 +75,7 @@ def emit_distinct(gids, v, m, live, n: int, keys, pairs_out: bool,
     from tidb_tpu_torch.ops import factorize as F
     from tidb_tpu_torch.ops.gather import gather_columns
     first, _pg, n_pairs, rep = F.distinct_pair_factorize(
-        gids, v, m, live, n, gid_cap=group_cap)
+        gids, v, m, live, n, gid_cap=group_cap, want_pg=False)
     if not pairs_out:
         return first, None
     pc = min(pair_cap, n) if pair_cap else n

@@ -84,7 +84,7 @@ _SIGNATURES = {
     "tt_radix_sort": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P],
     "tt_group_ids": [_P, _P, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P],
     "tt_group_ids_words": [_P, _P, _L, _U, _I, _U, _U, _I, _I, _P, _P, _P,
-                           _P, _P],
+                           _P, _P, _P],
     "tt_group_words_scratch": [_L],
     "tt_sorted_search": [_P, _L, _P, _L, _I, _I, _P, _P, _P],
     "tt_sorted_probe_unique": [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P,
@@ -106,8 +106,7 @@ _SIGNATURES = {
     "tt_frame_gather": [_P, _I, _P, _P, _L, _P, _P, _L, _P, _L, _P, _L, _P,
                         _P, _P],
     "tt_frame_minmax": [_P, _I, _P, _I, _L, _D, _P, _P, _L, _L, _P, _P, _P],
-    "tt_pair_code": [_P, _P, _L, _L, _P, _P],
-    "tt_first_mask": [_P, _P, _L, _I, _P, _P],
+    "tt_pair_word": [_P, _P, _P, _L, _L, _I, _P, _P],
     "tt_rollup_tile": [_I, _P, _P, _P, _P, _L, _I, _P],
     "tt_rollup_levels": [_I, _P, _P, _L, _P, _P],
     "tt_gather_columns": [_P, _P],
@@ -116,7 +115,7 @@ _SIGNATURES = {
     "tt_delta_repack": [_P, _L, _I, _P, _L, _L, _P, _L, _P],
     "tt_civil_part": [_P, _I, _I, _P, _L, _P],
     "tt_date_add_months": [_P, _I, _P, _L, _L, _P, _L, _P],
-    "tt_dict_lut": [_P, _I, _P, _I, _L, _I, _L, _P, _L, _P],
+    "tt_dict_lut": [_P, _P, _L, _L, _P, _L, _I, _P],
     "tt_dict_lut_smem_bytes": [],
     "tt_member_tile": [],
     "tt_member_scratch_bytes": [_I, _L],

@@ -166,15 +166,31 @@ def group_ids_plain(sidx, v, m, live, cap: int):
                                    live[sidx] if cap > 0 else None, cap)
 
 
+def _check_outputs(n: int, cap: int, first: bool, want_gids: bool) -> None:
+    if first and cap < max(n, 1):
+        raise ValueError(f"group_ids_words: the first mask needs a slot a "
+                         f"row (cap >= n >= 1 or cap >= 1), got cap={cap}, "
+                         f"n={n}")
+    if not (want_gids or first):
+        raise ValueError("group_ids_words: the ids are left out only "
+                         "beside the first mask")
+
+
 def group_ids_words_plain(w, sidx, cmp_mask: int, nan, dead_shift: int,
-                          cap: int):
+                          cap: int, first: bool = False,
+                          want_gids: bool = True):
     """Plain torch version of K10's word entry over `w`, a sort's one radix
     word in sorted order (uint64 bits in an int64 tensor), and its row ids
     `sidx`: a boundary where a bit under `cmp_mask` changes, or where
     `nan` = (mask, code) is given and w & mask == code (each NaN its own
     group); cap > 0 masks it by the live flag (bit `dead_shift` of w
-    clear). Outputs as `group_ids_plain`."""
+    clear). Outputs as `group_ids_plain`; with `first` (cap >= n), a
+    fourth, the first-occurrence mask `rep[gids] == iota` in row order:
+    true at each group's first sorted row, or at row n - 1 alone when no
+    row is live (every id clamps to slot 0, whose rep is n - 1); with
+    `first` and without `want_gids` the ids are None."""
     n = w.shape[0]
+    _check_outputs(n, cap, first, want_gids)
     diff = torch.zeros(n, dtype=torch.bool, device=w.device)
     if n:
         diff[0] = True
@@ -184,7 +200,15 @@ def group_ids_words_plain(w, sidx, cmp_mask: int, nan, dead_shift: int,
     live_s = None
     if cap > 0:
         live_s = torch.bitwise_right_shift(w, dead_shift) & 1 == 0
-    return _groups_from_boundaries(sidx, diff, live_s, cap)
+    out = _groups_from_boundaries(sidx, diff, live_s, cap)
+    if not first:
+        return out
+    gids, ng, rep = out
+    mask = torch.zeros(n, dtype=torch.bool, device=w.device)
+    mask[sidx[diff & live_s].to(torch.int64)] = True
+    if n and int(ng) == 0:
+        mask[n - 1] = True
+    return (gids if want_gids else None), ng, rep, mask
 
 
 # K9's operand types: 0 bool, 1 int32, 2 int64, 3 float64
@@ -524,12 +548,13 @@ def group_ids(sidx, v, m, live, cap: int,
 
 
 def group_ids_words(w, sidx, cmp_mask: int, nan, dead_shift: int,
-                    cap: int):
+                    cap: int, first: bool = False, want_gids: bool = True):
     """K10 word-entry wrapper, as `group_ids_words_plain` (CPU tensors take
-    it)."""
+    it); `first` (cap >= n) adds the first-occurrence mask from the same
+    pass, and then `want_gids` False spares the ids' store."""
     if w.device.type == "cpu":
         return group_ids_words_plain(w, sidx, cmp_mask, nan, dead_shift,
-                                     cap)
+                                     cap, first, want_gids)
     from tidb_tpu_torch.ops import cuda_kernels as ck
     ck.require_cuda(w, sidx, what="group_ids_words")
     n = w.shape[0]
@@ -539,29 +564,39 @@ def group_ids_words(w, sidx, cmp_mask: int, nan, dead_shift: int,
         raise ck.KernelError("group_ids_words: int64 words, int32 row ids "
                              "of one length, cap >= 0 and a dead bit in "
                              "0..63 expected")
+    _check_outputs(n, cap, first, want_gids)
     dev = w.device
-    gids = torch.empty(n, dtype=torch.int32, device=dev)
+    gids = torch.empty(n, dtype=torch.int32, device=dev) if want_gids \
+        else None
     lib = ck.library("sorted_groups")
     # one allocation: the kernel's scratch, then rep (which the kernel
-    # fills with max(n - 1, 0)) and n_groups as int32
+    # fills with max(n - 1, 0)) and n_groups as int32, then the first
+    # mask's bytes
     words = lib.tt_group_words_scratch(n)
-    buf = torch.empty(words + cap // 2 + 1, dtype=torch.int64, device=dev)
+    mid = words + cap // 2 + 1
+    buf = torch.empty(mid + (-(-n // 8) if first else 0), dtype=torch.int64,
+                      device=dev)
     scratch = buf[:words]
-    rep = ng = None
+    rep = ng = mask = None
     if cap > 0:
-        tail = buf[words:].view(torch.int32)
+        tail = buf[words:mid].view(torch.int32)
         rep, ng = tail[:cap], tail[cap]
+    if first:
+        mask = buf[mid:].view(torch.bool)[:n]
     nan_mask, nan_val = nan if nan is not None else (0, 0)
     rc = lib.tt_group_ids_words(
         w.data_ptr(), sidx.data_ptr(), n, int(cmp_mask) & _M64,
         int(nan is not None), int(nan_mask) & _M64, int(nan_val) & _M64,
-        int(dead_shift), int(cap), gids.data_ptr(),
+        int(dead_shift), int(cap), None if gids is None else gids.data_ptr(),
         None if rep is None else rep.data_ptr(),
-        None if ng is None else ng.data_ptr(), scratch.data_ptr(),
+        None if ng is None else ng.data_ptr(),
+        None if mask is None else mask.data_ptr(), scratch.data_ptr(),
         ck.stream_ptr(dev))
     if n > 0:
         ck.count("group_ids_words")
     ck.check(rc, "group_ids_words")
+    if first:
+        return gids, ng, rep, mask
     return gids if cap == 0 else (gids, ng, rep)
 
 
@@ -709,21 +744,21 @@ def dense_codes(keys: Sequence[Tuple], live):
 
 
 def distinct_pair_factorize(gids, values, validity, live, cap: int,
-                            gid_cap: Optional[int] = None):
+                            gid_cap: Optional[int] = None,
+                            want_pg: bool = True):
     """Dense ids of live (group, value) pairs → (first_mask, pair_gids,
-    n_pairs, rep). One value-rank sort + one pair-code sort, shared
-    between DISTINCT state masking (first_mask) and the cross-slab
-    distinct-pair partials (rep/n_pairs). `gids` are the rows' group ids
-    (dead rows carry the group cap); `gid_cap`, when known, bounds them,
-    so the pair code gid·(n+1)+vid carries its bound (gid_cap+1)·(n+1)
-    into the sort (K16 pair_code, K9 + K8 + K10, K16 first_mask)."""
+    n_pairs, rep). One value-rank sort + one pair sort, shared between
+    DISTINCT state masking (first_mask) and the cross-slab distinct-pair
+    partials (rep/n_pairs). `gids` are the rows' group ids in [0, gid_cap]
+    (dead rows carry the group cap); `gid_cap`, when known, bounds them
+    (else int32's bound does), so the pair code gid·(n+1)+vid carries its
+    bound (gid_cap+1)·(n+1) into the one-word sort (`pair_factorize`).
+    `cap` >= n: a slot for every row (the JAX function's callers pass
+    the slab). Without `want_pg`, pair_gids is None."""
     n = live.shape[0]
     pair_live = live & validity
     vid = _dense1(values, None, pair_live)
-    code = pair_code(gids, vid, gid_cap)
-    hi = None if gid_cap is None else (gid_cap + 1) * (n + 1)
-    pg, n_pairs, rep = factorize([(code, None)], pair_live, cap, hi=hi)
-    return first_mask(rep, pg), pg, n_pairs, rep
+    return pair_factorize(gids, vid, pair_live, cap, gid_cap, want_pg)
 
 
 def distinct_mask(gids, values, validity, live,
@@ -737,67 +772,122 @@ def distinct_mask(gids, values, validity, live,
 
 
 # ---------------------------------------------------------------------------
-# K16 distinct_pairs: the pair code and the first-occurrence mask
+# K16 distinct_pairs: the pair sort's word; the pair factorize after it
 # ---------------------------------------------------------------------------
+
+#: the bound of int32 group ids, where the caller gives none
+GID_MAX = 2 ** 31 - 1
 
 
 def pair_code_plain(gids, vid):
-    """Plain torch version of K16's first entry: gid·(n+1) + vid (int64)."""
+    """The JAX function's pair code, gid·(n+1) + vid (int64)."""
     n = gids.shape[0]
     return gids.to(torch.int64) * (n + 1) + vid.to(torch.int64)
 
 
 def first_mask_plain(rep, pg):
-    """Plain torch version of K16's second entry: rep[pg] == iota."""
+    """The JAX function's first-occurrence mask, rep[pg] == iota."""
     n = pg.shape[0]
     return rep.to(torch.int64)[pg.to(torch.int64)] == \
         torch.arange(n, dtype=torch.int64, device=pg.device)
 
 
-def pair_code(gids, vid, gid_cap: Optional[int] = None):
-    """K16 wrapper (pair code): CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise on anything it does not take).
-    `gid_cap` bounds the group ids; the code's bound (gid_cap+1)·(n+1)
-    must stay below 2^63."""
+def pair_width(gid_cap: int, n: int) -> int:
+    """W, the bits of the pair code gid·(n+1) + vid under its bound
+    (gid_cap+1)·(n+1), which must stay below 2^63."""
+    hi = (gid_cap + 1) * (n + 1)
+    if not 0 <= gid_cap or hi >= 2 ** 63:
+        raise ValueError(f"pair code: (cap+1)·(n+1) = ({gid_cap}+1)·({n}+1)"
+                         f" does not fit int64")
+    return (hi - 1).bit_length()
+
+
+def pair_fields(width: int) -> Tuple[Field, Field]:
+    """The `Field`s K9 gives [SortOp(pair_live, desc=True), SortOp(code,
+    hi=...)] in their one word: the dead flag at bit W, the code (int64
+    type, base 2^63) at shift 0 over W bits."""
+    return (Field(width, 1, 0), Field(0, width, _ZERO_CODE[2]))
+
+
+def pair_word_plain(gids, vid, pair_live, gid_cap: int):
+    """Plain torch version of K16: (gid·(n+1) + vid) | !pair_live << W,
+    the pair sort's one radix word (int64 holding uint64 bits)."""
+    n = gids.shape[0]
+    width = pair_width(gid_cap, n)
+    dead = torch.logical_not(pair_live).to(torch.int64)
+    return pair_code_plain(gids, vid) | torch.bitwise_left_shift(dead, width)
+
+
+def pair_word(gids, vid, pair_live, gid_cap: int):
+    """K16 wrapper: CPU tensors take the plain version; CUDA tensors
+    launch the kernel (or raise on anything it does not take)."""
     if gids.device.type == "cpu":
-        return pair_code_plain(gids, vid)
+        return pair_word_plain(gids, vid, pair_live, gid_cap)
     from tidb_tpu_torch.ops import cuda_kernels as ck
-    ck.require_cuda(gids, vid, what="pair_code")
+    ck.require_cuda(gids, vid, pair_live, what="pair_word")
     n = gids.shape[0]
     if gids.dtype != torch.int32 or vid.dtype != torch.int32 or \
-            gids.shape != (n,) or vid.shape != (n,):
-        raise ck.KernelError("pair_code: int32 gids and value ranks of one "
-                             "length expected")
-    if gid_cap is not None and (gid_cap + 1) * (n + 1) >= 2 ** 63:
-        raise ck.KernelError(f"pair_code: (cap+1)·(n+1) = ({gid_cap}+1)·"
-                             f"({n}+1) does not fit int64")
-    out = torch.empty(n, dtype=torch.int64, device=gids.device)
-    rc = ck.library("distinct_pairs").tt_pair_code(
-        gids.data_ptr(), vid.data_ptr(), n, n + 1, out.data_ptr(),
-        ck.stream_ptr(gids.device))
+            pair_live.dtype != torch.bool or gids.shape != (n,) or \
+            vid.shape != (n,) or pair_live.shape != (n,):
+        raise ck.KernelError("pair_word: int32 gids and value ranks and "
+                             "bool flags of one length expected")
+    try:
+        width = pair_width(gid_cap, n)
+    except ValueError as e:
+        raise ck.KernelError(str(e)) from None
+    kernel = _PAIR_WORD or _bind_pair_word()
+    dev = gids.device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    rc = kernel(gids.data_ptr(), vid.data_ptr(), pair_live.data_ptr(), n,
+                n + 1, width, out.data_ptr(), ck.stream_ptr(dev))
     if n > 0:
         ck.count("distinct_pairs")
-    ck.check(rc, "pair_code")
+    if rc:
+        ck.check(rc, "pair_word")
     return out
 
 
-def first_mask(rep, pg):
-    """K16 wrapper (first-occurrence mask), as `first_mask_plain`."""
-    if pg.device.type == "cpu":
-        return first_mask_plain(rep, pg)
+#: csrc/distinct_pairs.cu tt_pair_word, bound at the first CUDA call
+_PAIR_WORD = None
+
+
+def _bind_pair_word():
+    global _PAIR_WORD
     from tidb_tpu_torch.ops import cuda_kernels as ck
-    ck.require_cuda(rep, pg, what="first_mask")
-    n = pg.shape[0]
-    cap = rep.shape[0]
-    if rep.dtype != torch.int32 or pg.dtype != torch.int32 or \
-            not 0 < cap < 2 ** 31 or rep.device != pg.device:
-        raise ck.KernelError("first_mask: int32 rep (cap > 0) and pair ids "
-                             "expected")
-    out = torch.empty(n, dtype=torch.bool, device=pg.device)
-    rc = ck.library("distinct_pairs").tt_first_mask(
-        rep.data_ptr(), pg.data_ptr(), n, cap, out.data_ptr(),
-        ck.stream_ptr(pg.device))
-    if n > 0:
-        ck.count("distinct_pairs")
-    ck.check(rc, "first_mask")
-    return out
+    _PAIR_WORD = ck.library("distinct_pairs").tt_pair_word
+    return _PAIR_WORD
+
+
+def pair_sort(gids, vid, pair_live, gid_cap: int):
+    """The pair sort: K16's word, sorted stably by K8 over its W + 1 bits
+    → (int32 permutation, `SortWords`), what `_lexsort_kernel` returns
+    for [SortOp(pair_live, desc=True), SortOp(pair code, hi=(gid_cap+1)·
+    (n+1))] (radix_sort_plain on CPU tensors)."""
+    n = gids.shape[0]
+    width = pair_width(gid_cap, n)
+    w, sidx = radix_sort(pair_word(gids, vid, pair_live, gid_cap), None,
+                         width + 1)
+    return sidx, SortWords(1, w, pair_fields(width))
+
+
+def pair_factorize(gids, vid, pair_live, cap: int,
+                   gid_cap: Optional[int] = None, want_pg: bool = True):
+    """The pair factorize after the value ranks: K16's word, K8's sort and
+    K10's word entry, which writes the first mask in its own pass →
+    (first_mask, pair_gids or None without `want_pg`, n_pairs, rep), the
+    JAX function's outputs (cap >= n)."""
+    n = gids.shape[0]
+    if n == 0:
+        dev = gids.device
+        return (torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev)
+                if want_pg else None,
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros(cap, dtype=torch.int32, device=dev))
+    sidx, words = pair_sort(gids, vid, pair_live,
+                            GID_MAX if gid_cap is None else gid_cap)
+    cmp_mask, nan, dead_shift = _word_key(words)
+    pg, n_pairs, rep, first = group_ids_words(
+        words.last, sidx, cmp_mask, nan, dead_shift, cap, first=True,
+        want_gids=want_pg)
+    return first, pg, n_pairs, rep

@@ -1,11 +1,12 @@
 """Time the window scans, the rank gather, the LUT probe, the member
 compaction, the column gather, the sorted search, the segment reduction,
-the window bounds, the join expansion and the slab decode of one
-checkout on the card, for comparing two checkouts in one machine's run.
+the window bounds, the join expansion, the slab decode, the dictionary
+LUT and the DISTINCT pair factorize of one checkout on the card, for
+comparing two checkouts in one machine's run.
 
     python tidb_tpu_torch/tools/scan_timing.py --tree DIR [--out FILE]
         [--kernels scan,gather,probe,compact,columns,search,segment,bounds,
-                   expand,decode]
+                   expand,decode,lut,pairs]
         [--profile] [--ptxas] [--host-steps]
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
@@ -48,7 +49,14 @@ join, phase 22's masks):
   * decode: K2 over Q1's seven packed slabs of one 8,388,608-row slab
     (phase 5's layouts), in one call where the checkout has
     `decode_slabs_torch` and one call a column, each column alone, and
-    a dict column (3,000 int64 values at width 16).
+    a dict column (3,000 int64 values at width 16);
+  * lut: K21 over phase 20's four cases and a 16,384-entry int64 table
+    (128 KB), each beside torch.take of the clamped codes and profiled
+    alone, the large table beside its random-load floor;
+  * pairs: the DISTINCT pair factorize after the value ranks at phase
+    14's shape (D1's slab: 8,388,608 rows, 4,380,410 pairs) with its
+    launches, K16's entries alone, and K10's word entry over the pair
+    sort's word with and without the first mask.
 
 Each kernel is held to its plain version first (exactly; the f64
 prefix is not timed). Run two checkouts in turns (A, B, B, A), one
@@ -60,8 +68,9 @@ chosen kernels' sources (registers, shared memory, spills);
 `--host-steps` adds each chosen wrapper's host time split step by step
 (under "<kernel>_host_steps"): K25's (checks and contiguity, pointers,
 tables, allocation, the ctypes call and launch), K13 prefix's, K5's,
-K18's, K11's, K1's, K12's, K7's and K2's with the card not waited for,
-and K22's, whose read-back of the total waits for its count pass.
+K18's, K11's, K1's, K12's, K7's, K2's and K21's with the card not
+waited for, and K22's, whose read-back of the total waits for its count
+pass; the pair factorize's host time a call.
 """
 
 from __future__ import annotations
@@ -1429,6 +1438,252 @@ def run_decode(reps: int, prof: bool, steps: bool, dev) -> dict:
     return out
 
 
+LUT_MID = 16_384            # a 128 KB int64 table: above 48 KB, below 200
+
+
+def _lut_cases(dev):
+    """Phase 20's four K21 calls (n = 8,388,608 int32 codes: a 7-entry
+    int64 and a 7-entry bool table, o_comment's 1,500,303-entry int64
+    table over uniformly random codes, KeyRemap's fill mode over codes in
+    [-1, 8)) and a LUT_MID-entry int64 table over random codes, made on
+    the card from phase 20's seed → [(name, table, codes, mode)]."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def table(n_lut, dtype):
+        raw = torch.randint(0, 1 << 40, (n_lut,), device=dev, generator=g)
+        return (raw & 1).bool() if dtype == torch.bool else raw.to(dtype)
+
+    def codes(lo, hi):
+        return torch.randint(lo, hi, (CAP,), device=dev, generator=g,
+                             dtype=torch.int32)
+
+    small, big, remap = codes(0, 7), codes(0, 1_500_303), codes(-1, 8)
+    return [("7_int64", table(7, torch.int64), small, "clip"),
+            ("7_bool", table(7, torch.bool), small, "clip"),
+            ("1500303_int64", table(1_500_303, torch.int64), big, "clip"),
+            ("7_int64_fill", table(7, torch.int64), remap, "fill"),
+            (f"{LUT_MID}_int64", table(LUT_MID, torch.int64),
+             codes(0, LUT_MID), "clip")]
+
+
+def _lut_host_steps(table, codes, reps: int = 50) -> dict:
+    """K21's host time a call over the checkout's own wrapper, step by
+    step (mean µs, the card not waited for): the checks, the row plan,
+    the allocation, the ctypes call and launch, the count and check (or
+    the parent's import and require_cuda, checks, allocation, ctypes call
+    and launch, count and check)."""
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import dict_lut as DL
+    dev = codes.device
+    lib = ck.library("dict_lut")
+    steps = {}
+    tick = _ticker(steps)
+    torch.cuda.synchronize()
+    n, n_lut = codes.shape[0], table.shape[0]
+    for _ in range(reps):
+        t = time.perf_counter()
+        if hasattr(DL, "lut_plan"):
+            fn = DL._KERNEL or DL._bind()
+            if not (table.is_cuda and codes.is_cuda) or \
+                    table.dim() != 1 or codes.dim() != 1 or \
+                    table.dtype not in DL._LUT_DTYPES or \
+                    codes.dtype not in DL._CODE_DTYPES or \
+                    not (table.is_contiguous() and codes.is_contiguous()):
+                raise AssertionError("K21 inputs")
+            lb = table.element_size()
+            cp = codes.data_ptr()
+            t = tick("checks and pointers", t)
+            plan = DL.lut_plan(cp & 15, codes.element_size(), lb, n, 0)
+            t = tick("cached row plan", t)
+            out = torch.empty(n + plan.pad, dtype=table.dtype, device=dev)
+            t = tick("allocation", t)
+            rc = fn(cp, table.data_ptr(), n_lut, -1,
+                    out.data_ptr() + plan.pad * lb, n, plan.flags,
+                    ck.stream_ptr(dev))
+            t = tick("stream, ctypes call and launch", t)
+        else:
+            ck.require_cuda(table, codes, what="dict_lut")
+            if table.dim() != 1 or codes.dim() != 1:
+                raise AssertionError("K21 inputs")
+            t = tick("checks and pointers", t)
+            out = torch.empty(n, dtype=table.dtype, device=dev)
+            t = tick("allocation", t)
+            rc = lib.tt_dict_lut(
+                codes.data_ptr(), codes.element_size(), table.data_ptr(),
+                table.element_size(), n_lut, 0, -1, out.data_ptr(), n,
+                ck.stream_ptr(dev))
+            t = tick("stream, ctypes call and launch", t)
+        ck.count("dict_lut")
+        ck.check(rc, "dict_lut")
+        tick("count and check", t)
+    torch.cuda.synchronize()
+    out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        DL.dict_lut(table, codes)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_lut(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K21 over phase 20's four cases and a table between 48 KB and 200
+    KB, each held exactly to its plain version, timed beside torch.take
+    of the clamped (int64) codes and, with `prof`, profiled alone
+    (`kernels_k21_<case>`: the two L2-gathered tables of a checkout that
+    stages neither share one kernel); the 1,500,303-entry table's
+    random-load floor at 87-100 G loads a second (PERF.md §6-§7)."""
+    import torch
+    from tidb_tpu_torch.ops import dict_lut as DL
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    out = {"k21_smem_bytes": getattr(DL, "SMEM_BYTES", None)}
+    for name, tab, codes, mode in _lut_cases(dev):
+        _same(f"K21 {name}", DL.dict_lut(tab, codes, mode, -1),
+              DL.dict_lut_plain(tab, codes, mode, -1))
+        clamped = torch.clamp(codes, 0, tab.shape[0] - 1).long()
+        out[f"k21_{name}_ms"] = _median_ms(
+            lambda: DL.dict_lut(tab, codes, mode, -1), reps)
+        out[f"k21_{name}_take_ms"] = _median_ms(
+            lambda: torch.take(tab, clamped), reps)
+        if prof:
+            out[f"kernels_k21_{name}"] = _profile(
+                [lambda: DL.dict_lut(tab, codes, mode, -1)])
+        if name == "1500303_int64":
+            out["k21_random_load_floor_ms"] = [CAP / 100e9 * 1e3,
+                                               CAP / 87e9 * 1e3]
+        if steps and name == "7_bool":
+            out["k21_host_steps"] = _lut_host_steps(tab, codes)
+    out["k21_four_ms"] = sum(out[f"k21_{k}_ms"] for k in (
+        "7_int64", "7_bool", "1500303_int64", "7_int64_fill"))
+    out["k21_four_take_ms"] = sum(out[f"k21_{k}_take_ms"] for k in (
+        "7_int64", "7_bool", "1500303_int64", "7_int64_fill"))
+    return out
+
+
+def _pair_inputs(dev):
+    """Phase 14's K16 call: D1's COUNT(DISTINCT l_orderkey) over
+    (l_returnflag, l_linestatus) groups in one 8,388,608-row slab of
+    chip_smoke's lineitem (its generator and seeds): group ids 0-5 (6 for
+    the padding rows), every row's pair live where the row is, and the
+    value ranks of l_orderkey (`_dense1`) → (gids, vid, pair_live)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    n = N_ROWS
+    rng = np.random.default_rng(42)
+    for lo, hi in ((100, 5001), (90_000, 10_500_001), (0, 11), (0, 9)):
+        rng.integers(lo, hi, n)
+    rflag = rng.integers(0, 3, n)
+    lstatus = rng.integers(0, 2, n)
+    order = np.argsort(rng.integers(8036, 10590, n).astype(np.int32))
+    okey = np.random.default_rng(7).integers(0, n // 4, n).astype(np.int64)
+    gids = np.full(CAP, 6, dtype=np.int32)
+    gids[:n] = (rflag[order] * 2 + lstatus[order]).astype(np.int32)
+    key = np.zeros(CAP, dtype=np.int64)
+    key[:n] = okey
+    live = torch.arange(CAP, device=dev) < n
+    vid = F._dense1(torch.from_numpy(key).to(dev), None, live)
+    return torch.from_numpy(gids).to(dev), vid, live
+
+
+def _pair_call(F, gids, vid, pl, want_pg=True):
+    """The checkout's pair factorize after the value ranks → (first, pg,
+    n_pairs, rep): K16's word, K8 and K10 with the first mask where the
+    checkout has `pair_factorize`, else K16's code, K9 + K8 + K10 and K16's
+    first mask."""
+    if hasattr(F, "pair_factorize"):
+        return F.pair_factorize(gids, vid, pl, CAP, 6, want_pg)
+    code = F.pair_code(gids, vid, 6)
+    pg, k, rep = F.factorize([(code, None)], pl, CAP, hi=7 * (CAP + 1))
+    return F.first_mask(rep, pg), pg, k, rep
+
+
+def _launches(fn) -> dict:
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    before = ck.launches()
+    fn()
+    after = ck.launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def run_pairs(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """The DISTINCT pair factorize at phase 14's shape (D1's slab):
+    after the value ranks, from (gids, vid, pair_live) to (first, pg,
+    n_pairs, rep), with its counted launches; K16's entries alone; K10's
+    word entry over the pair sort's word with and without the first mask
+    (and, where the checkout has it, with the mask and without the ids).
+    Each checkout's
+    result is held exactly to its own run on CPU copies (first, pg,
+    n_pairs, rep[:n_pairs])."""
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    gids, vid, pl = _pair_inputs(dev)
+    got = _pair_call(F, gids, vid, pl)
+    want = _pair_call(F, gids.cpu(), vid.cpu(), pl.cpu())
+    k = int(want[2])
+    _same("pair factorize first, pg", (got[0].cpu(), got[1].cpu()),
+          (want[0], want[1]))
+    _same("pair factorize n_pairs, rep", (got[2].cpu(), got[3].cpu()[:k]),
+          (want[2], want[3][:k]))
+    out = {"pairs_n_pairs": k,
+           "pairs_ms": _median_ms(lambda: _pair_call(F, gids, vid, pl),
+                                  reps),
+           "pairs_launches": _launches(lambda: _pair_call(F, gids, vid,
+                                                          pl))}
+    calls = {"pairs": lambda: _pair_call(F, gids, vid, pl)}
+    if hasattr(F, "pair_factorize"):
+        out["pairs_no_pg_ms"] = _median_ms(
+            lambda: _pair_call(F, gids, vid, pl, False), reps)
+        out["k16_pair_word_ms"] = _median_ms(
+            lambda: F.pair_word(gids, vid, pl, 6), reps)
+        calls["k16"] = lambda: F.pair_word(gids, vid, pl, 6)
+        sidx, words = F.pair_sort(gids, vid, pl, 6)
+    else:
+        code = F.pair_code(gids, vid, 6)
+        pg, _k, rep = F.factorize([(code, None)], pl, CAP,
+                                  hi=7 * (CAP + 1))
+        out["k16_pair_code_ms"] = _median_ms(
+            lambda: F.pair_code(gids, vid, 6), reps)
+        out["k16_first_mask_ms"] = _median_ms(
+            lambda: F.first_mask(rep, pg), reps)
+        calls["k16"] = lambda: (F.pair_code(gids, vid, 6),
+                                F.first_mask(rep, pg))
+        sidx, words = F._lexsort_kernel(
+            [F.SortOp(pl, desc=True), F.SortOp(code, hi=7 * (CAP + 1))])
+    key = F._word_key(words)
+    k10 = lambda: F.group_ids_words(words.last, sidx, *key, CAP)  # noqa
+    out["k10_words_ms"] = _median_ms(k10, reps)
+    calls["k10"] = k10
+    if hasattr(F, "pair_factorize"):
+        k10f = lambda: F.group_ids_words(  # noqa: E731
+            words.last, sidx, *key, CAP, first=True)
+        k10n = lambda: F.group_ids_words(  # noqa: E731
+            words.last, sidx, *key, CAP, first=True, want_gids=False)
+        base = F.group_ids_words(words.last, sidx, *key, CAP)
+        with_first = k10f()
+        _same("K10 with first", with_first[:3], base)
+        _same("K10 first", with_first[3],
+              F.first_mask_plain(base[2], base[0]))
+        out["k10_words_first_ms"] = _median_ms(k10f, reps)
+        out["k10_words_first_no_gids_ms"] = _median_ms(k10n, reps)
+        calls["k10_first"] = k10f
+        calls["k10_first_no_gids"] = k10n
+    if prof:
+        for name, fn in calls.items():
+            out[f"kernels_{name}"] = _profile([fn])
+    if steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            _pair_call(F, gids, vid, pl)
+        out["pairs_host_us"] = (time.perf_counter() - t0) * 1e6 / 20
+        torch.cuda.synchronize()
+    return out
+
+
 def _ptxas(tree: str, sources) -> dict:
     """{kernel: {registers, smem, stack, spill_stores}} of the kernels of
     `sources` (csrc file names), from `nvcc -Xptxas -v` with the build's
@@ -1472,7 +1727,8 @@ def main() -> int:
                     help="comma-separated: scan (K12, K13), gather (K25), "
                          "probe (K5), compact (K22), columns (K18), "
                          "search (K11), segment (K1), bounds (K12), "
-                         "expand (K7), decode (K2)")
+                         "expand (K7), decode (K2), lut (K21), pairs "
+                         "(K16 with K8 and K10)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="append the JSON line to this file too")
     ap.add_argument("--profile", action="store_true",
@@ -1495,7 +1751,8 @@ def main() -> int:
                "probe": "lut_join", "compact": "member_compact",
                "columns": "gather_columns", "search": "sorted_groups",
                "segment": "segment_reduce", "bounds": "window_scan",
-               "expand": "join_expand", "decode": "unpack_decode"}
+               "expand": "join_expand", "decode": "unpack_decode",
+               "lut": "dict_lut", "pairs": "distinct_pairs"}
     if not kernels <= set(sources):
         print(f"scan_timing: unknown kernels {args.kernels}",
               file=sys.stderr)
@@ -1533,8 +1790,16 @@ def main() -> int:
     if "decode" in kernels:
         line.update(run_decode(args.reps, args.profile, args.host_steps,
                                dev))
+    if "lut" in kernels:
+        line.update(run_lut(args.reps, args.profile, args.host_steps, dev))
+    if "pairs" in kernels:
+        line.update(run_pairs(args.reps, args.profile, args.host_steps,
+                              dev))
     if args.ptxas:
-        line["ptxas"] = _ptxas(tree, [sources[k] for k in sorted(kernels)])
+        srcs = {sources[k] for k in kernels}
+        if "pairs" in kernels:
+            srcs.add("sorted_groups")
+        line["ptxas"] = _ptxas(tree, sorted(srcs))
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:

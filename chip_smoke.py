@@ -85,7 +85,9 @@ which must pass:
  12. window kernel timing at phase 11's shapes (8,388,608 rows): K12
      over W1's and W2's layouts, K13's int64 prefix (beside torch.cumsum)
      and segmented max (its time in K13's record as `seg_ms`), K14 over
-     W3's RANGE key, K15's bounded MIN and prefix-difference SUM;
+     W3's RANGE key with sorted_key (the main path's call) and without,
+     with the probe rounds a valid row took (host model), K15's bounded
+     MIN and prefix-difference SUM;
  13. DISTINCT and ROLLUP aggregates on the card, over lineitem and
      phase 7's tables: D1 three DISTINCT aggregates (one of two columns)
      and an AVG by (returnflag, linestatus), D2 = D1 over 2,097,152-row
@@ -231,7 +233,9 @@ against their plain versions, exactly; the sort functions
 built on K8-K10 (factorize, sort_perm, topn, pack_codes) equal the same
 functions over CPU copies of the inputs; and K12 window_bounds, K13
 window_scan, K14 frame_bounds and K15 frame_eval against theirs, every
-entry, exactly except K13's float64 prefixes (within 2·i·eps·Σ|x|);
+entry, exactly except K13's float64 prefixes (within 2·i·eps·Σ|x|); K14's
+RANGE frames also with sorted_key (the window layout's promise) and
+over one partition of all 2^21 rows (ROADMAP F4);
 and K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
 theirs exactly (random gids with dead rows, value ranks with ties,
 1/2/4/8-byte columns and a 2-D limb plane, n_valid below and at the
@@ -245,7 +249,9 @@ and K19 delta_merge against delta_merge_plain exactly (its partition,
 every packed width, dict, raw and wide columns through K18, four
 tombstone sets); and K20 civil_date against its plain version exactly
 (every part over every day of 0001-9999, the int32 extremes, int64 days
-and µs; DATE_ADD by months for constant and per-row counts); and K21
+and µs; DATE_ADD by months for constant and per-row counts; a DATE
+column with a few rows below the 32-bit path's range, and the range's
+edges); and K21
 dict_lut against its plain version exactly (bool/int32/int64 tables from
 empty to 1,500,303 entries, at the shared-memory limit and one entry
 above it, int32/int64 codes out of range, codes views 0-3 entries off,
@@ -1752,8 +1758,13 @@ def check_window_kernels(dev):
                 for pre, post in ((offs[0], offs[1]), (None, 3), (2, None),
                                   (0, 0), (-1, 5)):
                     lh = W.frame_bounds(pos, pre, post, rk)
-                    same(f"K14 range {pre},{post} {tag}", lh,
-                         W.frame_bounds_plain(pos, pre, post, rk))
+                    want = W.frame_bounds_plain(pos, pre, post, rk)
+                    same(f"K14 range {pre},{post} {tag}", lh, want)
+                    # the layout is sorted by this one ORDER BY key: the
+                    # window layout's promise (an int32 key's warp path)
+                    same(f"K14 range sorted {pre},{post} {tag}",
+                         W.frame_bounds(pos, pre, post, rk, sorted_key=True),
+                         want)
                     bounds[("range", pre, post)] = lh
             # K15: the rank family; COUNT/SUM/AVG over every frame; the
             # gathers; bounded MIN/MAX direct and through the sparse table
@@ -1814,6 +1825,43 @@ def check_window_kernels(dev):
         want = W.window_flags_plain(perm, tl, keys9, 2)
         same(f"K12 bounds 9 keys n={n}", b[:2] + tuple(b[2]),
              want + tuple(W.window_positions_plain(*want)))
+    # K14 over one partition of all n = 2^21 rows (ROADMAP F4: the
+    # reference's bit_length(n - 1) rounds stop one short there, and the
+    # kernel keeps its answer with sorted_key on): a sorted int32 key with
+    # ties and NULLs, and the keys [0, 10, 10, ...]
+    n = 1 << 21
+    one = torch.ones(n, dtype=torch.bool, device=dev)
+    first = torch.zeros(n, dtype=torch.bool, device=dev)
+    first[0] = True
+    for kind in ("dates", "0,10"):
+        for desc in (False, True):
+            if kind == "dates":
+                # sorted in the key's direction, NULLs first ASC, last DESC
+                k = np.sort(rng.integers(8036, 10590, n)).astype(np.int32)
+                nulls = int(n // 10)
+                valid = np.arange(n) >= nulls
+                if desc:
+                    k, valid = k[::-1].copy(), valid[::-1].copy()
+                key = torch.from_numpy(k).to(dev)
+                kv = torch.from_numpy(valid).to(dev)
+                ps, qs = W.window_flags(torch.arange(n, device=dev), one,
+                                        [(key, kv)], 0)
+            else:
+                key = torch.full((n,), -10 if desc else 10,
+                                 dtype=torch.int32, device=dev)
+                key[0] = 0
+                kv = one
+                ps, qs = first, first.clone()
+                qs[1] = True
+            pos = W.window_positions(ps, qs)
+            rk = (key, kv, desc)
+            for pre, post in ((5, 0), (6, None), (5, 2), (0, 5)):
+                want = W.frame_bounds_plain(pos, pre, post, rk)
+                for sk in (False, True):
+                    same(f"K14 F4 {kind} desc={desc} {pre},{post} "
+                         f"sorted={sk}",
+                         W.frame_bounds(pos, pre, post, rk, sorted_key=sk),
+                         want)
     torch.cuda.synchronize()
     log(f"K12-K15 window_bounds/window_scan/frame_bounds/frame_eval: "
         f"{cases} cases equal to the plain versions (n = 1, 5,000, "
@@ -2392,6 +2440,7 @@ def window_timing_phase(dev, n: int, f64_err: float):
     import torch
     from tidb_tpu_torch.ops import factorize as F
     from tidb_tpu_torch.ops import window as W
+    from tidb_tpu_torch.tools import frame_model as FM
     li = make_lineitem(n)
     cap = 1 << 23
     out = []
@@ -2499,21 +2548,49 @@ def window_timing_phase(dev, n: int, f64_err: float):
     perm3, _ = F.sort_perm(k3, [False] * 3, rows)
     ps3, qs3 = W.window_flags(perm3, rows, k3, 2)
     pos3 = W.window_positions(ps3, qs3)
+    # the window layout sorts by this one ORDER BY key: the main path
+    # calls K14 with sorted_key (device_emit._window_value)
     rk = (ship[perm3], rows[perm3], False)
-    ms = time_cuda(lambda: W.frame_bounds(pos3, 6, 0, rk), reps=10)
+    ms = time_cuda(lambda: W.frame_bounds(pos3, 6, 0, rk, sorted_key=True),
+                   reps=10)
+    full_ms = time_cuda(lambda: W.frame_bounds(pos3, 6, 0, rk), reps=10)
     plain = time_cuda(lambda: W.frame_bounds_plain(pos3, 6, 0, rk), reps=3)
-    lo3, hi3 = W.frame_bounds(pos3, 6, 0, rk)
-    exact("K14 range", (lo3, hi3), W.frame_bounds_plain(pos3, 6, 0, rk))
+    lo3, hi3 = W.frame_bounds(pos3, 6, 0, rk, sorted_key=True)
+    want = W.frame_bounds_plain(pos3, 6, 0, rk)
+    exact("K14 range", (lo3, hi3), want)
+    exact("K14 range, full search", W.frame_bounds(pos3, 6, 0, rk), want)
+    # the probe rounds each valid row took, counted by the host model of
+    # the kernel's searches (no device counter), its answer held to the
+    # kernel's; the parent ran bit_length(n - 1) rounds twice a row
+    valid3 = rows[perm3].cpu().numpy()
+    m3 = np.where(valid3, ship[perm3].cpu().numpy().astype(np.int64),
+                  -(np.iinfo(np.int64).max // 2))
+    mlo, mhi, mrounds = FM.frame_search_model(
+        *(t.cpu().numpy() for t in pos3[:4]), m3, valid3, 6, 0, True)
+    exact("K14 host model", (torch.from_numpy(mlo), torch.from_numpy(mhi)),
+          (lo3.cpu(), hi3.cpu()))
     rounds = max(cap - 1, 1).bit_length()
-    b, by = bound_ms(cap * (32 + 4 + 1 + 16), cap * rounds * 4)
+    mean_rounds = float(mrounds[valid3].mean())
+    # bytes this run's rows need, each read once: a valid row its
+    # partition (ppos, plast), its key and validity byte and, for CURRENT
+    # ROW (post = 0 over a sorted key), its peer_hi in place of a search;
+    # a NULL or dead row its validity byte and its peer block (peer_lo,
+    # peer_hi); every row its two int64 bounds. Operations: 4 a probe
+    # round, the rounds this run's rows took
+    n_valid = int(valid3.sum())
+    b, by = bound_ms(n_valid * (8 * 3 + 4 + 1)
+                     + (cap - n_valid) * (8 * 2 + 1) + cap * 16,
+                     int(mrounds.sum()) * 4)
     out.append({"name": "frame_bounds", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/window_frame.cu",
                 "replaces": "tidb_tpu/ops/window.py:248",
                 "max_abs_err": 0, "ms": ms, "plain_ms": plain,
                 "bound_ms": b, "bound_by": by, "library_ms": None})
     log(f"K14 RANGE 6 PRECEDING over an int32 DATE key n={cap} in 6 "
-        f"partitions: {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} by "
-        f"{by})")
+        f"partitions: {ms:.4f} ms with sorted_key (the main path's call; "
+        f"full search {full_ms:.4f}; plain {plain:.4f}, bound {b:.4f} by "
+        f"{by}); probe rounds a valid row {mean_rounds:.3f} (host model; "
+        f"max {int(mrounds.max())}; the reference's 2 x {rounds})")
 
     # K15: W3's bounded MAX (ROWS 3 PRECEDING AND 3 FOLLOWING; MIN timed
     # the same) and its prefix-difference SUM over the RANGE bounds
@@ -3235,6 +3312,27 @@ def check_calendar_kernels(dev):
                      f"n={'tensor' if isinstance(k, torch.Tensor) else k}",
                      CAL.date_add_months(v, micros, k, mult),
                      CAL.date_add_months_plain(v, micros, k, mult))
+    # a DATE column of shipdates with a few rows below the 32-bit path's
+    # range (csrc/civil_date.cu LO = -117,597,068): their warps take the
+    # 64-bit path, every other warp the 32-bit one; and the guard's edges
+    lo = -(719468 + 146097 * 800)
+    hi = (1 << 32) - 8 + lo
+    ship = rng.integers(8036, 10590, 1 << 20)
+    ship[rng.integers(0, 1 << 20, 8)] = [lo - 1, lo - 2, lo - 100, -10**9,
+                                         np.iinfo(np.int32).min, lo - 1,
+                                         lo - 3, lo - 7]
+    edges = np.array([lo + k for k in range(-2, 3)] +
+                     [hi + k for k in range(-2, 3)], dtype=np.int64)
+    for v in (torch.from_numpy(ship.astype(np.int32)).to(dev),
+              torch.from_numpy(np.concatenate([edges, ship])).to(dev)):
+        for part in CAL.PARTS:
+            same(f"{part} mixed warps {v.dtype}", CAL.civil_part(v, part,
+                                                                 False),
+                 CAL.civil_part_plain(v, part, False))
+        for mult in (1, 3, 12):
+            same(f"date_add_months x{mult} mixed warps {v.dtype}",
+                 CAL.date_add_months(v, False, 3, mult),
+                 CAL.date_add_months_plain(v, False, 3, mult))
     # Jan 31 + 1 month, Feb 29 ± 1 year, 1900 / 2000 / 2100 leap rules
     spot = torch.tensor([18292, 18321, 18321, -25537, 10987, 47512],
                         dtype=torch.int32, device=dev)
@@ -3247,7 +3345,8 @@ def check_calendar_kernels(dev):
     torch.cuda.synchronize()
     log(f"K20 exactly equal to its plain version ({cases} cases: "
         f"{days.shape[0]} days, {us.shape[0]} µs values, every part and "
-        f"DATE_ADD by months)")
+        f"DATE_ADD by months; a DATE column of 2^20 shipdates with 8 rows "
+        f"below the 32-bit range, and the range's edges ±2)")
 
 
 # ---------------------------------------------------------------------------

@@ -5,15 +5,19 @@ kernels year … last_day, dayofweek, weekday, hour/minute/second and
 date_add_month/quarter/year evaluated through their device branch. Over
 every day of 0001-01-01 .. 9999-12-31, the int32 edges, days beyond
 MySQL's range, and µs values on both sides of the epoch up to the int64
-edges. Values and dtypes exactly equal."""
+edges. Values and dtypes exactly equal. Each reference is jitted and
+computed once for the module (every part of one input in one call, each
+unit's DATE_ADD cases in one call)."""
 
 import datetime
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from tidb_tpu.ops import jax_env  # noqa: F401  (x64 before jax.numpy)
+import jax
 import jax.numpy as jnp
 from tidb_tpu import expression as JE
 from tidb_tpu import types as JT
@@ -59,18 +63,52 @@ DATETIME = JT.FieldType(JT.TypeKind.DATETIME)
 BIGINT = JT.FieldType(JT.TypeKind.BIGINT)
 
 
-def _reference(op, values, ftype, n_months=None):
+def _eval(op, values, ftype, n_months=None):
     """The JAX package's registered kernel `op` through its device branch
-    (jax.numpy, on_device=True) → numpy."""
-    cols = [(jnp.asarray(values), jnp.ones(len(values), dtype=bool))]
+    (jax.numpy, on_device=True)."""
+    ones = jnp.ones(values.shape[0], dtype=bool)
+    cols = [(values, ones)]
     args = [JE.ColumnRef(0, ftype)]
     if n_months is not None:
-        cols.append((jnp.asarray(n_months), jnp.ones(len(values),
-                                                     dtype=bool)))
+        cols.append((n_months, ones))
         args.append(JE.ColumnRef(1, BIGINT))
     ctx = JE.EvalContext(jnp, cols, on_device=True)
     out, _m = JE.ScalarFunc(op, args, ftype).eval(ctx)
-    return np.asarray(out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _parts_reference(micros: bool):
+    """Every part's reference over the days (every day and the edges) or
+    the µs values, in one jitted call for the module → {part: numpy}."""
+    values = MICROS if micros else np.concatenate([ALL_DAYS, EDGE_DAYS])
+    ftype = DATETIME if micros else DATE
+    run = jax.jit(lambda v: {p: _eval(_OPS[p], v, ftype)
+                             for p in calendar.PARTS})
+    return {p: np.asarray(o) for p, o in run(values).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _add_reference(unit: str):
+    """date_add_<unit>'s reference over each case of
+    test_date_add_months_equals_reference, in one jitted call → the
+    inputs and outputs (the counts from the test's own seed)."""
+    mult = {"month": 1, "quarter": 3, "year": 12}[unit]
+    op = f"date_add_{unit}"
+    rng = np.random.default_rng(mult)
+    days = np.concatenate([ALL_DAYS, EDGE_DAYS])
+    n = rng.integers(-1200, 1201, len(days))
+    n_us = rng.integers(-1200, 1201, len(MICROS))
+    few = np.concatenate([EDGE_DAYS, ALL_DAYS[::97]])
+    ks = (-1200, -13, -1, 0, 1, 11, 12, 13, 1200)
+    few_n = np.concatenate([np.full(len(few), k) for k in ks])
+    run = jax.jit(lambda d, dn, u, un, f, fn: (
+        _eval(op, d, DATE, dn), _eval(op, u, DATETIME, un),
+        _eval(op, f, DATE, fn)))
+    got = run(days, n, MICROS, n_us, np.tile(few, len(ks)), few_n)
+    want_days, want_us, want_few = (np.asarray(o) for o in got)
+    return (days, n, want_days, n_us, want_us, few, ks,
+            np.split(want_few, len(ks)))
 
 
 def _same(got: torch.Tensor, want: np.ndarray):
@@ -95,24 +133,28 @@ def test_parts_cover_the_kernel():
 def test_civil_part_on_days_equals_reference(part):
     days = np.concatenate([ALL_DAYS, EDGE_DAYS])
     _same(calendar.civil_part(torch.from_numpy(days), part, micros=False),
-          _reference(_OPS[part], days, DATE))
+          _parts_reference(False)[part])
 
 
 @pytest.mark.parametrize("part", calendar.PARTS)
 def test_civil_part_on_micros_equals_reference(part):
     _same(calendar.civil_part(torch.from_numpy(MICROS), part, micros=True),
-          _reference(_OPS[part], MICROS, DATETIME))
+          _parts_reference(True)[part])
 
 
 def test_civil_helpers_equal_reference():
     days = np.concatenate([ALL_DAYS, EDGE_DAYS]).astype(np.int64)
     got = calendar.civil_from_days(torch.from_numpy(days))
-    want = JE._civil_from_days(jnp, jnp.asarray(days))
+
+    def civil_and_back(d):
+        ymd = JE._civil_from_days(jnp, d)
+        return ymd, JE._days_from_civil(jnp, *ymd)
+
+    want, back = jax.jit(civil_and_back)(days)
     for g, w in zip(got, want):
         _same(g, np.asarray(w))
     y, m, d = got
-    _same(calendar.days_from_civil(y, m, d),
-          np.asarray(JE._days_from_civil(jnp, *map(jnp.asarray, want))))
+    _same(calendar.days_from_civil(y, m, d), np.asarray(back))
     assert torch.equal(calendar.days_from_civil(y, m, d),
                        torch.from_numpy(days))
 
@@ -123,22 +165,15 @@ def test_date_add_months_equals_reference(unit, mult):
     """Every day with a per-row month count in [-1200, 1200], and a few
     constant counts over Jan 31, Feb 29 and the edges, as DATE and as
     DATETIME."""
-    op = f"date_add_{unit}"
-    rng = np.random.default_rng(mult)
-    days = np.concatenate([ALL_DAYS, EDGE_DAYS])
-    n = rng.integers(-1200, 1201, len(days))
+    days, n, want_days, n_us, want_us, few, ks, want_few = \
+        _add_reference(unit)
     _same(calendar.date_add_months(torch.from_numpy(days), False,
-                                   torch.from_numpy(n), mult),
-          _reference(op, days, DATE, n))
-    n_us = rng.integers(-1200, 1201, len(MICROS))
+                                   torch.from_numpy(n), mult), want_days)
     _same(calendar.date_add_months(torch.from_numpy(MICROS), True,
-                                   torch.from_numpy(n_us), mult),
-          _reference(op, MICROS, DATETIME, n_us))
-    few = np.concatenate([EDGE_DAYS, ALL_DAYS[::97]])
-    for k in (-1200, -13, -1, 0, 1, 11, 12, 13, 1200):
+                                   torch.from_numpy(n_us), mult), want_us)
+    for k, want in zip(ks, want_few):
         _same(calendar.date_add_months(torch.from_numpy(few), False, k,
-                                       mult),
-              _reference(op, few, DATE, np.full(len(few), k)))
+                                       mult), want)
 
 
 def test_month_ends_clamp():

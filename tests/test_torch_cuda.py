@@ -631,6 +631,193 @@ def test_k20_matches_plain(cuda):
                     (mult, micros, k if isinstance(k, int) else "tensor")
 
 
+#: csrc/civil_date.cu's 32-bit range: days in [LO, HI]
+_K20_Z0 = 719468 + 146097 * 800
+_K20_LO, _K20_HI = -_K20_Z0, (1 << 32) - 8 - _K20_Z0
+
+
+def _k20_month_index(days):
+    """12·Y + mp of in-range days (numpy int64): the kernel's target month
+    index before the months are added."""
+    z = days + _K20_Z0
+    era = z // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    return 12 * (era * 400 + yoe) + (5 * doy + 2) // 153
+
+
+def _k20_mixed(rng, lanes_rows, bad):
+    """64 warps of 32 lanes x `lanes_rows` rows of days in 0001-9999, one
+    row of each of the first 32 warps replaced by an out-of-range day."""
+    w = 32 * lanes_rows
+    v = rng.integers(-719162, 2932897, 64 * w)
+    v[np.arange(32) * w + rng.integers(0, w, 32)] = rng.choice(bad, 32)
+    return v
+
+
+def test_k20_guard_edges_and_mixed_warps(cuda):
+    """K20 at its 32-bit path's guard edges ±2, over warps that mix
+    in-range and out-of-range rows, and over views 0-3 entries off their
+    16-byte boundary with lengths 1-17 and 4,999 (the scalar head and
+    tail; a per-row count view off the input's alignment takes every row
+    scalar); date_add_months with counts that put the target month index
+    at its edges 0 and 2^32 ±2. Exactly equal to the plain versions."""
+    from tidb_tpu_torch.ops import calendar as CAL
+    rng = np.random.default_rng(201)
+    i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+    edges = np.array([_K20_LO + k for k in range(-2, 3)] +
+                     [_K20_HI + k for k in range(-2, 3)], dtype=np.int64)
+    d32 = np.concatenate([
+        _k20_mixed(rng, 4, np.array([_K20_LO - 1, _K20_LO - 2, i32.min])),
+        edges[:5], [i32.min, i32.max]]).astype(np.int32)
+    d64 = np.concatenate([
+        _k20_mixed(rng, 2, np.array([_K20_LO - 1, _K20_HI + 1, i64.min,
+                                     i64.max])), edges, [i64.min, i64.max]])
+    us = np.concatenate([rng.integers(i64.min, i64.max, 8192),
+                         d64[:4096] % 2932897 * 86_400_000_000 +
+                         rng.integers(0, 86_400_000_000, 4096)])
+    inputs = [(torch.from_numpy(d32).to(cuda), False),
+              (torch.from_numpy(d64).to(cuda), False),
+              (torch.from_numpy(us).to(cuda), True)]
+    spans = [(off, ln) for off in range(4)
+             for ln in list(range(1, 18)) + [4999, None]]
+    for v, micros in inputs:
+        for off, ln in spans:
+            x = v[off:] if ln is None else v[off:off + ln]
+            for part in CAL.PARTS:
+                got = CAL.civil_part(x, part, micros)
+                want = CAL.civil_part_plain(x, part, micros)
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (part, micros, v.dtype, off, ln)
+    goals = np.array([-2, -1, 0, 1, 2, (1 << 32) - 2, (1 << 32) - 1,
+                      1 << 32, (1 << 32) + 1, (1 << 32) + 2])
+    for v, micros in inputs:
+        days = v.cpu().numpy().astype(np.int64)
+        if micros:
+            days = days // 86_400_000_000
+        inside = (days >= _K20_LO) & (days <= _K20_HI)
+        cur = np.where(inside, _k20_month_index(np.where(inside, days, 0)),
+                       0)
+        for mult in (1, 3, 12):
+            n = rng.integers(-1200, 1201, len(days))
+            warp = np.arange(len(days)) // 128
+            pick = (warp % 4 == 0) & inside
+            n = np.where(pick, (rng.choice(goals, len(days)) - cur) // mult,
+                         n)
+            nt = torch.from_numpy(n).to(cuda)
+            shifted = torch.cat([nt[:1], nt])   # one entry off v's rows
+            for off, ln in spans[::3] + [(0, None), (1, None)]:
+                end = None if ln is None else off + ln
+                x = v[off:end]
+                for k in (nt[off:end],
+                          shifted[off + 1:off + 1 + x.shape[0]], 7,
+                          -(1 << 40)):
+                    got = CAL.date_add_months(x, micros, k, mult)
+                    want = CAL.date_add_months_plain(x, micros, k, mult)
+                    assert got.dtype == want.dtype and \
+                        torch.equal(got, want), (mult, micros, off, ln)
+
+
+_K14_FRAMES = [(6, 0), (0, 6), (None, 3), (2, None), (0, 0), (-1, 5),
+               (3, 2), (5, -2)]
+
+
+def _k14_layout(rng, n, kind, desc, big, sort, dev):
+    """A window layout of n rows: one partition of `big` rows, the rest
+    of 1 to 50; ORDER BY key of `kind` (int32 dates with ties, int64 with
+    INT64_MIN and values beyond ±(INT64_MAX // 2), float64 with NaN) with
+    10% NULLs, sorted as the window layout sorts it (`sort`) or not →
+    (Positions, range_key) on the card."""
+    from tidb_tpu_torch.ops import window as W
+    rest = rng.choice([1, 1, 2, 7, 30, 50], n)
+    cut = np.searchsorted(np.cumsum(rest), n - big)
+    sizes = np.concatenate([[big], rest[:cut], [n - big - rest[:cut].sum()]])
+    pid = np.repeat(np.arange(len(sizes)), sizes)
+    if kind == "i32":
+        key = rng.integers(8036, 10590, n).astype(np.int32)
+    elif kind == "i64":
+        key = rng.integers(-1000, 1000, n).astype(np.int64)
+        pick = rng.random(n) < 0.01
+        half = np.iinfo(np.int64).max // 2
+        key[pick] = rng.choice(np.array([np.iinfo(np.int64).min, -half - 1,
+                                         half + 1, np.iinfo(np.int64).max]),
+                               int(pick.sum()))
+    else:
+        key = np.round(rng.normal(size=n) * 100, 1)
+        key[rng.random(n) < 0.02] = np.nan
+    valid = rng.random(n) > 0.1
+    if sort:
+        nulls = valid if not desc else ~valid
+        kk = np.where(valid, key, 0)
+        if kind == "f64":
+            kk = np.where(np.isnan(kk), np.inf, kk)
+            kk = -kk if desc else kk
+        elif desc:
+            kk = ~kk
+        order = np.lexsort((kk, nulls, pid))
+        pid, key, valid = pid[order], key[order], valid[order]
+    pstart = np.ones(n, dtype=bool)
+    pstart[1:] = pid[1:] != pid[:-1]
+    v = np.where(valid, key, 0)
+    same = v[1:] == v[:-1]
+    if kind == "f64":
+        same |= np.isnan(v[1:]) & np.isnan(v[:-1])
+    peer = pstart.copy()
+    peer[1:] |= ~same | (valid[1:] != valid[:-1])
+    pos = W.window_positions(torch.from_numpy(pstart).to(dev),
+                             torch.from_numpy(peer).to(dev))
+    return pos, (torch.from_numpy(key).to(dev),
+                 torch.from_numpy(valid).to(dev), desc)
+
+
+@pytest.mark.parametrize("case", ["i32 sorted", "i32 whole pow2",
+                                  "i32 single rows", "i32 unsorted",
+                                  "i64 sorted", "i64 unsorted",
+                                  "f64 sorted", "f64 unsorted", "f4"])
+def test_k14_matches_plain(cuda, case):
+    """K14's RANGE searches at a full slab (8,388,608 rows) against its
+    plain version, ASC and DESC, every frame, `sorted_key` on and off
+    (on only where the layout is sorted): the warp path over a sorted
+    int32 key, the capped search over one partition of all 2^23 rows
+    (ROADMAP F4, keys [0, 10, 10, ...] in `f4`), single-row partitions,
+    unsorted keys, int64 and float64 keys."""
+    from tidb_tpu_torch.ops import window as W
+    n = 1 << 23
+    kind = case.split()[0] if case != "f4" else "i32"
+    rng = np.random.default_rng(len(case))
+    for desc in (False, True):
+        if case == "f4":
+            ps = torch.zeros(n, dtype=torch.bool, device=cuda)
+            ps[0] = True
+            qs = ps.clone()
+            qs[1] = True
+            pos = W.window_positions(ps, qs)
+            key = torch.full((n,), -10 if desc else 10, dtype=torch.int32,
+                             device=cuda)
+            key[0] = 0
+            rk = (key, torch.ones(n, dtype=torch.bool, device=cuda), desc)
+            frames = [(5, 0), (5, None), (5, 2), (0, 5)]
+            sorted_too = True
+        else:
+            big = {"whole": n, "single": 1}.get(case.split()[1], n // 2)
+            sort = "unsorted" not in case
+            pos, rk = _k14_layout(rng, n, kind, desc, big, sort, cuda)
+            if case == "i32 single rows":
+                pos = W.window_positions(
+                    torch.ones(n, dtype=torch.bool, device=cuda),
+                    torch.ones(n, dtype=torch.bool, device=cuda))
+            frames = _K14_FRAMES if kind != "f64" else \
+                [(2.5, 0.5), (0, 0), (None, 1.5), (-1.0, 3.0)]
+            sorted_too = sort
+        for pre, post in frames:
+            want = W.frame_bounds_plain(pos, pre, post, rk)
+            for sk in (False, True) if sorted_too else (False,):
+                got = W.frame_bounds(pos, pre, post, rk, sorted_key=sk)
+                assert torch.equal(got[0], want[0]) and \
+                    torch.equal(got[1], want[1]), (case, desc, pre, post, sk)
+
+
 @pytest.mark.parametrize("code_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.int64])
 def test_k21_matches_plain(cuda, dtype, code_dtype):

@@ -705,6 +705,52 @@ def test_date_range_frame_runs_on_both_engines(twins):
     assert norm(host) == norm(_date_range_oracle(base))
 
 
+#: ROADMAP F4's table: k = 0, 3, ..., 21, x = 1
+F4_SQL = ("SELECT id, SUM(x) OVER (ORDER BY k RANGE 5 PRECEDING) FROM f4 "
+          "ORDER BY id")
+
+
+def test_f4_range_frame_over_a_whole_power_of_two(twins):
+    """ROADMAP F4, a reference fault kept by the port: the reference's
+    RANGE search runs bit_length(n - 1) rounds, one short for a partition
+    of all n = 2^k rows. Over 8 rows with k = 0, 3, ..., 21 its host
+    engine (the search over the 8 unpadded rows) gives [NULL, 2, 3, 2,
+    2, 2, 2, 2]; its device path (a padded slab) gives MySQL's [1, 2, 2,
+    2, 2, 2, 2, 2]. The port's range_frame_bounds equals the JAX one on
+    those rows (lo[1] = 0), and each of its engines equals the JAX
+    package's."""
+    from tidb_tpu.ops import window as JW
+    from torch_diff import run_jax, run_port
+    js, ts = twins
+    for t in (js, ts):
+        t.execute("CREATE TABLE f4 (id BIGINT, k BIGINT, x BIGINT)")
+        t.execute("INSERT INTO f4 VALUES " + ",".join(
+            f"({i}, {3 * i}, 1)" for i in range(8)))
+    n = 8
+    pstart = np.zeros(n, dtype=bool)
+    pstart[0] = True
+    peer = np.ones(n, dtype=bool)
+    key = np.arange(n, dtype=np.int64) * 3
+    ones = np.ones(n, dtype=bool)
+    want = JW.range_frame_bounds(np, pstart, peer, key, ones, False, 5, 0)
+    got = TW.range_frame_bounds(np, pstart, peer, key, ones, False, 5, 0)
+    assert want[0][1] == 0 and np.array_equal(got[0], want[0]) and \
+        np.array_equal(got[1], want[1])
+    got = TW.range_frame_bounds(TX, _t(pstart), _t(peer), _t(key),
+                                _t(ones), False, 5, 0)
+    assert np.array_equal(got[0].numpy(), want[0]) and \
+        np.array_equal(got[1].numpy(), want[1])
+    for t in (js, ts):
+        t.vars["tidb_tpu_engine"] = "off"
+    host = [[tuple(r) for r in t.query(F4_SQL).rows] for t in (js, ts)]
+    assert host[0] == host[1]
+    assert [r[1] for r in host[1]] == [None, 2, 3, 2, 2, 2, 2, 2]
+    dev_jax, _ = run_jax(js, F4_SQL, extra=STRICT)
+    dev_port = run_port(ts, F4_SQL, extra=STRICT)
+    assert [tuple(r) for r in dev_jax] == [tuple(r) for r in dev_port]
+    assert [r[1] for r in dev_port] == [1, 2, 2, 2, 2, 2, 2, 2]
+
+
 # ---------------------------------------------------------------------------
 # On the card (skips without a CUDA device)
 # ---------------------------------------------------------------------------

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -94,56 +96,27 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// the key in m-space: widened, DESC negated, NULL at the sort's place
-template <class K>
-struct MKey;
-
-template <>
-struct MKey<long long> {
-  const void* key;
-  int dt;
+// the key in m-space: widened, DESC negated, NULL at the sort's place.
+// A probe issues the validity byte's and the key's loads together.
+template <class KT>
+struct MKey {
+  using M = typename std::conditional<std::is_same<KT, double>::value,
+                                      double, long long>::type;
+  const KT* key;
   const unsigned char* valid;
   int desc;
-  __device__ long long at(long long k) const {
-    if (!valid[k]) return desc ? HALF : -HALF;
-    long long v = dt == DT_I32 ? static_cast<long long>(
-                                     static_cast<const int*>(key)[k])
-                               : static_cast<const long long*>(key)[k];
-    return desc ? wsub(0, v) : v;
+  __device__ __forceinline__ M at(unsigned k) const {
+    const unsigned char ok = valid[k];
+    const KT v = key[k];
+    if constexpr (std::is_same<KT, double>::value) {
+      const double inf = __longlong_as_double(0x7ff0000000000000LL);
+      return ok ? (desc ? -v : v) : (desc ? inf : -inf);
+    } else {
+      const long long w = static_cast<long long>(v);
+      return ok ? (desc ? wsub(0, w) : w) : (desc ? HALF : -HALF);
+    }
   }
 };
-
-template <>
-struct MKey<double> {
-  const void* key;
-  int dt;
-  const unsigned char* valid;
-  int desc;
-  __device__ double at(long long k) const {
-    if (!valid[k]) return desc ? __longlong_as_double(0x7ff0000000000000LL)
-                               : __longlong_as_double(0xfff0000000000000LL);
-    const double v = static_cast<const double*>(key)[k];
-    return desc ? -v : v;
-  }
-};
-
-template <class K>
-__device__ __forceinline__ long long first_pos(const MKey<K>& m,
-                                               long long n, long long lo_b,
-                                               long long plast, K target,
-                                               bool strict, int rounds) {
-  long long hi_b = plast + 1;
-  for (int r = 0; r < rounds; ++r) {
-    const long long mid = (lo_b + hi_b) >> 1;
-    const K v = m.at(clip(mid, 0, n - 1));
-    const bool hit = (strict ? v > target : v >= target) || mid > plast;
-    if (hit)
-      hi_b = mid;
-    else
-      lo_b = mid + 1;
-  }
-  return lo_b;
-}
 
 __device__ __forceinline__ long long kadd(long long a, long long b) {
   return wadd(a, b);
@@ -154,26 +127,153 @@ __device__ __forceinline__ long long ksub(long long a, long long b) {
 __device__ __forceinline__ double kadd(double a, double b) { return a + b; }
 __device__ __forceinline__ double ksub(double a, double b) { return a - b; }
 
-template <class K>
+template <class M>
+__device__ __forceinline__ bool hit_of(M v, M t, bool strict) {
+  return strict ? v > t : v >= t;
+}
+
+// The reference's two searches of one row in [pp, pl + 1], in one loop:
+// two independent chains in flight, each under the reference's update
+// rule and its cap of `rounds` rounds. A chain whose interval is empty
+// (a == b) probes no more: that state is a fixed point of the rule (b
+// only ever holds pl + 1, where a hit is forced, or a probe that hit, so
+// its probe would hit again). A live chain's midpoint lies in [pp, pl]:
+// no clip and no forced hit. Positions fit 32 bits (n < 2^31).
+template <class KT, class M>
+__device__ __forceinline__ void search_both(const MKey<KT>& m, unsigned pl,
+                                            M t_lo, M t_hi, int rounds,
+                                            unsigned* a_lo,
+                                            unsigned* a_hi) {
+  unsigned a0 = *a_lo, b0 = pl + 1, a1 = *a_hi, b1 = pl + 1;
+  for (int r = 0; r < rounds; ++r) {
+    const bool s0 = a0 < b0, s1 = a1 < b1;
+    if (!s0 && !s1) break;
+    const unsigned m0 = (a0 + b0) >> 1, m1 = (a1 + b1) >> 1;
+    M v0 = M(0), v1 = M(0);
+    if (s0) v0 = m.at(m0);
+    if (s1) v1 = m.at(m1);
+    if (s0) {
+      if (v0 >= t_lo) b0 = m0; else a0 = m0 + 1;
+    }
+    if (s1) {
+      if (v1 > t_hi) b1 = m1; else a1 = m1 + 1;
+    }
+  }
+  *a_lo = a0;
+  *a_hi = a1;
+}
+
+// floor(k * len / 33) for k <= 32: in 32 bits while the product fits
+__device__ __forceinline__ unsigned part33(unsigned k, unsigned len) {
+  return len < (1u << 26)
+             ? k * len / 33u
+             : static_cast<unsigned>(static_cast<unsigned long long>(k) *
+                                     len / 33ull);
+}
+
+// The first hit in [pp, pl + 1] of every lane that wants one, over a key
+// that does not decrease within the partition (so the first hit is
+// unique, and is the reference's answer whenever its rounds suffice): the
+// lanes with one (partition, target) pair share one search, which the
+// whole warp runs as a 33-ary search (32 probes a round, one ballot), then
+// a last round over at most 32 positions. → the answer, or `dflt` for a
+// lane that wants none. Every lane of the warp calls it.
+__device__ __forceinline__ unsigned warp_first(const MKey<int>& m,
+                                               unsigned pp, unsigned pl,
+                                               long long t, bool strict,
+                                               bool want, unsigned dflt) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const unsigned lane = threadIdx.x & 31;
+  unsigned res = dflt;
+  unsigned pending = __ballot_sync(FULL, want);
+  while (pending) {
+    const int src = __ffs(pending) - 1;
+    const unsigned gpp = __shfl_sync(FULL, pp, src);
+    const unsigned gpl = __shfl_sync(FULL, pl, src);
+    const long long gt = __shfl_sync(FULL, t, src);
+    const unsigned group =
+        __ballot_sync(FULL, want && pp == gpp && t == gt) & pending;
+    unsigned a = gpp, b = gpl + 1;  // below a no hit; b hits or is pl + 1
+    while (b - a > 32) {
+      const unsigned len = b - a;
+      const unsigned hits = __ballot_sync(
+          FULL, hit_of(m.at(a + part33(lane + 1, len)), gt, strict));
+      if (hits) {
+        const unsigned f = __ffs(hits) - 1;
+        b = a + part33(f + 1, len);
+        a = f ? a + part33(f, len) + 1 : a;
+      } else {
+        a = a + part33(32, len) + 1;
+      }
+    }
+    const unsigned q = a + lane;
+    const unsigned hits =
+        __ballot_sync(FULL, q < b && hit_of(m.at(q), gt, strict));
+    const unsigned ans = hits ? a + __ffs(hits) - 1 : b;
+    if ((group >> lane) & 1) res = ans;
+    pending &= ~group;
+  }
+  return res;
+}
+
+// One row a thread. NULL rows take their peer block on a bounded side.
+// Valid rows: with `sorted` (the caller's promise that the key does not
+// decrease within a partition in m-space and that the peers are its runs
+// of equal keys, as the window layout gives) and an int32 key (whose
+// m-space values lie strictly between the NULL sentinels, so NULLs keep
+// the order), a 0 offset is the peer edge and any other offset takes
+// warp_first. Every other row, and every row of a partition that spans
+// all n = 2^k rows (where the reference's bit_length(n - 1) rounds may
+// stop one round short of its answer), runs search_both.
+template <class KT>
 __global__ void __launch_bounds__(THREADS)
-    range_bounds(Pos p, long long n, MKey<K> m, int has_pre, K pre,
-                 int has_post, K post, int rounds,
+    range_bounds(Pos p, long long n, MKey<KT> m, int has_pre,
+                 typename MKey<KT>::M pre, int has_post,
+                 typename MKey<KT>::M post, int rounds, int sorted,
                  long long* __restrict__ lo, long long* __restrict__ hi) {
+  using M = typename MKey<KT>::M;
   const long long i = row_id();
-  if (i >= n) return;
-  const long long pp = p.ppos[i], pl = p.plast[i];
-  const bool ok = m.valid[i] != 0;
-  const K mi = m.at(i);
-  if (!has_pre)
-    lo[i] = pp;
-  else
-    lo[i] = ok ? first_pos(m, n, pp, pl, ksub(mi, pre), false, rounds)
-               : p.peer_lo[i];
-  if (!has_post)
-    hi[i] = pl;
-  else
-    hi[i] = ok ? first_pos(m, n, pp, pl, kadd(mi, post), true, rounds) - 1
-               : p.peer_hi[i];
+  const bool in = i < n;
+  const long long ic = in ? i : n - 1;
+  const unsigned pp = static_cast<unsigned>(p.ppos[ic]);
+  const unsigned pl = static_cast<unsigned>(p.plast[ic]);
+  const M mi = m.at(static_cast<unsigned>(ic));
+  const bool ok = in && m.valid[ic] != 0;
+  long long l = has_pre && !ok ? p.peer_lo[ic] : pp;
+  long long h = has_post && !ok ? p.peer_hi[ic] : pl;
+  bool need_lo = ok && has_pre, need_hi = ok && has_post;
+  const M t_lo = ksub(mi, pre), t_hi = kadd(mi, post);
+  if constexpr (std::is_same<KT, int>::value) {
+    const bool whole_pow2 = pp == 0 && pl == n - 1 && (n & (n - 1)) == 0;
+    const bool fast = sorted && !whole_pow2;
+    if (fast && need_lo && pre == 0) {
+      l = p.peer_lo[ic];
+      need_lo = false;
+    }
+    if (fast && need_hi && post == 0) {
+      h = p.peer_hi[ic];
+      need_hi = false;
+    }
+    if (sorted) {  // warp-uniform: every lane calls warp_first
+      l = warp_first(m, pp, pl, t_lo, false, fast && need_lo,
+                     static_cast<unsigned>(l));
+      h = static_cast<long long>(warp_first(m, pp, pl, t_hi, true,
+                                            fast && need_hi,
+                                            static_cast<unsigned>(h + 1))) -
+          1;
+      if (fast) need_lo = need_hi = false;
+    }
+  }
+  if (need_lo || need_hi) {
+    unsigned a_lo = need_lo ? pp : pl + 1, a_hi = need_hi ? pp : pl + 1;
+    search_both(m, pl, t_lo, t_hi, rounds, &a_lo, &a_hi);
+    if (need_lo) l = a_lo;
+    if (need_hi) h = static_cast<long long>(a_hi) - 1;
+  }
+  if (in) {
+    lo[i] = l;
+    hi[i] = h;
+  }
 }
 
 // ---- K15 -----------------------------------------------------------------
@@ -425,13 +525,17 @@ int tt_frame_direct_width() { return DIRECT_WIDTH; }
 // K14: lo, hi int64 (n) of a ROWS frame (range_key null) or a RANGE frame
 // over the sorted key (kdt 1 int32, 2 int64, 3 float64) and its validity
 // `kvalid`; has_pre / has_post 0 = unbounded side; integer offsets in
-// pre_i / post_i, float offsets (a float64 key) in pre_f / post_f.
+// pre_i / post_i, float offsets (a float64 key) in pre_f / post_f;
+// `rounds` the reference's bit_length(n - 1); `sorted` the caller's
+// promise that an int32 key does not decrease within a partition in
+// m-space and that the peers are its runs of equal keys (read only for
+// an int32 key).
 int tt_frame_bounds(const void* ppos, const void* plast, const void* peer_lo,
                     const void* peer_hi, long long n, const void* key,
                     int kdt, const void* kvalid, int desc, int has_pre,
                     long long pre_i, double pre_f, int has_post,
-                    long long post_i, double post_f, int rounds, void* lo,
-                    void* hi, void* stream) {
+                    long long post_i, double post_f, int rounds,
+                    int sorted, void* lo, void* hi, void* stream) {
   if (n < 0 || (key && (kdt < DT_I32 || kdt > DT_F64)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
@@ -448,13 +552,18 @@ int tt_frame_bounds(const void* ppos, const void* plast, const void* peer_lo,
     rows_bounds<<<blocks_for(n), THREADS, 0, st>>>(p, n, has_pre, pre_i,
                                                    has_post, post_i, l, h);
   } else if (kdt == DT_F64) {
-    MKey<double> m{key, kdt, kv, desc};
+    MKey<double> m{static_cast<const double*>(key), kv, desc};
     range_bounds<double><<<blocks_for(n), THREADS, 0, st>>>(
-        p, n, m, has_pre, pre_f, has_post, post_f, rounds, l, h);
+        p, n, m, has_pre, pre_f, has_post, post_f, rounds, 0, l, h);
+  } else if (kdt == DT_I32) {
+    MKey<int> m{static_cast<const int*>(key), kv, desc};
+    range_bounds<int><<<blocks_for(n), THREADS, 0, st>>>(
+        p, n, m, has_pre, pre_i, has_post, post_i, rounds, sorted != 0, l,
+        h);
   } else {
-    MKey<long long> m{key, kdt, kv, desc};
+    MKey<long long> m{static_cast<const long long*>(key), kv, desc};
     range_bounds<long long><<<blocks_for(n), THREADS, 0, st>>>(
-        p, n, m, has_pre, pre_i, has_post, post_i, rounds, l, h);
+        p, n, m, has_pre, pre_i, has_post, post_i, rounds, 0, l, h);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -716,9 +716,14 @@ def _window_value(ctx, live, d, n, perm, pstart, peerstart, pos):
     if frame is not None and frame[0] == "range":
         kv, km = d.order[0].eval(ctx)
         range_key = (kv[perm], (km & live)[perm], bool(d.descs[0]))
+    # K14's `sorted_key`: the layout sorts by the partition keys, then by
+    # the ORDER BY key in its direction with NULLs first (ASC) or last
+    # (DESC), with the dead rows last in partitions of their own; with
+    # one ORDER BY key its peers are the runs of equal keys
     return W.compute(ctx.xp, d.name, vals, valid, pstart, peerstart,
                      bool(d.order), d.offset, fill, frame=frame,
-                     range_key=range_key, positions=pos)
+                     range_key=range_key, positions=pos,
+                     sorted_key=len(d.order) == 1)
 
 
 # ---------------------------------------------------------------------------

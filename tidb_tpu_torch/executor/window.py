@@ -154,10 +154,14 @@ class WindowExec(MaterializingExec):
                 range_key = (up(np.asarray(kv))[sidx],
                              up(np.asarray(km, dtype=bool))[sidx],
                              bool(d.descs[0]))
+            # K14's `sorted_key`: the layout sorts by the partition codes,
+            # then by the ORDER BY key's rank codes (executor/sort.rank_keys:
+            # equal values share a code, NULLs first ASC and last DESC);
+            # with one ORDER BY key its peers are the runs of equal keys
             v, m = W.compute(TorchXP(dev), d.name, vals, valid, pstart,
                              peerstart, bool(d.order), d.offset, fill,
                              frame=frame, range_key=range_key,
-                             positions=pos)
+                             positions=pos, sorted_key=len(d.order) == 1)
             back_v = torch.empty(n, dtype=v.dtype, device=dev)
             back_v[sidx] = v
             back_m = torch.empty(n, dtype=torch.bool, device=dev)

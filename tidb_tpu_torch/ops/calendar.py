@@ -19,14 +19,19 @@ or int64 microseconds (a DATETIME, the time of day kept).
 `civil_part` and `date_add_months` take their plain versions for CPU
 tensors and launch the kernel for CUDA tensors (or raise on anything the
 kernel does not take). The plain versions repeat the reference's
-arithmetic op for op in torch int64, wrapping as it wraps.
+arithmetic op for op in torch int64, wrapping as it wraps. The host path
+of a call is short: the C entry bound once, a cached flags word that
+picks the kernel instance, one allocation and one ctypes call.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
+
+from tidb_tpu_torch.ops import cuda_kernels as ck
 
 #: part names, in the kernel's code order (csrc/civil_date.cu Part)
 PARTS = ("year", "month", "day", "dayofyear", "quarter", "week",
@@ -139,36 +144,69 @@ def date_add_months_plain(v, micros: bool, n_months, mult: int):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+#: csrc/civil_date.cu's two C entries, bound at the first CUDA call
+_KERNELS = None
+_MULTS = (1, 3, 12)
 
-def _kind(v, micros: bool, what: str) -> int:
+
+def _bind():
+    global _KERNELS
+    lib = ck.library("civil_date")
+    _KERNELS = (lib.tt_civil_part, lib.tt_date_add_months)
+    return _KERNELS
+
+
+def _kind(dtype, micros: bool) -> int:
     """Kernel input code: 0 int32 days, 1 int64 days, 2 int64 µs."""
-    from tidb_tpu_torch.ops import cuda_kernels as ck
-    ck.require_cuda(v, what=what)
-    if v.dim() != 1 or v.dtype not in (torch.int32, torch.int64) or \
-            (micros and v.dtype != torch.int64):
-        raise ck.KernelError(f"{what}: 1-D int32/int64 days or int64 "
-                             f"microseconds expected, got {v.dtype}")
-    return 2 if micros else int(v.dtype == torch.int64)
+    if dtype not in (torch.int32, torch.int64) or \
+            (micros and dtype != torch.int64):
+        raise ck.KernelError(f"civil_date: int32/int64 days or int64 "
+                             f"microseconds expected, got {dtype}")
+    return 2 if micros else int(dtype == torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def part_flags(part: str, micros: bool, dtype) -> int:
+    """tt_civil_part's flags word: the input kind (0 int32 days, 1 int64
+    days, 2 int64 µs) in bits 0-1, the part's code in bits 4-7."""
+    if part not in PARTS:
+        raise ck.KernelError(f"civil_part: unknown part {part!r}")
+    return _kind(dtype, micros) | PARTS.index(part) << 4
+
+
+@functools.lru_cache(maxsize=None)
+def add_flags(micros: bool, dtype, mult: int, per_row: bool) -> int:
+    """tt_date_add_months's flags word: the input kind in bits 0-1, mult in
+    bits 4-7, a month count per row in bit 8."""
+    if mult not in _MULTS:
+        raise ck.KernelError(f"date_add_months: mult {mult} not 1, 3, 12")
+    return _kind(dtype, micros) | mult << 4 | int(per_row) << 8
+
+
+def _one_d_cuda(v, what: str):
+    if not v.is_cuda or v.dim() != 1:
+        raise ck.KernelError(f"{what}: a 1-D CUDA tensor expected, got "
+                             f"{tuple(v.shape)} on {v.device}")
+    return v if v.is_contiguous() else v.contiguous()
 
 
 def civil_part(v, part: str, micros: bool):
     """K20 wrapper: one calendar part of every row of `v` (int64; int32
     for `last_day`). CPU tensors take the plain version."""
-    if v.device.type == "cpu":
+    if v.is_cpu:
         return civil_part_plain(v, part, micros)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
-    if part not in PARTS:
-        raise ck.KernelError(f"civil_part: unknown part {part!r}")
-    kind = _kind(v, micros, "civil_part")
+    flags = part_flags(part, micros, v.dtype)
+    v = _one_d_cuda(v, "civil_part")
+    kernel = (_KERNELS or _bind())[0]
     n = v.shape[0]
-    out = torch.empty(n, device=v.device, dtype=torch.int32
-                      if part == "last_day" else torch.int64)
-    rc = ck.library("civil_date").tt_civil_part(
-        v.data_ptr(), kind, PARTS.index(part), out.data_ptr(), n,
-        ck.stream_ptr(v.device))
+    out = v.new_empty(n, dtype=torch.int32 if part == "last_day"
+                      else torch.int64)
+    rc = kernel(v.data_ptr(), out.data_ptr(), n, flags,
+                ck.stream_ptr(v.device))
     if n > 0:
         ck.count("civil_date")
-    ck.check(rc, "civil_part")
+    if rc:
+        ck.check(rc, "civil_part")
     return out
 
 
@@ -178,28 +216,28 @@ def date_add_months(v, micros: bool, n_months: Union[int, torch.Tensor],
     the target month's length (int32 days, or int64 µs for `micros`).
     `n_months` is an int64 tensor of v's length or one int for every
     row; `mult` is 1, 3 or 12. CPU tensors take the plain version."""
-    if v.device.type == "cpu":
+    if v.is_cpu:
         return date_add_months_plain(v, micros, n_months, mult)
-    from tidb_tpu_torch.ops import cuda_kernels as ck
-    kind = _kind(v, micros, "date_add_months")
+    per_row = isinstance(n_months, torch.Tensor)
+    flags = add_flags(micros, v.dtype, mult, per_row)
+    v = _one_d_cuda(v, "date_add_months")
+    kernel = (_KERNELS or _bind())[1]
     n = v.shape[0]
     n_ptr, n_scalar = None, 0
-    if isinstance(n_months, torch.Tensor):
-        ck.require_cuda(n_months, what="date_add_months")
-        if n_months.dtype != torch.int64 or n_months.shape != (n,):
+    if per_row:
+        n_months = _one_d_cuda(n_months, "date_add_months")
+        if n_months.dtype != torch.int64 or n_months.shape[0] != n or \
+                n_months.get_device() != v.get_device():
             raise ck.KernelError("date_add_months: an int64 month count "
-                                 "per row expected")
+                                 "per row on v's device expected")
         n_ptr = n_months.data_ptr()
     else:
         n_scalar = int(n_months)
-    if mult not in (1, 3, 12):
-        raise ck.KernelError(f"date_add_months: mult {mult} not 1, 3, 12")
-    out = torch.empty(n, device=v.device,
-                      dtype=torch.int64 if micros else torch.int32)
-    rc = ck.library("civil_date").tt_date_add_months(
-        v.data_ptr(), kind, n_ptr, n_scalar, mult, out.data_ptr(), n,
-        ck.stream_ptr(v.device))
+    out = v.new_empty(n, dtype=torch.int64 if micros else torch.int32)
+    rc = kernel(v.data_ptr(), n_ptr, n_scalar, out.data_ptr(), n, flags,
+                ck.stream_ptr(v.device))
     if n > 0:
         ck.count("civil_date")
-    ck.check(rc, "date_add_months")
+    if rc:
+        ck.check(rc, "date_add_months")
     return out

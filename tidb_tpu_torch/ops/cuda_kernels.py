@@ -100,7 +100,7 @@ _SIGNATURES = {
     "tt_window_segscan": [_P, _I, _P, _P, _L, _I, _I, _L, _D, _P, _P, _P],
     "tt_frame_direct_width": [],
     "tt_frame_bounds": [_P, _P, _P, _P, _L, _P, _I, _P, _I, _I, _L, _D, _I,
-                        _L, _D, _I, _P, _P, _P],
+                        _L, _D, _I, _I, _P, _P, _P],
     "tt_frame_rank": [_P, _P, _P, _P, _P, _L, _I, _L, _P, _P],
     "tt_frame_agg": [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P],
     "tt_frame_gather": [_P, _I, _P, _P, _L, _P, _P, _L, _P, _L, _P, _L, _P,
@@ -113,8 +113,8 @@ _SIGNATURES = {
     "tt_gather_args_bytes": [],
     "tt_delta_perm": [_P, _L, _P, _P, _P],
     "tt_delta_repack": [_P, _L, _I, _P, _L, _L, _P, _L, _P],
-    "tt_civil_part": [_P, _I, _I, _P, _L, _P],
-    "tt_date_add_months": [_P, _I, _P, _L, _L, _P, _L, _P],
+    "tt_civil_part": [_P, _P, _L, _I, _P],
+    "tt_date_add_months": [_P, _P, _L, _P, _L, _I, _P],
     "tt_dict_lut": [_P, _P, _L, _L, _P, _L, _I, _P],
     "tt_dict_lut_smem_bytes": [],
     "tt_member_tile": [],

@@ -508,18 +508,20 @@ def _partition_rows(xp, pstart):
 
 def compute(xp, name, vals, valid, pstart, peerstart, has_order: bool,
             offset: int = 1, fill=None, frame=None, range_key=None,
-            positions=None):
+            positions=None, sorted_key: bool = False):
     """Shared dispatch for host (numpy) and device (torch) window columns.
     vals/valid are the function argument in SORTED layout (None for the
     rank family); fill = (fill_vals, fill_valid) for lag/lead; frame =
     ('rows'|'range', pre, post) (None side = unbounded) or None for the
     default frame; range_key = (okey, ovalid, desc) in sorted layout —
     required for RANGE offset frames. `positions` (torch only): the
-    layout's K12 `window_positions`, when the caller already has them."""
+    layout's K12 `window_positions`, when the caller already has them;
+    `sorted_key` (torch only): K14's promise about range_key
+    (`frame_bounds`)."""
     if xp is not np:
         return _compute_torch(name, vals, valid, pstart, peerstart,
                               has_order, offset, fill, frame, range_key,
-                              positions)
+                              positions, sorted_key)
     n = pstart.shape[0]
     ones = xp.ones(n, dtype=bool)
     rows_fr = None
@@ -1047,8 +1049,25 @@ def frame_bounds_plain(pos: Positions, pre, post, range_key=None):
     return lo, hi
 
 
-def frame_bounds(pos: Positions, pre, post, range_key=None):
-    """K14 wrapper, as `frame_bounds_plain`."""
+#: csrc/window_frame.cu tt_frame_bounds, bound at the first CUDA call
+_FRAME_BOUNDS = None
+
+
+def _bind_frame_bounds():
+    global _FRAME_BOUNDS
+    _FRAME_BOUNDS = _ck().library("window_frame").tt_frame_bounds
+    return _FRAME_BOUNDS
+
+
+def frame_bounds(pos: Positions, pre, post, range_key=None,
+                 sorted_key: bool = False):
+    """K14 wrapper, as `frame_bounds_plain`. `sorted_key` is the caller's
+    promise about a RANGE frame's key: within each partition of `pos` it
+    does not decrease in m-space (DESC negated, NULLs where the sort put
+    them) and the peers of `pos` are its runs of equal keys, as the
+    window layout's sort gives them. An int32 key then searches per
+    warp (a 0 offset takes the peer edge); the result is the same
+    either way."""
     if _on_cpu(pos.ppos):
         return frame_bounds_plain(pos, pre, post, range_key)
     ck = _ck()
@@ -1066,20 +1085,20 @@ def frame_bounds(pos: Positions, pre, post, range_key=None):
     as_f = key is not None and key.dtype == _F64
     pre_i = 0 if pre is None or as_f else int(pre)
     post_i = 0 if post is None or as_f else int(post)
-    lo = torch.empty(n, dtype=_I64, device=pos.ppos.device)
-    hi = torch.empty_like(lo)
-    rc = ck.library("window_frame").tt_frame_bounds(
+    lo, hi = pos.ppos.new_empty((2, n))   # one allocation, two rows
+    rc = (_FRAME_BOUNDS or _bind_frame_bounds())(
         pos.ppos.data_ptr(), pos.plast.data_ptr(), pos.peer_lo.data_ptr(),
         pos.peer_hi.data_ptr(), n, _ptr(key), kdt, _ptr(kvalid),
         int(bool(desc)), int(pre is not None), pre_i,
         float(pre) if as_f and pre is not None else 0.0,
         int(post is not None), post_i,
         float(post) if as_f and post is not None else 0.0,
-        max(int(max(n - 1, 1)).bit_length(), 1), lo.data_ptr(),
-        hi.data_ptr(), ck.stream_ptr(lo.device))
+        max(int(max(n - 1, 1)).bit_length(), 1), int(bool(sorted_key)),
+        lo.data_ptr(), hi.data_ptr(), ck.stream_ptr(lo.device))
     if n > 0:
         ck.count("frame_bounds")
-    ck.check(rc, "frame_bounds")
+    if rc:
+        ck.check(rc, "frame_bounds")
     return lo, hi
 
 
@@ -1376,7 +1395,7 @@ def _shifted_torch(vals, valid, pos: Positions, offset: int, fill):
 
 def _compute_torch(name, vals, valid, pstart, peerstart, has_order: bool,
                    offset: int = 1, fill=None, frame=None, range_key=None,
-                   positions=None):
+                   positions=None, sorted_key: bool = False):
     """compute's torch branch: K12 positions once, then K13-K15."""
     pos = positions if positions is not None else \
         window_positions(pstart, peerstart)
@@ -1393,7 +1412,8 @@ def _compute_torch(name, vals, valid, pstart, peerstart, has_order: bool,
         tag, pre, post = frame
         if tag == "range":
             okey, ovalid, desc = range_key
-            range_bounds = frame_bounds(pos, pre, post, (okey, ovalid, desc))
+            range_bounds = frame_bounds(pos, pre, post, (okey, ovalid, desc),
+                                        sorted_key)
         else:
             rows_fr = (pre, post)
     if name in ("first_value", "last_value", "nth_value"):

@@ -1,12 +1,13 @@
 """Time the window scans, the rank gather, the LUT probe, the member
 compaction, the column gather, the sorted search, the segment reduction,
 the window bounds, the join expansion, the slab decode, the dictionary
-LUT and the DISTINCT pair factorize of one checkout on the card, for
-comparing two checkouts in one machine's run.
+LUT, the DISTINCT pair factorize, the calendar parts and the RANGE frame
+bounds of one checkout on the card, for comparing two checkouts in one
+machine's run.
 
     python tidb_tpu_torch/tools/scan_timing.py --tree DIR [--out FILE]
         [--kernels scan,gather,probe,compact,columns,search,segment,bounds,
-                   expand,decode,lut,pairs]
+                   expand,decode,lut,pairs,civil,frame]
         [--profile] [--ptxas] [--host-steps]
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
@@ -56,7 +57,15 @@ join, phase 22's masks):
   * pairs: the DISTINCT pair factorize after the value ranks at phase
     14's shape (D1's slab: 8,388,608 rows, 4,380,410 pairs) with its
     launches, K16's entries alone, and K10's word entry over the pair
-    sort's word with and without the first mask.
+    sort's word with and without the first mask;
+  * civil: K20 over phase 18's five calls (year, week, last_day over
+    8,388,608 int32 DATE days, hour over µs, date_add_months +3) and
+    `year` over a DATE column below the 32-bit path's range (every warp
+    on the 64-bit path);
+  * frame: K14 at phase 12's W3 call (RANGE 6 PRECEDING over the int32
+    l_shipdate within (l_returnflag, l_linestatus)), with `sorted_key`
+    (the main path's call) where the checkout has it and without, and
+    over an int64 and a float64 RANGE key on the same rows.
 
 Each kernel is held to its plain version first (exactly; the f64
 prefix is not timed). Run two checkouts in turns (A, B, B, A), one
@@ -70,7 +79,7 @@ chosen kernels' sources (registers, shared memory, spills);
 tables, allocation, the ctypes call and launch), K13 prefix's, K5's,
 K18's, K11's, K1's, K12's, K7's, K2's and K21's with the card not
 waited for, and K22's, whose read-back of the total waits for its count
-pass; the pair factorize's host time a call.
+pass; the pair factorize's, K20's and K14's host time a call.
 """
 
 from __future__ import annotations
@@ -1684,6 +1693,127 @@ def run_pairs(reps: int, prof: bool, steps: bool, dev) -> dict:
     return out
 
 
+DAY_US = 86_400_000_000
+#: csrc/civil_date.cu's 32-bit range starts at LO = -Z0
+K20_LO = -(719468 + 146097 * 800)
+
+
+def _civil_cases(dev):
+    """Phase 18's five K20 calls (n = 8,388,608: year, week and last_day
+    over int32 DATE days in lineitem's shipdate range, hour over µs at
+    random times of day, date_add_months +3 over the days; its seed) and
+    `year` over a DATE column below the 32-bit path's range (every warp
+    on the 64-bit path) → [(name, kernel call, plain call)]."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import calendar as CAL
+    rng = np.random.default_rng(18)
+    days = torch.from_numpy(rng.integers(8036, 10590, CAP).astype(
+        np.int32)).to(dev)
+    us = days.long() * DAY_US + torch.from_numpy(
+        rng.integers(0, DAY_US, CAP)).to(dev)
+    low = torch.from_numpy(rng.integers(np.iinfo(np.int32).min, K20_LO,
+                                        CAP).astype(np.int32)).to(dev)
+    cases = [(part, v, mc) for part, v, mc in (
+        ("year", days, False), ("week", days, False),
+        ("last_day", days, False), ("hour", us, True),
+        ("year_out_of_range", low, False))]
+    out = [(name, (lambda v=v, p=name.split("_out")[0], mc=mc:
+                   CAL.civil_part(v, p, mc)),
+            (lambda v=v, p=name.split("_out")[0], mc=mc:
+             CAL.civil_part_plain(v, p, mc))) for name, v, mc in cases]
+    out.insert(4, ("date_add_months",
+                   lambda: CAL.date_add_months(days, False, 3, 1),
+                   lambda: CAL.date_add_months_plain(days, False, 3, 1)))
+    return out
+
+
+def run_civil(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K20 over phase 18's five calls and a DATE column out of the 32-bit
+    range, each held exactly to its plain version, timed, with `prof`
+    profiled alone (`kernels_k20_<case>`), with `steps` its host time a
+    call (the wrapper, the card not waited for)."""
+    import torch
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    out = {}
+    five = 0.0
+    for name, kern, plain in _civil_cases(dev):
+        _same(f"K20 {name}", kern(), plain())
+        out[f"k20_{name}_ms"] = _median_ms(kern, reps)
+        if name != "year_out_of_range":
+            five += out[f"k20_{name}_ms"]
+        if prof:
+            out[f"kernels_k20_{name}"] = _profile([kern])
+        if steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                kern()
+            out[f"k20_{name}_host_us"] = (time.perf_counter() - t0) * 1e6 / 50
+            torch.cuda.synchronize()
+    out["k20_five_ms"] = five
+    return out
+
+
+def _frame_cases(dev):
+    """K14 at phase 12's W3 shape (l_shipdate within (l_returnflag,
+    l_linestatus), RANGE BETWEEN 6 PRECEDING AND CURRENT ROW, one
+    8,388,608-row slab), with and without `sorted_key` where the
+    checkout has it, and the same layout ordered by an int64 key
+    (l_extendedprice, RANGE 100000 PRECEDING) and a float64 one
+    (l_extendedprice / 100, RANGE 1000.5 PRECEDING) → [(name, kernel
+    call, plain call)]."""
+    import inspect
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops import window as W
+    li = _lineitem_columns(dev)
+    rows = torch.arange(CAP, device=dev) < N_ROWS
+    ones = torch.ones(CAP, dtype=torch.bool, device=dev)
+    out = []
+    has_sorted = "sorted_key" in inspect.signature(W.frame_bounds).parameters
+    for name, key, pre in (("w3", li["ship"], 6),
+                           ("int64", li["price"], 100_000),
+                           ("float64", li["price"].double() / 100, 1000.5)):
+        k = [(li["rflag"], ones), (li["lstatus"], ones), (key, ones)]
+        perm, _ = F.sort_perm(k, [False] * 3, rows)
+        pos = W.window_positions(*W.window_flags(perm, rows, k, 2))
+        rk = (key[perm], rows[perm], False)
+        calls = [(name, (lambda pos=pos, rk=rk, pre=pre:
+                         W.frame_bounds(pos, pre, 0, rk)))]
+        if has_sorted:
+            calls.insert(0, (f"{name}_sorted", (
+                lambda pos=pos, rk=rk, pre=pre:
+                W.frame_bounds(pos, pre, 0, rk, sorted_key=True))))
+        for tag, fn in calls:
+            out.append((tag, fn, (lambda pos=pos, rk=rk, pre=pre:
+                                  W.frame_bounds_plain(pos, pre, 0, rk))))
+    return out
+
+
+def run_frame(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K14 at W3's shape with and without `sorted_key` and over an int64
+    and a float64 RANGE key, each held exactly to its plain version,
+    timed, with `prof` profiled alone (`kernels_k14_<case>`), with
+    `steps` its host time a call."""
+    import torch
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    out = {}
+    for name, kern, plain in _frame_cases(dev):
+        _same(f"K14 {name}", kern(), plain())
+        out[f"k14_{name}_ms"] = _median_ms(kern, reps)
+        if prof:
+            out[f"kernels_k14_{name}"] = _profile([kern])
+        if steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                kern()
+            out[f"k14_{name}_host_us"] = (time.perf_counter() - t0) * 1e6 / 20
+            torch.cuda.synchronize()
+    return out
+
+
 def _ptxas(tree: str, sources) -> dict:
     """{kernel: {registers, smem, stack, spill_stores}} of the kernels of
     `sources` (csrc file names), from `nvcc -Xptxas -v` with the build's
@@ -1728,7 +1858,7 @@ def main() -> int:
                          "probe (K5), compact (K22), columns (K18), "
                          "search (K11), segment (K1), bounds (K12), "
                          "expand (K7), decode (K2), lut (K21), pairs "
-                         "(K16 with K8 and K10)")
+                         "(K16 with K8 and K10), civil (K20), frame (K14)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="append the JSON line to this file too")
     ap.add_argument("--profile", action="store_true",
@@ -1752,7 +1882,8 @@ def main() -> int:
                "columns": "gather_columns", "search": "sorted_groups",
                "segment": "segment_reduce", "bounds": "window_scan",
                "expand": "join_expand", "decode": "unpack_decode",
-               "lut": "dict_lut", "pairs": "distinct_pairs"}
+               "lut": "dict_lut", "pairs": "distinct_pairs",
+               "civil": "civil_date", "frame": "window_frame"}
     if not kernels <= set(sources):
         print(f"scan_timing: unknown kernels {args.kernels}",
               file=sys.stderr)
@@ -1794,6 +1925,12 @@ def main() -> int:
         line.update(run_lut(args.reps, args.profile, args.host_steps, dev))
     if "pairs" in kernels:
         line.update(run_pairs(args.reps, args.profile, args.host_steps,
+                              dev))
+    if "civil" in kernels:
+        line.update(run_civil(args.reps, args.profile, args.host_steps,
+                              dev))
+    if "frame" in kernels:
+        line.update(run_frame(args.reps, args.profile, args.host_steps,
                               dev))
     if args.ptxas:
         srcs = {sources[k] for k in kernels}

@@ -42,10 +42,10 @@ which must pass:
      Each under tidb_tpu_strict=1, exactly equal to the host engine; the
      launch counters are zeroed before the phase and all seven kernels
      must move in it;
-  8. join kernel timing at those shapes: K4 over the orders build, K5 over
-     one lineitem slab (its call profiled once after phase 26: host time
-     against the card's), K6 and K7 at the expand statement's build and
-     probe;
+  8. join kernel timing at those shapes: K4 over the orders build (its
+     call profiled once after phase 26), K5 over one lineitem slab (its
+     call profiled likewise: host time against the card's), K6 and K7 at
+     the expand statement's build and probe;
   9. the sort formulation on the card, over phase 7's tables and two
      sparse-key copies (`orders_sk`, `lineitem_sk`: the same rows keyed by
      the injective map k -> k*0x9E3779B97F4A7C15 mod 2^62, a domain no
@@ -62,9 +62,13 @@ which must pass:
  10. sort kernel timing at the main path's shapes: K8 over 8,388,608
      full-range int64 keys and over the sparse join's 10,485,760 keys
      (each beside torch.sort(stable=True)), K9 over 8,388,608 float64 and
-     int64 values, K10's word and gather entries at 8,388,608 rows and
-     ~10^5 groups (the word entry beside unique_consecutive; no PyTorch
-     call computes the gather entry's function), K11 with 2,097,152 build
+     int64 values, K10's word entry at 8,388,608 rows and ~10^5 groups
+     (beside unique_consecutive), its gather entry at the main path's
+     shape, 8,388,608 full-range int64 tokens (~10^5 distinct, 2% NULL,
+     2% dead) sorted by K9 + K8 into two words and read with K8's sorted
+     last word (no PyTorch call computes its function; its call profiled
+     once after phase 26), and at the one-word shape without the word
+     (logged), K11 with 2,097,152 build
      codes and 8,388,608 probes, and on a skewed table (2,097,151 codes in
      [0, 2^21) and one at 2^62) under the same probes, each beside
      torch.searchsorted (K11's call profiled once after phase 26);
@@ -860,6 +864,65 @@ def _join_keys(rng, n, bounds, null_p, spill, dev):
     return out
 
 
+K4_EDGE_BOUNDS = ([(0, 99)], [(0, 49), (-3, 6)], [(0, 9), (5, 14), (-2, 7)],
+                  [(0, 4), (0, 4), (1, 5), (0, 3)])
+
+
+def check_k4_edges(dev, rng) -> int:
+    """K4 against lut_build_plain at its edges: nb = 0, 1, 4k ± 1 and
+    1,000,001; 1-4 key columns, int64 and int32 in turns, as views 0 or 1
+    elements (keys) and bytes (masks, live) off their boundaries; a random
+    and an all-dead live mask; an n_live prefix; lut, codes, or both.
+    cnt, maxcnt and codes exactly; lut where a code has one row, and a
+    duplicated code's entry one of its rows."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    cases = 0
+    for bounds in K4_EDGE_BOUNDS:
+        dom = int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+        for nb in (0, 1, 4095, 4097, 1_000_001):
+            for off in (0, 1):
+                keys = []
+                for q, (lo, hi) in enumerate(bounds):
+                    v = torch.from_numpy(rng.integers(lo - 2, hi + 3, nb + 16))
+                    dt = torch.int32 if (q + off) % 2 else torch.int64
+                    mm = torch.from_numpy(rng.random(nb + 16) > 0.1)
+                    keys.append((v.to(dt).to(dev)[off:off + nb],
+                                 mm.to(dev)[off:off + nb]))
+                lv = torch.from_numpy(rng.random(nb + 16) > 0.2).to(dev)
+                for live in (lv[off:off + nb],
+                             torch.zeros(nb, dtype=torch.bool, device=dev)):
+                    for n_live in (None, nb // 2):
+                        want = J.lut_build_plain(keys, bounds, dom, live=live,
+                                                 n_live=n_live,
+                                                 want_codes=True)
+                        for wl, wc in ((True, False), (False, True),
+                                       (True, True)):
+                            cnt, lut, maxcnt, codes = J.lut_build(
+                                keys, bounds, dom, live=live, n_live=n_live,
+                                want_lut=wl, want_codes=wc)
+                            ok = torch.equal(cnt, want[0]) and \
+                                int(maxcnt) == int(want[2])
+                            if wc:
+                                ok = ok and torch.equal(codes, want[3])
+                            if wl:
+                                single = want[0][:dom] <= 1
+                                dup = torch.nonzero(~single).reshape(-1)
+                                ok = ok and int(lut[dom]) == -1 and \
+                                    torch.equal(lut[:dom][single],
+                                                want[1][:dom][single]) and \
+                                    torch.equal(want[3][lut[dup].long()]
+                                                .long(), dup)
+                            if not ok:
+                                raise AssertionError(
+                                    f"K4 {bounds} nb={nb} off={off} "
+                                    f"n_live={n_live} lut={wl} codes={wc}: "
+                                    f"kernel != plain")
+                            cases += 1
+    return cases
+
+
 def check_join_kernels(dev):
     import numpy as np
     import torch
@@ -922,6 +985,7 @@ def check_join_kernels(dev):
                         raise AssertionError(f"K5 {bounds} unique={uq}: "
                                              f"kernel != plain")
                 cases += 1
+    cases += check_k4_edges(dev, rng)
     # K6: unique, duplicated, skewed (runs past the long-run cutoff) and
     # sentinel-heavy builds, and a one-row build
     for nb, dom, kind in ((1, 1, "uniform"), (1_500_000, 1_500_000, "perm"),
@@ -1011,7 +1075,10 @@ def check_join_kernels(dev):
     log(f"K4-K7 lut_build/lut_probe/lut_order/join_expand: {cases} cases "
         f"exactly equal to the plain versions (1-3 key columns, NULL and "
         f"out-of-domain keys, n_live, unique/duplicated/skewed builds, "
-        f"outer/inner, out_cap < total, P=0, nb=1; K5 at n = 4k ± 1 over "
+        f"outer/inner, out_cap < total, P=0, nb=1; K4 at nb = 0, 1, 4k ± 1 "
+        f"and 1,000,001 over 1-4 int32/int64 key views off their "
+        f"boundaries, all rows dead, an n_live prefix, duplicated codes, "
+        f"lut/codes/both; K5 at n = 4k ± 1 over "
         f"key, mask and live views off their boundaries, int32 and int64 "
         f"keys, all-dead and all-live probes, both modes, in "
         f"{time.perf_counter() - t_edges:.1f} s)")
@@ -1199,6 +1266,10 @@ def join_timing_phase(dev, n: int, orders, customer):
     log(f"K4 orders build nb={nb} ({n_orders} live) D={domain}: "
         f"{ms:.4f} ms (plain {plain:.4f}, bincount {lib:.4f}, bound "
         f"{b:.4f} by {by})")
+    DEFERRED_PROFILES.append((
+        "K4 at the orders build",
+        lambda: J.lut_build(bkeys, bounds, domain, live=blive),
+        ("build_prep", "lut_build")))
 
     # K5: one lineitem slab probing that build (unique mode)
     okey = np.random.default_rng(7).integers(0, n_orders, n)
@@ -1492,6 +1563,7 @@ def check_sort_kernels(dev):
                 same(f"pack_codes {spec} n={n}", F.pack_codes(dk, dl),
                      F.pack_codes(keys, hl))
                 cases += 5
+    cases += check_k10_gather(dev, rng, same)
     # K11: duplicated and unique builds, missing probe keys, sentinel
     # (dead / NULL) build rows, nb = 1 and P = 0
     for nb, P, dup in ((1, 50, False), (1, 0, False), (5000, 0, True),
@@ -1527,12 +1599,87 @@ def check_sort_kernels(dev):
         f"4097, 1,000,003; int32/int64/float64 with ±0.0, ±inf, NaN/bool/"
         f"dict codes; ASC/DESC, NULLs, dead rows; all-equal, sorted, "
         f"reversed keys; a 1-bit partition; K10's word entry and its "
-        f"gather entry on one- and two-word sorts ({', '.join(K10_CASES)}); "
+        f"gather entry on one- and two-word sorts ({', '.join(K10_CASES)}), "
+        f"and with K8's sorted last word and without on "
+        f"{', '.join(K10_GATHER_CASES)} at n = 0, 1, 2, 2047-2049, "
+        f"1,000,003 and cap 0, 3, n + 1; "
         f"1-3 key columns through factorize/sort_perm/topn/pack_codes; cap "
         f"below n_groups; K11 with duplicates, missing keys, sentinels, "
         f"nb = 1, P = 0, and its three entries on negative, full-range, "
         f"sentinel-only, equal-run and skewed tables with probes equal to "
         f"INT64_MAX and INT64_MIN)")
+
+
+def _k10_gather_case(rng, case, n):
+    """(values, NULL mask or None, live) of a sort of two radix words
+    (n >= 2): a full-range int64 with NULLs (the NULL flag in the last
+    word), float64 with NaN, ±0.0, ±inf and NULLs (likewise), a 63-bit
+    int64 whose mask shares its word, a full-range int64 without a mask,
+    and every row dead."""
+    import numpy as np
+    live = rng.random(n) > 0.05
+    m = rng.random(n) > 0.1
+    if case == "f64_nulls":
+        v = rng.choice(np.array([0.0, -0.0, -np.inf, np.inf, 2.5, -1.5,
+                                 np.nan]), n)
+        v[:2] = [-np.inf, np.nan]
+        m[:2] = True
+        return v, m, live
+    if case == "i63_mask":
+        v = rng.integers(-2 ** 62, 2 ** 62, n, dtype=np.int64)
+        v[:2] = [-2 ** 62, 2 ** 62 - 1]
+        m[:2] = True
+        return v, m, live
+    tokens = rng.integers(-2 ** 63, 2 ** 63 - 1, max(n // 8, 2),
+                          dtype=np.int64)
+    v = tokens[rng.integers(0, len(tokens), n)]
+    v[:2] = [-2 ** 63, 2 ** 63 - 2]
+    if case == "i64_no_mask":
+        return v, None, live
+    m[:2] = True
+    if case == "all_dead":
+        return v, m, np.zeros(n, dtype=bool)
+    return v, m, live                                 # i64_nulls
+
+
+K10_GATHER_CASES = ("i64_nulls", "f64_nulls", "i63_mask", "i64_no_mask",
+                    "all_dead")
+
+
+def check_k10_gather(dev, rng, same) -> int:
+    """K10's gather entry on sorts of two words, with K8's sorted last
+    word (the main path's call) and without it, exactly against
+    group_ids_plain; n = 0 and 1 (no sort of two words) without it."""
+    import torch
+    from tidb_tpu_torch.ops import factorize as F
+    cases = 0
+    for n in (2, 2047, 2048, 2049, 1_000_003):
+        for case in K10_GATHER_CASES:
+            v, m, live = _k10_gather_case(rng, case, n)
+            dv = torch.from_numpy(v).to(dev)
+            dl = torch.from_numpy(live).to(dev)
+            dm = None if m is None else torch.from_numpy(m).to(dev)
+            sidx, words = F._lexsort_kernel(F._key_operands([(dv, dm)], dl))
+            if words.count != 2:
+                raise AssertionError(f"K10 gather {case} n={n}: "
+                                     f"{words.count} words")
+            for cap in (0, 3, n + 1):
+                want = F.group_ids_plain(sidx, dv, dm, dl, cap)
+                for w in (words, None):
+                    same(f"K10 gather {case} n={n} cap={cap} word="
+                         f"{w is not None}",
+                         F.group_ids(sidx, dv, dm, dl, cap, w), want)
+                    cases += 1
+            if n == 2:
+                for k in (0, 1):
+                    s1 = torch.arange(k, dtype=torch.int32, device=dev)
+                    mk = None if dm is None else dm[:k]
+                    for cap in (0, 3):
+                        same(f"K10 gather {case} n={k} cap={cap}",
+                             F.group_ids(s1, dv[:k], mk, dl[:k], cap),
+                             F.group_ids_plain(s1, dv[:k], mk, dl[:k], cap))
+                        cases += 1
+    return cases
 
 
 I64_MAX = (1 << 63) - 1
@@ -2115,7 +2262,7 @@ def sort_timing_phase(dev, sparse):
 
     # K10: 8,388,608 rows in ~10^5 groups, over the kernel's own sort (one
     # word: the dead flag and 17 value bits): the word entry over K8's
-    # sorted word, and the gather entry on the same sort
+    # sorted word, and the gather entry without the word on the same sort
     gk = torch.from_numpy(rng.integers(0, 100_000, n)).to(dev)
     glive = torch.from_numpy(rng.random(n) > 0.02).to(dev)
     sidx, words = F._lexsort_kernel(F._key_operands([(gk, None)], glive))
@@ -2136,11 +2283,10 @@ def sort_timing_phase(dev, sparse):
                            want))
     exact("K10 words plain", zip(F.group_ids_words_plain(
         words.last, sidx, *key, cap), want))
-    ms = time_cuda(lambda: F.group_ids(sidx, gk, None, glive, cap),
-                   reps=10)
-    plain = time_cuda(lambda: F.group_ids_plain(sidx, gk, None, glive, cap),
-                      reps=5)
-    exact("K10 gather", zip(F.group_ids(sidx, gk, None, glive, cap), want))
+    ms_one = time_cuda(lambda: F.group_ids(sidx, gk, None, glive, cap),
+                       reps=10)
+    exact("K10 gather, one word", zip(F.group_ids(sidx, gk, None, glive,
+                                                  cap), want))
     fact = time_cuda(lambda: F.factorize([(gk, None)], glive, cap), reps=10)
     # words: the sorted word and the row ids read, the gids written, rep
     b_w, by_w = bound_ms(n * (8 + 4 + 4) + cap * 4, n * 4)
@@ -2149,21 +2295,54 @@ def sort_timing_phase(dev, sparse):
                 "replaces": "tidb_tpu/ops/factorize.py:96",
                 "max_abs_err": 0, "ms": ms_w, "plain_ms": plain_w,
                 "bound_ms": b_w, "bound_by": by_w, "library_ms": lib})
-    # gather: the permutation, the key and the live mask read, the gids
-    # written, rep. No one PyTorch call computes it (unique_consecutive
-    # numbers one sorted key in sorted order; the gather entry gathers
-    # its words through the permutation and numbers rows in row order)
-    b, by = bound_ms(n * (4 + 8 + 1 + 4) + cap * 4, n * 4)
+    del sidx, words, sorted_keys
+    # the gather entry at the main path's shape: a full-range BIGINT token
+    # (~10^5 distinct) with 2% NULLs and 2% dead rows, whose sort takes two
+    # words (the value; the NULL and dead flags), read with K8's sorted
+    # last word as _sort_groups_kernel passes it
+    tokens = rng.integers(-2 ** 63, 2 ** 63 - 1, 100_000, dtype=np.int64)
+    tv = torch.from_numpy(tokens[rng.integers(0, 100_000, n)]).to(dev)
+    tm = torch.from_numpy(rng.random(n) > 0.02).to(dev)
+    tl = torch.from_numpy(rng.random(n) > 0.02).to(dev)
+    sidx2, words2 = F._lexsort_kernel(F._key_operands([(tv, tm)], tl))
+    if words2.count != 2:
+        raise AssertionError(f"the token sort took {words2.count} words")
+    want2 = F.group_ids_plain(sidx2, tv, tm, tl, cap)
+    ms = time_cuda(lambda: F.group_ids(sidx2, tv, tm, tl, cap, words2),
+                   reps=10)
+    plain = time_cuda(lambda: F.group_ids_plain(sidx2, tv, tm, tl, cap),
+                      reps=5)
+    exact("K10 gather, two words", zip(
+        F.group_ids(sidx2, tv, tm, tl, cap, words2), want2))
+    exact("K10 gather, two words, no word", zip(
+        F.group_ids(sidx2, tv, tm, tl, cap), want2))
+    # gather: the permutation and the sorted last word read in order, the
+    # value gathered once a row, the gids written, rep; beside it the
+    # random-load floor (one 8-byte load a row at ~100 G random loads a
+    # second, K21's L2-resident rate on an H100 80GB HBM3 at 700 W). No
+    # one PyTorch call computes it (unique_consecutive numbers one sorted
+    # key in sorted order; the gather entry numbers rows in row order
+    # through the permutation)
+    b, by = bound_ms(n * (4 + 8 + 8 + 4) + cap * 4, n * 4)
+    floor = n / 100e9 * 1e3
     out.append({"name": "group_ids", "route": "cuda",
                 "source": "tidb_tpu_torch/csrc/sorted_groups.cu",
                 "replaces": "tidb_tpu/ops/factorize.py:96",
                 "max_abs_err": 0, "ms": ms, "plain_ms": plain,
                 "bound_ms": b, "bound_by": by, "library_ms": None})
+    DEFERRED_PROFILES.append((
+        "K10's gather entry at phase 10's two-word shape",
+        lambda: F.group_ids(sidx2, tv, tm, tl, cap, words2),
+        ("words_prep", "gid_gather")))
     log(f"K10 n={n} groups={int(want[1])} cap={cap}: word entry "
         f"{ms_w:.4f} ms (plain {plain_w:.4f}, bound {b_w:.4f} by {by_w}); "
-        f"gather entry {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} by "
-        f"{by}); unique_consecutive {lib:.4f}; factorize (K9 + K8 + K10) "
-        f"{fact:.4f} ms")
+        f"gather entry without the word on the same one-word sort "
+        f"{ms_one:.4f} ms; unique_consecutive {lib:.4f}; factorize (K9 + "
+        f"K8 + K10) {fact:.4f} ms")
+    log(f"K10 gather entry, two words: n={n} tokens, groups="
+        f"{int(want2[1])} cap={cap}: {ms:.4f} ms with K8's sorted last "
+        f"word (plain {plain:.4f}, bound {b:.4f} by {by}, random-load "
+        f"floor {floor:.4f})")
 
     # K11: 2,097,152 sorted build codes, 8,388,608 probes (unique mode)
     nb = 2_097_152

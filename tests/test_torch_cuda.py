@@ -22,7 +22,9 @@ theirs. The sort formulation: K8 radix_sort (n = 1, the tile edges,
 1,000,003; 1 to 64 bits; full-range, all-equal, sorted and reversed
 words; given and generated row ids), K9 sort_encode, K10 group_ids (its
 word entry over K8's sorted word and its gather entry for two-word
-sorts: NaN, ±0.0, ±inf, NULLs, dead rows, cap overflow) and K11
+sorts, with K8's sorted last word and without: NaN, ±0.0, ±inf, NULLs
+in the last word or in the value's, no mask, dead rows, cap overflow,
+n = 0, 1 and the tile edges) and K11
 sorted_search (every entry, on negative, full-range, sentinel-only,
 skewed and equal-run tables, probes equal to INT64_MAX) against their
 plain versions; K18 at 1-65 columns over views at odd byte offsets. K12's
@@ -32,7 +34,10 @@ threads scanning on one stream through the locked scratch. K1's path
 edges (caps 1-4097), a gid column all in one slot, bool input, its small
 path's f64 sums bit-equal call to call and to a numpy model of its
 order; K12's window_bounds against its plain version and its two halves,
-and one launch counted for each of its C calls; cached delta-merged slabs that own their storage.
+and one launch counted for each of its C calls; cached delta-merged
+slabs that own their storage. K4 lut_build at its edges (nb = 0, 1,
+4k ± 1; 1-4 keys; views off their boundaries; all rows dead; an n_live
+prefix; unique and multi mode) against its plain version.
 Needs a CUDA GPU and nvcc; skips without one.
 Run on the card with:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -1299,6 +1304,174 @@ def test_k10_matches_plain(cuda, case, n):
         host = host if isinstance(host, tuple) else (host,)
         for a, b in zip(got if cap else (got,), host):
             assert torch.equal(a.cpu(), b.to(a.dtype)), (case, n, cap)
+
+
+def _k10_gather_case(case, n, rng):
+    """(values, NULL mask or None, live) of a sort of two radix words
+    (n >= 2): a full-range int64 with NULLs (the NULL flag in the last
+    word), float64 with NaN, ±0.0, ±inf and NULLs (likewise), a 63-bit
+    int64 whose mask shares its word, a full-range int64 without a mask,
+    and every row dead."""
+    live = rng.random(n) > 0.05
+    m = rng.random(n) > 0.1
+    if case == "f64_nulls":
+        v = rng.choice(np.array([0.0, -0.0, -np.inf, np.inf, 2.5, -1.5,
+                                 np.nan]), n)
+        v[:2] = [-np.inf, np.nan]
+        m[:2] = True
+        return v, m, live
+    if case == "i63_mask":
+        v = rng.integers(-2 ** 62, 2 ** 62, n, dtype=np.int64)
+        v[:2] = [-2 ** 62, 2 ** 62 - 1]
+        m[:2] = True
+        return v, m, live
+    tokens = rng.integers(-2 ** 63, 2 ** 63 - 1, max(n // 8, 2),
+                          dtype=np.int64)
+    v = tokens[rng.integers(0, len(tokens), n)]
+    v[:2] = [-2 ** 63, 2 ** 63 - 2]
+    if case == "i64_no_mask":
+        return v, None, live
+    m[:2] = True
+    if case == "all_dead":
+        return v, m, np.zeros(n, dtype=bool)
+    return v, m, live                                 # i64_nulls
+
+
+@pytest.mark.parametrize("case", ["i64_nulls", "f64_nulls", "i63_mask",
+                                  "i64_no_mask", "all_dead"])
+@pytest.mark.parametrize("n", [2, 2047, 2048, 2049, 4097, 100_003])
+def test_k10_gather_entry_with_and_without_the_word(cuda, case, n):
+    """K10's gather entry on sorts of two words, called with K8's sorted
+    last word (the main path: the dead and NULL flags read from it) and
+    without it (every flag gathered), against `group_ids_plain` exactly
+    for cap 0 (_dense1), 3 (below n_groups) and n + 1; one launch counted
+    a call; n = 0 and 1 without the word."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import factorize as F
+    rng = np.random.default_rng(n + 7 * len(case))
+    v, m, live = _k10_gather_case(case, n, rng)
+    dv, dl = torch.from_numpy(v).to(cuda), torch.from_numpy(live).to(cuda)
+    dm = None if m is None else torch.from_numpy(m).to(cuda)
+    sidx, words = F._lexsort_kernel(F._key_operands([(dv, dm)], dl))
+    assert words.count == 2, case
+    null_shift = F._gather_key(words, dm)[2]
+    assert (null_shift >= 0) == (case in ("i64_nulls", "f64_nulls",
+                                          "all_dead")), case
+    for cap in (0, 3, n + 1):
+        want = F.group_ids_plain(sidx, dv, dm, dl, cap)
+        want = want if cap else (want,)
+        for w in (words, None):
+            before = ck.launches()["group_ids"]
+            got = F.group_ids(sidx, dv, dm, dl, cap, w)
+            assert ck.launches()["group_ids"] == before + 1
+            for a, b in zip(got if cap else (got,), want):
+                assert torch.equal(a, b), (case, n, cap, w is None)
+    for k in (0, 1):                    # n = 0 and 1, without the word
+        s1 = torch.arange(k, dtype=torch.int32, device=cuda)
+        for cap in (0, 3):
+            got = F.group_ids(s1, dv[:k], None if dm is None else dm[:k],
+                              dl[:k], cap)
+            want = F.group_ids_plain(s1, dv[:k],
+                                     None if dm is None else dm[:k],
+                                     dl[:k], cap)
+            for a, b in zip(got if cap else (got,),
+                            want if cap else (want,)):
+                assert torch.equal(a, b), (case, k, cap)
+
+
+def _k4_keys(rng, n, bounds, off, dev, spill=2):
+    """Key columns of n rows as views `off` elements (keys) and bytes
+    (masks) past their allocation's start, int64 and int32 in turns."""
+    keys = []
+    for q, (lo, hi) in enumerate(bounds):
+        v = torch.from_numpy(rng.integers(lo - spill, hi + spill + 1,
+                                          n + 16).astype(np.int64))
+        dt = torch.int32 if (q + off) % 2 else torch.int64
+        m = torch.from_numpy(rng.random(n + 16) > 0.1)
+        keys.append((v.to(dt).to(dev)[off % 4:off % 4 + n],
+                     m.to(dev)[off:off + n]))
+    return keys
+
+
+def _k4_same(got, want, domain):
+    cnt, lut, maxcnt, codes = got
+    assert torch.equal(cnt, want[0]) and int(maxcnt) == int(want[2])
+    assert maxcnt.shape == () and cnt.shape == (domain + 1,)
+    if codes is not None:
+        assert torch.equal(codes, want[3])
+    if lut is not None:
+        assert lut.shape == (domain + 1,) and int(lut[domain]) == -1
+        single = want[0][:domain] <= 1
+        assert torch.equal(lut[:domain][single], want[1][:domain][single])
+        dup = torch.nonzero(~single).reshape(-1)
+        # a duplicated code's entry is one of its rows
+        assert torch.equal(want[3][lut[dup].long()].long(), dup)
+
+
+_K4_BOUNDS = {1: [(0, 99)], 2: [(0, 49), (-3, 6)],
+              3: [(0, 9), (5, 14), (-2, 7)],
+              4: [(0, 4), (0, 4), (1, 5), (0, 3)]}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("nb", [0, 1, 3, 4, 5, 4095, 4097, 70_001])
+def test_k4_edges_match_plain(cuda, k, nb):
+    """K4 against `lut_build_plain` exactly: cnt, maxcnt and codes, lut
+    where a code has one row (a duplicated code's entry one of its rows,
+    the sentinel slot -1); 1-4 key columns of int32 and int64, views off
+    their 16-byte (keys) and 4-byte (masks, live) boundaries, a random,
+    all-dead and no live mask, an n_live prefix, unique and multi mode
+    (lut, codes, both); one allocation a call and one launch counted."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import join as J
+    rng = np.random.default_rng(100 * k + nb)
+    bounds = _K4_BOUNDS[k]
+    dom = int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+    for off in (0, 1, 3):
+        keys = _k4_keys(rng, nb, bounds, off, cuda)
+        lv = torch.from_numpy(rng.random(nb + 16) > 0.2).to(cuda)
+        for live in (lv[15 - off:15 - off + nb],
+                     torch.zeros(nb, dtype=torch.bool, device=cuda), None):
+            for n_live in (None, nb // 2):
+                for want_lut, want_codes in ((True, False), (False, True),
+                                             (True, True)):
+                    before = ck.launches()["lut_build"]
+                    got = J.lut_build(keys, bounds, dom, live=live,
+                                      n_live=n_live, want_lut=want_lut,
+                                      want_codes=want_codes)
+                    assert ck.launches()["lut_build"] == before + (nb > 0)
+                    assert (got[1] is None) != want_lut
+                    assert (got[3] is None) != want_codes
+                    want = J.lut_build_plain(keys, bounds, dom, live=live,
+                                             n_live=n_live, want_codes=True)
+                    _k4_same(got, want, dom)
+                    # one allocation: maxcnt, cnt, lut, codes back to back
+                    at = got[2].data_ptr() + 4
+                    for t in got[:2] + got[3:]:
+                        if t is not None and t.numel():
+                            assert t.data_ptr() == at
+                            at += 4 * t.numel()
+
+
+def test_k4_unique_build_and_calls_in_a_row(cuda):
+    """A unique build (every code once: maxcnt 1, the whole lut equal to
+    the plain version's) and two builds on one stream, the second over
+    the first's freed memory, each equal to its plain version."""
+    from tidb_tpu_torch.ops import join as J
+    rng = np.random.default_rng(4)
+    dom, nb = 200_000, 150_001
+    cells = torch.from_numpy(rng.permutation(dom)[:nb]).to(cuda)
+    keys = [(cells, torch.ones(nb, dtype=torch.bool, device=cuda))]
+    got = J.lut_build(keys, [(0, dom - 1)], dom)
+    want = J.lut_build_plain(keys, [(0, dom - 1)], dom)
+    assert int(got[2]) == 1 and torch.equal(got[1], want[1])
+    for seed in (5, 6):
+        r = np.random.default_rng(seed)
+        keys = [(torch.from_numpy(r.integers(-5, dom + 5, nb)).to(cuda),
+                 torch.from_numpy(r.random(nb) > 0.3).to(cuda))]
+        got = J.lut_build(keys, [(0, dom - 1)], dom, want_codes=True)
+        want = J.lut_build_plain(keys, [(0, dom - 1)], dom, want_codes=True)
+        _k4_same(got, want, dom)
 
 
 _I64_MAX = (1 << 63) - 1

@@ -193,3 +193,200 @@ def test_k21_plain_over_views_matches_the_model():
         want, _ = k21_model(table, base[off:off + 101], 4 * off, False, -1,
                             1)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# K4 lut_build (csrc/lut_join.cu `lut_build_kernel`)
+# ---------------------------------------------------------------------------
+
+K4_THREADS = 256               # csrc/lut_join.cu THREADS
+K4_ROUNDS = 4                  # BUILD_ROUNDS: rows a lane a warp step
+K4_BOUNDS = {1: [(0, 99)], 2: [(0, 49), (-3, 6)],
+             3: [(0, 9), (5, 14), (-2, 7)],
+             4: [(0, 4), (0, 4), (1, 5), (0, 3)]}
+
+
+def k4_model(keys, bounds, domain, live, n_live, grid):
+    """K4's grid over `keys` [(values, mask)] → (cnt, lut, maxcnt, codes,
+    row visits, the codes each round's 32 atomics touch). Warps take
+    steps of 128 consecutive rows in a grid-stride loop over warps, lane l
+    the rows 32 j + l of a step (j < 4; rows past nb idle); a row not
+    live, NULL, out of bounds or at or past n_live goes to the sentinel,
+    counted once a block from the threads' own counts, and the largest
+    count once a block likewise."""
+    nb = len(keys[0][0]) if keys else 0
+    strides = np.cumprod([1] + [hi - lo + 1 for lo, hi in bounds[:-1]])
+    cnt = np.zeros(domain + 1, dtype=np.int64)
+    lut = np.full(domain + 1, -1, dtype=np.int64)
+    codes = np.zeros(nb, dtype=np.int64)
+    visits = np.zeros(nb, dtype=np.int64)
+    rounds = []
+
+    def pack(i):
+        ok = live is None or bool(live[i])
+        code = 0
+        for (v, m), (lo, hi), st in zip(keys, bounds, strides):
+            x = int(v[i])
+            ok = ok and bool(m[i]) and lo <= x <= hi
+            code += (min(max(x, lo), hi) - lo) * int(st)
+        return ok and i < n_live, code
+
+    step = 32 * K4_ROUNDS
+    warps = grid * K4_THREADS // 32
+    maxcnt = 0
+    for b in range(grid):
+        block_sent, block_max = 0, 0
+        for warp in range(K4_THREADS // 32):
+            sent = np.zeros(32, dtype=np.int64)
+            most = np.zeros(32, dtype=np.int64)
+            w = b * (K4_THREADS // 32) + warp
+            while w * step < nb:
+                for j in range(K4_ROUNDS):
+                    touched = []
+                    for lane in range(32):
+                        i = w * step + 32 * j + lane
+                        if i >= nb:
+                            continue
+                        visits[i] += 1
+                        ok, code = pack(i)
+                        if ok:
+                            cnt[code] += 1
+                            most[lane] = max(most[lane], cnt[code])
+                            lut[code] = i
+                            codes[i] = code
+                            touched.append(code)
+                        else:
+                            sent[lane] += 1
+                            codes[i] = domain
+                    rounds.append(touched)
+                w += warps
+            block_sent += int(sent.sum())
+            block_max = max(block_max, int(most.max()))
+        cnt[domain] += block_sent
+        maxcnt = max(maxcnt, block_max)
+    return cnt, lut, maxcnt, codes, visits, rounds
+
+
+def _k4_keys(rng, nb, bounds, unique):
+    if unique:                  # every code at most once
+        dom = int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+        cells = rng.permutation(dom)[:nb]
+        out = []
+        for lo, hi in bounds:
+            out.append((cells % (hi - lo + 1) + lo, np.ones(len(cells),
+                                                            dtype=bool)))
+            cells = cells // (hi - lo + 1)
+        return out
+    return [(rng.integers(lo - 2, hi + 3, nb), rng.random(nb) > 0.1)
+            for lo, hi in bounds]
+
+
+def _k4_reference(keys, bounds, domain, row_ok):
+    """The reference's counts and lut: pack_bounded_codes, then
+    lut_probe_multi's count and lut_probe_unique's match over every code
+    of the domain (tidb_tpu/ops/join.py:65,93,114)."""
+    from tidb_tpu.ops import join as JJ
+    jkeys = [(jnp.asarray(v), jnp.asarray(m)) for v, m in keys]
+    codes, ok = JJ.pack_bounded_codes(jkeys, bounds)
+    ok = ok & jnp.asarray(row_ok)
+    every = jnp.arange(domain, dtype=jnp.int64)
+    ones = jnp.ones(domain, dtype=bool)
+    _start, count, _order = JJ.lut_probe_multi(codes, ok, domain, every,
+                                               ones)
+    idx, matched, unique = JJ.lut_probe_unique(codes, ok, domain, every,
+                                               ones)
+    return (np.asarray(codes), np.asarray(ok), np.asarray(count),
+            np.asarray(idx), np.asarray(matched), bool(unique))
+
+
+@pytest.mark.parametrize("nb", [0, 1, 3, 4, 5, 127, 129, 1023, 1025, 4099])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_k4_model_matches_reference(k, nb):
+    """The model over 1-4 int32/int64 keys, live masks random or all dead
+    or absent, an n_live prefix, duplicated and unique codes, nb at the
+    warp step's edges, one block and three, against the reference: every
+    row visited once, cnt (its sentinel the rows not counted), maxcnt
+    (unique iff <= 1), the codes, and lut where a code has one row (a
+    duplicated code's entry one of its rows); and the wrapper's plain
+    version over views 0-3 elements off their start against both."""
+    from tidb_tpu_torch.ops import join as TJ
+    rng = np.random.default_rng(10 * k + nb)
+    bounds = K4_BOUNDS[k]
+    domain = int(np.prod([hi - lo + 1 for lo, hi in bounds]))
+    for unique in (False, True):
+        if unique and nb > domain:
+            continue
+        keys = _k4_keys(rng, nb, bounds, unique)
+        keys = [(v.astype(np.int32 if q % 2 else np.int64), m)
+                for q, (v, m) in enumerate(keys)]
+        for live_kind, n_live in (("random", nb), ("dead", nb),
+                                  (None, nb // 2), ("random", nb // 3)):
+            live = None if live_kind is None else (
+                rng.random(nb) > 0.2 if live_kind == "random"
+                else np.zeros(nb, dtype=bool))
+            for grid in (1, 3):
+                cnt, lut, maxcnt, codes, visits, _ = k4_model(
+                    keys, bounds, domain, live, n_live, grid)
+                assert (visits == 1).all()
+                row_ok = (np.ones(nb, dtype=bool) if live is None
+                          else live) & (np.arange(nb) < n_live)
+                rc, rok, count, idx, matched, runique = _k4_reference(
+                    keys, bounds, domain, row_ok)
+                np.testing.assert_array_equal(cnt[:domain], count)
+                assert cnt[domain] == nb - int(count.sum())
+                assert (maxcnt <= 1) == runique
+                assert maxcnt == (int(count.max()) if domain else 0)
+                np.testing.assert_array_equal(
+                    codes, np.where(rok, rc, domain))
+                single = count == 1
+                np.testing.assert_array_equal(lut[:domain][single],
+                                              idx[single])
+                assert (matched == (count > 0)).all()
+                dup = np.nonzero(count > 1)[0]
+                np.testing.assert_array_equal(codes[lut[dup]], dup)
+            off = nb % 4
+            views = []
+            for v, m in keys:
+                vv = torch.from_numpy(np.concatenate([v[:off], v]))[off:]
+                mm = torch.from_numpy(np.concatenate([m[:off], m]))[off:]
+                views.append((vv, mm))
+            plain = TJ.lut_build_plain(
+                views, bounds, domain,
+                None if live is None else torch.from_numpy(live),
+                None if n_live == nb else n_live, want_codes=True)
+            np.testing.assert_array_equal(plain[0].numpy(), cnt)
+            assert int(plain[2]) == maxcnt
+            np.testing.assert_array_equal(plain[3].numpy(), codes)
+            np.testing.assert_array_equal(plain[1].numpy()[:domain][single],
+                                          idx[single])
+
+
+def test_k4_model_rounds_are_coalesced():
+    """Each round of a warp step is 32 consecutive rows, so a dense
+    primary key (the orders build: code = row) puts its 32 atomics on 32
+    consecutive codes, 128 bytes of cnt; a lane's four consecutive rows
+    (K5's mapping) would spread them over 512."""
+    nb = 4096
+    keys = [(np.arange(nb, dtype=np.int64), np.ones(nb, dtype=bool))]
+    *_, rounds = k4_model(keys, [(0, nb - 1)], nb, None, nb, 2)
+    assert len(rounds) == nb // 32
+    for touched in rounds:
+        assert touched == list(range(touched[0], touched[0] + 32))
+
+
+def test_k4_build_layout_places_every_output():
+    """`build_layout` (the wrapper's views of the one allocation) is the
+    kernel entry's: maxcnt at word 0, cnt from word 1, lut right after
+    cnt, codes right after the last table, for each choice of outputs."""
+    from tidb_tpu_torch.ops import join as TJ
+    for domain in (1, 2, 3, 4, 5, 1_500_303):
+        for want_lut in (False, True):
+            for want_codes in (False, True):
+                lut, codes, words = TJ.build_layout(domain, 77, want_lut,
+                                                    want_codes)
+                tables = 1 + want_lut
+                assert lut == (domain + 2 if want_lut else -1)
+                assert codes == (1 + tables * (domain + 1) if want_codes
+                                 else -1)
+                assert words == 1 + tables * (domain + 1) + \
+                    (77 if want_codes else 0)

@@ -11,10 +11,10 @@
 // the `n_live` prefix) to the sentinel slot `domain`. It counts the rows
 // of each code into cnt (domain + 1 slots, the sentinel counted too, so
 // the build order of K6 can place dead rows), writes a row id of each code
-// into lut (-1 filled by the wrapper; for a duplicated code any one of its
-// rows, as with JAX's unordered scatter) and keeps the largest count of a
-// real code: the build side is unique iff it is <= 1. On request it also
-// writes each row's code (int32, the sentinel for dead rows) for K6.
+// into lut (-1 where no row has the code; for a duplicated code any one of
+// its rows, as with JAX's unordered scatter) and keeps the largest count
+// of a real code: the build side is unique iff it is <= 1. On request it
+// also writes each row's code (int32, the sentinel for dead rows) for K6.
 //
 // K5 packs each probe row the same way and gathers one table entry a
 // row. Unique mode takes K4's lut, -1 filled by the wrapper and written
@@ -27,29 +27,45 @@
 // starts[code] : 0 (two adjacent words, usually one sector).
 //
 // What bounds them on an H100: bytes. K4 reads the build keys and masks
-// once and scatters 4-8 B a row into cnt/lut; K5 reads the probe keys and
-// masks once and writes 5-8 B a row. The tables of a dimension build
-// (1.5M codes, 6 MB a table) sit in the 50 MB L2, so the scattered and
-// gathered table traffic mostly never reaches HBM.
+// once, fills cnt and lut (8 B a code) and scatters 4-8 B a row into
+// them; K5 reads the probe keys and masks once and writes 5-8 B a row.
+// The tables of a dimension build (1.5M codes, 6 MB a table) sit in the
+// 50 MB L2, so the scattered and gathered table traffic mostly never
+// reaches HBM. At the orders build (2,097,152 rows) a whole K4 call is a
+// few tens of µs, so the host work around it counts as much as the card's.
 //
-// Design. K4: one row per thread in a grid-stride loop. The sentinel
-// count and the largest count are aggregated per warp (ballot,
-// __reduce_max_sync) and per block in shared memory before one global
-// atomic per block: a filtered build sends most of its rows to the
-// single sentinel slot, and one atomic per row there would serialize the
-// kernel. K5: four rows a thread a step over a grid sized from the SM
-// count and the kernel's occupancy: a 16-byte load of four int32 keys
-// (two of four int64 keys), one 4-byte word of each mask and of live,
-// the four independent table reads, then a 16-byte store of out_a and a
-// 4-byte (unique) or 16-byte (multi) store of out_b. (Eight rows a step,
-// and evict-first hints on the row streams, measured no faster: the
-// random table reads bound it, as they bound torch.take.) A torch view
-// may start anywhere: a key column off its 16-byte boundary is read
-// with scalar loads, a mask or live off its 4-byte boundary as the two
-// aligned words around its four bytes (funnel shift); the outputs, which
-// the wrapper allocates, are aligned (the entry refuses them otherwise).
-// The last n % 4 rows take one scalar step each. K5's arguments come as
-// one struct (ProbeArgs) that the wrapper caches per key signature.
+// Design. Both kernels run four rows a thread a step over a grid sized
+// from the SM count and the kernel's occupancy, and take their arguments
+// as one struct (BuildArgs, ProbeArgs) that the wrapper caches per key
+// signature and fills with its pointers.
+// K4: one C call a build of two launches. Its outputs are views of one
+// allocation (maxcnt, cnt, lut, codes back to back,
+// ops/join.build_layout), which the entry fills itself (`build_prep`: 0
+// for maxcnt and cnt, -1 for lut) before the pass. A warp takes 128
+// consecutive rows a step, lane l the rows 32 j + l of it: every load and
+// the codes' store are coalesced whatever a view's offset, and a dense
+// primary key's consecutive codes put each round's 32 atomics on 128
+// consecutive bytes of cnt, which L2 merges (a lane's four consecutive
+// rows, with 16-byte key loads, spread them over 512 bytes and measured
+// 1.6-1.9x slower at the orders build on an H100 80GB HBM3 at 700 W). A
+// lane issues its four rounds' `atomicAdd`s on cnt before any result is
+// used. The sentinel count and the largest count stay in registers over
+// a thread's steps and are reduced per warp and per block (shared
+// memory) before one global atomic each a block: a filtered build sends
+// most of its rows to the single sentinel slot, and one atomic per row
+// there would serialize the kernel.
+// K5: a thread's four consecutive rows: a 16-byte load of four int32
+// keys (two of four int64 keys), one 4-byte word of each mask and of live
+// (`pack_group`), the four independent table reads, then a 16-byte store
+// of out_a and a 4-byte (unique) or 16-byte (multi) store of out_b.
+// (Eight rows a step, and evict-first hints on the row streams, measured
+// no faster: the random table reads bound it, as they bound torch.take.)
+// A torch view may start anywhere: a key column off its 16-byte boundary
+// is read with scalar loads, a mask or live off its 4-byte boundary as
+// the two aligned words around its four bytes (funnel shift); the
+// outputs, which the wrapper allocates, are aligned (the entry refuses
+// them otherwise). The last n % 4 rows take one scalar step each
+// (`pack_one`).
 //
 // C interface, bound with ctypes; every entry returns cudaGetLastError().
 
@@ -60,83 +76,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_KEYS = 4;
-
-struct Keys {
-  const void* vals[MAX_KEYS];
-  const unsigned char* masks[MAX_KEYS];
-  int is64[MAX_KEYS];
-  long long lo[MAX_KEYS];
-  long long hi[MAX_KEYS];
-  long long stride[MAX_KEYS];
-  int k;
-};
-
-// → the packed code of row i (each column clamped into its bounds) and
-// whether every key is non-NULL and inside its bounds.
-__device__ __forceinline__ bool pack_row(const Keys& K, long long i,
-                                         long long* code) {
-  bool ok = true;
-  long long c = 0;
-#pragma unroll
-  for (int q = 0; q < MAX_KEYS; ++q) {
-    if (q >= K.k) break;
-    long long v = K.is64[q]
-                      ? static_cast<const long long*>(K.vals[q])[i]
-                      : static_cast<long long>(
-                            static_cast<const int*>(K.vals[q])[i]);
-    ok = ok && K.masks[q][i] && v >= K.lo[q] && v <= K.hi[q];
-    v = v < K.lo[q] ? K.lo[q] : (v > K.hi[q] ? K.hi[q] : v);
-    c += (v - K.lo[q]) * K.stride[q];
-  }
-  *code = c;
-  return ok;
-}
-
-__global__ void __launch_bounds__(THREADS)
-    lut_build_kernel(Keys K, const unsigned char* __restrict__ live,
-                     long long n_live, long long nb, long long domain,
-                     int* __restrict__ cnt, int* __restrict__ lut,
-                     int* __restrict__ codes, int* __restrict__ maxcnt) {
-  __shared__ int s_sent;
-  __shared__ int s_max;
-  if (threadIdx.x == 0) {
-    s_sent = 0;
-    s_max = 0;
-  }
-  __syncthreads();
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  // every thread of a block runs the same number of rounds, so the warp
-  // votes below always see all 32 lanes
-  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x;
-       base < nb; base += step) {
-    const long long i = base + threadIdx.x;
-    const bool valid = i < nb;
-    long long code = domain;
-    bool ok = false;
-    if (valid) {
-      ok = pack_row(K, i, &code) && i < n_live && (live == nullptr ||
-                                                   live[i]);
-      if (!ok) code = domain;
-      if (codes != nullptr) codes[i] = static_cast<int>(code);
-    }
-    int c = 0;
-    if (ok) {
-      c = atomicAdd(&cnt[code], 1) + 1;
-      if (lut != nullptr) lut[code] = static_cast<int>(i);
-    }
-    const unsigned sent = __ballot_sync(0xffffffffu, valid && !ok);
-    const int wmax = __reduce_max_sync(0xffffffffu, c);
-    if ((threadIdx.x & 31) == 0) {
-      if (sent) atomicAdd(&s_sent, __popc(sent));
-      if (wmax > 0) atomicMax(&s_max, wmax);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (s_sent) atomicAdd(&cnt[domain], s_sent);
-    if (s_max) atomicMax(maxcnt, s_max);
-  }
-}
 
 // K5's arguments (ops/join.py _ProbeArgs mirrors the layout)
 struct ProbeArgs {
@@ -158,7 +97,29 @@ struct ProbeArgs {
   int reserved;
 };
 
-constexpr int VEC = 4;    // probe rows a group
+// K4's arguments (ops/join.py _BuildArgs mirrors the layout)
+struct BuildArgs {
+  const void* vals[MAX_KEYS];
+  const void* masks[MAX_KEYS];
+  const void* live;            // may be null
+  void* out;                   // the outputs' one int32 allocation:
+                               // maxcnt, cnt (domain + 1), lut (domain +
+                               // 1, with BUILD_LUT), codes (nb, with
+                               // BUILD_CODES), back to back
+  long long lo[MAX_KEYS];
+  long long hi[MAX_KEYS];
+  long long stride[MAX_KEYS];
+  long long nb;
+  long long n_live;            // rows at or past it are dead
+  long long domain;
+  int is64[MAX_KEYS];
+  int k;
+  int flags;                   // BUILD_LUT | BUILD_CODES
+};
+
+enum { BUILD_LUT = 1, BUILD_CODES = 2 };
+
+constexpr int VEC = 4;    // K5: rows a group
 
 // keys of rows 4g .. 4g + 3
 __device__ __forceinline__ void load_keys4(const void* p, int is64,
@@ -250,6 +211,128 @@ __device__ __forceinline__ unsigned pack_group(const ProbeArgs& A,
   return ok;
 }
 
+// row i alone (K4's rows, K5's last n % 4): its packed code and whether it
+// is live, non-NULL and inside every key's bounds. Every load is made
+// whatever the others read (no short-circuit), so a thread's rows issue
+// all their loads before the first one returns.
+template <typename Args>
+__device__ __forceinline__ bool pack_one(const Args& A, long long i,
+                                         long long* code) {
+  const unsigned char* live = static_cast<const unsigned char*>(A.live);
+  bool ok = live == nullptr ? true : live[i] != 0;
+  long long c = 0;
+#pragma unroll
+  for (int q = 0; q < MAX_KEYS; ++q) {
+    if (q >= A.k) break;
+    const long long v =
+        A.is64[q] ? static_cast<const long long*>(A.vals[q])[i]
+                  : static_cast<long long>(
+                        static_cast<const int*>(A.vals[q])[i]);
+    const long long lo = A.lo[q], hi = A.hi[q];
+    ok = ok & (static_cast<const unsigned char*>(A.masks[q])[i] != 0) &
+         (v >= lo) & (v <= hi);
+    const long long cv = v < lo ? lo : (v > hi ? hi : v);
+    c += (cv - lo) * A.stride[q];
+  }
+  *code = c;
+  return ok;
+}
+
+constexpr int BUILD_ROUNDS = 4;    // K4: rows a thread a warp step
+
+// K4: one warp step of 32 * BUILD_ROUNDS consecutive rows from `base`,
+// lane l taking rows base + 32 j + l (coalesced loads and code stores, and
+// the counts' atomics of one round on consecutive codes when the keys are
+// consecutive, as a dense primary key's are); every round's atomic issued
+// before any result is used, then the lut stores; the rows not counted
+// (sentinel) and the largest count folded into `sent` and `most`
+__device__ __forceinline__ void build_step(const BuildArgs& A,
+                                          int* __restrict__ cnt,
+                                          int* __restrict__ lut,
+                                          int* __restrict__ codes,
+                                          long long base, int lane,
+                                          int* sent, int* most) {
+  long long code[BUILD_ROUNDS];
+  bool on[BUILD_ROUNDS];
+  int c[BUILD_ROUNDS];
+#pragma unroll
+  for (int j = 0; j < BUILD_ROUNDS; ++j) {
+    const long long i = base + 32 * j + lane;
+    // a row past nb reads the last row's slots and counts nothing
+    const bool ok = pack_one(A, i < A.nb ? i : A.nb - 1, &code[j]);
+    on[j] = ok & (i < A.nb) & (i < A.n_live);
+  }
+#pragma unroll
+  for (int j = 0; j < BUILD_ROUNDS; ++j)
+    c[j] = on[j] ? atomicAdd(&cnt[code[j]], 1) : 0;
+#pragma unroll
+  for (int j = 0; j < BUILD_ROUNDS; ++j) {
+    const long long i = base + 32 * j + lane;
+    if (i >= A.nb) continue;
+    if (on[j]) {
+      *most = c[j] + 1 > *most ? c[j] + 1 : *most;
+      if (lut != nullptr) lut[code[j]] = static_cast<int>(i);
+    } else {
+      *sent += 1;
+    }
+    if (codes != nullptr)
+      codes[i] = on[j] ? static_cast<int>(code[j])
+                       : static_cast<int>(A.domain);
+  }
+}
+
+// K4's fill before its pass: maxcnt and cnt (`zeros` words from `z`) to
+// 0, lut (`ones` words from `f`) to -1, grid-stride
+__global__ void __launch_bounds__(THREADS)
+    build_prep(int* __restrict__ z, long long zeros, int* __restrict__ f,
+               long long ones) {
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long i = static_cast<long long>(blockIdx.x) * THREADS +
+                     threadIdx.x;
+       i < zeros + ones; i += step) {
+    if (i < zeros)
+      z[i] = 0;
+    else
+      f[i - zeros] = -1;
+  }
+}
+
+// K4: warp steps in a grid-stride loop over warps; the sentinel count and
+// the largest count stay in registers over a thread's steps, then one
+// shared atomic a warp and one global atomic a block each
+__global__ void __launch_bounds__(THREADS)
+    lut_build_kernel(BuildArgs A, int* __restrict__ cnt,
+                     int* __restrict__ lut, int* __restrict__ codes,
+                     int* __restrict__ maxcnt) {
+  __shared__ int s_sent;
+  __shared__ int s_max;
+  if (threadIdx.x == 0) {
+    s_sent = 0;
+    s_max = 0;
+  }
+  __syncthreads();
+  constexpr long long STEP = 32 * BUILD_ROUNDS;
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (THREADS / 32);
+  int sent = 0, most = 0;
+  for (long long w = static_cast<long long>(blockIdx.x) * (THREADS / 32) +
+                     (threadIdx.x >> 5);
+       w * STEP < A.nb; w += warps)
+    build_step(A, cnt, lut, codes, w * STEP, lane, &sent, &most);
+  sent = static_cast<int>(__reduce_add_sync(0xffffffffu,
+                                            static_cast<unsigned>(sent)));
+  most = __reduce_max_sync(0xffffffffu, most);
+  if (lane == 0) {
+    if (sent) atomicAdd(&s_sent, sent);
+    if (most) atomicMax(&s_max, most);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_sent) atomicAdd(&cnt[A.domain], s_sent);
+    if (s_max) atomicMax(maxcnt, s_max);
+  }
+}
+
 __global__ void __launch_bounds__(THREADS) lut_probe_kernel(ProbeArgs A) {
   const long long groups = A.n / VEC;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -271,23 +354,11 @@ __global__ void __launch_bounds__(THREADS) lut_probe_kernel(ProbeArgs A) {
     else
       reinterpret_cast<int4*>(A.out_b)[g] = make_int4(b[0], b[1], b[2], b[3]);
   }
-  const unsigned char* live = static_cast<const unsigned char*>(A.live);
   // the last n % 4 rows, one a thread of block 0
   const long long i = groups * VEC + threadIdx.x;
   if (blockIdx.x == 0 && i < A.n) {
-    bool ok = live == nullptr || live[i] != 0;
-    long long code = 0;
-    for (int q = 0; q < A.k; ++q) {
-      const long long v =
-          A.is64[q] ? static_cast<const long long*>(A.vals[q])[i]
-                    : static_cast<long long>(
-                          static_cast<const int*>(A.vals[q])[i]);
-      const long long lo = A.lo[q], hi = A.hi[q];
-      ok = ok && static_cast<const unsigned char*>(A.masks[q])[i] != 0 &&
-           v >= lo && v <= hi;
-      const long long c = v < lo ? lo : (v > hi ? hi : v);
-      code += (c - lo) * A.stride[q];
-    }
+    long long code;
+    const bool ok = pack_one(A, i, &code);
     int a, b;
     probe_out(A, code, ok, &a, &b);
     static_cast<int*>(A.out_a)[i] = a;
@@ -298,17 +369,19 @@ __global__ void __launch_bounds__(THREADS) lut_probe_kernel(ProbeArgs A) {
   }
 }
 
-// blocks of K5: as many as the card holds at once, fewer for a short probe
-int probe_grid(long long groups) {
-  static int resident[64];             // per device ordinal, 0 = not asked
+// blocks of a kernel that wants `groups` threads: as many as the card
+// holds at once, fewer for a short input (`resident`: the count per
+// device ordinal, 0 = not asked yet)
+template <typename K>
+int vec_grid(K kernel, long long groups, int* resident) {
   int dev = 0;
   cudaGetDevice(&dev);
   int r = dev < 64 ? resident[dev] : 0;
   if (r == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lut_probe_kernel,
-                                                  THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                  0);
     r = sms * per_sm;
     if (r < 1) r = 1;
     if (dev < 64) resident[dev] = r;
@@ -317,56 +390,39 @@ int probe_grid(long long groups) {
   return want < 1 ? 1 : (want < r ? static_cast<int>(want) : r);
 }
 
-int grid_for(long long n) {
-  long long b = (n + THREADS - 1) / THREADS;
-  if (b > 132 * 16) b = 132 * 16;
-  return b < 1 ? 1 : static_cast<int>(b);
-}
-
-bool load_keys(Keys* K, int k, const void* const* vals,
-               const void* const* masks, const int* is64,
-               const long long* lo, const long long* hi,
-               const long long* stride) {
-  if (k < 1 || k > MAX_KEYS) return false;
-  for (int q = 0; q < MAX_KEYS; ++q) {
-    const bool on = q < k;
-    K->vals[q] = on ? vals[q] : nullptr;
-    K->masks[q] = on ? static_cast<const unsigned char*>(masks[q]) : nullptr;
-    K->is64[q] = on ? is64[q] : 0;
-    K->lo[q] = on ? lo[q] : 0;
-    K->hi[q] = on ? hi[q] : 0;
-    K->stride[q] = on ? stride[q] : 0;
-  }
-  K->k = k;
-  return true;
-}
-
 }  // namespace
 
 extern "C" {
 
-// K4. k key columns: vals[q] (int64 if is64[q] else int32), masks[q]
-// (bool), bounds lo/hi and stride per key; live (bool, may be null) and
-// the live prefix n_live; nb build rows; domain codes.
-// cnt: int32 (domain + 1), zeroed by the caller; lut: int32 (domain + 1),
-// -1 filled by the caller, or null; codes: int32 (nb) or null; maxcnt:
-// one int32, zeroed by the caller.
-int tt_lut_build(int k, const void* const* vals, const void* const* masks,
-                 const int* is64, const long long* lo, const long long* hi,
-                 const long long* stride, const void* live, long long n_live,
-                 long long nb, long long domain, void* cnt, void* lut,
-                 void* codes, void* maxcnt, void* stream) {
-  Keys K;
-  if (!load_keys(&K, k, vals, masks, is64, lo, hi, stride) || domain < 1 ||
-      domain >= (1LL << 31) - 1 || nb < 0)
+// K4. args: one BuildArgs (k key columns: vals[q], int64 if is64[q] else
+// int32, masks[q] bool, bounds lo/hi and stride per key; live bool or
+// null and the live prefix n_live; nb build rows; domain codes; `out` the
+// outputs' allocation, laid out as BuildArgs says, every word written
+// here: maxcnt, cnt (the sentinel slot `domain` too) and, with BUILD_LUT,
+// lut (-1 where no row counted); with BUILD_CODES each row's code).
+int tt_lut_build(const void* args, void* stream) {
+  static int resident[64];
+  const BuildArgs A = *static_cast<const BuildArgs*>(args);
+  if (A.k < 1 || A.k > MAX_KEYS || A.domain < 1 ||
+      A.domain >= (1LL << 31) - 1 || A.nb < 0 || A.nb >= (1LL << 31) ||
+      A.out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaGetLastError();  // clear any stale error before our launch
-  if (nb > 0)
-    lut_build_kernel<<<grid_for(nb), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        K, static_cast<const unsigned char*>(live), n_live, nb, domain,
-        static_cast<int*>(cnt), static_cast<int*>(lut),
-        static_cast<int*>(codes), static_cast<int*>(maxcnt));
+  cudaGetLastError();  // clear any stale error before our calls
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* maxcnt = static_cast<int*>(A.out);
+  int* cnt = maxcnt + 1;
+  int* lut = (A.flags & BUILD_LUT) ? cnt + A.domain + 1 : nullptr;
+  int* codes = (A.flags & BUILD_CODES)
+                   ? cnt + (lut ? 2 : 1) * (A.domain + 1) : nullptr;
+  static int prep_resident[64];
+  const long long fill = (A.domain + 2) + (lut ? A.domain + 1 : 0);
+  build_prep<<<vec_grid(build_prep, fill, prep_resident), THREADS, 0,
+               st>>>(maxcnt, A.domain + 2, lut, lut ? A.domain + 1 : 0);
+  if (A.nb > 0)
+    lut_build_kernel<<<vec_grid(lut_build_kernel,
+                                (A.nb + 32 * BUILD_ROUNDS - 1) /
+                                    (32 * BUILD_ROUNDS) * 32, resident),
+                       THREADS, 0, st>>>(A, cnt, lut, codes, maxcnt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -384,10 +440,11 @@ int tt_lut_probe(const void* args, void* stream) {
   if ((reinterpret_cast<uintptr_t>(A.out_a) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(A.out_b) & (A.unique_mode ? 3 : 15)) != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  static int resident[64];
   cudaGetLastError();
   if (A.n > 0)
-    lut_probe_kernel<<<probe_grid(A.n / VEC), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(A);
+    lut_probe_kernel<<<vec_grid(lut_probe_kernel, A.n / VEC, resident),
+                       THREADS, 0, static_cast<cudaStream_t>(stream)>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 

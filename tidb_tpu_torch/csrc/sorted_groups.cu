@@ -10,8 +10,9 @@
 // clip(gid_s, 0, cap - 1); and rep, the smallest row index of each group.
 // Since the sort is stable, that is the row at the group's boundary; the
 // slot cap - 1 takes the minimum over every group clamped into it
-// (atomicMin) when n_groups > cap; the caller fills empty slots with
-// n - 1 first. It has two entries:
+// (atomicMin) when n_groups > cap; empty slots hold n - 1. Each entry is
+// one C call of two launches: a prep launch (rep filled, the scratch
+// zeroed) and one pass. It has two entries:
 //   * words (tt_group_ids_words), for a sort whose operands fit one 64-bit
 //     radix word: K8 has just written that word in sorted order, with the
 //     dead flag, the NULL flag and the value code side by side. A
@@ -22,16 +23,26 @@
 //     One launch: each block takes its tile id from an atomic counter,
 //     ranks its flags with warp ballots and finds its prefix by decoupled
 //     look-back over the earlier tiles' status words (a 64-bit word per
-//     tile: the count and a flag; zeroed by one memset per call). For
+//     tile: the count and a flag; zeroed by the prep launch). For
 //     the DISTINCT pair factorize (cap >= n, K16's word) the same pass
 //     also writes the first-occurrence mask `rep[gids] == iota` of
 //     tidb_tpu/ops/factorize.py:219 (a byte set at each group's first
 //     sorted row, in row order), and may then leave the ids out: their
 //     scattered 4-byte store is most of the pass.
-//   * gather (tt_group_ids), for sorts of two or more words: the key and
-//     its masks gathered through the permutation at each sorted position
-//     and its neighbour, in a three-launch scan (block totals, one block
-//     scanning them, a re-read that applies the carry).
+//   * gather (tt_group_ids), for sorts of two or more words. The value
+//     fills the first word (a full-range BIGINT or a DOUBLE; a 63-bit
+//     value shares it with its NULL flag), so the boundaries need the
+//     value itself: it is gathered through the permutation once a row.
+//     K8's sorted last word comes in beside the permutation and is read in
+//     order: it always holds the dead flag, and the NULL flag (set: valid)
+//     when the value fills the whole first word, so those are not
+//     gathered; a mask that shares the value's word is gathered beside
+//     the value. Each row takes its sorted neighbour's (flag, value) from
+//     the previous lane by shuffle (lane 0 reads the row before its
+//     warp's run), and the pass is the word entry's: tile ids from a
+//     counter, warp-ballot ranks, look-back, the scattered ids and rep.
+//     Without the word (tests and tools call it so) the same kernel
+//     gathers the NULL mask and the live flag too.
 //
 // K11 replaces the searchsorted of tidb_tpu/ops/join.py
 // sorted_probe_unique / sorted_probe_multi and of the device IN list
@@ -62,10 +73,11 @@
 // words and the permutation contiguously (12 B a row; each word's
 // neighbour is the previous lane's load, in L1) and makes one scattered
 // 4 B gids write a row (the 4 B/row gids array fits the 50 MB L2, which
-// merges the scattered stores). Its gather entry reads the permutation,
-// the key at each sorted position and at its neighbour through it (random
-// 8 B and 1 B reads; the neighbour's is usually in L1/L2 already) and the
-// live mask, twice (the totals and the apply launch), and writes the gids.
+// merges the scattered stores). Its gather entry reads the same 12 B in
+// order and gathers the 8 B value a row through the permutation beside
+// the same scattered store: one random load a row from an array L2 cannot
+// hold (67 MB at 8,388,608 int64 rows), about 42 G such loads a second
+// (~200 µs) on an H100 80GB HBM3 at 700 W.
 // K11 reads each probe key and mask and writes its outputs; its directory
 // (8 MB at 2,097,152 codes), the 16 MB of codes and the build row ids stay
 // in the 50 MB L2. What limits it is the random loads a row makes (about
@@ -77,13 +89,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cub/block/block_reduce.cuh>
-#include <cub/block/block_scan.cuh>
-
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int SCAN_T = 1024;
 constexpr int WARPS = THREADS / 32;
 constexpr int WORD_ITEMS = 8;                      // rows per thread
 constexpr int WORD_TILE = THREADS * WORD_ITEMS;    // 2048 rows a tile
@@ -95,98 +103,6 @@ typedef unsigned long long u64;
 enum { DT_BOOL = 0, DT_I32 = 1, DT_I64 = 2, DT_F64 = 3 };
 
 // ---- K10 -----------------------------------------------------------------
-
-struct GroupIn {
-  const int* sidx;
-  const void* v;
-  int dtype;
-  const unsigned char* m;       // null: no NULLs
-  const unsigned char* live;    // null: boundaries unmasked (_dense1)
-
-  __device__ bool differs(int a, int b) const {
-    if (m) {
-      const bool ma = m[a] != 0, mb = m[b] != 0;
-      if (ma != mb) return true;
-      if (!ma) return false;    // two NULLs: one group
-    }
-    switch (dtype) {
-      case DT_BOOL:
-        return static_cast<const unsigned char*>(v)[a] !=
-               static_cast<const unsigned char*>(v)[b];
-      case DT_I32:
-        return static_cast<const int*>(v)[a] != static_cast<const int*>(v)[b];
-      case DT_I64:
-        return static_cast<const long long*>(v)[a] !=
-               static_cast<const long long*>(v)[b];
-      default:
-        return static_cast<const double*>(v)[a] !=
-               static_cast<const double*>(v)[b];
-    }
-  }
-
-  __device__ int flag(long long i) const {
-    const int r = sidx[i];
-    const bool b = i == 0 || differs(r, sidx[i - 1]);
-    return (b && (live == nullptr || live[r])) ? 1 : 0;
-  }
-};
-
-__global__ void __launch_bounds__(SCAN_T)
-    gid_totals(GroupIn in, long long n, int* __restrict__ totals) {
-  typedef cub::BlockReduce<int, SCAN_T> Reduce;
-  __shared__ typename Reduce::TempStorage tmp;
-  const long long i = static_cast<long long>(blockIdx.x) * SCAN_T +
-                      threadIdx.x;
-  const int f = i < n ? in.flag(i) : 0;
-  const int s = Reduce(tmp).Sum(f);
-  if (threadIdx.x == 0) totals[blockIdx.x] = s;
-}
-
-// in place: totals[b] ← the sum of totals[0..b); the grand total →
-// *n_groups when given
-__global__ void __launch_bounds__(SCAN_T)
-    gid_carries(int* __restrict__ totals, long long nblocks,
-                int* __restrict__ n_groups) {
-  typedef cub::BlockScan<int, SCAN_T> Scan;
-  __shared__ typename Scan::TempStorage tmp;
-  int carry = 0;
-  for (long long base = 0; base < nblocks; base += SCAN_T) {
-    const long long i = base + threadIdx.x;
-    const int v = i < nblocks ? totals[i] : 0;
-    int ex, agg;
-    Scan(tmp).ExclusiveSum(v, ex, agg);
-    if (i < nblocks) totals[i] = carry + ex;
-    carry += agg;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0 && n_groups) *n_groups = carry;
-}
-
-__global__ void __launch_bounds__(SCAN_T)
-    gid_apply(GroupIn in, long long n, const int* __restrict__ carries,
-              int cap, int* __restrict__ gids, int* __restrict__ rep) {
-  typedef cub::BlockScan<int, SCAN_T> Scan;
-  __shared__ typename Scan::TempStorage tmp;
-  const long long i = static_cast<long long>(blockIdx.x) * SCAN_T +
-                      threadIdx.x;
-  const int f = i < n ? in.flag(i) : 0;
-  int ex;
-  Scan(tmp).ExclusiveSum(f, ex);
-  if (i >= n) return;
-  const int gid_s = carries[blockIdx.x] + ex + f - 1;
-  const int r = in.sidx[i];
-  if (cap <= 0) {               // _dense1: unclamped dense codes
-    gids[r] = gid_s;
-    return;
-  }
-  gids[r] = gid_s < 0 ? 0 : (gid_s >= cap ? cap - 1 : gid_s);
-  if (f) {
-    if (gid_s < cap - 1)
-      rep[gid_s] = r;           // a group's first sorted row is its least
-    else
-      atomicMin(&rep[cap - 1], r);
-  }
-}
 
 __device__ __forceinline__ void store_relaxed(u64* p, u64 v) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
@@ -257,6 +173,61 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// warp 0, once every warp's flag count is in warp_excl: the warps'
+// exclusive offsets within the tile (left in warp_excl), the tile's status
+// published and its exclusive prefix found by look-back (into *s_excl, by
+// lane 0); the last tile writes n_groups (cap > 0). → the groups up to the
+// end of this tile, on every lane
+__device__ __forceinline__ int tile_prefix(int tile, int lane, long long n,
+                                           int cap, int* warp_excl,
+                                           int* s_excl, u64* status,
+                                           int* __restrict__ n_groups) {
+  const int c = lane < WARPS ? warp_excl[lane] : 0;
+  int incl = c;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += x;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  if (lane < WARPS) warp_excl[lane] = incl - c;
+  u64* mine = status + tile;
+  int excl = 0;
+  if (tile == 0) {
+    if (lane == 0) store_relaxed(mine, PREFIX | static_cast<u64>(total));
+  } else {
+    if (lane == 0) store_relaxed(mine, AGGREGATE | static_cast<u64>(total));
+    excl = look_back(status, tile, lane);
+    if (lane == 0)
+      store_relaxed(mine, PREFIX | static_cast<u64>(excl + total));
+  }
+  if (lane == 0) {
+    *s_excl = excl;
+    if (cap > 0 && tile == (n - 1) / WORD_TILE) *n_groups = excl + total;
+  }
+  return excl + total;
+}
+
+// row r's id from its sorted rank gid_s (unclamped for cap == 0, and no
+// rep); a flagged row, its group's first sorted row and so its least,
+// writes rep, the last slot by atomicMin over every group clamped into it
+template <bool IDS>
+__device__ __forceinline__ void scatter_row(int gid_s, int r, bool flag,
+                                            int cap, int* __restrict__ gids,
+                                            int* __restrict__ rep) {
+  if (cap <= 0) {               // _dense1: unclamped dense codes
+    gids[r] = gid_s;
+    return;
+  }
+  if (IDS) gids[r] = gid_s < 0 ? 0 : (gid_s >= cap ? cap - 1 : gid_s);
+  if (flag) {
+    if (gid_s < cap - 1)
+      rep[gid_s] = r;
+    else
+      atomicMin(&rep[cap - 1], r);
+  }
+}
+
 // one launch: flags, warp-ballot ranks, look-back, scatter; with FIRST
 // (cap >= n) also the first mask, and then IDS false leaves the ids out
 template <bool FIRST, bool IDS>
@@ -320,34 +291,12 @@ __global__ void __launch_bounds__(THREADS)
   if (lane == 0) warp_excl[warp] = run;
   __syncthreads();
   if (warp == 0) {
-    const int c = lane < WARPS ? warp_excl[lane] : 0;
-    int incl = c;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int x = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += x;
-    }
-    const int total = __shfl_sync(0xffffffffu, incl, 31);
-    if (lane < WARPS) warp_excl[lane] = incl - c;
-    u64* mine = status + tile;
-    int excl = 0;
-    if (tile == 0) {
-      if (lane == 0) store_relaxed(mine, PREFIX | static_cast<u64>(total));
-    } else {
-      if (lane == 0) store_relaxed(mine, AGGREGATE | static_cast<u64>(total));
-      excl = look_back(status, tile, lane);
-      if (lane == 0)
-        store_relaxed(mine, PREFIX | static_cast<u64>(excl + total));
-    }
-    if (lane == 0) {
-      s_excl = excl;
-      if (cap > 0 && tile == (n - 1) / WORD_TILE) {
-        *n_groups = excl + total;
-        // no live row: every row's id clamps to slot 0, whose rep is
-        // n - 1, so rep[pg] == iota holds at row n - 1 alone
-        if (FIRST && excl + total == 0) first[n - 1] = 1;
-      }
-    }
+    const int upto = tile_prefix(tile, lane, n, cap, warp_excl, &s_excl,
+                                 status, n_groups);
+    // no live row: every row's id clamps to slot 0, whose rep is n - 1,
+    // so rep[pg] == iota holds at row n - 1 alone
+    if (FIRST && lane == 0 && tile == (n - 1) / WORD_TILE && upto == 0)
+      first[n - 1] = 1;
   }
   __syncthreads();
   const int base = s_excl + warp_excl[warp] - 1;
@@ -355,22 +304,183 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = 0; j < WORD_ITEMS; ++j) {
     const long long i = wbase + j * 32 + lane;
     if (i >= n) continue;
-    const int gid_s = base + rank[j];
-    const int r = row[j];
-    if (cap <= 0) {             // _dense1: unclamped dense codes
-      gids[r] = gid_s;
-      continue;
-    }
-    if (IDS) gids[r] = gid_s < 0 ? 0 : (gid_s >= cap ? cap - 1 : gid_s);
-    if ((flags >> j) & 1u) {
-      if (gid_s < cap - 1)
-        rep[gid_s] = r;         // a group's first sorted row is its least
-      else
-        atomicMin(&rep[cap - 1], r);
-      // cap >= n: no slot is shared, so rep[pg[r]] == r exactly here
-      if (FIRST) first[r] = 1;
-    }
+    const bool flag = (flags >> j) & 1u;
+    scatter_row<IDS>(base + rank[j], row[j], flag, cap, gids, rep);
+    // cap >= n: no slot is shared, so rep[pg[r]] == r exactly here
+    if (FIRST && flag) first[row[j]] = 1;
   }
+}
+
+struct GatherKey {
+  const u64* w;                 // K8's sorted last word, or null
+  const void* v;                // the values, in row order
+  const unsigned char* m;       // the NULL mask (gathered), or null
+  const unsigned char* live;    // gathered when w is null and cap > 0
+  int dtype;
+  int dead_shift;               // with w: the dead flag's bit
+  int null_shift;               // with w: the NULL flag's bit (set: valid),
+                                // -1 when the flag is not in w
+};
+
+// a row's value bits (a float64's as its int64 pattern), loaded
+// evict-first: the values (67 MB at 8,388,608 int64 rows) are read once
+// in a random order and would otherwise push the scattered ids' lines
+// out of L2 before their sectors fill
+__device__ __forceinline__ long long value_at(const void* v, int dtype,
+                                              int r) {
+  switch (dtype) {
+    case DT_BOOL:
+      return __ldcs(static_cast<const unsigned char*>(v) + r);
+    case DT_I32:
+      return __ldcs(static_cast<const int*>(v) + r);
+    default:
+      return __ldcs(static_cast<const long long*>(v) + r);
+  }
+}
+
+// the dtype's own `!=` of two valid values: -0.0 meets +0.0, a NaN meets
+// nothing
+__device__ __forceinline__ bool values_differ(long long a, long long b,
+                                              int dtype) {
+  if (dtype == DT_F64)
+    return __longlong_as_double(a) != __longlong_as_double(b);
+  return a != b;
+}
+
+// the key of the row at sorted position i, row id r, word wd (WORD): its
+// NULL flag (true: valid), dead flag and value (0 for a NULL, not loaded)
+template <bool WORD>
+__device__ __forceinline__ long long row_key(const GatherKey& key, int cap,
+                                             int r, u64 wd, bool* valid,
+                                             bool* dead) {
+  bool ok = true, dd = false;
+  if (WORD) {
+    dd = ((wd >> key.dead_shift) & 1ull) != 0ull;
+    if (key.null_shift >= 0)
+      ok = ((wd >> key.null_shift) & 1ull) != 0ull;
+    else if (key.m)
+      ok = __ldg(key.m + r) != 0;
+  } else {
+    if (key.m) ok = __ldg(key.m + r) != 0;
+    if (cap > 0 && key.live) dd = __ldg(key.live + r) == 0;
+  }
+  *valid = ok;
+  *dead = dd;
+  return ok ? value_at(key.v, key.dtype, r) : 0;
+}
+
+// the gather entry's one launch, in the word entry's form: row ids (and
+// with WORD the sorted last word) read in order, the value (and what the
+// word lacks) gathered once a row, the neighbour's key from the previous
+// lane, warp-ballot ranks, look-back, scatter
+template <bool WORD>
+__global__ void __launch_bounds__(THREADS)
+    gid_gather(const int* __restrict__ sidx, GatherKey key, long long n,
+               int cap, unsigned* __restrict__ tile_counter, u64* status,
+               int* __restrict__ gids, int* __restrict__ rep,
+               int* __restrict__ n_groups) {
+  __shared__ int warp_excl[WARPS];
+  __shared__ int s_tile;
+  __shared__ int s_excl;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) s_tile = static_cast<int>(atomicAdd(tile_counter, 1u));
+  __syncthreads();
+  const int tile = s_tile;
+  const long long wbase = static_cast<long long>(tile) * WORD_TILE +
+                          static_cast<long long>(warp) * (32 * WORD_ITEMS);
+  int row[WORD_ITEMS];
+  u64 wd[WORD_ITEMS];
+#pragma unroll
+  for (int j = 0; j < WORD_ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    row[j] = i < n ? __ldcs(sidx + i) : 0;
+    wd[j] = WORD && i < n ? __ldcs(key.w + i) : 0ull;
+  }
+  long long val[WORD_ITEMS];
+  unsigned valid = 0u, dead = 0u;       // bit j: round j's row
+#pragma unroll
+  for (int j = 0; j < WORD_ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    bool ok = false, dd = false;
+    val[j] = i < n ? row_key<WORD>(key, cap, row[j], wd[j], &ok, &dd) : 0;
+    valid |= (ok ? 1u : 0u) << j;
+    dead |= (dd ? 1u : 0u) << j;
+  }
+  // the row before the warp's run (lane 0 of round 0)
+  long long before = 0;
+  bool before_ok = false;
+  if (lane == 0 && wbase > 0 && wbase - 1 < n) {
+    const int r = __ldg(sidx + wbase - 1);
+    bool dd;
+    before = row_key<WORD>(key, cap, r, WORD ? __ldg(key.w + wbase - 1)
+                                             : 0ull, &before_ok, &dd);
+  }
+  const unsigned le = (2u << lane) - 1u;
+  unsigned flags = 0u;
+  int rank[WORD_ITEMS];
+  int run = 0;
+#pragma unroll
+  for (int j = 0; j < WORD_ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    const bool ok = (valid >> j) & 1u;
+    // the previous row's key: the lane before, or the last lane of the
+    // round before
+    long long pv = __shfl_up_sync(0xffffffffu, val[j], 1);
+    bool pok = __shfl_up_sync(0xffffffffu, ok ? 1 : 0, 1) != 0;
+    if (j > 0) {
+      const long long lv = __shfl_sync(0xffffffffu, val[j - 1], 31);
+      const int lo = __shfl_sync(0xffffffffu,
+                                 static_cast<int>((valid >> (j - 1)) & 1u),
+                                 31);
+      if (lane == 0) {
+        pv = lv;
+        pok = lo != 0;
+      }
+    } else if (lane == 0) {
+      pv = before;
+      pok = before_ok;
+    }
+    bool b = i < n && (i == 0 || ok != pok ||
+                       (ok && values_differ(val[j], pv, key.dtype)));
+    if (cap > 0 && ((dead >> j) & 1u)) b = false;
+    const unsigned bal = __ballot_sync(0xffffffffu, b);
+    rank[j] = run + __popc(bal & le);      // inclusive
+    run += __popc(bal);
+    flags |= (b ? 1u : 0u) << j;
+  }
+  if (lane == 0) warp_excl[warp] = run;
+  __syncthreads();
+  if (warp == 0)
+    tile_prefix(tile, lane, n, cap, warp_excl, &s_excl, status, n_groups);
+  __syncthreads();
+  const int base = s_excl + warp_excl[warp] - 1;
+#pragma unroll
+  for (int j = 0; j < WORD_ITEMS; ++j) {
+    const long long i = wbase + j * 32 + lane;
+    if (i < n)
+      scatter_row<true>(base + rank[j], row[j], (flags >> j) & 1u, cap,
+                        gids, rep);
+  }
+}
+
+// the prep launch of both K10 entries: the scratch (tile counter and
+// status words) zeroed, rep (cap > 0) filled with max(n - 1, 0) and, with
+// `first`, the first mask zeroed
+void launch_prep(u64* words, long long n_tiles, int* rep, int cap,
+                 long long n, unsigned char* first, cudaStream_t st) {
+  long long most = (1 + n_tiles) > cap ? 1 + n_tiles : cap;
+  if (first && (n >> 3) + 8 > most) most = (n >> 3) + 8;
+  const long long pb = (most + THREADS - 1) / THREADS;
+  const unsigned blocks = static_cast<unsigned>(pb < 264 ? pb : 264);
+  const int value = n > 0 ? static_cast<int>(n - 1) : 0;
+  if (first)
+    words_prep<true><<<blocks, THREADS, 0, st>>>(words, 1 + n_tiles, rep,
+                                                 cap, value, first, n);
+  else
+    words_prep<false><<<blocks, THREADS, 0, st>>>(words, 1 + n_tiles, rep,
+                                                  cap, value, nullptr, 0);
 }
 
 // ---- K11 -----------------------------------------------------------------
@@ -845,34 +955,46 @@ int run_search(const void* sorted, const void* order, long long nb,
 
 extern "C" {
 
-// K10, gather. sidx: int32 (n), the stable sort permutation; v: n values of
-// `dtype` (0 bool, 1 int32, 2 int64, 3 float64) in row order; m: bool (n)
-// or null; live: bool (n) or null. cap > 0 (factorize): gids int32 (n)
-// clamped to [0, cap), rep int32 (cap) pre-filled by the caller with
-// max(n - 1, 0), n_groups one int32. cap == 0 (_dense1): gids only,
-// unclamped. Scratch: block int32 (ceil(n / 1024)).
-int tt_group_ids(const void* sidx, const void* v, int dtype, const void* m,
+// K10, gather. sidx: int32 (n), the stable sort permutation of
+// _key_operands([(v, m)], live) (ops/factorize.py); w: uint64 (n), that
+// sort's last radix word in sorted order (K8's output), or null;
+// dead_shift: the dead flag's bit in w; null_shift: the NULL flag's bit in
+// w (set: valid), or -1 when w does not hold it. v: n values of `dtype` (0
+// bool, 1 int32, 2 int64, 3 float64) in row order; m: bool (n) or null (no
+// NULLs), read unless w holds the NULL flag; live: bool (n) or null (every
+// row live), read when cap > 0 and w is null. cap > 0 (factorize): gids
+// int32 (n) clamped to [0, cap), rep int32 (cap), filled here with
+// max(n - 1, 0) first, n_groups one int32. cap == 0 (_dense1): gids only,
+// unclamped. Scratch: int64 (tt_group_words_scratch(n)), zeroed here (the
+// prep launch does both).
+int tt_group_ids(const void* sidx, const void* w, int dead_shift,
+                 int null_shift, const void* v, int dtype, const void* m,
                  const void* live, long long n, int cap, void* gids,
-                 void* rep, void* n_groups, void* block, void* stream) {
+                 void* rep, void* n_groups, void* scratch, void* stream) {
   if (n < 0 || n >= (1LL << 31) || cap < 0 || dtype < DT_BOOL ||
-      dtype > DT_F64)
+      dtype > DT_F64 ||
+      (w && (dead_shift < 0 || dead_shift > 63 || null_shift < -1 ||
+             null_shift > 63)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* blk = static_cast<int*>(block);
   int* ng = static_cast<int*>(n_groups);
+  const long long n_tiles = (n + WORD_TILE - 1) / WORD_TILE;
+  u64* words = static_cast<u64*>(scratch);
+  launch_prep(words, n_tiles, static_cast<int*>(rep), cap, n, nullptr, st);
   if (n == 0) {
-    if (ng) cudaMemsetAsync(ng, 0, sizeof(int), st);
+    if (ng && cap > 0) cudaMemsetAsync(ng, 0, sizeof(int), st);
     return static_cast<int>(cudaGetLastError());
   }
-  GroupIn in{static_cast<const int*>(sidx), v, dtype,
-             static_cast<const unsigned char*>(m),
-             static_cast<const unsigned char*>(live)};
-  const long long nblocks = (n + SCAN_T - 1) / SCAN_T;
-  gid_totals<<<static_cast<unsigned>(nblocks), SCAN_T, 0, st>>>(in, n, blk);
-  gid_carries<<<1, SCAN_T, 0, st>>>(blk, nblocks, cap > 0 ? ng : nullptr);
-  gid_apply<<<static_cast<unsigned>(nblocks), SCAN_T, 0, st>>>(
-      in, n, blk, cap, static_cast<int*>(gids), static_cast<int*>(rep));
+  GatherKey key{static_cast<const u64*>(w), v,
+                static_cast<const unsigned char*>(m),
+                static_cast<const unsigned char*>(live), dtype, dead_shift,
+                null_shift};
+  auto kernel = w ? gid_gather<true> : gid_gather<false>;
+  kernel<<<static_cast<unsigned>(n_tiles), THREADS, 0, st>>>(
+      static_cast<const int*>(sidx), key, n, cap,
+      reinterpret_cast<unsigned*>(words), words + 1, static_cast<int*>(gids),
+      static_cast<int*>(rep), ng);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -880,9 +1002,8 @@ int tt_group_ids(const void* sidx, const void* v, int dtype, const void* m,
 // (K8's output); sidx int32 (n), its row ids. A boundary is i == 0, a
 // change of (w[i] ^ w[i-1]) & cmp_mask, or (has_nan) w[i] & nan_mask ==
 // nan_val; cap > 0 masks it by the live flag, bit dead_shift of w clear.
-// Outputs as tt_group_ids, but rep (cap > 0) is filled here with
-// max(n - 1, 0) first. Scratch: int64 (tt_group_words_scratch(n)), zeroed
-// here (one launch does both). With cap >= n, `first` (null: not asked
+// Outputs and scratch as tt_group_ids (rep filled and the scratch zeroed
+// here by the one prep launch). With cap >= n, `first` (null: not asked
 // for; n bool, 8-byte aligned) is the first-occurrence mask
 // rep[gids] == iota of every row, zeroed here and set where a group's
 // first sorted row is (row n - 1 when no row is live); with `first`,
@@ -905,18 +1026,7 @@ int tt_group_ids_words(const void* w, const void* sidx, long long n,
   const long long n_tiles = (n + WORD_TILE - 1) / WORD_TILE;
   u64* words = static_cast<u64*>(scratch);
   unsigned char* fm = static_cast<unsigned char*>(first);
-  long long most = (1 + n_tiles) > cap ? 1 + n_tiles : cap;
-  if (fm && (n >> 3) + 8 > most) most = (n >> 3) + 8;
-  const long long pb = (most + THREADS - 1) / THREADS;
-  const unsigned prep_blocks = static_cast<unsigned>(pb < 264 ? pb : 264);
-  if (fm)
-    words_prep<true><<<prep_blocks, THREADS, 0, st>>>(
-        words, 1 + n_tiles, static_cast<int*>(rep), cap,
-        n > 0 ? static_cast<int>(n - 1) : 0, fm, n);
-  else
-    words_prep<false><<<prep_blocks, THREADS, 0, st>>>(
-        words, 1 + n_tiles, static_cast<int*>(rep), cap,
-        n > 0 ? static_cast<int>(n - 1) : 0, nullptr, 0);
+  launch_prep(words, n_tiles, static_cast<int*>(rep), cap, n, fm, st);
   if (n == 0) {
     if (ng && cap > 0) cudaMemsetAsync(ng, 0, sizeof(int), st);
     return static_cast<int>(cudaGetLastError());

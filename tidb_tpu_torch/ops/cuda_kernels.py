@@ -71,8 +71,7 @@ _SIGNATURES = {
     "tt_perfect_group_ids": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P,
                              _P],
     "tt_remap_group_ids": [_P, _P, _L, _I, _P, _P],
-    "tt_lut_build": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P,
-                     _P, _P],
+    "tt_lut_build": [_P, _P],
     "tt_lut_probe": [_P, _P],
     "tt_lut_order": [_P, _P, _L, _L, _I, _P, _P, _P, _P, _P, _P],
     "tt_join_expand": [_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P, _P, _P,
@@ -82,7 +81,8 @@ _SIGNATURES = {
     "tt_sort_encode": [_P, _I, _L, _P, _P, _I, _U, _I, _P, _I, _P, _P],
     "tt_radix_scratch_words": [_L],
     "tt_radix_sort": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P],
-    "tt_group_ids": [_P, _P, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P],
+    "tt_group_ids": [_P, _P, _I, _I, _P, _I, _P, _P, _L, _I, _P, _P, _P,
+                     _P, _P],
     "tt_group_ids_words": [_P, _P, _L, _U, _I, _U, _U, _I, _I, _P, _P, _P,
                            _P, _P, _P],
     "tt_group_words_scratch": [_L],

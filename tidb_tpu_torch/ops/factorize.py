@@ -33,8 +33,9 @@ kernel path for CUDA tensors (csrc/radix_sort.cu, csrc/sorted_groups.cu):
               the sort took one word, its word entry reads K8's sorted
               word (`SortWords`), whose bits hold the dead flag, the NULL
               flag and the value code side by side; a sort of two or more
-              words takes its gather entry, which reads the key through
-              the permutation. The word count, known on the host, picks.
+              words takes its gather entry, which reads the flags from
+              K8's sorted last word and gathers the value through the
+              permutation. The word count, known on the host, picks.
 
 The kernel path needs each operand's bit width: a dense rank or packed
 code carries its bound (`SortOp.hi`, known on the host), a raw key costs
@@ -49,6 +50,7 @@ retry with a bigger cap when `n_groups > cap`.
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -502,13 +504,28 @@ def _word_key(words: SortWords):
     return cmp_mask, nan, dead.shift
 
 
+def _gather_key(words: SortWords, m):
+    """K10's gather-entry parameters for a sort of two or more words of
+    `_key_operands([(v, m)], live)` → (the sorted last word, the dead
+    flag's bit in it, the NULL flag's bit in it or -1). The value fills
+    the first word, so the last holds the dead flag always, and the NULL
+    flag when the value leaves it no room (its field is None when the
+    flag shares the value's word)."""
+    dead = words.fields[0]
+    null = words.fields[1] if m is not None else None
+    return words.last, dead.shift, (-1 if null is None else null.shift)
+
+
 def group_ids(sidx, v, m, live, cap: int,
               words: Optional[SortWords] = None):
     """K10 wrapper, as `group_ids_plain` (`live` is read only when
     cap > 0). `words`, from the kernel sort of `_key_operands([(v, m)],
     live)` that made `sidx`, picks the entry: one word takes the word
-    entry (`group_ids_words`) over K8's sorted word; otherwise the gather
-    entry runs (its plain version for CPU tensors)."""
+    entry (`group_ids_words`) over K8's sorted word; two or more take the
+    gather entry with the sorted last word (`_gather_key`: the dead and
+    NULL flags read from it, the value gathered); without `words` the
+    gather entry gathers the flags too. CPU tensors take the plain
+    version."""
     if words is not None and words.count == 1:
         cmp_mask, nan, dead_shift = _word_key(words)
         return group_ids_words(words.last, sidx, cmp_mask, nan, dead_shift,
@@ -527,24 +544,44 @@ def group_ids(sidx, v, m, live, cap: int,
         raise ck.KernelError("group_ids: key of the permutation's length "
                              "expected")
     mp = _check_mask(m, n, "group_ids")
-    dev = sidx.device
-    gids = torch.empty(n, dtype=torch.int32, device=dev)
-    rep = ng = lp = None
-    if cap > 0:
-        lp = _check_mask(live, n, "group_ids")
-        rep = torch.full((cap,), max(n - 1, 0), dtype=torch.int32,
-                         device=dev)
-        ng = torch.empty((), dtype=torch.int32, device=dev)
-    block = torch.empty(max(1, -(-n // 1024)), dtype=torch.int32, device=dev)
-    rc = ck.library("sorted_groups").tt_group_ids(
-        sidx.data_ptr(), v.data_ptr(), code, mp, lp, n, int(cap),
-        gids.data_ptr(), None if rep is None else rep.data_ptr(),
-        None if ng is None else ng.data_ptr(), block.data_ptr(),
-        ck.stream_ptr(dev))
+    # with the word, the dead flag comes from it and live is not read
+    lp = _check_mask(live, n, "group_ids") \
+        if cap > 0 and words is None else None
+    w, dead_shift, null_shift = None, 0, -1
+    if words is not None:
+        w, dead_shift, null_shift = _gather_key(words, m)
+        ck.require_cuda(w, what="group_ids")
+        if w.dtype != torch.int64 or w.shape != (n,):
+            raise ck.KernelError("group_ids: the sorted last word must be "
+                                 "int64 of the permutation's length")
+    lib = ck.library("sorted_groups")
+    # one int32 allocation: the kernel's scratch (64-bit words), the ids,
+    # then rep (which the kernel fills with max(n - 1, 0)) and n_groups
+    at = 2 * _words_scratch(n)
+    buf = torch.empty(at + n + (cap + 1 if cap > 0 else 0),
+                      dtype=torch.int32, device=sidx.device)
+    base = buf.data_ptr()
+    rc = lib.tt_group_ids(
+        sidx.data_ptr(), None if w is None else w.data_ptr(), dead_shift,
+        null_shift, v.data_ptr(), code, mp, lp, n, int(cap),
+        base + 4 * at, base + 4 * (at + n) if cap > 0 else None,
+        base + 4 * (at + n + cap) if cap > 0 else None, base,
+        ck.stream_ptr(sidx.device))
     if n > 0:
         ck.count("group_ids")
     ck.check(rc, "group_ids")
-    return gids if cap == 0 else (gids, ng, rep)
+    # the views, made while the kernel runs
+    gids = buf[at:at + n]
+    if cap == 0:
+        return gids
+    return gids, buf[at + n + cap], buf[at + n:at + n + cap]
+
+
+@functools.lru_cache(maxsize=64)
+def _words_scratch(n: int) -> int:
+    """K10's scratch for n rows, in 64-bit words (tt_group_words_scratch)."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    return ck.library("sorted_groups").tt_group_words_scratch(n)
 
 
 def group_ids_words(w, sidx, cmp_mask: int, nan, dead_shift: int,
@@ -572,7 +609,7 @@ def group_ids_words(w, sidx, cmp_mask: int, nan, dead_shift: int,
     # one allocation: the kernel's scratch, then rep (which the kernel
     # fills with max(n - 1, 0)) and n_groups as int32, then the first
     # mask's bytes
-    words = lib.tt_group_words_scratch(n)
+    words = _words_scratch(n)
     mid = words + cap // 2 + 1
     buf = torch.empty(mid + (-(-n // 8) if first else 0), dtype=torch.int64,
                       device=dev)

@@ -219,23 +219,6 @@ def _key_cols(keys, bounds, what: str):
     return cols, n
 
 
-def _key_args(keys, bounds, what: str):
-    """Validate K4 key columns → ctypes arrays (vals, masks, is64, lo, hi,
-    stride) and the columns as the kernel reads them."""
-    cols, n = _key_cols(keys, bounds, what)
-    k = len(cols)
-    P = ctypes.c_void_p * k
-    L = ctypes.c_longlong * k
-    args = (P(*[v.data_ptr() for v, _ in cols]),
-            P(*[m.data_ptr() for _, m in cols]),
-            (ctypes.c_int * k)(*[int(v.dtype == torch.int64)
-                                 for v, _ in cols]),
-            L(*[int(lo) for lo, _ in bounds]),
-            L(*[int(hi) for _, hi in bounds]),
-            L(*_strides(bounds)))
-    return args, cols, n
-
-
 @functools.lru_cache(maxsize=256)
 def _bounds_domain(bounds: Tuple[Tuple[int, int], ...]) -> int:
     """The code count of these per-key bounds, or -1 when one is empty."""
@@ -261,38 +244,105 @@ def _check_domain(domain: int, bounds, what: str):
     return bounds
 
 
+class _BuildArgs(ctypes.Structure):
+    """K4's argument block (csrc/lut_join.cu `BuildArgs`)."""
+    _fields_ = [("vals", ctypes.c_void_p * MAX_JOIN_KEYS),
+                ("masks", ctypes.c_void_p * MAX_JOIN_KEYS),
+                ("live", ctypes.c_void_p),
+                ("out", ctypes.c_void_p),
+                ("lo", ctypes.c_longlong * MAX_JOIN_KEYS),
+                ("hi", ctypes.c_longlong * MAX_JOIN_KEYS),
+                ("stride", ctypes.c_longlong * MAX_JOIN_KEYS),
+                ("nb", ctypes.c_longlong),
+                ("n_live", ctypes.c_longlong),
+                ("domain", ctypes.c_longlong),
+                ("is64", ctypes.c_int * MAX_JOIN_KEYS),
+                ("k", ctypes.c_int),
+                ("flags", ctypes.c_int)]
+
+
+#: `_BuildArgs.flags` bits (csrc/lut_join.cu BUILD_LUT, BUILD_CODES)
+BUILD_LUT, BUILD_CODES = 1, 2
+
+
+@functools.lru_cache(maxsize=256)
+def build_plan(is64: Tuple[bool, ...], bounds: Tuple[Tuple[int, int], ...],
+               want_lut: bool, want_codes: bool) -> bytes:
+    """K4's argument block for one key signature, a pure function: the
+    key count, each key's width (`is64`), bounds and stride, the domain
+    and the outputs asked for filled in; every pointer, nb and n_live
+    zero. → its bytes: a call copies them into a `_BuildArgs` and fills
+    in its pointers, nb and n_live."""
+    a = _BuildArgs()
+    a.k = len(bounds)
+    a.is64[:a.k] = [int(w) for w in is64]
+    a.lo[:a.k] = [lo for lo, _ in bounds]
+    a.hi[:a.k] = [hi for _, hi in bounds]
+    a.stride[:a.k] = _strides(bounds)
+    a.domain = math.prod(hi - lo + 1 for lo, hi in bounds)
+    a.flags = (BUILD_LUT if want_lut else 0) | \
+        (BUILD_CODES if want_codes else 0)
+    return bytes(a)
+
+
+@functools.lru_cache(maxsize=256)
+def build_layout(domain: int, nb: int, want_lut: bool,
+                 want_codes: bool) -> Tuple[int, int, int]:
+    """K4's one int32 output allocation, as csrc/lut_join.cu
+    `tt_lut_build` lays it out: maxcnt at word 0, cnt (domain + 1) from
+    word 1, then lut (domain + 1, `want_lut`), then codes (nb,
+    `want_codes`) → (lut's first word or -1, codes' first word or -1,
+    the words in all)."""
+    end = domain + 2
+    lut = end if want_lut else -1
+    end += domain + 1 if want_lut else 0
+    codes = end if want_codes else -1
+    return lut, codes, end + (nb if want_codes else 0)
+
+
 def lut_build(keys, bounds, domain: int, live=None,
               n_live: Optional[int] = None, want_lut: bool = True,
               want_codes: bool = False):
     """K4 wrapper → (cnt, lut or None, maxcnt, codes or None), as
-    `lut_build_plain`."""
+    `lut_build_plain`. One C call: the outputs are views of one
+    allocation (`build_layout`), which the entry fills and the kernel
+    writes; its arguments are the cached `build_plan` with this call's
+    pointers."""
     if keys[0][0].device.type == "cpu":
         return lut_build_plain(keys, bounds, domain, live, n_live, want_lut,
                                want_codes)
-    _check_domain(domain, bounds, "lut_build")
-    args, cols, nb = _key_args(keys, bounds, "lut_build")
+    bounds = _check_domain(domain, bounds, "lut_build")
+    cols, nb = _key_cols(keys, bounds, "lut_build")
+    if nb >= 2 ** 31:
+        raise ck.KernelError(f"lut_build: build rows {nb} out of range")
     dev = cols[0][0].device
     if live is not None:
         ck.require_cuda(live, what="lut_build")
         if live.dtype != torch.bool or live.shape != (nb,):
             raise ck.KernelError("lut_build: live must be bool of the "
                                  "build's length")
-    cnt = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
-    lut = torch.full((domain + 1,), -1, dtype=torch.int32, device=dev) \
-        if want_lut else None
-    codes = torch.empty(nb, dtype=torch.int32, device=dev) \
-        if want_codes else None
-    maxcnt = torch.zeros((), dtype=torch.int32, device=dev)
-    rc = ck.library("lut_join").tt_lut_build(
-        len(cols), *args, None if live is None else live.data_ptr(),
-        nb if n_live is None else int(n_live), nb, domain, cnt.data_ptr(),
-        None if lut is None else lut.data_ptr(),
-        None if codes is None else codes.data_ptr(), maxcnt.data_ptr(),
-        ck.stream_ptr(dev))
-    if nb > 0:                      # the entry launches nothing for nb == 0
+    want_lut, want_codes = bool(want_lut), bool(want_codes)
+    lut_at, codes_at, words = build_layout(domain, nb, want_lut, want_codes)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    a = _BuildArgs.from_buffer_copy(build_plan(
+        tuple(v.dtype == torch.int64 for v, _ in cols), bounds, want_lut,
+        want_codes))
+    for q, (v, m) in enumerate(cols):
+        a.vals[q] = v.data_ptr()
+        a.masks[q] = m.data_ptr()
+    a.live = None if live is None else live.data_ptr()
+    a.out = buf.data_ptr()
+    a.nb = nb
+    a.n_live = nb if n_live is None else int(n_live)
+    rc = ck.library("lut_join").tt_lut_build(ctypes.addressof(a),
+                                             ck.stream_ptr(dev))
+    if nb > 0:                      # for nb == 0 the entry only fills
         ck.count("lut_build")
     ck.check(rc, "lut_build")
-    return cnt, lut, maxcnt, codes
+    # the views, made while the kernel runs
+    return (buf[1:domain + 2],
+            buf[lut_at:lut_at + domain + 1] if want_lut else None, buf[0],
+            buf[codes_at:] if want_codes else None)
 
 
 class _ProbeArgs(ctypes.Structure):

@@ -1,13 +1,13 @@
-"""Time the window scans, the rank gather, the LUT probe, the member
-compaction, the column gather, the sorted search, the segment reduction,
+"""Time the window scans, the rank gather, the LUT build and probe, the
+member compaction, the column gather, the sorted search, the segment reduction,
 the window bounds, the join expansion, the slab decode, the dictionary
 LUT, the DISTINCT pair factorize, the calendar parts and the RANGE frame
 bounds of one checkout on the card, for comparing two checkouts in one
 machine's run.
 
     python tidb_tpu_torch/tools/scan_timing.py --tree DIR [--out FILE]
-        [--kernels scan,gather,probe,compact,columns,search,segment,bounds,
-                   expand,decode,lut,pairs,civil,frame]
+        [--kernels scan,gather,build,probe,compact,columns,search,segment,
+                   bounds,expand,decode,lut,pairs,civil,frame]
         [--profile] [--ptxas] [--host-steps]
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
@@ -23,6 +23,9 @@ join, phase 22's masks):
   * gather: K25 at an X2B-shaped broadcast (7 columns: int64, int32 x 2
     and 4 bool masks, x 4 ranks of 524,288 rows) beside torch.cat per
     column;
+  * build: K4 at phase 8's orders build (nb = 2,097,152, D = 1,500,303,
+    unique mode) beside torch.bincount of the codes, and in multi mode
+    (counts and codes);
   * probe: K5 in unique mode, one lineitem slab (8,388,608 rows, 6,001,215
     live) of l_orderkey into K4's lut of the orders build (D =
     1,500,303), beside torch.take of the clamped codes;
@@ -76,8 +79,8 @@ time over one call of each timed entry (torch.profiler), under
 chosen kernels' sources (registers, shared memory, spills);
 `--host-steps` adds each chosen wrapper's host time split step by step
 (under "<kernel>_host_steps"): K25's (checks and contiguity, pointers,
-tables, allocation, the ctypes call and launch), K13 prefix's, K5's,
-K18's, K11's, K1's, K12's, K7's, K2's and K21's with the card not
+tables, allocation, the ctypes call and launch), K13 prefix's, K4's,
+K5's, K18's, K11's, K1's, K12's, K7's, K2's and K21's with the card not
 waited for, and K22's, whose read-back of the total waits for its count
 pass; the pair factorize's, K20's and K14's host time a call.
 """
@@ -537,6 +540,122 @@ def run_probe(reps: int, prof: bool, steps: bool, dev) -> dict:
         out["kernels_take"] = _profile([lambda: torch.take(lut, pc)])
     if steps:
         out["k5_host_steps"] = _probe_host_steps(args)
+    return out
+
+
+def _build_inputs(dev):
+    """Phase 8's K4 call: the orders build (o_orderkey = 0..D-1 in a
+    2,097,152-row buffer, live over its first D rows)."""
+    import torch
+    nb = 1 << 21
+    bkey = torch.zeros(nb, dtype=torch.int64)
+    bkey[:N_ORDERS] = torch.arange(N_ORDERS)
+    blive = (torch.arange(nb) < N_ORDERS).to(dev)
+    return [(bkey.to(dev), blive)], [(0, N_ORDERS - 1)], N_ORDERS, blive
+
+
+def _build_host_steps(args, reps: int = 50) -> dict:
+    """K4's host time a call, step by step (mean µs, the card not waited
+    for), over the checkout's own wrapper: one allocation and a cached
+    argument block (`build_plan`), or the ctypes arrays and the four
+    allocations and three torch fills of every call."""
+    import ctypes
+    import torch
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import join as J
+    keys, bounds, domain, live = args
+    lib = ck.library("lut_join")
+    steps = {}
+    tick = _ticker(steps)
+    dev = live.device
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        t = time.perf_counter()
+        if hasattr(J, "build_plan"):
+            bt = J._check_domain(domain, bounds, "lut_build")
+            cols, nb = J._key_cols(keys, bt, "lut_build")
+            ck.require_cuda(live, what="lut_build")
+            t = tick("checks", t)
+            lut_at, _, words = J.build_layout(domain, nb, True, False)
+            buf = torch.empty(words, dtype=torch.int32, device=dev)
+            t = tick("allocation", t)
+            a = J._BuildArgs.from_buffer_copy(J.build_plan(
+                tuple(v.dtype == torch.int64 for v, _ in cols), bt, True,
+                False))
+            for q, (v, m) in enumerate(cols):
+                a.vals[q] = v.data_ptr()
+                a.masks[q] = m.data_ptr()
+            a.live = live.data_ptr()
+            a.out = buf.data_ptr()
+            a.nb = nb
+            a.n_live = nb
+            stream = ck.stream_ptr(dev)
+            t = tick("cached plan, pointers and stream", t)
+            rc = lib.tt_lut_build(ctypes.addressof(a), stream)
+            ck.check(rc, "lut_build")
+            t = tick("ctypes call, memsets and launch", t)
+            (buf[1:domain + 2], buf[lut_at:lut_at + domain + 1], buf[0])
+            tick("views", t)
+        else:
+            J._check_domain(domain, bounds, "lut_build")
+            args_c, cols, nb = J._key_args(keys, bounds, "lut_build")
+            ck.require_cuda(live, what="lut_build")
+            t = tick("checks and ctypes arrays", t)
+            cnt = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
+            lut = torch.full((domain + 1,), -1, dtype=torch.int32,
+                             device=dev)
+            maxcnt = torch.zeros((), dtype=torch.int32, device=dev)
+            t = tick("allocation and torch fills", t)
+            stream = ck.stream_ptr(dev)
+            t = tick("stream", t)
+            rc = lib.tt_lut_build(len(cols), *args_c, live.data_ptr(), nb,
+                                  nb, domain, cnt.data_ptr(), lut.data_ptr(),
+                                  None, maxcnt.data_ptr(), stream)
+            ck.check(rc, "lut_build")
+            tick("ctypes call and launch", t)
+    torch.cuda.synchronize()
+    out = _mean_us(steps, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        J.lut_build(keys, bounds, domain, live=live)
+    out["wrapper call"] = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def run_build(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K4 at phase 8's orders build (unique mode, as Q3/Q5's first join
+    calls it), held to its plain version (cnt, maxcnt, and lut where a
+    code has one row), beside torch.bincount of the codes with the
+    sentinel; and in multi mode (counts and codes, no lut)."""
+    import torch
+    from tidb_tpu_torch.ops import join as J
+    from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
+    args = _build_inputs(dev)
+    keys, bounds, domain, live = args
+    got = J.lut_build(keys, bounds, domain, live=live, want_codes=True)
+    want = J.lut_build_plain(keys, bounds, domain, live=live,
+                             want_codes=True)
+    single = want[0][:domain] <= 1
+    _same("K4 phase 8", (got[0], got[2], got[3], got[1][:domain][single]),
+          (want[0], want[2], want[3], want[1][:domain][single]))
+    code = torch.where(live & keys[0][1], keys[0][0],
+                       torch.full_like(keys[0][0], domain))
+    out = {"k4_ms": _median_ms(
+        lambda: J.lut_build(keys, bounds, domain, live=live), reps),
+        "k4_multi_ms": _median_ms(
+        lambda: J.lut_build(keys, bounds, domain, live=live, want_lut=False,
+                            want_codes=True), reps),
+        "k4_bincount_ms": _median_ms(
+        lambda: torch.bincount(code, minlength=domain + 1), reps)}
+    if prof:
+        out["kernels_k4"] = _profile(
+            [lambda: J.lut_build(keys, bounds, domain, live=live)])
+        out["kernels_k4_multi"] = _profile(
+            [lambda: J.lut_build(keys, bounds, domain, live=live,
+                                 want_lut=False, want_codes=True)])
+    if steps:
+        out["k4_host_steps"] = _build_host_steps(args)
     return out
 
 
@@ -1855,8 +1974,8 @@ def main() -> int:
                     help="root of the checkout whose kernels to time")
     ap.add_argument("--kernels", default="scan,gather",
                     help="comma-separated: scan (K12, K13), gather (K25), "
-                         "probe (K5), compact (K22), columns (K18), "
-                         "search (K11), segment (K1), bounds (K12), "
+                         "build (K4), probe (K5), compact (K22), columns "
+                         "(K18), search (K11), segment (K1), bounds (K12), "
                          "expand (K7), decode (K2), lut (K21), pairs "
                          "(K16 with K8 and K10), civil (K20), frame (K14)")
     ap.add_argument("--reps", type=int, default=20)
@@ -1878,7 +1997,8 @@ def main() -> int:
     sys.path.insert(0, tree)
     kernels = set(args.kernels.split(","))
     sources = {"scan": "window_scan", "gather": "rank_gather",
-               "probe": "lut_join", "compact": "member_compact",
+               "build": "lut_join", "probe": "lut_join",
+               "compact": "member_compact",
                "columns": "gather_columns", "search": "sorted_groups",
                "segment": "segment_reduce", "bounds": "window_scan",
                "expand": "join_expand", "decode": "unpack_decode",
@@ -1898,6 +2018,8 @@ def main() -> int:
     if "gather" in kernels:
         line.update(run_gather(args.reps, args.profile, args.host_steps,
                                dev))
+    if "build" in kernels:
+        line.update(run_build(args.reps, args.profile, args.host_steps, dev))
     if "probe" in kernels:
         line.update(run_probe(args.reps, args.profile, args.host_steps, dev))
     if "compact" in kernels:

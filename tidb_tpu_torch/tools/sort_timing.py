@@ -14,14 +14,18 @@ milliseconds (CUDA events) at chip_smoke's shapes:
   * K10 over 8,388,608 rows in ~10^5 groups (cap 131,072): the gather
     entry (`group_ids` without the sorted word), the word entry where the
     checkout has one, and `factorize` end to end (K9 + K8 + K10), beside
-    unique_consecutive(return_inverse=True) over the sorted keys.
+    unique_consecutive(return_inverse=True) over the sorted keys; and the
+    gather entry at the main path's shape (`k10_two_words_ms`): 8,388,608
+    full-range int64 tokens (~10^5 distinct, 2% NULL, 2% dead), whose
+    sort takes two words, called with K8's sorted last word.
 
 Run two checkouts in turns (A, B, B, A), one process each, within one run
 of the machine: cards and power limits differ between runs. `--profile`
 adds each CUDA kernel's mean device time over those calls
-(torch.profiler), under "kernels_k8_full" and "kernels_k10"; `--ptxas`
-adds what `nvcc -Xptxas -v` reports for the K8 and K10 kernels (registers,
-shared memory, spills), under "ptxas".
+(torch.profiler), under "kernels_k8_full", "kernels_k10" and
+"kernels_k10_two_words"; `--ptxas` adds what `nvcc -Xptxas -v` reports
+for the K8 and K10 kernels (registers, shared memory, spills), under
+"ptxas".
 """
 
 from __future__ import annotations
@@ -93,8 +97,8 @@ def _ptxas(tree: str) -> dict:
     `nvcc -Xptxas -v` with the build's flags."""
     from tidb_tpu_torch.ops import cuda_kernels as ck
     out = {}
-    wanted = ("pass_histograms", "onesweep_pass", "gid_words", "gid_apply",
-              "gid_totals")
+    wanted = ("pass_histograms", "onesweep_pass", "gid_words", "gid_gather",
+              "words_prep", "gid_apply", "gid_totals")
     with tempfile.TemporaryDirectory() as tmp:
         for src in ("radix_sort", "sorted_groups"):
             res = subprocess.run(
@@ -179,6 +183,28 @@ def run(reps: int, prof: bool = False) -> dict:
             calls.append(lambda: F.group_ids(sidx, gk, None, glive, cap,
                                              words))
         out["kernels_k10"] = _profile(calls)
+    # the main path's shape: a full-range BIGINT token (~10^5 distinct)
+    # with 2% NULLs and 2% dead rows, whose sort takes two radix words
+    # (the value, then the NULL and dead flags), through the gather entry
+    # with K8's sorted last word (a checkout without that entry ignores
+    # the word)
+    tokens = rng.integers(-2 ** 63, 2 ** 63 - 1, 100_000, dtype=np.int64)
+    tv = torch.from_numpy(tokens[rng.integers(0, 100_000, n)]).to(dev)
+    tm = torch.from_numpy(rng.random(n) > 0.02).to(dev)
+    tl = torch.from_numpy(rng.random(n) > 0.02).to(dev)
+    sidx2, words2 = F._lexsort_kernel(F._key_operands([(tv, tm)], tl))
+    if words2.count != 2:
+        raise AssertionError(f"the token sort took {words2.count} words")
+    want2 = F.group_ids_plain(sidx2, tv, tm, tl, cap)
+    same("K10 two words", F.group_ids(sidx2, tv, tm, tl, cap, words2),
+         want2)
+    out["k10_two_words_groups"] = int(want2[1])
+    out["k10_two_words_ms"] = _median_ms(
+        lambda: F.group_ids(sidx2, tv, tm, tl, cap, words2), reps)
+    if prof:
+        out["kernels_k10_two_words"] = _profile(
+            [lambda: F.group_ids(sidx2, tv, tm, tl, cap, words2)])
+    del sidx2, words2, tv, tm, tl
     out["factorize_ms"] = _median_ms(
         lambda: F.factorize([(gk, None)], glive, cap), reps)
     sorted_keys = gk[sidx.long()]

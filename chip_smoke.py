@@ -34,14 +34,17 @@ which must pass:
      localhost port and its client, equal to phase 4's rows;
   7. join trees on the card — `orders` (n/4 rows) and `customer` (n/40)
      in bench.py's shapes and distributions, ANALYZEd; bench.py's Q3 and
-     Q5 verbatim, cold and twice warm, on the default path (fused per-slab
-     pipeline over FK-aligned joins) and with tidb_tpu_aligned_join=0 (LUT
-     unique mode inside the fused pipeline); a join whose unique bet is
+     Q5 verbatim, cold and warm (Q3 twice, Q5 once), on the default path
+     (fused per-slab pipeline over FK-aligned joins) and with
+     tidb_tpu_aligned_join=0 (LUT unique mode inside the fused
+     pipeline); a join whose unique bet is
      lost and runs in expand mode; and a skewed many-to-many join under a
      small tidb_tpu_join_out_cap that runs as blocked row-range passes.
      Each under tidb_tpu_strict=1, exactly equal to the host engine; the
      launch counters are zeroed before the phase and all seven kernels
-     must move in it;
+     must move in it, K18 too (the aligned build columns in each cold
+     run, the join finishes in the unaligned and expand runs); every
+     cached aligned build column owns its storage;
   8. join kernel timing at those shapes: K4 over the orders build (its
      call profiled once after phase 26), K5 over one lineitem slab (its
      call profiled likewise: host time against the card's), K6 and K7 at
@@ -52,7 +55,8 @@ which must pass:
      LUT or aligned join takes): TPC-H Q3 (spec 2.4.3 without
      o_shippriority) cold and twice warm, TopN and LIMIT directly over a
      join (EXPLAIN shows both inside the device fragment; LIMIT is held
-     by its count and by membership in the host's unlimited join), and
+     by its count and by membership in the host's unlimited join; K18
+     gathers their rows), and
      bench.py's Q3 over the sparse keys (equal to the dense Q3's host
      rows: the key map is injective), and a GROUP BY over a full-range BIGINT token with
      NULLs (`orders_sk.o_ref`: a sort of two radix words, K10's gather
@@ -85,7 +89,8 @@ which must pass:
      column by column as numpy arrays (float columns within 2·n·eps·|x|); EXPLAIN shows
      W1-W5's windows inside a TpuFragment and W6's outside. Counters are
      zeroed before the phase; K12-K15, K8 and K9 must move (K12-K15 in
-     W6 itself);
+     W6 itself), K18 in every run (the argument gathers, the scatter
+     back);
  12. window kernel timing at phase 11's shapes (8,388,608 rows): K12
      over W1's and W2's layouts, K13's int64 prefix (beside torch.cumsum)
      and segmented max (its time in K13's record as `seg_ms`), K14 over
@@ -113,7 +118,11 @@ which must pass:
      K17 tiling R1's read columns to 3 x 8,388,608 rows and writing the
      levels of its two key masks (beside torch.cat, repeat_interleave
      and &), K18 through D2's pair cap (beside per-column index_select;
-     its call profiled once after phase 26);
+     its call profiled once after phase 26), and at two moved sites'
+     shapes beside the torch indexing each replaced: the join finish (4
+     int64 columns of a 2,097,152-row build through 8,388,608 int32
+     slots with a keep mask) and the window scatter back (one int64
+     over n rows through a sort permutation);
  15. the delta write path on the lineitem entry phase 13 left resident
      (R3's 2,097,152-row slabs, 3 base slabs), tidb_tpu_compaction off:
      a 2-row INSERT its base layouts cannot carry (l_shipdate going back
@@ -142,7 +151,7 @@ which must pass:
      orders, E4 HOUR/MINUTE/UNIX_TIMESTAMP/DAYOFMONTH of DATETIME values
      built by TIMESTAMP and DATE_ADD, E5 SQRT/LN/POW/GREATEST/TRUNCATE/
      CAST aggregates, E6 a SIN/RADIANS/LOG10/EXP/LAST_DAY filter; each
-     cold and twice warm under tidb_tpu_strict=1, held against the host
+     cold and warm once under tidb_tpu_strict=1, held against the host
      engine column by column (floats within 2·n·eps·|x|), EXPLAIN
      showing its HashAgg inside a TpuFragment. Counters are zeroed
      before the phase; K20 must move in every run of E1-E4;
@@ -159,7 +168,9 @@ which must pass:
      TPC-H Q13's NOT LIKE '%special%requests%' with SUM(LENGTH), S4
      LOCATE/INSTR/CHAR_LENGTH over the comments, S5 FIND_IN_SET and LIKE
      over lineitem_str ⋈ orders_str, S6 UPPER/SUBSTR under IS NOT NULL,
-     S7 a string equi-join (KeyRemap); each cold and warm once under
+     S7 a string equi-join (KeyRemap), S8 TPC-H Q12's l_shipmode IN
+     ('MAIL', 'SHIP') (one K21 gather of a bool table); each cold and
+     warm once under
      tidb_tpu_strict=1, exactly equal to the host engine, EXPLAIN showing
      its aggregate inside a TpuFragment, the host preparation and upload
      of its dictionary tables (collect_preps) timed with their bytes.
@@ -244,7 +255,11 @@ and K16 distinct_pairs, K17 rollup_tile and K18 gather_columns against
 theirs exactly (random gids with dead rows, value ranks with ties,
 1/2/4/8-byte columns and a 2-D limb plane, n_valid below and at the
 cap; K18 also at 1-65 columns over odd-offset views and out-of-range
-indices; K16's word also against the two K9 passes it replaces and
+indices, and in each mode of the moved row gathers: a keep mask with
+and without a count cut, no cut, limb planes at odd and even slot
+counts, values without a mask, the scatter back with and without a cut,
+the gather through the inverse permutation, out-of-range indices, in
+one pass and a pass a plane; K16's word also against the two K9 passes it replaces and
 K10's first mask against rep[pg] == iota on every row, with every pair
 dead, one row, one group, every row its own group and dead rows between
 live ones), with the pair factorize on K8, K10 and K16 equal to its CPU
@@ -1156,7 +1171,7 @@ def join_sql_phase(s, n: int):
                "tidb_tpu_specialization_cache": 0}
     runs = [("q3_cold", Q3, "q3", {}), ("q3_warm1", Q3, "q3", {}),
             ("q3_warm2", Q3, "q3", {}), ("q5_cold", Q5, "q5", {}),
-            ("q5_warm1", Q5, "q5", {}), ("q5_warm2", Q5, "q5", {}),
+            ("q5_warm1", Q5, "q5", {}),
             ("q3_unaligned1", Q3, "q3", unaligned),
             ("q3_unaligned2", Q3, "q3", unaligned),
             ("q5_unaligned1", Q5, "q5", unaligned),
@@ -1189,20 +1204,51 @@ def join_sql_phase(s, n: int):
         if name.endswith("_cold") or "_unaligned" in name:
             if not (moved.get("lut_build") and moved.get("lut_probe")):
                 raise AssertionError(f"{name}: K4/K5 did not move")
+            # the cold runs gather the aligned build columns, the LUT
+            # joins their build columns: K18
+            if not moved.get("gather_columns"):
+                raise AssertionError(f"{name}: K18 did not move ({moved})")
         if name == "expand" and not (moved.get("lut_order") and
-                                     moved.get("join_expand")):
-            raise AssertionError("expand: K6/K7 did not move (the join "
-                                 "did not run in expand mode)")
+                                     moved.get("join_expand") and
+                                     moved.get("gather_columns")):
+            raise AssertionError("expand: K6/K7/K18 did not move (the "
+                                 "join did not run in expand mode)")
         if name == "blocked" and "join:over-max" not in esc:
             raise AssertionError(f"blocked: no row-range passes ({esc})")
     launches = ck.launches()
     walls["join_phase"] = time.perf_counter() - t_phase
-    for k in JOIN_KERNELS:
+    for k in JOIN_KERNELS + ("gather_columns",):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was never launched by the "
                                  f"join path")
     log(f"join phase: {walls['join_phase']:.1f} s, launches {launches}")
+    check_aligned_storage()
     return launches, walls, orders, customer, host
+
+
+def check_aligned_storage() -> None:
+    """The FK-aligned joins' cached build columns (K18's owned outputs,
+    device_cache.aligned_col) own their storage on the card: a view of a
+    shared buffer would pin bytes the device cache does not count."""
+    from tidb_tpu_torch.executor import device_cache as DC
+    seen = 0
+    for ent in DC._ALIGNED.values():
+        if ent is None:
+            continue
+        for col, slabs in ent.cols.items():
+            for v, m in slabs:
+                for t in (v, m):
+                    have = t.untyped_storage().nbytes()
+                    if not t.is_cuda or have > -(-t.nbytes // 16) * 16:
+                        raise AssertionError(
+                            f"aligned column {col}: {tuple(t.shape)} "
+                            f"{t.dtype} holds {have} bytes of storage for "
+                            f"{t.nbytes}")
+                    seen += 1
+    if not seen:
+        raise AssertionError("no aligned build column was cached")
+    log(f"aligned build columns: {seen} cached tensors, each owning its "
+        f"storage")
 
 
 # ---------------------------------------------------------------------------
@@ -2144,6 +2190,10 @@ def sort_sql_phase(s, n: int, orders, dense_q3_host):
         if name == "ref_groups" and not moved.get("group_ids"):
             raise AssertionError(f"{name}: K10's gather entry did not run "
                                  f"({moved})")
+        if name in ("topn_join", "limit_join") and \
+                not moved.get("gather_columns"):
+            raise AssertionError(f"{name}: K18 did not gather the rows "
+                                 f"({moved})")
         walls[name] = wall
         log(f"{name}: {len(rows)} rows, "
             f"{'count + membership' if ref is None else 'exact match'}, "
@@ -2589,6 +2639,9 @@ def window_sql_phase(s):
         if name == "w6" and not all(moved.get(k) for k in WINDOW_KERNELS):
             raise AssertionError(f"{run}: WindowExec's device path did not "
                                  f"launch K12-K15 ({moved})")
+        if not moved.get("gather_columns"):
+            raise AssertionError(f"{run}: K18 did not gather or scatter "
+                                 f"back ({moved})")
         walls[run] = wall
         log(f"{run}: {len(cols[0][0]) if cols else 0} rows, equal to the "
             f"host engine, wall {wall:.4f} s, launches {moved}, phases "
@@ -2596,7 +2649,8 @@ def window_sql_phase(s):
     s.vars.pop("tidb_tpu_max_slab_rows", None)
     launches = ck.launches()
     walls["window_phase"] = time.perf_counter() - t_phase
-    for k in WINDOW_KERNELS + ("radix_sort", "sort_encode"):
+    for k in WINDOW_KERNELS + ("radix_sort", "sort_encode",
+                               "gather_columns"):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was never launched by the "
                                  f"window path")
@@ -2870,6 +2924,7 @@ def check_distinct_kernels(dev):
                     same(f"K18 values n={n}", a, b)
                     same(f"K18 masks n={n}", am, bm)
     cases += check_k18_edges(dev, rng)
+    cases += check_k18_modes(dev, rng)
     # K16 and K10's first mask at the edges: every pair dead, one row, one
     # group, every row its own group, dead rows between live ones
     n = 5000
@@ -3015,6 +3070,105 @@ def check_k18_edges(dev, rng) -> int:
                                     f"n_valid = {nv}, index offset {off} "
                                     f"differs from its plain version")
                         cases += 1
+    return cases
+
+
+def check_k18_modes(dev, rng) -> int:
+    """K18's modes of the moved sites, exactly against their plain versions
+    (which keep the kernel's rule for indices out of range): a per-slot
+    keep mask with and without a count cut, no cut, a wide decimal's
+    three limb planes under one mask at odd and even slot counts (planes
+    off and on the 16-byte stores' alignment), values without a mask
+    (aggregate states), the inverse of an int32 and an int64 permutation
+    and the gather back through it, and out-of-range indices in every
+    gather mode and the inverse; in passes of the default size and with
+    every plane its own pass."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import gather as G
+    default = G.PASS_BYTES
+    try:
+        cases = 0
+        for G.PASS_BYTES in (default, 1):
+            cases += _k18_modes(dev, rng)
+    finally:
+        G.PASS_BYTES = default
+    return cases
+
+
+def _k18_modes(dev, rng) -> int:
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import gather as G
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def same(what, got, want):
+        for (a, am), (b, bm) in zip(got, want, strict=True):
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    not torch.equal(a, b) or (am is None) != (bm is None) \
+                    or am is not None and not torch.equal(am, bm):
+                raise AssertionError(f"K18 {what} differs from its plain "
+                                     f"version")
+
+    cases = 0
+    n = 70_001
+    cols = [(t(rng.integers(-2 ** 62, 2 ** 62, n)), t(rng.random(n) < 0.8)),
+            (t(rng.integers(-99, 99, n).astype(np.int32)), None),
+            (t(rng.random(n) < 0.5), t(rng.random(n) < 0.8)),
+            (t(rng.integers(-99, 99, n).astype(np.int16)), None),
+            (t(rng.integers(-2 ** 40, 2 ** 40, (3, n))),
+             t(rng.random(n) < 0.9))]
+    for m in (1, 7, 40_000, 40_001):
+        for oob in (False, True):
+            lo, hi = (-3, n + 3) if oob else (0, n)
+            idx = t(rng.integers(lo, hi, m).astype(np.int32))
+            keep = t(rng.random(m) < 0.7)
+            nv = torch.tensor(m // 3, dtype=torch.int32, device=dev)
+            for kp, cut in ((keep, None), (keep, nv), (None, None)):
+                same(f"gather m={m} keep={kp is not None} "
+                     f"cut={cut is not None} oob={oob}",
+                     G.gather_columns(cols, idx, cut, kp),
+                     G.gather_columns_plain(cols, idx, cut, kp))
+                cases += 1
+            _c, vals = G.gather([], idx, values=[v for v, _m in cols])
+            _c, want = G.gather_plain([], idx, values=[v for v, _m in cols])
+            same(f"values m={m} oob={oob}", [(v, None) for v in vals],
+                 [(v, None) for v in want])
+            cases += 1
+    for n_rows in (1, 4_099, 65_536):
+        rows = [(t(rng.integers(-2 ** 62, 2 ** 62, n_rows)),
+                 t(rng.random(n_rows) < 0.8)),
+                (t(rng.random(n_rows)), None),
+                (t(rng.integers(-2 ** 40, 2 ** 40, (3, n_rows))),
+                 t(rng.random(n_rows) < 0.9))]
+        for perm in (t(rng.permutation(n_rows).astype(np.int32)),
+                     t(rng.permutation(n_rows))):
+            live = t(rng.random(n_rows) < 0.9)
+            inv = G.inverse_permutation(perm, n_rows)
+            want_inv = G.inverse_permutation_plain(perm, n_rows)
+            if not torch.equal(inv, want_inv):
+                raise AssertionError(f"K18 inverse n={n_rows} "
+                                     f"{perm.dtype} differs from its plain "
+                                     f"version")
+            same(f"inverse gather n={n_rows} {perm.dtype}",
+                 G.gather_columns(rows, inv, keep=live),
+                 G.gather_columns_plain(rows, want_inv, keep=live))
+            cases += 1
+        # out of range: those slots write nothing; the rows the others
+        # reach hold their slot numbers
+        bad = perm.clone()
+        bad[::5] = n_rows + 7
+        bad[1::5] = -1
+        ok = (bad >= 0) & (bad < n_rows)
+        got = G.inverse_permutation(bad, n_rows)[bad[ok]]
+        if not torch.equal(got, G.inverse_permutation_plain(
+                bad, n_rows)[bad[ok]]) or not torch.equal(
+                got.long(), torch.arange(n_rows, device=dev)[ok]):
+            raise AssertionError(f"K18 inverse n={n_rows} with indices "
+                                 f"out of range")
+        cases += 1
     return cases
 
 
@@ -3336,7 +3490,8 @@ def distinct_timing_phase(dev, n: int):
                 "source": "tidb_tpu_torch/csrc/gather_columns.cu",
                 "replaces": "tidb_tpu/executor/device_emit.py:53",
                 "max_abs_err": 0, "ms": ms, "plain_ms": plain,
-                "bound_ms": b, "bound_by": by, "library_ms": lib})
+                "bound_ms": b, "bound_by": by, "library_ms": lib,
+                "sites": k18_site_timings(dev, n)})
     log(f"K18 3 columns through rep[:{pc}] ({int(s_pairs)} pairs) of a "
         f"{sc}-row slab: {ms:.4f} ms (plain {plain:.4f}, index_select "
         f"{lib:.4f}, bound {b:.4f} by {by})")
@@ -3344,6 +3499,92 @@ def distinct_timing_phase(dev, n: int):
         "K18 at phase 14's shape",
         lambda: G.gather_columns(gcols, idx, s_pairs), ("gather_kernel",)))
     return out
+
+
+def k18_site_timings(dev, n: int) -> list:
+    """K18 at two moved sites' shapes, each beside the torch indexing it
+    replaced (its library column): the join finish (4 int64 build columns
+    with masks of a 2,097,152-row build through an int32 index of
+    8,388,608 probe slots, the match as the keep mask: `v[idx]`,
+    `m[idx] & keep` a column) and the window's way back to row order (one
+    int64 result and its mask over lineitem's n rows through a sort
+    permutation with the live rows first: the inverse permutation and one
+    gather through it with `live` as the keep mask, against two
+    `index_put_`s and `& live`; K18's direct scatter, cut at n_live, is
+    logged beside them)."""
+    import torch
+    from tidb_tpu_torch.ops import gather as G
+    g = torch.Generator(device=dev).manual_seed(2101)
+    P, B = FULL_SLAB, MULTI_SLAB
+    cols = [(torch.randint(-2 ** 40, 2 ** 40, (B,), device=dev,
+                           generator=g),
+             torch.rand(B, device=dev, generator=g) < 0.95)
+            for _ in range(4)]
+    keep = torch.rand(P, device=dev, generator=g) < 0.8
+    idx = torch.where(keep, torch.randint(0, B, (P,), device=dev,
+                                          generator=g), 0).to(torch.int32)
+
+    def torch_join():
+        return [(v[idx], m[idx] & keep) for v, m in cols]
+
+    def exact(what, got, want):
+        for (a, am), (c, cm) in zip(got, want, strict=True):
+            if not (torch.equal(a, c) and torch.equal(am, cm)):
+                raise AssertionError(f"K18 {what}: kernel != plain")
+
+    exact("join finish", G.gather_columns(cols, idx, keep=keep),
+          G.gather_columns_plain(cols, idx, keep=keep))
+    exact("join finish vs torch", G.gather_columns(cols, idx, keep=keep),
+          torch_join())
+    jb, jby = bound_ms(P * (4 + 1 + 4 * (8 + 1 + 8 + 1)), 0)
+    sites = [{"site": "join_finish", "shape": f"4 int64 columns of {B} "
+              f"rows through {P} int32 slots, keep mask",
+              "ms": time_cuda(lambda: G.gather_columns(cols, idx,
+                                                       keep=keep)),
+              "plain_ms": time_cuda(lambda: G.gather_columns_plain(
+                  cols, idx, keep=keep), reps=5),
+              "library_ms": time_cuda(torch_join),
+              "bound_ms": jb, "bound_by": jby, "max_abs_err": 0}]
+    del cols, keep, idx
+    live = torch.rand(n, device=dev, generator=g) < 0.9
+    key = torch.randint(0, 2 ** 30, (n,), device=dev, generator=g)
+    perm = torch.argsort(torch.where(live, key, key + 2 ** 31))
+    col = [(torch.randint(-2 ** 40, 2 ** 40, (n,), device=dev, generator=g),
+            torch.rand(n, device=dev, generator=g) < 0.97)]
+
+    def torch_scatter():
+        back_v = torch.empty_like(col[0][0])
+        back_v[perm] = col[0][0]
+        back_m = torch.empty_like(col[0][1])
+        back_m[perm] = col[0][1]
+        return [(back_v, back_m & live)]
+
+    def back():
+        return G.gather_columns(col, G.inverse_permutation(perm, n),
+                                keep=live)
+
+    def back_plain():
+        return G.gather_columns_plain(
+            col, G.inverse_permutation_plain(perm, n), keep=live)
+
+    exact("scatter back", back(), back_plain())
+    exact("scatter back vs torch", back(), torch_scatter())
+    # the function's bytes: perm, live and the result's value and mask
+    # read once, the value and mask in row order written once
+    sb, sby = bound_ms(n * (8 + 1 + 8 + 1 + 8 + 1), 0)
+    sites.append({"site": "scatter_back", "shape": f"1 int64 column over "
+                  f"{n} rows through an int64 sort permutation (its "
+                  f"inverse, then a gather with live as the keep mask)",
+                  "ms": time_cuda(back), "plain_ms": time_cuda(back_plain,
+                                                               reps=5),
+                  "library_ms": time_cuda(torch_scatter),
+                  "bound_ms": sb, "bound_by": sby, "max_abs_err": 0})
+    for st in sites:
+        log(f"K18 at the {st['site']} ({st['shape']}): {st['ms']:.4f} ms "
+            f"(plain {st['plain_ms']:.4f}, the torch indexing it replaced "
+            f"{st['library_ms']:.4f}, bound {st['bound_ms']:.4f} by "
+            f"{st['bound_by']})")
+    return sites
 
 
 # ---------------------------------------------------------------------------
@@ -4031,7 +4272,7 @@ def expression_sql_phase(s):
     ck.reset_launches()
     err = 0.0
     for name, sql in EXPR_STMTS.items():
-        for k in ("cold", "warm1", "warm2"):
+        for k in ("cold", "warm1"):
             run = f"{name}_{k}"
             before = ck.launches()
             cols, wall, phases = run_cols(s, sql, device=True)
@@ -4180,8 +4421,12 @@ S6 = """SELECT COUNT(*) FROM lineitem_str WHERE UPPER(l_shipmode) IS NOT NULL
 # dictionary (KeyRemap, K21's fill mode)
 S7 = """SELECT sm_cost, COUNT(*) FROM lineitem_str JOIN shipmode
  ON l_shipmode = sm_name GROUP BY sm_cost"""
+# TPC-H Q12's string IN: one K21 gather of a bool table over l_shipmode's
+# dictionary
+S8 = """SELECT l_shipmode, COUNT(*), SUM(l_quantity) FROM lineitem_str
+ WHERE l_shipmode IN ('MAIL', 'SHIP') GROUP BY l_shipmode"""
 STRING_STMTS = {"s1": S1, "s2": S2, "s3": S3, "s4": S4, "s5": S5,
-                "s6": S6, "s7": S7}
+                "s6": S6, "s7": S7, "s8": S8}
 #: refused at plan time: a computed string under a comparison, and the
 #: string column passed where the function takes a constant
 STRING_REFUSED = {
@@ -4305,7 +4550,7 @@ def _watch_k21_tables():
 
 
 def string_sql_phase(s, n: int):
-    """S1-S7 over lineitem_str, orders_str and shipmode, made here: each
+    """S1-S8 over lineitem_str, orders_str and shipmode, made here: each
     cold and warm once under tidb_tpu_strict=1, rows exactly equal to
     the host engine (sorted where the statement has no ORDER BY),
     EXPLAIN showing the aggregate inside a TpuFragment, K21 launched in
@@ -4344,7 +4589,7 @@ def string_sql_phase(s, n: int):
         if not agg_in_fragment(s, sql) or "TpuFragment" not in explain:
             raise AssertionError(f"{name}: the aggregate is not inside the "
                                  f"device fragment\n{explain}")
-    log("EXPLAIN: S1-S7's aggregate inside a TpuFragment")
+    log("EXPLAIN: S1-S8's aggregate inside a TpuFragment")
     host = {}
     walls = {}
     for name, sql in STRING_STMTS.items():

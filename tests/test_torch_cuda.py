@@ -438,11 +438,11 @@ def test_k18_matches_plain(cuda, idx_dt, ncols):
     views at odd byte offsets, int32/int64 indices with out-of-range ones,
     an index vector off its 16-byte alignment, n_valid 0, below m and m,
     and m not a multiple of the four slots a thread takes."""
-    import ctypes
     from tidb_tpu_torch.ops import cuda_kernels as ck
     from tidb_tpu_torch.ops import gather as G
-    assert ck.library("gather_columns").tt_gather_args_bytes() == \
-        ctypes.sizeof(G._GatherArgs)
+    for k in (1, 4, 65):
+        assert ck.library("gather_columns").tt_gather_args_bytes(k) == \
+            8 * (G.HEADER_WORDS + G.PLANE_WORDS * k)
     n = 90_000 if ncols < 64 else 5_000
     g = torch.Generator().manual_seed(3 + ncols)
     cols = _k18_columns(g, n, ncols)
@@ -470,6 +470,118 @@ def test_k18_matches_plain(cuda, idx_dt, ncols):
                     assert a.dtype == v.dtype and a.shape == (m,)
                     assert torch.equal(a.cpu(), b), (ncols, m, off, nv)
                     assert torch.equal(am.cpu(), bm & ok), (ncols, m, nv)
+
+
+@pytest.mark.parametrize("mode", ["keep", "keep_and_cut", "uncut", "planes",
+                                  "values", "inverse", "inverse_idx64",
+                                  "inverse_out_of_range", "out_of_range"])
+@pytest.mark.parametrize("m", [1, 5, 40_001, 40_003])
+@pytest.mark.parametrize("pass_bytes", [24 << 20, 1])
+def test_k18_modes_match_plain(cuda, mode, m, pass_bytes, monkeypatch):
+    """K18's modes against their plain versions, exactly: a per-slot keep
+    mask (with and without a count cut), no cut, a wide decimal's limb
+    planes under one mask (odd m: planes off the 16-byte stores'
+    alignment), values without a mask, the inverse of an int32 and an
+    int64 permutation and the gather back through it, and indices out of
+    range (zero and false; the inverse writes nothing for one); in one
+    pass and with every plane its own pass."""
+    from tidb_tpu_torch.ops import cuda_kernels as ck
+    from tidb_tpu_torch.ops import gather as G
+    monkeypatch.setattr(G, "PASS_BYTES", pass_bytes)
+    g = torch.Generator().manual_seed(18 + m)
+    n = m if mode.startswith("inverse") else 50_000
+    cols = _k18_columns(g, n, 5)
+    if mode == "planes":
+        cols.append((torch.randint(-1000, 1000, (3, n), generator=g),
+                     torch.rand(n, generator=g) < 0.6))
+    dcols = [(v.to(cuda), None if mk is None else mk.to(cuda))
+             for v, mk in cols]
+    keep = torch.rand(m, generator=g) < 0.7
+    nv = torch.tensor(m // 3, dtype=torch.int32)
+    if mode == "inverse_out_of_range":
+        idx = torch.randperm(n, generator=g).to(torch.int32)
+        idx[::3] = torch.tensor([-1, n, n + 7], dtype=torch.int32).repeat(
+            m)[:idx[::3].numel()]
+    elif mode.startswith("inverse"):
+        idx = torch.randperm(n, generator=g)
+        if mode == "inverse":
+            idx = idx.to(torch.int32)
+    elif mode == "out_of_range":
+        idx = torch.randint(-3, n + 3, (m,), generator=g).to(torch.int32)
+    else:
+        idx = torch.randint(0, n, (m,), generator=g).to(torch.int32)
+    before = ck.launches()["gather_columns"]
+    if mode == "inverse_out_of_range":
+        # an out-of-range index writes nothing, and a row no index
+        # reaches is left as the allocation left it: the rows reached
+        inv = G.inverse_permutation(idx.to(cuda), n).cpu()
+        ok = (idx >= 0) & (idx < n)
+        rows = idx[ok].long()
+        got = [(inv[rows], None)]
+        want = [(G.inverse_permutation_plain(idx, n)[rows], None)]
+        assert torch.equal(want[0][0],
+                           torch.arange(m, dtype=torch.int32)[ok])
+    elif mode.startswith("inverse"):
+        inv = G.inverse_permutation(idx.to(cuda), n)
+        assert torch.equal(inv.cpu(), G.inverse_permutation_plain(idx, n))
+        got = G.gather_columns(dcols, inv, keep=keep.to(cuda))
+        want = G.gather_columns_plain(
+            cols, G.inverse_permutation_plain(idx, n), keep=keep)
+    elif mode == "values":
+        _c, got = G.gather([], idx.to(cuda),
+                           values=[v for v, _mk in dcols])
+        _c, want = G.gather_plain([], idx, values=[v for v, _mk in cols])
+        got = [(v, None) for v in got]
+        want = [(v, None) for v in want]
+    else:
+        kp = keep if mode.startswith("keep") else None
+        cut = nv if mode == "keep_and_cut" else None
+        got = G.gather_columns(dcols, idx.to(cuda),
+                               None if cut is None else cut.to(cuda),
+                               None if kp is None else kp.to(cuda))
+        want = G.gather_columns_plain(cols, idx, cut, kp)
+    torch.cuda.synchronize()
+    assert ck.launches()["gather_columns"] == before + \
+        (2 if mode in ("inverse", "inverse_idx64") else 1)
+    assert len(got) == len(want)
+    for (a, am), (b, bm) in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, (mode, m)
+        assert torch.equal(a.cpu(), b), (mode, m)
+        assert (am is None) == (bm is None)
+        if am is not None:
+            assert torch.equal(am.cpu(), bm), (mode, m)
+
+
+def test_aligned_columns_own_their_storage(cuda):
+    """The FK-aligned join's cached build columns (device_cache.aligned_col,
+    K18's owned outputs) own their storage on the card, and the join's
+    rows equal the host engine's."""
+    from tidb_tpu_torch.executor import device_cache as DC
+    from tidb_tpu_torch.session import Engine
+    s = Engine(device="cuda").new_session()
+    s.execute("CREATE TABLE f (k BIGINT, v BIGINT)")
+    s.execute("CREATE TABLE d (id BIGINT, p INT, q DOUBLE)")
+    s.execute("INSERT INTO f VALUES " + ",".join(
+        f"({(i * 37) % 1100}, {i})" for i in range(5000)))
+    s.execute("INSERT INTO d VALUES " + ",".join(
+        f"({i}, {i % 7}, {i * 0.5})" for i in range(1000)))
+    sql = "SELECT p, COUNT(*), SUM(v), SUM(q) FROM f JOIN d ON k = id " \
+          "GROUP BY p ORDER BY p"
+    s.vars.update({"tidb_tpu_engine": "on", "tidb_tpu_row_threshold": 1,
+                   "tidb_tpu_strict": 1, "tidb_tpu_max_slab_rows": 1024})
+    rows = s.query(sql).rows
+    s.vars["tidb_tpu_engine"] = "off"
+    assert rows == s.query(sql).rows
+    seen = 0
+    for ent in DC._ALIGNED.values():
+        for slabs in (ent.cols.values() if ent is not None else ()):
+            for v, mk in slabs:
+                for t in (v, mk):
+                    assert t.is_cuda
+                    assert t.untyped_storage().nbytes() <= \
+                        -(-t.nbytes // 16) * 16, (t.shape, t.dtype)
+                    seen += 1
+    assert seen
 
 
 def _odd_view(t, cuda):

@@ -1,10 +1,14 @@
 """The host halves of K18 gather_columns and K11 sorted_search on the CPU.
 
-K18 (tidb_tpu_torch/ops/gather.py): the argument block a call signature
-packs (`gather_plan`, pure and cached), where every output lies in the
-one allocation of a call (`out_layout`, `_views`: 16-byte aligned views
-of the right dtype and length), and the checks, which run once per
-signature (`_checked_plan`; CUDA devices named without a card).
+K18 (tidb_tpu_torch/ops/gather.py): the argument block a call packs
+(`_pack`), where every output lies in the one allocation of a call
+(`out_layout`, pure and cached; `_outputs`: 16-byte aligned views of the
+right dtype and shape, or with `owned` tensors that own their storage),
+the checks a call makes, and each mode of the plain versions (the keep
+mask, the count cut, no cut, limb planes under one mask, values without
+a mask, the inverse permutation and the way back to row order through
+it, indices out of range) held exactly to the JAX package's expressions of the sites
+that call it (`jnp.take`, `.at[perm].set`).
 
 K11 (tidb_tpu_torch/ops/join.py): the directory's parameters as a pure
 function (`directory_params`: k and the shift at spans 0 to 2^64 - 2),
@@ -18,7 +22,7 @@ runs of equal codes across bucket edges, a skewed table. The kernels
 themselves are held to their plain versions on the card
 (tests/test_torch_cuda.py)."""
 
-import ctypes
+import struct
 
 import numpy as np
 import pytest
@@ -39,128 +43,294 @@ def jx():
 
 
 # ---------------------------------------------------------------------------
-# K18: plan, layout, checks
+# K18: argument block, layout, checks, and each mode against the JAX
+# package's expressions
 # ---------------------------------------------------------------------------
 
 _WIDTHS = [(4,), (1, 2, 4, 8), (8, 4, 4), tuple([1, 2, 4, 8] * 16),
            tuple([8, 1] * 33)]
+_DTYPES = {1: [torch.bool, torch.uint8], 2: [torch.int16],
+           4: [torch.int32, torch.float32], 8: [torch.int64, torch.float64]}
+
+
+@pytest.fixture(scope="module")
+def jnp():
+    from tidb_tpu.ops.jax_env import jnp as _jnp
+    return _jnp
 
 
 @pytest.mark.parametrize("widths", _WIDTHS)
 @pytest.mark.parametrize("idx64", [False, True])
 def test_k18_plan_is_pure_and_cached(widths, idx64):
-    """One argument block per launch of at most 64 columns, holding the
-    column count, each width, the index width and n_src; every pointer
-    and m zero; equal signatures share one plan."""
-    plan = TG.gather_plan(widths, idx64, 12_345)
-    assert plan is TG.gather_plan(widths, idx64, 12_345)
-    assert len(plan) == -(-len(widths) // TG.MAX_COLS)
-    assert ctypes.sizeof(TG._GatherArgs) == len(plan[0]) == 2344
-    for q, block in enumerate(plan):
-        a = TG._GatherArgs.from_buffer_copy(block)
-        part = widths[q * TG.MAX_COLS:(q + 1) * TG.MAX_COLS]
-        assert a.ncols == len(part) and a.idx64 == int(idx64)
-        assert a.n_src == 12_345 and a.m == 0
-        assert list(a.bytes) == list(part) + [0] * (TG.MAX_COLS - len(part))
-        assert not any(a.src) and not any(a.msrc) and not any(a.dst) and \
-            not any(a.mdst) and a.idx is None and a.n_valid is None
-        a.src[0] = 99
-        a.m = 7
-        assert TG._GatherArgs.from_buffer_copy(block).m == 0
+    """The argument block a call packs (csrc/gather_columns.cu `Header`
+    and `Plane`s, 64-bit words): the index, n_valid and keep pointers (0
+    when absent), m, n, the flags (bit 0 an int64 index), the plane count and the bytes a pass of the kernel may
+    hold, then (src, msrc, dst, mdst, bytes) a plane; the output layout of
+    a call's shape is a pure function, cached."""
+    idx = torch.zeros(7, dtype=torch.int64 if idx64 else torch.int32)
+    nv = torch.tensor(3, dtype=torch.int32)
+    keep = torch.ones(7, dtype=torch.bool)
+    planes = []
+    for c, w in enumerate(widths):
+        planes += (1000 + c, 0 if c % 2 else 2000 + c, 3000 + c,
+                   0 if c % 3 == 2 else 4000 + c, w)
+    k = len(widths)
+    for n_valid, kp in ((None, None), (nv, None), (nv, keep)):
+        block = TG._pack(idx, n_valid, kp, 7, 12_345, planes)
+        assert len(block) == 8 * (TG.HEADER_WORDS + TG.PLANE_WORDS * k)
+        words = struct.unpack(f"<{len(block) // 8}Q", block)
+        assert words[:TG.HEADER_WORDS] == (
+            idx.data_ptr(), 0 if n_valid is None else n_valid.data_ptr(),
+            0 if kp is None else kp.data_ptr(), 7, 12_345,
+            int(idx64), k, TG.PASS_BYTES)
+        assert list(words[TG.HEADER_WORDS:]) == planes
+    kinds = tuple((w, 1 + c % 2, c % 3 != 2) for c, w in enumerate(widths))
+    lay = TG.out_layout(kinds, 12_345)
+    assert TG.out_layout(kinds, 12_345) is lay
+    assert sum(lay.sizes) == lay.total
 
 
 @pytest.mark.parametrize("widths", _WIDTHS)
 @pytest.mark.parametrize("m", [0, 1, 3, 4, 5, 1000, 4099])
 def test_k18_output_views_are_aligned_slices_of_one_buffer(widths, m):
-    dtypes = {1: [torch.bool, torch.uint8], 2: [torch.int16],
-              4: [torch.int32, torch.float32],
-              8: [torch.int64, torch.float64]}
-    dts = tuple(dtypes[w][c % len(dtypes[w])] for c, w in enumerate(widths))
-    vals, masks, total = TG.out_layout(widths, m)
-    assert TG.out_layout(widths, m) == (vals, masks, total)
-    ends = []
-    for off, w in zip(vals + masks, widths + (1,) * len(widths)):
-        assert off % TG.ALIGN == 0
-        ends.append((off, off + m * w))
-    ends.sort()
-    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
-    assert total % TG.ALIGN == 0 and total >= (ends[-1][1] if ends else 0)
-    buf = torch.empty(total, dtype=torch.bool)
-    out = TG._views(buf, widths, dts, m)
-    assert len(out) == len(widths)
-    if m == 0:
-        assert all(v.numel() == 0 and mk.numel() == 0 for v, mk in out)
+    """Every output of a call (values of 1 or 2 limb planes, masks where
+    the column has one) is a view of one allocation at a 16-byte aligned
+    offset, of its dtype and shape, the pointers the kernel is handed are
+    the views' own, and writing one view leaves every other untouched."""
+    dts = [_DTYPES[w][c % len(_DTYPES[w])] for c, w in enumerate(widths)]
+    kinds = tuple((w, 2 if c % 4 == 3 else 1, c % 3 != 2)
+                  for c, w in enumerate(widths))
+    shapes = [(p, m) if p == 2 else (m,) for _w, p, _wm in kinds]
+    lay = TG.out_layout(kinds, m)
+    vals, masks, vptrs, mptrs = TG._outputs(kinds, dts, shapes, m,
+                                            torch.device("cpu"), False)
+    assert len(vals) == len(masks) == len(widths)
+    for (w, p, wm), v, mk, vp, mp, voff, moff, dt, shp in zip(
+            kinds, vals, masks, vptrs, mptrs, lay.voffs, lay.moffs, dts,
+            shapes):
+        assert voff % TG.ALIGN == 0 and v.dtype == dt
+        assert tuple(v.shape) == shp and v.is_contiguous()
+        assert (mk is None) == (not wm)
+        if m:
+            assert (mp == 0) == (not wm)
+            assert v.data_ptr() == vp and \
+                vp - vptrs[0] == voff - lay.voffs[0]
+            if wm:
+                assert moff % TG.ALIGN == 0 and mk.data_ptr() == mp
+                assert mk.dtype == torch.bool and mk.shape == (m,)
+    if not m:
         return
-    base = out[0][0].data_ptr() - vals[0]
-    storage = out[0][0].untyped_storage().data_ptr()
-    for (v, mk), dt, voff, moff in zip(out, dts, vals, masks):
-        assert v.dtype == dt and v.shape == (m,) and v.is_contiguous()
-        assert mk.dtype == torch.bool and mk.shape == (m,) and \
-            mk.is_contiguous()
-        assert v.data_ptr() - base == voff and mk.data_ptr() - base == moff
-        assert v.untyped_storage().data_ptr() == storage
-        assert mk.untyped_storage().data_ptr() == storage
-    # writing one view leaves every other untouched
-    for v, mk in out:
-        v.zero_()
-        mk.fill_(False)
-    out[-1][0].fill_(1)
-    out[0][1].fill_(True)
-    assert all(int(v.to(torch.int64).sum()) == 0 for v, _ in out[:-1])
-    assert all(not bool(mk.any()) for _, mk in out[1:])
+    storage = vals[0].untyped_storage().data_ptr()
+    outs = vals + [mk for mk in masks if mk is not None]
+    assert all(t.untyped_storage().data_ptr() == storage for t in outs)
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.nbytes) for t in outs)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    for t in outs:
+        t.zero_()
+    vals[-1].fill_(1)
+    assert all(int(v.to(torch.int64).sum()) == 0 for v in vals[:-1])
+    assert all(not bool(mk.any()) for mk in masks if mk is not None)
 
 
-def _sig(cols, idx_dtype=torch.int32, dev=torch.device("cuda", 0)):
-    """A call signature as `_signature` builds it, on a named device (no
-    card needed: `_checked_plan` reads the key only)."""
-    return (tuple((dt, torch.Size([n]), dev, True,
-                   None if not masked else
-                   (torch.bool, torch.Size([n]), dev, True))
-                  for dt, n, masked in cols),
-            idx_dtype, 1, dev, True, torch.int32, 1, dev)
+def test_k18_owned_outputs_own_their_storage():
+    """With `owned` (a cache keeps the results: device_cache.aligned_col,
+    the delta merge) every output is its own allocation: its storage's
+    bytes are its own, a wide decimal's planes one (limbs, m) tensor."""
+    kinds = ((8, 3, True), (4, 1, True), (1, 1, False))
+    dts = [torch.int64, torch.int32, torch.bool]
+    shapes = [(3, 1001), (1001,), (1001,)]
+    vals, masks, vptrs, mptrs = TG._outputs(kinds, dts, shapes, 1001,
+                                            torch.device("cpu"), True)
+    assert masks[2] is None and mptrs[2] == 0
+    for t in vals + masks[:2]:
+        assert t.untyped_storage().nbytes() == t.nbytes
+    assert [v.data_ptr() for v in vals] == vptrs
+    assert vals[0].shape == (3, 1001)
 
 
 def test_k18_checks_run_once_per_signature_and_raise_as_before():
+    """The checks a call makes (the build rule: one CUDA device, contiguous
+    1-D columns or (limbs, rows) planes of one length and 1/2/4/8-byte
+    elements, bool masks of that length, a 1-D int32/int64 index, one
+    int32 n_valid, a bool keep of the index's length) raise KernelError
+    with the messages they always had. They run on every call now (the
+    per-signature cache went with the old host path); the index's dtype
+    and shape, n_valid and keep are checked before its device, so each
+    check is reached here with CPU tensors, which the wrappers themselves
+    never send (they take the plain versions)."""
     from tidb_tpu_torch.ops.cuda_kernels import KernelError
-    TG._checked_plan.cache_clear()
-    cols = [(torch.int32, 100, True), (torch.int64, 100, False),
-            (torch.bool, 100, True)]
-    first = TG._checked_plan(_sig(cols))
-    assert TG._checked_plan(_sig(cols)) is first
-    assert TG._checked_plan.cache_info().hits == 1
-    blocks, widths, dtypes = first
-    assert widths == (4, 8, 1) and dtypes == (torch.int32, torch.int64,
-                                              torch.bool)
-    assert blocks is TG.gather_plan((4, 8, 1), False, 100)
-    assert TG._checked_plan(_sig(cols, torch.int64))[0] is \
-        TG.gather_plan((4, 8, 1), True, 100)
-    bad = [
-        (_sig(cols, dev=torch.device("cpu")), "CUDA"),
-        (_sig(cols, torch.int16), "int32/int64"),
-        (_sig([(torch.int32, 100, True), (torch.int32, 99, False)]),
-         "one length"),
-        (_sig([(torch.complex128, 100, False)]), "1/2/4/8-byte"),
-    ]
-    sig = list(_sig(cols))
-    sig[0] = sig[0][:1] + ((torch.int64, torch.Size([100]),
-                            torch.device("cuda", 1), True, None),)
-    bad.append((tuple(sig), "a column on cuda:1"))
-    sig = list(_sig(cols))
-    sig[0] = ((torch.int32, torch.Size([100]), torch.device("cuda", 0),
-               False, None),)
-    bad.append((tuple(sig), "contiguous"))
-    sig = list(_sig(cols))
-    sig[0] = ((torch.int32, torch.Size([100]), torch.device("cuda", 0),
-               True, (torch.uint8, torch.Size([100]),
-                      torch.device("cuda", 0), True)),)
-    bad.append((tuple(sig), "masks must be bool"))
-    sig = list(_sig(cols))
-    sig[5] = torch.int64
-    bad.append((tuple(sig), "n_valid"))
-    for s, what in bad:
+    i32 = torch.zeros(10, dtype=torch.int32)
+    nv = torch.tensor(3, dtype=torch.int32)
+    keep = torch.ones(10, dtype=torch.bool)
+    with pytest.raises(KernelError, match="CUDA"):
+        TG._check_index(i32, nv, keep)
+    for idx, n_valid, kp, what in [
+            (torch.zeros(10, dtype=torch.int16), None, None, "int32/int64"),
+            (torch.zeros((2, 5), dtype=torch.int32), None, None,
+             "int32/int64"),
+            (torch.zeros(20, dtype=torch.int64)[::2], None, None,
+             "int32/int64"),
+            (i32, torch.tensor(3, dtype=torch.int64), None, "n_valid"),
+            (i32, torch.tensor([3, 4], dtype=torch.int32), None, "n_valid"),
+            (i32, None, torch.ones(9, dtype=torch.bool), "keep"),
+            (i32, None, torch.ones(10, dtype=torch.uint8), "keep"),
+            (i32, None, torch.ones(20, dtype=torch.bool)[::2], "keep")]:
         with pytest.raises(KernelError, match=what):
-            TG._checked_plan(s)
+            TG._check_index(idx, n_valid, kp)
+    # the column checks against the device number -1 (the CPU's)
+    assert TG._kind(torch.zeros(100, dtype=torch.int32), -1, None) == (4, 1)
+    assert TG._kind(torch.zeros((3, 100)), -1, 100) == (4, 3)
+    bad = [
+        (lambda: TG._kind(torch.zeros(100, dtype=torch.int32), 0, None),
+         "a column on cpu"),
+        (lambda: TG._kind(torch.zeros(200)[::2], -1, None), "contiguous"),
+        (lambda: TG._kind(torch.zeros(99), -1, 100), "one length"),
+        (lambda: TG._kind(torch.zeros(100, dtype=torch.complex128), -1,
+                          100), "1/2/4/8-byte"),
+        (lambda: TG._kind(torch.zeros((2, 2, 100)), -1, 100),
+         "limbs, rows"),
+        (lambda: TG._check_mask(torch.zeros(100, dtype=torch.uint8), -1,
+                                100), "masks must be"),
+        (lambda: TG._check_mask(torch.zeros(99, dtype=torch.bool), -1,
+                                100), "masks must be"),
+    ]
+    for call, what in bad:
+        with pytest.raises(KernelError, match=what):
+            call()
 
+
+def _cols(rng, n, specs):
+    """Seed-made numpy columns: (dtype, planes, masked) each → [(v, m)]."""
+    out = []
+    for dt, planes, masked in specs:
+        shape = (planes, n) if planes > 1 else (n,)
+        if dt == np.bool_:
+            v = rng.random(shape) < 0.5
+        elif np.issubdtype(dt, np.floating):
+            v = rng.normal(size=shape).astype(dt)
+        else:
+            v = rng.integers(-1000, 1000, shape).astype(dt)
+        out.append((v, (rng.random(n) < 0.7) if masked else None))
+    return out
+
+
+_SPECS = [(np.int64, 1, True), (np.int32, 1, False), (np.bool_, 1, True),
+          (np.float64, 1, True), (np.int16, 1, True), (np.int64, 3, True)]
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("idx_dt", [np.int32, np.int64])
+@pytest.mark.parametrize("cut", ["keep", "n_valid", "both", "none"])
+def test_k18_gather_modes_match_jax_expressions(jnp, idx_dt, cut):
+    """The plain gather with a per-slot keep mask (the join finishes'
+    `jnp.take(m, idx) & keep`), a count cut (`& (iota < n)`), both, or
+    neither (LIMIT, TopN, Sort, finalize: uncut), over 1-D columns with
+    and without masks and a wide decimal's three limb planes under one
+    mask (`jnp.take(v, idx, axis=-1)`), exactly."""
+    rng = np.random.default_rng(21)
+    n, m = 3000, 2500
+    cols = _cols(rng, n, _SPECS)
+    idx = rng.integers(0, n, m).astype(idx_dt)
+    keep = rng.random(m) < 0.6
+    nv = 1700
+    got = TG.gather_columns(
+        [(_t(v), _t(mk)) for v, mk in cols], _t(idx),
+        torch.tensor(nv, dtype=torch.int32) if cut in ("n_valid", "both")
+        else None,
+        _t(keep) if cut in ("keep", "both") else None)
+    cutm = np.ones(m, dtype=bool)
+    if cut in ("n_valid", "both"):
+        cutm &= np.arange(m) < nv
+    if cut in ("keep", "both"):
+        cutm &= keep
+    for (v, mk), (gv, gm) in zip(cols, got):
+        wv = np.asarray(jnp.take(jnp.asarray(v), jnp.asarray(idx), axis=-1))
+        wm = (np.asarray(jnp.take(jnp.asarray(mk), jnp.asarray(idx)))
+              if mk is not None else np.ones(m, dtype=bool)) & cutm
+        np.testing.assert_array_equal(gv.numpy(), wv)
+        np.testing.assert_array_equal(gm.numpy(), wm)
+        assert gv.dtype == torch.from_numpy(v).dtype and \
+            gv.shape == wv.shape
+
+
+def test_k18_values_carry_no_mask(jnp):
+    """`values` (emit_finalize's aggregate states) come back as arrays
+    alone, gathered like the columns of the same call."""
+    rng = np.random.default_rng(22)
+    keys = _cols(rng, 500, [(np.int64, 1, True)])
+    states = [rng.integers(0, 99, 500), rng.normal(size=500),
+              rng.random(500) < 0.5]
+    idx = rng.permutation(500)[:123].astype(np.int64)
+    (kv, km), = keys
+    (gv, gm), = TG.gather([(_t(kv), _t(km))], _t(idx))[0]
+    _cols_out, vals = TG.gather([(_t(kv), _t(km))], _t(idx),
+                                values=[_t(a) for a in states])
+    np.testing.assert_array_equal(gv.numpy(), kv[idx])
+    np.testing.assert_array_equal(gm.numpy(), km[idx])
+    assert len(vals) == len(states)
+    for a, g in zip(states, vals):
+        np.testing.assert_array_equal(
+            g.numpy(), np.asarray(jnp.take(jnp.asarray(a), idx)))
+
+
+@pytest.mark.parametrize("idx_dt", [np.int32, np.int64])
+@pytest.mark.parametrize("live_share", [0.0, 0.4, 0.8, 1.0])
+def test_k18_way_back_matches_jax_at_set(jnp, idx_dt, live_share):
+    """The window's way back to row order (`out.at[perm].set(v)` and
+    `.at[perm].set(m & (iota < n_live))`, sort_perm listing the live rows
+    first): one gather through the layout's inverse permutation with
+    `live` as the keep mask, over 1-D columns with and without masks and
+    a wide decimal's planes under one mask, exactly."""
+    rng = np.random.default_rng(23)
+    n = 3000
+    cols = _cols(rng, n, _SPECS)
+    live = rng.random(n) < live_share
+    perm = np.concatenate([rng.permutation(np.flatnonzero(live)),
+                           np.flatnonzero(~live)]).astype(idx_dt)
+    n_live = int(live.sum())
+    inv = TG.inverse_permutation(_t(perm), n)
+    got = TG.gather_columns([(_t(v), _t(mk)) for v, mk in cols], inv,
+                            keep=_t(live))
+    cut = np.arange(n) < n_live
+    for (v, mk), (gv, gm) in zip(cols, got):
+        ones = np.ones(n, dtype=bool)
+        wv = np.asarray(jnp.zeros(v.shape, v.dtype).at[..., perm].set(v))
+        wm = np.asarray(jnp.zeros(n, bool).at[perm].set(
+            (mk if mk is not None else ones) & cut))
+        np.testing.assert_array_equal(gv.numpy(), wv)
+        np.testing.assert_array_equal(gm.numpy(), wm)
+
+
+@pytest.mark.parametrize("idx_dt", [np.int32, np.int64])
+def test_k18_inverse_permutation_matches_jax(jnp, idx_dt):
+    """The inverse permutation, `jnp.zeros(n).at[perm].set(iota)`, int32,
+    exactly (n = 0, 1, and rows that are not a multiple of the kernel's
+    four slots a thread)."""
+    rng = np.random.default_rng(24)
+    for n in (0, 1, 5, 2048, 2051):
+        perm = rng.permutation(n).astype(idx_dt)
+        inv = TG.inverse_permutation(_t(perm), n)
+        assert inv.dtype == torch.int32 and inv.shape == (n,)
+        np.testing.assert_array_equal(
+            inv.numpy(), np.asarray(jnp.zeros(n, jnp.int32).at[perm].set(
+                jnp.arange(n, dtype=jnp.int32))))
+
+
+def test_k18_out_of_range_rule():
+    """A gather index outside [0, rows) gives a zero value and a false
+    mask, an index of the inverse's permutation outside [0, n) writes
+    nothing, in the plain versions as on the card."""
+    v = torch.arange(10, dtype=torch.int64) + 100
+    mk = torch.ones(10, dtype=torch.bool)
+    idx = torch.tensor([0, -1, 9, 10, 3], dtype=torch.int32)
+    (gv, gm), = TG.gather_columns([(v, mk)], idx)
+    assert gv.tolist() == [100, 0, 109, 0, 103]
+    assert gm.tolist() == [True, False, True, False, True]
+    inv = TG.inverse_permutation(torch.tensor([4, -2, 0, 77, 2]), 5)
+    assert [inv[4].item(), inv[0].item(), inv[2].item()] == [0, 2, 4]
 
 # ---------------------------------------------------------------------------
 # K11: the directory's parameters and a model of its search

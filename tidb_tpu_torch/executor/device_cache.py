@@ -1246,13 +1246,15 @@ def get_aligned(ctx, key, tds: Dict[int, object], fact_slabs,
 
 def aligned_col(ent: AlignedJoin, build_ent: CachedTable, col: int):
     """Ensure build column `col` is materialized in the fact row space;
-    → per-fact-slab [(v, m)] (wide decimals keep their limb-plane axis)."""
+    → per-fact-slab [(v, m)] (wide decimals keep their limb-plane axis):
+    one K18 call a fact slab, `bm[midx] & matched`, into tensors that own
+    their storage, since the entry caches them."""
+    from tidb_tpu_torch.ops.gather import gather_slab
     cached = ent.cols.get(col)
     if cached is not None:
         return cached
     bv, bm = _build_cat(build_ent, col)
-    slabs = [((bv[..., midx] if bv.dim() > 1 else bv[midx]),
-              bm[midx] & matched)
+    slabs = [gather_slab(bv, bm, midx, keep=matched)
              for midx, matched in zip(ent.midx, ent.matched)]
     with _LOCK:
         # first-commit-wins against a concurrent identical gather

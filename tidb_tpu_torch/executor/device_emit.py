@@ -97,6 +97,7 @@ def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
       the join-tree programs reach the LIMIT branch (the chain gate admits
       no LIMIT root), as in the JAX package."""
     from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops.gather import gather_columns
     from tidb_tpu_torch.planner.physical import (PhysHashAgg, PhysLimit,
                                                  PhysSort, PhysTopN,
                                                  PhysWindow)
@@ -111,23 +112,28 @@ def emit_root(ctx: EvalContext, live, root, aggs=None, group_cap: int = 0,
         k = min(root.count + root.offset, slab_cap or n)
         idx = F.partition_perm(live)[:k]
         n_out = torch.clamp(live.sum().to(torch.int32), max=k)
-        out_cols = [ctx.column(i) for i in range(len(root.schema))]
-        return {"cols": [(v[idx], m[idx]) for v, m in out_cols],
+        return {"cols": gather_columns(_out_cols(ctx, root), idx),
                 "n_out": n_out}
     if isinstance(root, (PhysTopN, PhysSort)):
         keys = [e.eval(ctx) for e in root.by]
-        out_cols = [ctx.column(i) for i in range(len(root.schema))]
         if isinstance(root, PhysTopN):
             k = min(root.count + root.offset, slab_cap or live.shape[0])
             idx, n_out = emit_topk(keys, root.descs, live, k)
         else:
             idx, n_out = emit_sort(keys, root.descs, live)
-        return {"cols": [(v[idx], m[idx]) for v, m in out_cols],
+        return {"cols": gather_columns(_out_cols(ctx, root), idx),
                 "n_out": n_out}
     if isinstance(root, PhysWindow):
         return emit_window(ctx, live, root)
     out_cols = [ctx.column(i) for i in range(len(root.schema))]
     return {"cols": list(out_cols), "live": live}
+
+
+def _out_cols(ctx: EvalContext, root):
+    """A row root's output columns as contiguous (value, mask) pairs, as
+    K18 takes them."""
+    return [tuple(t.contiguous() for t in ctx.column(i))
+            for i in range(len(root.schema))]
 
 
 def emit_batched(prog, b: int, cols, n_rows: int, stacked_preps):
@@ -182,14 +188,14 @@ def emit_merge(root, aggs: List[AggFunc], group_cap: int, key_cols,
     identities, scatter-merge states (AggFunc.merge is the same segment
     op as update — SURVEY A.4)."""
     from tidb_tpu_torch.ops import factorize as F
+    from tidb_tpu_torch.ops.gather import gather_columns
     xp = _xp_of(slot_live)
     cap = group_cap
     dev = slot_live.device
     if root.group_exprs:
         gids, n_final, rep = F.factorize(key_cols, slot_live, cap)
         gids = torch.where(slot_live, gids, torch.full_like(gids, cap))
-        in_range = torch.arange(cap, device=dev) < n_final
-        key_out = [(v[rep], m[rep] & in_range) for v, m in key_cols]
+        key_out = gather_columns(key_cols, rep, n_final)
     else:
         gids = torch.where(slot_live,
                            torch.zeros_like(slot_live, dtype=torch.int32),
@@ -217,6 +223,7 @@ def emit_finalize(root, order_root, aggs: List[AggFunc], group_cap: int,
     → {keys, states, n_groups, n_out}: keys/states gathered in output
     order (truncated to k for TopN); n_groups is the TRUE merged group
     count for the caller's capacity-ladder validation."""
+    from tidb_tpu_torch.ops.gather import gather
     from tidb_tpu_torch.planner.physical import PhysTopN
     xp = _xp_of(slot_live)
     merged = emit_merge(root, aggs, group_cap, key_cols, states, slot_live)
@@ -237,8 +244,11 @@ def emit_finalize(root, order_root, aggs: List[AggFunc], group_cap: int,
         idx, n_out = emit_topk(okeys, order_root.descs, live, k)
     else:
         idx, n_out = emit_sort(okeys, order_root.descs, live)
-    keys_o = [(v[idx], m[idx]) for v, m in merged["keys"]]
-    states_o = [tuple(a[idx] for a in st) for st in merged["states"]]
+    # one K18 call: the keys with their masks, the states without
+    flat = [a for st in merged["states"] for a in st]
+    keys_o, flat_o = gather(merged["keys"], idx, values=flat)
+    it = iter(flat_o)
+    states_o = [tuple(next(it) for _a in st) for st in merged["states"]]
     return {"keys": keys_o, "states": states_o,
             "n_groups": merged["n_groups"], "n_out": n_out}
 
@@ -301,7 +311,7 @@ def emit_agg(ctx: EvalContext, live, root, aggs: List[AggFunc],
         gids = torch.where(live, gids, torch.full_like(gids, cap))
         slot_live = torch.arange(cap, dtype=torch.int32,
                                  device=dev) < n_groups
-        key_out = [(v[rep], m[rep] & slot_live) for v, m in keys]
+        key_out = gather_columns(keys, rep, n_groups)
     else:
         keys = []
         gids = torch.where(live, torch.zeros(n, dtype=torch.int32,
@@ -656,13 +666,16 @@ def emit_window_cols(ctx: EvalContext, live, root, in_cols):
     a filtered slab's dead rows never join a live partition; sort_perm
     lists the live rows first, so `n_live` marks that change) and the
     positions, kept for every
-    window function of the spec; each value scatters back to row order
-    through the permutation (a permutation: no two rows collide)."""
+    window function of the spec. Every value of a layout goes back to row
+    order in one K18 gather through the layout's inverse permutation (one
+    K18 scatter of the slot numbers), the masks AND-ed with `live`."""
     from tidb_tpu_torch.ops import factorize as F
     from tidb_tpu_torch.ops import window as W
+    from tidb_tpu_torch.ops.gather import gather_columns, inverse_permutation
     n = live.shape[0]
     out_cols = list(in_cols)
     layouts = {}
+    results = {}            # layout key → [(output position, (v, m))]
     for d in root.wdescs:
         lkey = repr((d.partition, d.order, d.descs))
         layout = layouts.get(lkey)
@@ -674,32 +687,41 @@ def emit_window_cols(ctx: EvalContext, live, root, in_cols):
                                        live)
             pstart, peerstart, pos = W.window_bounds(
                 perm, live, pkeys + okeys, len(pkeys), n_live)
-            layout = (perm, pstart, peerstart, pos)
+            layout = (perm, n_live, pstart, peerstart, pos)
             layouts[lkey] = layout
-        perm, pstart, peerstart, pos = layout
-        v, m = _window_value(ctx, live, d, n, perm, pstart, peerstart, pos)
-        back_v = torch.empty(n, dtype=v.dtype, device=v.device)
-        back_v[perm] = v
-        back_m = torch.empty(n, dtype=torch.bool, device=m.device)
-        back_m[perm] = m
-        out_cols.append((back_v, back_m & live))
+        v, m = _window_value(ctx, live, d, n, *layout)
+        results.setdefault(lkey, []).append(
+            (len(out_cols), (v.contiguous(), m.contiguous())))
+        out_cols.append(None)
+    for lkey, got in results.items():
+        inv = inverse_permutation(layouts[lkey][0], n)
+        back = gather_columns([c for _at, c in got], inv, keep=live)
+        for (at, _c), col in zip(got, back):
+            out_cols[at] = col
     return out_cols
 
 
-def _window_value(ctx, live, d, n, perm, pstart, peerstart, pos):
-    """One window function over the sorted layout: its argument gathered
-    through `perm` (NULLs and dead rows masked), then ops/window.compute."""
+def _window_value(ctx, live, d, n, perm, n_live, pstart, peerstart, pos):
+    """One window function over the sorted layout: its argument (and a
+    RANGE frame's key) gathered through `perm` in one K18 call, NULLs and
+    dead rows masked (the slots past n_live are the dead rows), then
+    ops/window.compute."""
     from tidb_tpu_torch.ops import window as W
+    from tidb_tpu_torch.ops.gather import gather_columns
     from tidb_tpu_torch.types import TypeKind
     dev = live.device
     vals = valid = fill = None
+    frame = getattr(d, "frame", None)
+    ranged = frame is not None and frame[0] == "range"
+    cols = [_rows(d.args[0].eval(ctx), n)] if d.args else []
+    if ranged:
+        cols.append(_rows(d.order[0].eval(ctx), n))
+    got = gather_columns(cols, perm, n_live) if cols else []
     if d.args:
-        v, m = d.args[0].eval(ctx)
-        vals = v[perm]
-        valid = (m & live)[perm]
+        vals, valid = got[0]
     elif d.name not in ("row_number", "rank", "dense_rank"):
         vals = torch.zeros(n, dtype=torch.int64, device=dev)   # COUNT(*)
-        valid = live[perm]
+        valid = torch.arange(n, device=dev) < n_live
     if d.name in ("lag", "lead"):
         if d.default is not None and d.default.value is not None:
             fv = d.args[0].ftype.encode_value(d.default.value)
@@ -711,11 +733,7 @@ def _window_value(ctx, live, d, n, perm, pstart, peerstart, pos):
     if d.name == "avg" and d.args and \
             d.args[0].ftype.kind is TypeKind.DECIMAL:
         vals = vals.to(torch.float64) / d.args[0].ftype.decimal_multiplier
-    frame = getattr(d, "frame", None)
-    range_key = None
-    if frame is not None and frame[0] == "range":
-        kv, km = d.order[0].eval(ctx)
-        range_key = (kv[perm], (km & live)[perm], bool(d.descs[0]))
+    range_key = (got[-1] + (bool(d.descs[0]),)) if ranged else None
     # K14's `sorted_key`: the layout sorts by the partition keys, then by
     # the ORDER BY key in its direction with NULLs first (ASC) or last
     # (DESC), with the dead rows last in partitions of their own; with

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from tidb_tpu_torch.executor.tree_fragment import (JOIN_OUT_CAP, TreeProgram,
-                                                   _scans, _take, _TreeRun,
+                                                   _scans, _TreeRun,
                                                    _walk_nodes,
                                                    dictionary_flows,
                                                    escalate_join,
@@ -440,6 +440,7 @@ class DistTreeProgram(TreeProgram):
         largest true group count of any partial or owned merge)."""
         from tidb_tpu_torch.ops import factorize as F
         from tidb_tpu_torch.ops import partition as P
+        from tidb_tpu_torch.ops.gather import gather_columns
         root = self.plan
         cap = self.group_cap
         nd = self.n_shards
@@ -464,8 +465,7 @@ class DistTreeProgram(TreeProgram):
                 fgids, n_own, frep = F.factorize(gkeys, own, cap)
                 fgids = torch.where(own, fgids, torch.full_like(fgids, cap))
                 out_live = iota < n_own
-                f_keys = [(_take(v, frep), m[frep] & out_live)
-                          for v, m in gkeys]
+                f_keys = gather_columns(gkeys, frep, n_own)
                 needs.append(n_own.to(torch.int64).reshape(()))
             else:
                 own = gslot if r == 0 else torch.zeros_like(gslot)
@@ -926,7 +926,7 @@ class StagedDistExchange:
 
     def _attempt_stage1(self, r: int, dev, progs: Dict, info: dict,
                         bcap: int, site: str):
-        from tidb_tpu_torch.executor.fragment import _sync
+        from tidb_tpu_torch.executor.fragment import _sync, compact_rows
         from tidb_tpu_torch.util import failpoint, timeline
         from tidb_tpu_torch.util.phases import to_host, tree_nbytes
         ph = self.ctx.phases
@@ -974,10 +974,10 @@ class StagedDistExchange:
                           "cap": need}
                 else:
                     # the rank's filtered rows, compacted on the device
-                    idx = torch.nonzero(out["live"]).reshape(-1)
-                    got = to_host({"bufs": {i: (v[idx], m[idx])
-                                            for i, (v, m)
-                                            in out["bufs"].items()}})
+                    rows, _offsets = compact_rows(
+                        list(out["bufs"].values()),
+                        out["live"].reshape(1, -1))
+                    got = to_host({"bufs": dict(zip(out["bufs"], rows))})
                     ck = {"rows": got["bufs"]}
             ph.add_d2h(tree_nbytes(got) + 4)
             if timeline.ENABLED:
@@ -1101,7 +1101,7 @@ class StagedDistExchange:
     # -- stage 3: per-rank receive/probe/dedup programs ----------------------
 
     def _attempt_stage3(self, r: int, dev, progs: Dict, site: str):
-        from tidb_tpu_torch.executor.fragment import (_sync,
+        from tidb_tpu_torch.executor.fragment import (_sync, compact_rows,
                                                       get_tree_program)
         from tidb_tpu_torch.util import failpoint, timeline
         from tidb_tpu_torch.util.phases import to_host, tree_nbytes
@@ -1150,9 +1150,8 @@ class StagedDistExchange:
                           "states": got["states"]}
                 else:
                     # the rank's live rows, compacted on the device
-                    idx = torch.nonzero(out["live"]).reshape(-1)
-                    got = to_host({"cols": [(v[idx], m[idx])
-                                            for v, m in out["cols"]]})
+                    got = to_host({"cols": compact_rows(
+                        out["cols"], out["live"].reshape(1, -1))[0]})
                     ck = got
                     ngt = 0
             ph.add_d2h(tree_nbytes(got) + tree_nbytes(flags) + 4)

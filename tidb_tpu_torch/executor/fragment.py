@@ -3522,10 +3522,11 @@ def _positional_dict(node: PhysicalPlan, out_idx: int, dicts
 
 def _compact_decode(ph, cols_vm, live, ftypes, dicts_root) -> Chunk:
     """Compact padded (values, validity) device columns by a live mask ON
-    THE DEVICE, fetch only the surviving rows, and decode them into a host
-    Chunk (the row-root result path of the join-tree programs)."""
-    idx = torch.nonzero(live).reshape(-1)
-    host = ph.fetch([(v[idx], m[idx]) for v, m in cols_vm])
+    THE DEVICE (K22 + K18, `compact_rows`), fetch only the surviving rows,
+    and decode them into a host Chunk (the row-root result path of the
+    join-tree programs)."""
+    gathered, _offsets = compact_rows(cols_vm, live.reshape(1, -1))
+    host = ph.fetch(gathered)
     with ph.phase("decode"):
         return Chunk([_decode_col(ft, np.asarray(v), np.asarray(m),
                                   dicts_root.get(ci))

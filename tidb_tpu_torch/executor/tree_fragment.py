@@ -768,11 +768,6 @@ class TreeProgram:
         return run.finish(cols, live)
 
 
-def _take(v, idx):
-    """Gather rows (the last axis: wide-decimal limb planes keep theirs)."""
-    return v[..., idx] if v.dim() > 1 else v[idx]
-
-
 class _TreeRun:
     """The per-call state of one TreeProgram run."""
 
@@ -985,8 +980,13 @@ class _TreeRun:
 
     @staticmethod
     def _gather(cols, idx, keep):
-        return [None if c is None else (_take(c[0], idx), c[1][idx] & keep)
-                for c in cols]
+        """Every present column's rows through `idx`, the masks AND-ed with
+        `keep`: one K18 call (wide-decimal limb planes keep their axis);
+        `None` entries keep their place."""
+        from tidb_tpu_torch.ops.gather import gather_columns
+        got = iter(gather_columns([c for c in cols if c is not None], idx,
+                                  keep=keep))
+        return [None if c is None else next(got) for c in cols]
 
     def _finish_join_unique(self, node, bcols, pcols, plive, match_idx,
                             matched):

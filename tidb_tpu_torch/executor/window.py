@@ -109,6 +109,7 @@ class WindowExec(MaterializingExec):
         through ops/window.compute. → None (before any device work) when
         the argument is an object array: such a spec runs on the host."""
         import torch
+        from tidb_tpu_torch.ops.gather import gather_columns
         from tidb_tpu_torch.ops.xp import TorchXP
         arg = None
         if d.args:
@@ -127,11 +128,19 @@ class WindowExec(MaterializingExec):
             if layout is None:
                 layout = _device_layout(inp, n, d, dev)
                 sort_cache["dev|" + key] = layout
-            sidx, pstart, peerstart, pos = layout
+            sidx, pstart, peerstart, pos, inv = layout
             vals = valid = fill = None
+            frame = getattr(d, "frame", None)
+            ranged = frame is not None and frame[0] == "range"
+            # the argument and a RANGE frame's key: one K18 call
+            cols = [(up(arg[0]), up(arg[1]))] if arg is not None else []
+            if ranged:
+                kv, km = d.order[0].eval(ctx)
+                cols.append((up(np.asarray(kv)),
+                             up(np.asarray(km, dtype=bool))))
+            got = gather_columns(cols, sidx) if cols else []
             if arg is not None:
-                vals = up(arg[0])[sidx]
-                valid = up(arg[1])[sidx]
+                vals, valid = got[0]
             elif d.name not in ("row_number", "rank", "dense_rank"):
                 vals = torch.zeros(n, dtype=torch.int64, device=dev)
                 valid = torch.ones(n, dtype=torch.bool, device=dev)
@@ -147,13 +156,8 @@ class WindowExec(MaterializingExec):
                     d.args[0].ftype.kind is TypeKind.DECIMAL:
                 vals = vals.to(torch.float64) / \
                     d.args[0].ftype.decimal_multiplier
-            frame = getattr(d, "frame", None)
-            range_key = None
-            if frame is not None and frame[0] == "range":
-                kv, km = d.order[0].eval(ctx)
-                range_key = (up(np.asarray(kv))[sidx],
-                             up(np.asarray(km, dtype=bool))[sidx],
-                             bool(d.descs[0]))
+            range_key = (got[-1] + (bool(d.descs[0]),)) if ranged \
+                else None
             # K14's `sorted_key`: the layout sorts by the partition codes,
             # then by the ORDER BY key's rank codes (executor/sort.rank_keys:
             # equal values share a code, NULLs first ASC and last DESC);
@@ -162,10 +166,8 @@ class WindowExec(MaterializingExec):
                              peerstart, bool(d.order), d.offset, fill,
                              frame=frame, range_key=range_key,
                              positions=pos, sorted_key=len(d.order) == 1)
-            back_v = torch.empty(n, dtype=v.dtype, device=dev)
-            back_v[sidx] = v
-            back_m = torch.empty(n, dtype=torch.bool, device=dev)
-            back_m[sidx] = m
+            (back_v, back_m), = gather_columns(
+                [(v.contiguous(), m.contiguous())], inv)
             back_v = back_v.cpu().numpy()
             back_m = back_m.cpu().numpy()
         if back_v.dtype != d.ftype.np_dtype and not d.ftype.is_varlen:
@@ -210,11 +212,12 @@ class WindowExec(MaterializingExec):
 
 
 def _device_layout(chunk: Chunk, n: int, d, dev):
-    """→ (sidx int64, pstart, peerstart, K12 positions) on `dev` for one
-    window spec: the rank codes of _sorted_layout, sorted by
+    """→ (sidx int64, pstart, peerstart, K12 positions, inv) on `dev` for
+    one window spec: the rank codes of _sorted_layout, sorted by
     ops/factorize.lexsort (K9 + K8; each code bounds itself, so no
     min/max read-back) with K12's flags and positions over them (its
-    `window_bounds`)."""
+    `window_bounds`), and sidx's inverse (K18), through which every
+    result of the layout goes back to row order."""
     import torch
     from tidb_tpu_torch.executor.sort import rank_keys
     from tidb_tpu_torch.ops.factorize import SortOp, lexsort
@@ -226,8 +229,10 @@ def _device_layout(chunk: Chunk, n: int, d, dev):
                         zip(keys, pkeys + okeys)]).to(torch.int64)
     else:
         sidx = torch.arange(n, dtype=torch.int64, device=dev)
+    from tidb_tpu_torch.ops.gather import inverse_permutation
     return (sidx,) + W.window_bounds(sidx, None, [(t, None) for t in keys],
-                                     len(pkeys))
+                                     len(pkeys)) + \
+        (inverse_permutation(sidx, n),)
 
 
 def _sorted_layout(chunk: Chunk, n: int, d):

@@ -454,7 +454,9 @@ def _cmp(op):
 
 
 def _cmp_string_device(op, func: ScalarFunc, ctx: EvalContext):
-    """String vs constant on device: integer rank comparison on codes."""
+    """String vs constant on device: integer rank comparison on codes, one
+    elementwise launch (`present`, a host bool, folds eq and ne on the
+    host)."""
     xp = ctx.xp
     prep = ctx.prepared.get(id(func))
     assert prep is not None, "string comparison missing host preparation"
@@ -465,10 +467,12 @@ def _cmp_string_device(op, func: ScalarFunc, ctx: EvalContext):
     o = op
     if flipped:  # const OP col  ≡  col flip(OP) const
         o = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}.get(op, op)
-    if o == "eq":
-        res = (codes == left_rank) & present
+    if o in ("eq", "ne") and not present:
+        res = xp.full(codes.shape, o == "ne", dtype=bool)
+    elif o == "eq":
+        res = codes == left_rank
     elif o == "ne":
-        res = ~((codes == left_rank) & present)
+        res = codes != left_rank
     elif o == "lt":
         res = codes < left_rank
     elif o == "le":
@@ -1312,12 +1316,12 @@ def _in(func, ctx):
     arg = func.args[0]
     v, m = arg.eval(ctx)
     if ctx.on_device and arg.ftype.kind.is_string:
-        codeset = ctx.prepared.get(id(func))
-        assert codeset is not None
-        hit = xp.zeros(v.shape[0], dtype=bool)
-        for c in codeset:
-            hit = hit | (v == c)
-        return hit, m
+        # one K21 gather of the prepared bool table over the dictionary:
+        # a code outside it (and any code of an empty one) is not listed
+        from tidb_tpu_torch.ops.dict_lut import dict_lut
+        table = ctx.prepared.get(id(func))
+        assert table is not None
+        return dict_lut(table, v, "fill", fill=0), m
     # fast path: integer probe + constant items → ONE sorted-table binary
     # search instead of per-item compares (IN-subqueries expand to
     # thousands of constants). Non-integral items can never equal an
@@ -1389,15 +1393,15 @@ def _prepare_in(func: ScalarFunc, dictionaries):
     if col.ftype.is_ci:
         from tidb_tpu_torch.types import fold_ci_array
         d = fold_ci_array(np.asarray(d, dtype=object))
-    codes = []
+    table = np.zeros(len(d), dtype=bool)
     for cexpr in func.args[1:]:
         s = str(cexpr.value)
         if col.ftype.is_ci:
             s = s.upper()
         left = int(np.searchsorted(d, s, side="left"))
         if left < len(d) and d[left] == s:
-            codes.append(np.int32(left))
-    return codes if codes else [np.int32(-1)]
+            table[left] = True
+    return table
 
 
 # ---------------------------------------------------------------------------

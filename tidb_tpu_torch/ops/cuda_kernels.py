@@ -110,7 +110,8 @@ _SIGNATURES = {
     "tt_rollup_tile": [_I, _P, _P, _P, _P, _L, _I, _P],
     "tt_rollup_levels": [_I, _P, _P, _L, _P, _P],
     "tt_gather_columns": [_P, _P],
-    "tt_gather_args_bytes": [],
+    "tt_gather_args_bytes": [_I],
+    "tt_inverse_permutation": [_P, _I, _L, _L, _P, _P],
     "tt_delta_perm": [_P, _L, _P, _P, _P],
     "tt_delta_repack": [_P, _L, _I, _P, _L, _L, _P, _L, _P],
     "tt_civil_part": [_P, _P, _L, _I, _P],

@@ -35,7 +35,14 @@ join, phase 22's masks):
   * columns: K18 at phase 14's shape (D2's pair output: the two key
     codes with masks and l_orderkey of the 2,097,152-row lineitem slab
     with the most (group, l_orderkey) pairs, through rep[:pair_cap])
-    beside five index_select;
+    beside five index_select, with its host time a call at 1-4 columns;
+    where the checkout's K18 takes a keep mask and makes inverses, at the
+    moved sites' shapes beside the torch indexing they replace: the join
+    finish (4 int64 columns with masks of a 2,097,152-row build through
+    an int32 index of 8,388,608 slots with a keep mask, and 1 column),
+    LIMIT's 8 columns through 100 slots, and the window scatter back of
+    one int64 over 6,001,215 rows (the inverse permutation and the
+    gather through it);
   * search: K11 in unique mode at phase 10's shape (2,097,152 distinct
     sorted codes in [0, 2^40), 8,388,608 probes, 80% of them build codes)
     and on the skewed table (2,097,151 codes in [0, 2^21) and one at
@@ -796,10 +803,12 @@ def _pair_output(dev):
 
 def _columns_host_steps(cols, idx, n_valid, reps: int = 50) -> dict:
     """K18's host time a call (mean µs, the card not waited for): the
-    wrapper call, and for a checkout with the cached plan its steps
-    (signature and plan lookup, the one allocation, the argument block's
-    pointers, the ctypes call and launch, the output views made while the
-    kernel runs)."""
+    wrapper call, and its steps — for a checkout with one packed argument
+    block a call (the checks and output kinds, the outputs and their
+    views, the block's `struct.pack`, the ctypes call and launch), for one
+    with the cached plan (signature and plan lookup, the one allocation,
+    the argument block's pointers, the ctypes call and launch, the output
+    views made while the kernel runs)."""
     import torch
     from tidb_tpu_torch.ops import cuda_kernels as ck
     from tidb_tpu_torch.ops import gather as G
@@ -807,9 +816,38 @@ def _columns_host_steps(cols, idx, n_valid, reps: int = 50) -> dict:
     tick = _ticker(steps)
     torch.cuda.synchronize()
     out = {}
-    if hasattr(G, "_views"):
+    m = idx.shape[0]
+    if hasattr(G, "_pack"):
+        dev = idx.get_device()
+        for _ in range(reps):
+            t = time.perf_counter()
+            G._check_index(idx, n_valid, None)
+            kinds, dtypes, shapes = [], [], []
+            for v, mk in cols:
+                w, planes = G._kind(v, dev, cols[0][0].shape[-1])
+                if mk is not None:
+                    G._check_mask(mk, dev, v.shape[-1])
+                kinds.append((w, planes, True))
+                dtypes.append(v.dtype)
+                shapes.append((m,))
+            t = tick("checks and kinds", t)
+            _vals, _masks, vptrs, mptrs = G._outputs(
+                tuple(kinds), dtypes, shapes, m, idx.device, False)
+            t = tick("outputs and views", t)
+            planes = []
+            for (v, mk), (w, _p, _wm), vp, mp in zip(cols, kinds, vptrs,
+                                                    mptrs):
+                planes += (v.data_ptr(), 0 if mk is None else mk.data_ptr(),
+                           vp, mp, w)
+            block = G._pack(idx, n_valid, None, m, cols[0][0].shape[-1],
+                            planes)
+            t = tick("argument block", t)
+            G._call(block, len(cols), dev)
+            tick("ctypes call and launch", t)
+        torch.cuda.synchronize()
+        out = _mean_us(steps, reps)
+    elif hasattr(G, "_views"):
         lib = ck.library("gather_columns")
-        m = idx.shape[0]
         for _ in range(reps):
             t = time.perf_counter()
             blocks, widths, dtypes = G._checked_plan(
@@ -846,7 +884,133 @@ def _columns_host_steps(cols, idx, n_valid, reps: int = 50) -> dict:
     return out
 
 
+def _host_us(fn, reps: int = 200) -> float:
+    """Median µs of host time a call (the card not waited for; synchronized
+    every 20 calls so the launch queue never fills)."""
+    import statistics
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 20 == 19:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def _output_ways(dev) -> dict:
+    """Median host µs of making a call's k (value, mask) outputs, int64
+    values of 2,097,152 slots, k = 1..4, four ways: one allocation cut by
+    `split_with_sizes` (values viewed as int64), one allocation cut by
+    Python slices, one `torch.empty` an output, and one allocation a
+    dtype (values, masks) with `unbind` rows."""
+    import torch
+    m = 1 << 21
+    out = {}
+    for k in (1, 2, 3, 4):
+        sizes = [8 * m] * k + [m] * k
+
+        def split():
+            b = torch.empty(9 * m * k, dtype=torch.bool, device=dev)
+            p = b.split_with_sizes(sizes)
+            return [p[i].view(torch.int64) for i in range(k)], p[k:]
+
+        def slices():
+            b = torch.empty(9 * m * k, dtype=torch.bool, device=dev)
+            return ([b[8 * m * i:8 * m * (i + 1)].view(torch.int64)
+                     for i in range(k)],
+                    [b[8 * m * k + m * i:8 * m * k + m * (i + 1)]
+                     for i in range(k)])
+
+        def empties():
+            return ([torch.empty(m, dtype=torch.int64, device=dev)
+                     for _ in range(k)],
+                    [torch.empty(m, dtype=torch.bool, device=dev)
+                     for _ in range(k)])
+
+        def rows():
+            return (torch.empty((k, m), dtype=torch.int64,
+                                device=dev).unbind(0),
+                    torch.empty((k, m), dtype=torch.bool,
+                                device=dev).unbind(0))
+
+        out[str(k)] = {name: _host_us(fn) for name, fn in
+                       (("split", split), ("slices", slices),
+                        ("empties", empties), ("rows", rows))}
+    return out
+
+
+JOIN_P = CAP                # the join finish's probe slab
+JOIN_B = 1 << 21            # its build rows
+WINDOW_N = N_ROWS           # the window scatter back's rows
+LIMIT_K = 100               # LIMIT's slots (chip_smoke's LIMIT_JOIN)
+
+
+def _join_finish_inputs(dev, ncols: int):
+    """The join finish's shape: `ncols` int64 build columns with masks of
+    JOIN_B rows, gathered through an int32 index of JOIN_P slots (0 on
+    the unmatched ones, as K5 leaves them) with the match as the keep
+    mask."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(71)
+    cols = [(torch.randint(-(1 << 40), 1 << 40, (JOIN_B,), device=dev,
+                           generator=g),
+             torch.rand(JOIN_B, device=dev, generator=g) < 0.95)
+            for _ in range(ncols)]
+    keep = torch.rand(JOIN_P, device=dev, generator=g) < 0.8
+    idx = torch.where(keep, torch.randint(0, JOIN_B, (JOIN_P,), device=dev,
+                                          generator=g),
+                      torch.zeros((), dtype=torch.int64, device=dev)
+                      ).to(torch.int32)
+    return cols, idx, keep
+
+
+def _torch_join_finish(cols, idx, keep):
+    """The parent's join finish: per column `v[idx]`, `m[idx]`, `& keep`."""
+    return [(v[idx], m[idx] & keep) for v, m in cols]
+
+
+def _window_inputs(dev):
+    """The window scatter back's shape: one int64 result and its mask over
+    WINDOW_N rows in a sort permutation's order (int64, live rows first),
+    and the live mask."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(72)
+    live = torch.rand(WINDOW_N, device=dev, generator=g) < 0.9
+    key = torch.randint(0, 1 << 30, (WINDOW_N,), device=dev, generator=g)
+    perm = torch.argsort(torch.where(live, key, key + (1 << 31)))
+    v = torch.randint(-(1 << 40), 1 << 40, (WINDOW_N,), device=dev,
+                      generator=g)
+    m = torch.rand(WINDOW_N, device=dev, generator=g) < 0.97
+    return v, m, perm, live
+
+
+def _torch_scatter_back(v, m, perm, live):
+    """The parent's scatter back: two `index_put_`s and `& live`."""
+    import torch
+    back_v = torch.empty_like(v)
+    back_v[perm] = v
+    back_m = torch.empty_like(m)
+    back_m[perm] = m
+    return back_v, back_m & live
+
+
+def _bytes_ms(n_bytes: float) -> float:
+    return n_bytes / 3.35e12 * 1e3
+
+
 def run_columns(reps: int, prof: bool, steps: bool, dev) -> dict:
+    """K18 at phase 14's pair output, then (where the checkout's K18 takes
+    a keep mask and makes inverses) at each moved site's shape beside the
+    torch indexing it replaces: the join finish (4 columns and 1), the
+    window scatter back (the inverse permutation and a gather through it)
+    and LIMIT's 8 columns; with the host time a call at 1-4 columns and
+    the pass budget's sweep at the join finish and the pair output."""
     import torch
     from tidb_tpu_torch.ops import gather as G
     from tidb_tpu_torch.tools.sort_timing import _median_ms, _profile
@@ -866,12 +1030,103 @@ def run_columns(reps: int, prof: bool, steps: bool, dev) -> dict:
            "k18_ms": _median_ms(lambda: G.gather_columns(cols, idx, pairs),
                                 reps),
            "k18_index_select_ms": _median_ms(lib, reps)}
+    one = [(cols[2][0], cols[0][1])]
+    out["k18_host_us"] = {
+        str(k): _host_us(lambda k=k: G.gather_columns((cols + one)[:k], idx,
+                                                      pairs))
+        for k in (1, 2, 3, 4)}
     if prof:
         out["kernels_k18"] = _profile(
             [lambda: G.gather_columns(cols, idx, pairs)])
         out["kernels_index_select"] = _profile([lib])
     if steps:
         out["k18_host_steps"] = _columns_host_steps(cols, idx, pairs)
+        out["k18_output_ways_us"] = _output_ways(dev)
+    pcols, pidx = cols, idx
+    # the moved sites' shapes; the torch indexing they replace runs in
+    # every checkout
+    new = hasattr(G, "inverse_permutation")
+    jcols, jidx, keep = _join_finish_inputs(dev, 4)
+    out["join_torch_ms"] = _median_ms(
+        lambda: _torch_join_finish(jcols, jidx, keep), reps)
+    out["join1_torch_ms"] = _median_ms(
+        lambda: _torch_join_finish(jcols[:1], jidx, keep), reps)
+    out["join_bound_ms"] = _bytes_ms(JOIN_P * (4 + 1 + 4 * (8 + 1 + 8 + 1)))
+    out["join1_bound_ms"] = _bytes_ms(JOIN_P * (4 + 1 + 8 + 1 + 8 + 1))
+    if new:
+        got = G.gather_columns(jcols, jidx, keep=keep)
+        for (a, am), (b, bm) in zip(got, _torch_join_finish(jcols, jidx,
+                                                            keep)):
+            _same("K18 join finish", (a, am), (b, bm))
+        out["join_k18_ms"] = _median_ms(
+            lambda: G.gather_columns(jcols, jidx, keep=keep), reps)
+        out["join1_k18_ms"] = _median_ms(
+            lambda: G.gather_columns(jcols[:1], jidx, keep=keep), reps)
+        if prof:
+            out["kernels_join_k18"] = _profile(
+                [lambda: G.gather_columns(jcols, jidx, keep=keep)])
+            out["kernels_join_torch"] = _profile(
+                [lambda: _torch_join_finish(jcols, jidx, keep)])
+        # the pass budget: one pass, and passes of 8, 24 and 40 MB, at the
+        # join finish and at phase 14's pair output
+        default = G.PASS_BYTES
+        sweep = {}
+        try:
+            for G.PASS_BYTES in (0, 8 << 20, 24 << 20, 40 << 20):
+                sweep[str(G.PASS_BYTES)] = {
+                    "join_ms": _median_ms(lambda: G.gather_columns(
+                        jcols, jidx, keep=keep), reps),
+                    "pairs_ms": _median_ms(lambda: G.gather_columns(
+                        pcols, pidx, pairs), reps)}
+        finally:
+            G.PASS_BYTES = default
+        out["k18_pass_sweep"] = sweep
+    # LIMIT's 8 columns (4 values and their masks of each width) through
+    # LIMIT_K slots
+    lcols = jcols + [(v.to(torch.int32), m) for v, m in jcols]
+    lidx = jidx[:LIMIT_K].to(torch.int64)
+    out["limit_torch_ms"] = _median_ms(
+        lambda: [(v[lidx], m[lidx]) for v, m in lcols], reps)
+    out["limit_torch_host_us"] = _host_us(
+        lambda: [(v[lidx], m[lidx]) for v, m in lcols])
+    if new:
+        out["limit_k18_ms"] = _median_ms(
+            lambda: G.gather_columns(lcols, lidx), reps)
+        out["limit_k18_host_us"] = _host_us(
+            lambda: G.gather_columns(lcols, lidx))
+    del jcols, jidx, keep, lcols, pcols, pidx
+    v, m, perm, live = _window_inputs(dev)
+    out["scatter_torch_ms"] = _median_ms(
+        lambda: _torch_scatter_back(v, m, perm, live), reps)
+    out["scatter_bound_ms"] = _bytes_ms(WINDOW_N * (8 + 1 + 8 + 1 + 8 + 1))
+    if new:
+        def inverse():
+            inv = G.inverse_permutation(perm, WINDOW_N)
+            return G.gather_columns([(v, m)], inv, keep=live)
+
+        (b, bm), = inverse()
+        _same("K18 inverse gather", (b, bm),
+              _torch_scatter_back(v, m, perm, live))
+        out["inverse_k18_ms"] = _median_ms(inverse, reps)
+        out["inverse_only_ms"] = _median_ms(
+            lambda: G.inverse_permutation(perm, WINDOW_N), reps)
+        inv = G.inverse_permutation(perm, WINDOW_N)
+        out["inverse_gather_only_ms"] = _median_ms(
+            lambda: G.gather_columns([(v, m)], inv, keep=live), reps)
+        # a layout's four results (W1's spec shares its layout with three
+        # others): the inverse once and one gather
+        four = [(v, m), (v + 1, m), (v + 2, ~m), (v + 3, m)]
+        out["inverse_k18_4_ms"] = _median_ms(
+            lambda: G.gather_columns(
+                four, G.inverse_permutation(perm, WINDOW_N), keep=live),
+            reps)
+        out["scatter_torch_4_ms"] = _median_ms(
+            lambda: [_torch_scatter_back(a, b, perm, live)
+                     for a, b in four], reps)
+        if prof:
+            out["kernels_inverse_k18"] = _profile([inverse])
+            out["kernels_scatter_torch"] = _profile(
+                [lambda: _torch_scatter_back(v, m, perm, live)])
     return out
 
 

@@ -1,11 +1,16 @@
-"""Time chip_smoke's lineitem statements end to end on one checkout, cold
-and many times warm, and the nvcc build of chosen kernel sources, for
-comparing two checkouts in one machine's run.
+"""Time chip_smoke's statements end to end on one checkout, cold and many
+times warm, and the nvcc build of chosen kernel sources, for comparing two
+checkouts in one machine's run.
 
     python tidb_tpu_torch/tools/stmt_timing.py --tree DIR
         [--statements e1,e2] [--warm 30] [--sf 1.0]
         [--nvcc civil_date,window_frame] [--phase3] [--profile RUNS]
         [--out FILE]
+
+The statements: E1, E2, E4, E5, E6 over lineitem; bench.py's Q3
+(`q3`), TPC-H Q3 (`tpch_q3`) over lineitem, orders and customer (made
+as chip_smoke makes them); the windows W1 (inside the device fragment)
+and W6 (WindowExec's device path over a device aggregate).
 
 imports `tidb_tpu_torch` from DIR (a checkout of the repo, which builds
 its own kernels into DIR/build/) and chip_smoke's lineitem generator and
@@ -16,14 +21,16 @@ records its wall seconds. `--phase3` then runs DIR's own chip_smoke
 phase 3 (every kernel against its plain version, as its main runs it)
 and records its seconds, so what the statements meet next is the
 process state chip_smoke's statements meet. Then it loads lineitem at scale factor --sf
-(make_lineitem, ANALYZEd), sets the device engine on under
+(make_lineitem, ANALYZEd; orders and customer too when a join statement
+is chosen), sets the device engine on under
 tidb_tpu_strict=1 as chip_smoke phase 17 does, and runs each statement
 once cold and --warm times warm as chip_smoke's `_run_plan` runs it
 (plan, build, run to completion, the card synchronized), with each run's
 compute_s (the statement's device phase), the cold run's encode_s and
 upload_s, and K20 launches; `--profile`
 runs some more warm under torch.profiler (device µs a run, by kernel,
-and the profiled operators' host µs). Prints one JSON line: the card,
+the CUDA kernels launched a run, and the profiled operators' host µs).
+Prints one JSON line: the card,
 the build seconds, and per statement its cold wall, its warm walls in
 order, their median and minimum, the median compute_s, and its K20
 launches a run.
@@ -46,8 +53,12 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-#: chip_smoke's statements that read lineitem alone
-STATEMENTS = ("e1", "e2", "e4", "e5", "e6")
+#: chip_smoke's statements this tool runs → the name of the chip_smoke
+#: constant that holds each (E1-E6 are in its EXPR_STMTS)
+STATEMENTS = {"e1": None, "e2": None, "e4": None, "e5": None, "e6": None,
+              "q3": "Q3", "tpch_q3": "TPCH_Q3", "w1": "W1", "w6": "W6"}
+#: the statements that join orders (and customer)
+JOINS = ("q3", "tpch_q3")
 
 
 def _nvcc_seconds(tree: str, sources) -> dict:
@@ -89,7 +100,7 @@ def _phase3(tree: str) -> None:
         getattr(tcs, name)(dev)
 
 
-def _session(cs, dev: str, sf: float):
+def _session(cs, dev: str, sf: float, joins: bool = False):
     from tidb_tpu_torch.session import Engine
     from tidb_tpu_torch.testing import load_numpy_columns
     s = Engine(device=dev).new_session()
@@ -97,9 +108,20 @@ def _session(cs, dev: str, sf: float):
               "l_extendedprice DECIMAL(15,2), l_discount DECIMAL(15,2), "
               "l_tax DECIMAL(15,2), l_returnflag CHAR(1), "
               "l_linestatus CHAR(1), l_shipdate DATE, l_orderkey BIGINT)")
-    load_numpy_columns(s, "lineitem",
-                       cs.make_lineitem(int(round(cs.SF1_ROWS * sf))))
+    n = int(round(cs.SF1_ROWS * sf))
+    load_numpy_columns(s, "lineitem", cs.make_lineitem(n))
     s.execute("ANALYZE TABLE lineitem")
+    if joins:
+        # chip_smoke's join_sql_phase tables
+        s.execute("CREATE TABLE orders (o_orderkey BIGINT PRIMARY KEY, "
+                  "o_orderdate DATE, o_orderpriority CHAR(1), "
+                  "o_custkey BIGINT)")
+        s.execute("CREATE TABLE customer (c_custkey BIGINT PRIMARY KEY, "
+                  "c_mktsegment CHAR(10))")
+        orders, customer = cs.make_orders_customer(n)
+        for name, cols in (("orders", orders), ("customer", customer)):
+            load_numpy_columns(s, name, cols)
+            s.execute(f"ANALYZE TABLE {name}")
     s.vars.update({"tidb_tpu_strict": 1, "tidb_tpu_row_threshold": 1,
                    "tidb_tpu_engine": "on"})
     return s
@@ -130,7 +152,7 @@ def _profile(s, sql, runs: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             _run(s, sql)
-    kernels, dev, host = {}, 0.0, 0.0
+    kernels, dev, host, launched = {}, 0.0, 0.0, 0.0
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -139,10 +161,12 @@ def _profile(s, sql, runs: int) -> dict:
             if dev_us:
                 kernels[e.key[:60]] = [e.count / runs, dev_us / runs]
                 dev += dev_us / runs
+                launched += e.count / runs
         else:
             host += e.self_cpu_time_total / runs
     torch.cuda.synchronize()
-    return {"device_us": dev, "host_op_us": host, "kernels": kernels}
+    return {"device_us": dev, "launches": launched, "host_op_us": host,
+            "kernels": kernels}
 
 
 def run_statements(s, stmts, warm: int, prof: int) -> dict:
@@ -191,8 +215,8 @@ def main() -> int:
     args = ap.parse_args()
     names = [x for x in args.statements.split(",") if x]
     if not set(names) <= set(STATEMENTS) or args.warm < 1:
-        print(f"stmt_timing: statements of {STATEMENTS}, --warm >= 1",
-              file=sys.stderr)
+        print(f"stmt_timing: statements of {tuple(STATEMENTS)}, --warm "
+              f">= 1", file=sys.stderr)
         return 2
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -217,10 +241,11 @@ def main() -> int:
         _phase3(tree)
         line["phase3_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    s = _session(cs, "cuda:0", args.sf)
+    s = _session(cs, "cuda:0", args.sf, any(x in JOINS for x in names))
     line["load_s"] = time.perf_counter() - t0
-    line.update(run_statements(s, [(x, cs.EXPR_STMTS[x]) for x in names],
-                               args.warm, args.profile))
+    stmts = [(x, cs.EXPR_STMTS[x] if STATEMENTS[x] is None
+              else getattr(cs, STATEMENTS[x])) for x in names]
+    line.update(run_statements(s, stmts, args.warm, args.profile))
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:
